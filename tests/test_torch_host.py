@@ -1,0 +1,154 @@
+"""The port's host-side copies against the JAX package's modules.
+
+Enumeration, config hashing, synthesis and the synthesis cache stay numpy
+code in the port, copied rather than imported; these tests pin each copy
+bit-identical to the reference on the same inputs, and load a cache file
+written by the reference into the port's cache.
+"""
+
+import numpy as np
+import pytest
+
+from repro.core import accelerator as RA
+from repro.core import confighash as RH
+from repro.core import dataflow as RF
+from repro.core import pe as RP
+from repro.core import synthesis as RS
+from repro.core import workloads as RW
+from repro.core.dse_batch import _make_cfg_lay as r_make_cfg_lay
+from repro.core.dse_batch import _workload_batch as r_workload_batch
+from repro_torch.core import accelerator as TA
+from repro_torch.core import confighash as TH
+from repro_torch.core import dataflow as TF
+from repro_torch.core import pe as TP
+from repro_torch.core import synthesis as TS
+from repro_torch.core import workloads as TW
+from repro_torch.core.dse_batch import _make_cfg_lay as t_make_cfg_lay
+from repro_torch.core.dse_batch import _workload_batch as t_workload_batch
+
+GRIDS = [
+    {},                                             # the paper's 720 points
+    dict(glb_kbs=(64, 128, 256, 512),
+         bws=tuple(np.linspace(2.0, 64.0, 64))),    # the quick chunked grid
+    dict(glb_kbs=(4, 4096), bws=(2.0, 63.9), pe_types=("fp32", "lightpe1")),
+]
+
+
+def _assert_dicts_equal(a: dict, b: dict):
+    assert list(a) == list(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("grid", range(len(GRIDS)))
+def test_design_space_soa_bit_identical(grid):
+    kw = GRIDS[grid]
+    ref = list(RA.design_space_soa(chunk_size=1000, **kw))
+    got = list(TA.design_space_soa(chunk_size=1000, **kw))
+    assert len(ref) == len(got)
+    for r, g in zip(ref, got):
+        _assert_dicts_equal(r, g)
+
+
+def test_design_space_and_configs_round_trip():
+    ref = list(RA.design_space())
+    got = list(TA.design_space())
+    assert [c.name() for c in ref] == [c.name() for c in got]
+    soa = TA.configs_to_soa(got)
+    _assert_dicts_equal(RA.configs_to_soa(ref), soa)
+    back = TA.soa_to_configs(soa, [0, 5, 719])
+    assert [c.name() for c in back] == [got[i].name() for i in (0, 5, 719)]
+
+
+def test_pe_constants_and_energy_helpers():
+    for t in RP.PEType:
+        assert RP.pe_spec(t).__dict__ == {
+            **TP.pe_spec(t.value).__dict__, "pe_type": t}
+        assert RP._P_PE_LEAK_UW[t] == TP._P_PE_LEAK_UW[TP.PEType(t.value)]
+    bits = np.array([0, 1, 255, 8192, 123456, 33554432], dtype=np.int64)
+    assert np.array_equal(RP.rf_access_energy_pj(bits),
+                          TP.rf_access_energy_pj(bits))
+    assert np.array_equal(RP.sram_access_energy_pj(bits),
+                          TP.sram_access_energy_pj(bits))
+    assert np.array_equal(RP.sram_area_um2(bits.astype(float)),
+                          TP.sram_area_um2(bits.astype(float)))
+
+
+def test_workloads_identical():
+    for name in RW.WORKLOADS:
+        r, t = RW.get_workload(name), TW.get_workload(name)
+        assert r.name == t.name
+        assert [l.__dict__ for l in r.layers] == [l.__dict__ for l in t.layers]
+        assert [l.macs for l in r.layers] == [l.macs for l in t.layers]
+        _assert_dicts_equal(r_workload_batch(r).arrays,
+                            t_workload_batch(t).arrays)
+
+
+@pytest.mark.parametrize("grid", range(len(GRIDS)))
+def test_digests_and_synthesis_bit_identical(grid):
+    soa = next(iter(RA.design_space_soa(**GRIDS[grid])))
+    ref_d = RH.config_digests(soa)
+    got_d = TH.config_digests(soa)
+    for a, b in zip(ref_d, got_d):
+        assert np.array_equal(a, b)
+    assert RH.digest_keys(ref_d) == TH.digest_keys(got_d)
+    _assert_dicts_equal(RS.synthesize_soa(soa), TS.synthesize_soa(soa))
+    assert np.array_equal(RF.leakage_mw_soa(soa), TF.leakage_mw_soa(soa))
+
+
+def test_make_cfg_lay_identical():
+    soa = next(iter(RA.design_space_soa()))
+    cols = RS.synthesize_soa(soa)
+    rc, rl = r_make_cfg_lay(soa, cols, r_workload_batch(RW.vgg16()))
+    tc, tl = t_make_cfg_lay(soa, cols, t_workload_batch(TW.vgg16()))
+    _assert_dicts_equal(rc, tc)
+    _assert_dicts_equal(rl, tl)
+
+
+def test_reference_npz_cache_loads_with_zero_misses(tmp_path):
+    path = tmp_path / "synth.npz"
+    soa = next(iter(RA.design_space_soa(**GRIDS[1])))
+    ref_cache = RS.PersistentSynthesisCache(path)
+    want = ref_cache.synthesize(soa)
+    ref_cache.save()
+    cache = TS.PersistentSynthesisCache(path)
+    assert len(cache) == len(ref_cache)
+    got = cache.synthesize(soa)
+    assert cache.misses == 0 and cache.hits == len(soa["pe_rows"])
+    for k in TS.REPORT_COLUMNS:
+        assert np.array_equal(got[k], want[k]), k
+
+
+def test_port_npz_cache_loads_in_reference(tmp_path):
+    path = tmp_path / "synth.npz"
+    soa = next(iter(RA.design_space_soa()))
+    cache = TS.PersistentSynthesisCache(path)
+    cache.synthesize(soa)
+    cache.save()
+    ref_cache = RS.PersistentSynthesisCache(path)
+    ref_cache.synthesize(soa)
+    assert ref_cache.misses == 0 and ref_cache.hits == 720
+
+
+def test_cache_accounting_and_eviction_as_reference():
+    soa = next(iter(RA.design_space_soa(**GRIDS[1])))
+    caches = (RS.PersistentSynthesisCache(max_rows=1000),
+              TS.PersistentSynthesisCache(max_rows=1000))
+    for c in caches:
+        for s in range(0, len(soa["pe_rows"]), 700):
+            c.synthesize({k: v[s:s + 700] for k, v in soa.items()})
+        c.synthesize({k: v[:300] for k, v in soa.items()})
+    r, t = caches
+    assert (r.hits, r.misses, r.evictions, len(r)) \
+        == (t.hits, t.misses, t.evictions, len(t))
+
+
+def test_corrupt_cache_file_warns_and_rebuilds(tmp_path):
+    path = tmp_path / "bad.npz"
+    path.write_bytes(b"not an npz")
+    with pytest.warns(RuntimeWarning, match="unreadable"):
+        cache = TS.PersistentSynthesisCache(path)
+    assert len(cache) == 0
+    with pytest.raises(Exception):
+        cache.load(path)

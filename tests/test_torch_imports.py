@@ -1,0 +1,108 @@
+"""Import boundary and device guards of the port.
+
+``repro_torch`` imports torch and numpy only: never jax and nothing of the
+JAX package ``repro``.  Its entry points run on the card unless asked for
+the CPU, and refuse CUDA on a host without it instead of falling back.
+"""
+
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.device import resolve_device
+
+SRC = pathlib.Path(repro_torch.__file__).resolve().parent.parent
+
+
+def _all_modules() -> list[str]:
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_is_listed():
+    mods = _all_modules()
+    for name in ("repro_torch.core.dse", "repro_torch.core.dse_batch",
+                 "repro_torch.kernels.sweep_kernel",
+                 "repro_torch.kernels._build",
+                 "repro_torch.configs.qappa_workloads"):
+        assert name in mods
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_all_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._LIBS == {}, 'a kernel was built at import'\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_cuda_refused_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for dev in ("cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(dev)
+
+
+def test_run_kernel_refuses_cuda_without_a_card():
+    """The aggregate route asks for the kernel on CUDA and raises on a
+    host without it; it never returns the plain version's result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import numpy as np
+    from repro_torch.core.accelerator import design_space_soa
+    from repro_torch.core.dse_batch import (_make_cfg_lay, _run_kernel,
+                                            _workload_batch)
+    from repro_torch.core.synthesis import synthesize_soa
+    from repro_torch.core.workloads import get_workload
+    soa = next(iter(design_space_soa(glb_kbs=(64,), bws=(6.4,))))
+    cfg, lay = _make_cfg_lay(soa, synthesize_soa(soa),
+                             _workload_batch(get_workload("vgg16")))
+    for outputs in ("aggregates", "full"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _run_kernel(cfg, lay, "cuda", outputs=outputs)
+    out = _run_kernel(cfg, lay, "cpu", outputs="aggregates")
+    assert all(np.isfinite(v).all() for v in out.values())
+
+
+def test_nvcc_missing_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("a CUDA toolkit is installed")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_library_names_follow_source_and_flags():
+    from repro_torch.kernels import _build
+    path = _build.library_path("sweep_kernel")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("sweep_kernel-") and path.suffix == ".so"
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast" in f for f in _build.NVCC_FLAGS)
