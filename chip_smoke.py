@@ -1,21 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's design-space sweep on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's two paths on one NVIDIA GPU and check them:
+the design-space sweep and quantized LM serving.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
 
-1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``;
-2. the main path, through ``repro_torch.core.dse.run``: the paper's
+1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, in parallel);
+2. the sweep path, through ``repro_torch.core.dse.run``: the paper's
    720-point VGG-16 sweep (per-layer outputs, then aggregates through the
    sweep kernel) and a 1,029,600-config streamed sweep with a running
    Pareto front; the kernel's launch count is read around this phase;
-3. parity: the kernel against its plain PyTorch version on the card and
-   against the exact float64 CPU path — every chunk of the 102,960-config
-   grid, a mixed-precision batch and the VGG-16 + ResNet-34 + ResNet-50
-   concatenation — at <= 1e-6 relative, with identical streamed fronts;
-4. timing at N = 32768, L = 16 with CUDA events, beside the kernel's
-   bound on an H100 (67 TFLOP/s float32, 3.35 TB/s).
+3. sweep parity: the kernel against its plain PyTorch version on the card
+   and against the exact float64 CPU path — every chunk of the
+   102,960-config grid, a mixed-precision batch and the VGG-16 + ResNet-34
+   + ResNet-50 concatenation — at <= 1e-6 relative, with identical
+   streamed fronts;
+4. sweep timing at N = 32768, L = 16 with CUDA events, beside the
+   kernel's bound on an H100 (67 TFLOP/s float32, 3.35 TB/s);
+5. the serving path at phi4-mini-3.8b's full width (32 layers, d 3072,
+   vocab 200064, random weights from a seed): ``serve(...,
+   quantize=True, smoke=False)`` in W8A8, and the same loop
+   (``launch.serve.generate``) in W4A8-pow2, 16 prompt + 16 generated
+   tokens at batch 4; each matmul kernel must launch exactly
+   32 steps x 32 layers x 7 projections = 7168 times in its own run and
+   never in the other's;
+6. serving parity: the same full-width params and prompts teacher-forced
+   for 4 steps through the kernels and through their plain versions —
+   logits within 1e-6 x max|logit| (0 expected), identical greedy tokens;
+   one decode step profiled for its device-busy share;
+7. matmul parity at the decode shapes and ragged shapes, kernel vs plain
+   version (<= 1e-6 relative, 0 expected), with ``torch._int_mm`` as a
+   third witness of the W8A8 integer product;
+8. matmul timing at the four m = 4 projection shapes: device time from
+   ``torch.profiler`` and CUDA-event time over back-to-back calls of the
+   kernels, their plain versions and ``torch._int_mm``, weights rotated
+   through more than the 50 MB L2 cache, beside the byte bound at
+   3.35 TB/s; the kernels line takes the profiler's device time.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -42,10 +64,21 @@ CHUNK = 32768
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS = 1979e12
 # float32 operations of the sweep kernel, counted from csrc/sweep_kernel.cu:
 # per (config, layer) of the layer loop, and per config outside it
 F32_OPS_PER_CELL = 51
 F32_OPS_PER_CONFIG = 18
+
+# the serving path: phi4-mini-3.8b at full width
+SERVE_ARCH = "phi4-mini-3.8b"
+SERVE = dict(batch=4, prompt_len=16, gen=16, seed=0)
+PARITY_STEPS = 4
+# phi4-mini's projections per layer at m = batch: (k, n) -> count
+LAYER_PROJ = {(3072, 3072): 2, (3072, 1024): 2, (3072, 8192): 2,
+              (8192, 3072): 1}
+RAGGED = ((1, 96, 40), (3, 130, 257), (17, 512, 1000), (128, 4096, 4096))
+L2_BYTES = 50 * 2 ** 20
 
 
 def emit(obj) -> None:
@@ -89,8 +122,9 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log("sweep_kernel").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in sorted(paths)}
     return {"phase": "build", "build_s": build_s,
             "libraries": sorted(p.name for p in paths.values()),
             "ptxas": ptxas}
@@ -350,6 +384,312 @@ def phase_timing(device) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+# ---------------------------------------------------------------- serving
+
+def _full_model(quant: str, device, impl: str = "auto"):
+    """phi4-mini at full width in ``quant``, its params and prompts drawn
+    as ``serve`` draws them."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), quant=quant)
+    model = Model(cfg, device=device, impl=impl)
+    params = model.init(torch.Generator(device).manual_seed(SERVE["seed"]),
+                        quantize=True)
+    prompts = torch.randint(
+        0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]), device=device,
+        generator=torch.Generator(device).manual_seed(SERVE["seed"] + 1))
+    return model, params, prompts
+
+
+def _proj_bytes(quant: str) -> int:
+    """Bytes of one step's quantized projection weights and scales."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    per_byte = 1.0 if quant == "w8a8" else 0.5
+    return cfg.n_layers * sum(
+        c * (int(k * n * per_byte) + 4 * n) for (k, n), c in
+        LAYER_PROJ.items())
+
+
+def phase_serve(device, quant: str) -> dict:
+    """The serving path at full width; W8A8 through ``serve`` itself."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import w4a8_matmul, w8a8_matmul
+    from repro_torch.launch.serve import generate, serve
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    if quant == "w8a8":
+        w8a8_matmul.launches = w4a8_matmul.launches = 0
+        res = serve(SERVE_ARCH, batch=SERVE["batch"],
+                    prompt_len=SERVE["prompt_len"], gen=SERVE["gen"],
+                    quantize=True, smoke=False, seed=SERVE["seed"],
+                    device=device)
+    else:   # serve() has no quant argument: the same loop on the model
+        model, params, prompts = _full_model(quant, device)
+        w8a8_matmul.launches = w4a8_matmul.launches = 0
+        res = generate(model, params, prompts, gen=SERVE["gen"])
+        del model, params
+    launches = {"w8a8_matmul": w8a8_matmul.launches,
+                "w4a8_matmul": w4a8_matmul.launches}
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    steps = SERVE["prompt_len"] + SERVE["gen"]
+    want = steps * cfg.n_layers * 7
+    mine = "w8a8_matmul" if quant == "w8a8" else "w4a8_matmul"
+    other = "w4a8_matmul" if quant == "w8a8" else "w8a8_matmul"
+    check(launches[mine] == want,
+          f"{mine} launched {launches[mine]} times, expected {want}")
+    check(launches[other] == 0, f"{other} launched in the {quant} run")
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (SERVE["batch"], SERVE["gen"]),
+          f"token shape {tuple(toks.shape)}")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          "tokens outside [0, vocab)")
+    step_ms = res["decode_s"] / SERVE["gen"] * 1e3
+    proj_bound_ms = _proj_bytes(quant) / PEAK_BYTES_PER_S * 1e3
+    # the logits product reads the float32 embedding (the reference's
+    # bf16 matmul on it) on top of the projections
+    embed_bytes = cfg.vocab * cfg.d_model * 4
+    return {"phase": f"serve_{quant}", "launches": launches,
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "tok_per_s": res["tok_per_s"], "decode_step_ms": step_ms,
+            "proj_bytes_per_step": _proj_bytes(quant),
+            "proj_bound_ms": proj_bound_ms,
+            "step_bound_ms": (_proj_bytes(quant) + embed_bytes)
+            / PEAK_BYTES_PER_S * 1e3,
+            "wall_s_with_init": wall_s, "peak_mem_bytes": peak,
+            "tokens_head": toks[0, :8].tolist()}
+
+
+def _profile_device_ms(fn, iters: int):
+    """Mean device time per call of ``fn(i)`` from ``torch.profiler``
+    (all kernels and copies of the call), or None without device time;
+    also the top kernels by device time and the device operations per
+    call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    rows, ops = [], 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us:
+            rows.append((us, ev.key))
+            ops += ev.count
+    total = sum(us for us, _ in rows)
+    top = [[key[:60], us / 1e3 / iters] for us, key in
+           sorted(rows, reverse=True)[:6]]
+    return (total / 1e3 / iters if total else None), top, ops / iters
+
+
+def phase_serve_parity(device, quant: str) -> dict:
+    """Kernel route vs plain route on the same full-width params and
+    prompts, teacher-forced; then one profiled decode step."""
+    import torch
+    from repro_torch.models.model import Model
+    kern, params, prompts = _full_model(quant, device, impl="kernel")
+    plain = Model(kern.cfg, device=device, impl="ref")
+    steps = PARITY_STEPS
+    ck = kern.init_cache(SERVE["batch"], steps + 1)
+    cp = plain.init_cache(SERVE["batch"], steps + 1)
+    worst_abs, worst_scaled, same_tokens = 0.0, 0.0, True
+    for i in range(steps):
+        tok = prompts[:, i:i + 1]
+        lk, ck = kern.decode_step(params, ck, tok, i)
+        lp, cp = plain.decode_step(params, cp, tok, i)
+        diff = float((lk.float() - lp.float()).abs().max())
+        scale = float(lp.float().abs().max())
+        check(bool(torch.isfinite(lk).all()), "non-finite logits")
+        worst_abs = max(worst_abs, diff)
+        worst_scaled = max(worst_scaled, diff / max(scale, 1e-30))
+        same_tokens &= bool(torch.equal(lk.argmax(-1), lp.argmax(-1)))
+    check(worst_scaled <= RTOL,
+          f"{quant} logits kernel vs plain {worst_scaled:.3g} x max|logit|")
+    check(same_tokens, f"{quant} greedy tokens differ between routes")
+    caches_equal = bool(torch.equal(ck["k"], cp["k"])
+                        and torch.equal(ck["v"], cp["v"]))
+    # one decode step of the kernel route: wall time vs device busy time
+    tok = prompts[:, steps:steps + 1]
+
+    def step(_):
+        kern.decode_step(params, ck, tok, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(0)
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top, ops = _profile_device_ms(step, 3)
+    return {"phase": f"serve_parity_{quant}", "steps": steps,
+            "logits_max_abs": worst_abs, "logits_rel_to_max": worst_scaled,
+            "greedy_tokens_identical": same_tokens,
+            "caches_identical": caches_equal,
+            "step_wall_ms": step_wall_ms, "step_device_ms": busy_ms,
+            "device_busy_share": (busy_ms / step_wall_ms
+                                  if busy_ms else None),
+            "step_device_ops": ops,
+            "step_top_kernels_ms": top}
+
+
+def _qmm_operands(m, k, n, packed: bool, seed: int, device):
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-128, 128, (k // 2 if packed else k, n), generator=g,
+                      device=device, dtype=torch.int32).to(torch.int8)
+    xs = torch.rand((), generator=g, device=device) * 0.1 + 1e-3
+    ws = torch.rand((n,), generator=g, device=device) * 0.1 + 1e-3
+    return x, w, xs, ws
+
+
+def _int_mm_witness(x, w, xs, ws):
+    """W8A8 through ``torch._int_mm``: m padded to at least 32, k and n
+    to multiples of 8 (zeros leave the int32 product unchanged), the
+    weight column-major; then the plain version's epilogue."""
+    import torch
+    import torch.nn.functional as F
+    m, k = x.shape
+    n = w.shape[1]
+    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    xp = F.pad(x, (0, kp - k, 0, mp - m))
+    wp = F.pad(w, (0, np_ - n, 0, kp - k)).t().contiguous().t()
+    acc = torch._int_mm(xp, wp)[:m, :n]
+    return acc.to(torch.float32) * xs * ws
+
+
+def phase_qmatmul_parity(device) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    shapes = [(SERVE["batch"], k, n) for k, n in LAYER_PROJ] + list(RAGGED)
+    rows, worst = [], {"w8a8": [0.0, 0.0], "w4a8": [0.0, 0.0]}
+    for i, (m, k, n) in enumerate(shapes):
+        for mode, fn in (("w8a8", ops.w8a8_matmul),
+                         ("w4a8", ops.w4a8_matmul)):
+            x, w, xs, ws = _qmm_operands(m, k, n, mode == "w4a8", i, device)
+            got = fn(x, w, xs, ws, impl="kernel")
+            want = fn(x, w, xs, ws, impl="ref")
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"{mode} non-finite")
+            d = (got.double() - want.double()).abs()
+            err = float(d.max())
+            rel = float((d / want.double().abs().clamp_min(1e-30)).max())
+            row = {"mode": mode, "m": m, "k": k, "n": n, "max_abs": err,
+                   "max_rel": rel}
+            if mode == "w8a8":
+                lib = _int_mm_witness(x, w, xs, ws)
+                row["int_mm_max_abs"] = float((got - lib).abs().max())
+                check(row["int_mm_max_abs"] == 0.0,
+                      f"w8a8 kernel vs torch._int_mm at {(m, k, n)}")
+            check(rel <= RTOL, f"{mode} kernel vs plain {rel:.3g} at "
+                               f"{(m, k, n)}")
+            worst[mode] = [max(worst[mode][0], err),
+                           max(worst[mode][1], rel)]
+            rows.append(row)
+    return {"phase": "qmatmul_parity", "rows": rows, "worst": worst}
+
+
+def _device_ms(fn, iters: int) -> tuple[float, float]:
+    """Per call of ``fn(i)``: device time from the profiler (None where
+    it gives none) and CUDA-event time over back-to-back calls, which
+    includes any host launch time the device waits on."""
+    ms, _, _ = _profile_device_ms(fn, iters)
+    cnt = [0]
+
+    def call():
+        cnt[0] += 1
+        fn(cnt[0])
+    return ms, _event_ms(call, iters)
+
+
+def phase_qmatmul_timing(device) -> dict:
+    """Device time per call at the m = 4 shapes, in turns (plain, kernel,
+    kernel, plain); weights rotate through more than the L2 cache, as a
+    decode step streams them cold."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import w4a8_matmul as W4
+    from repro_torch.kernels import w8a8_matmul as W8
+    m = SERVE["batch"]
+    out = {"w8a8": {}, "w4a8": {}, "bf16_matmul_context_ms": {}}
+    for (k, n) in LAYER_PROJ:
+        for mode in ("w8a8", "w4a8"):
+            packed = mode == "w4a8"
+            wbytes = k * n // (2 if packed else 1)
+            copies = -(-2 * L2_BYTES // wbytes) + 1
+            x, _, xs, ws = _qmm_operands(m, k, n, packed, 7, device)
+            wl = [_qmm_operands(m, k, n, packed, 100 + c, device)[1]
+                  for c in range(copies)]
+            if packed:
+                kern, ref = W4.w4a8_matmul, W4.w4a8_matmul_ref
+                # context only: a bf16 matmul on pre-decoded weights
+                wd = [(W4.pow2_integers(w) * 2.0 ** -7 * ws).to(
+                    torch.bfloat16) for w in wl]
+                xb = (x.float() * xs).to(torch.bfloat16)
+                out["bf16_matmul_context_ms"][f"{k}x{n}"] = _device_ms(
+                    lambda i: torch.matmul(xb, wd[i % copies]), 100)
+                del wd
+                lib = None
+            else:
+                kern, ref = W8.w8a8_matmul, W8.w8a8_matmul_ref
+                xp = F.pad(x, (0, 0, 0, 32 - m))
+                wcol = [w.t().contiguous().t() for w in wl]
+                lib = lambda i: torch._int_mm(xp, wcol[i % copies])
+            row = {"copies": copies}
+            for name, fn, iters in (
+                    ("plain", ref, 10), ("kernel", kern, 200),
+                    ("kernel_again", kern, 200), ("plain_again", ref, 10)):
+                row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
+                    lambda i, fn=fn: fn(x, wl[i % copies], xs, ws), iters)
+            row["library_ms"] = row["library_event_ms"] = None
+            if lib is not None:
+                row["library_ms"], row["library_event_ms"] = _device_ms(
+                    lib, 200)
+                del wcol
+            bytes_moved = m * k + wbytes + 4 + 4 * n + 4 * m * n
+            bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+            ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+            row.update(bytes=bytes_moved, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations")
+            out[mode][f"{k}x{n}"] = row
+            del wl
+
+    def layer(mode, key):
+        vals = [(c, out[mode][f"{k}x{n}"][key])
+                for (k, n), c in LAYER_PROJ.items()]
+        if any(v is None for _, v in vals):
+            return None
+        return sum(c * v for c, v in vals)
+    # device time from the profiler; CUDA events where it gives none
+    timer = "profiler" if layer("w8a8", "kernel_ms") is not None \
+        else "event"
+    suffix = "_ms" if timer == "profiler" else "_event_ms"
+    for mode in ("w8a8", "w4a8"):
+        bounds = {out[mode][f"{k}x{n}"]["bound_by"] for k, n in LAYER_PROJ}
+        out[mode]["layer"] = {
+            "kernel_ms": min(layer(mode, "kernel" + suffix),
+                             layer(mode, "kernel_again" + suffix)),
+            "plain_ms": min(layer(mode, "plain" + suffix),
+                            layer(mode, "plain_again" + suffix)),
+            "library_ms": layer(mode, "library" + suffix),
+            "kernel_event_ms": min(layer(mode, "kernel_event_ms"),
+                                   layer(mode, "kernel_again_event_ms")),
+            "bound_ms": layer(mode, "bound_ms"),
+            "bound_by": "bytes" if bounds == {"bytes"} else "operations",
+            "bytes": layer(mode, "bytes")}
+    return {"phase": "qmatmul_timing", "m": m, "timer": timer, **out}
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -368,8 +708,22 @@ def main() -> int:
     emit(parity)
     timing = phase_timing(device)
     emit(timing)
+    serve = {q: phase_serve(device, q) for q in ("w8a8", "w4a8_pow2")}
+    for q in serve:
+        emit(serve[q])
+    for q in ("w8a8", "w4a8_pow2"):
+        emit(phase_serve_parity(device, q))
+    qparity = phase_qmatmul_parity(device)
+    emit(qparity)
+    qtiming = phase_qmatmul_timing(device)
+    emit({"phase": "qmatmul_timing_context",
+          "bf16_matmul_on_predecoded_w4a8_weights_ms":
+          qtiming.pop("bf16_matmul_context_ms")})
+    emit(qtiming)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [{
+    per = (f"one {SERVE_ARCH} layer's 7 projections at m = "
+           f"{SERVE['batch']}, weights cold in L2")
+    kernels = [{
         "name": "sweep_aggregates",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_kernel.cu",
@@ -382,7 +736,27 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-    }]})
+    }]
+    for name, mode, quant, line in (
+            ("w8a8_matmul", "w8a8", "w8a8", 69),
+            ("w4a8_matmul", "w4a8", "w4a8_pow2", 96)):
+        lay = qtiming[mode]["layer"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": serve[quant]["launches"][name],
+            "max_abs_err": qparity["worst"][mode][0],
+            "max_rel_err": qparity["worst"][mode][1],
+            "ms": lay["kernel_ms"],
+            "plain_ms": lay["plain_ms"],
+            "bound_ms": lay["bound_ms"],
+            "bound_by": lay["bound_by"],
+            "library_ms": lay["library_ms"],
+            "per": per,
+        })
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,13 @@
 """PyTorch + CUDA port of the QAPPA reproduction.
 
 A second package beside :mod:`repro` (the JAX reference, which it never
-imports).  This slice carries the design-space sweep: enumerate configs,
-synthesize them on the host, map and cost them on the card through a
-hand-written CUDA kernel, and stream a running Pareto front —
-``repro_torch.core.dse.run(ExploreSpec.single(...))``.
+imports).  Two paths are ported:
+
+* the design-space sweep: enumerate configs, synthesize them on the host,
+  map and cost them on the card through a hand-written CUDA kernel, and
+  stream a running Pareto front —
+  ``repro_torch.core.dse.run(ExploreSpec.single(...))``;
+* quantized LM serving of the dense models in W8A8 and W4A8-pow2, every
+  projection on a hand-written CUDA matmul kernel —
+  ``repro_torch.launch.serve.serve(arch, quantize=True)``.
 """

@@ -1,1 +1,28 @@
-"""Configurations of the port."""
+"""Configurations of the port: the paper's CNN workloads
+(``qappa_workloads``) and the language models the port runs so far, the
+dense non-windowed ones of the reference's pool."""
+
+ALL_ARCHS = (
+    "starcoder2-7b",
+    "phi4-mini-3.8b",
+    "deepseek-67b",
+)
+
+_MODULES = {
+    "starcoder2-7b": "starcoder2_7b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "deepseek-67b": "deepseek_67b",
+}
+
+
+def get_config(name: str):
+    """The registered :class:`~repro_torch.configs.base.ArchConfig`."""
+    import importlib
+    from repro_torch.configs.base import _REGISTRY
+    if name not in _MODULES:
+        raise KeyError(
+            f"unknown or not yet ported arch {name!r}; the port has "
+            f"{list(ALL_ARCHS)}")
+    if name not in _REGISTRY:
+        importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return _REGISTRY[name]

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, loaded with :mod:`ctypes`.  The build happens at first
 use, into ``kernels/build/`` (listed in ``.gitignore``), under a name that
-hashes the source and the flags, so an edited source never loads a stale
-library.  Builds write to a temporary name and rename, so concurrent
-processes cannot load a half-written file.
+hashes the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source never loads a stale library.  Builds write to a temporary
+name and rename, so concurrent processes cannot load a half-written file.
 
 Flags: ``sm_90a`` for Hopper; ``-fmad=false`` and no fast-math because the
 sweep kernel must round exactly as the float32 reference does (a
@@ -36,6 +36,14 @@ SIGNATURES = {
         "qappa_sweep_aggregates": (_I, [_P] * 16 + [_I] * 7 + [_P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
+    "w8a8_matmul": {
+        "qappa_w8a8_matmul": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+        "qappa_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "w4a8_matmul": {
+        "qappa_w4a8_matmul": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+        "qappa_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -56,7 +64,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (SOURCE_DIR / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [
+        SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,0 +1,89 @@
+"""Serving quantizers in PyTorch: the subset of ``repro.quant.quantizers``
+that quantized serving needs.
+
+* symmetric int8 (per-tensor or per-channel): the LightPE-2 / W8A8 format;
+* power-of-two 4-bit codes ``[sign | exp(3)]``: the LightPE-1 / W4A8 format;
+* int4 nibble packing for the W4A8 kernel.
+
+Every division is a tensor by tensor division on the input's device, so it
+is a true IEEE division: PyTorch turns the division of a CUDA tensor by a
+Python number into a multiplication by its reciprocal, which can be 1 ulp
+off and flip a ``round`` at .5.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# value = sign * scale * 2**(exp - POW2_EXP_BIAS), exp in [0, 7]
+POW2_EXP_BIAS = 7
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype and device."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def _absmax(x: torch.Tensor, axis=None) -> torch.Tensor:
+    m = x.abs().amax() if axis is None else x.abs().amax(dim=axis,
+                                                         keepdim=True)
+    return torch.clamp_min(m, 1e-8)
+
+
+def int_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    """Symmetric scale so that absmax maps to the max quantized level."""
+    qmax = 2 ** (bits - 1) - 1
+    m = _absmax(x, axis)
+    return m / _const(qmax, m)
+
+
+def quantize_int(x: torch.Tensor, scale: torch.Tensor,
+                 bits: int) -> torch.Tensor:
+    qmax = 2 ** (bits - 1) - 1
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax)
+    return q.to(torch.int8 if bits <= 8 else torch.int32)
+
+
+def dequantize_int(q: torch.Tensor, scale: torch.Tensor,
+                   dtype=torch.float32) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def pow2_encode(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """4-bit pow2 codes ``(sign << 3) | exp`` of ``w / scale`` in int8."""
+    mag = w.abs() / scale
+    e = torch.round(torch.log2(torch.clamp_min(mag, 2.0 ** -POW2_EXP_BIAS)))
+    e = torch.clamp(e + POW2_EXP_BIAS, 0, 7).to(torch.int8)
+    sign = (w < 0).to(torch.int8)
+    return (sign << 3) | e
+
+
+def pow2_decode(code: torch.Tensor, scale: torch.Tensor,
+                dtype=torch.float32) -> torch.Tensor:
+    e = (code & 7).to(torch.int32) - POW2_EXP_BIAS
+    sign = 1.0 - 2.0 * ((code >> 3) & 1).to(torch.float32)
+    return (sign * torch.exp2(e.to(torch.float32)) * scale).to(dtype)
+
+
+def pow2_scale(w: torch.Tensor, axis=None) -> torch.Tensor:
+    """Scale that puts absmax on the top pow2 level (2^0 * scale)."""
+    return _absmax(w, axis)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Pack 4-bit codes pairwise along the last dim: (..., K) -> (..., K//2);
+    element 2i goes to the low nibble, 2i+1 to the high nibble."""
+    if codes.shape[-1] % 2:
+        raise ValueError(
+            f"pack_int4: the last dim must be even, got {codes.shape[-1]}")
+    lo = codes[..., 0::2].to(torch.uint8) & 0xF
+    hi = codes[..., 1::2].to(torch.uint8) & 0xF
+    return (lo | (hi << 4)).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: (..., K//2) -> (..., K) codes."""
+    p = packed.contiguous().view(torch.uint8)
+    lo = (p & 0xF).to(torch.int8)
+    hi = ((p >> 4) & 0xF).to(torch.int8)
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)

@@ -1,4 +1,5 @@
-"""The port's CUDA sweep kernel on the card.
+"""The port's CUDA kernels on the card: the sweep kernel and the two
+quantized matmuls of the serving path.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -6,9 +7,10 @@ where the JAX package is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the card and
-against the port's exact float64 CPU path, whose bit-identity to the JAX
-package's numpy kernel the CPU tests pin.
+The sweep kernel is held against its plain PyTorch version on the card
+and against the port's exact float64 CPU path, whose bit-identity to the
+JAX package's numpy kernel the CPU tests pin.  The matmul kernels sum
+exactly in int32, so they must equal their plain versions bit for bit.
 """
 
 import numpy as np
@@ -21,7 +23,10 @@ from repro_torch.core.accelerator import design_space_soa
 from repro_torch.core.pe import PEType, pe_spec
 from repro_torch.core.synthesis import synthesize_soa
 from repro_torch.core.workloads import get_workload
+from repro_torch.kernels import ops as OPS
 from repro_torch.kernels import sweep_kernel as K
+from repro_torch.kernels import w4a8_matmul as W4
+from repro_torch.kernels import w8a8_matmul as W8
 
 RTOL = 1e-6
 CPU = torch.device("cpu")
@@ -145,3 +150,98 @@ def test_chunked_front_on_card_matches_exact(cuda_device, depth):
     assert got.n_configs == want.n_configs
     assert [c.name() for c in got.front_configs()] \
         == [c.name() for c in want.front_configs()]
+
+
+# ------------------------------------------------- quantized matmuls
+
+QMM = {"w8a8": (OPS.w8a8_matmul, W8, 1), "w4a8": (OPS.w4a8_matmul, W4, 2)}
+
+
+def _qmm_operands(m, k, n, pack, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k // pack, n),
+                                      dtype=np.int8))
+    xs = torch.tensor(rng.uniform(1e-3, 1e-1), dtype=torch.float32)
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-1, (1, n))
+                          .astype(np.float32))
+    return tuple(t.to(device) for t in (x, w, xs, ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(QMM))
+@pytest.mark.parametrize("seed", range(6))
+def test_qmatmul_kernel_equals_plain_on_random_shapes(cuda_device, mode,
+                                                      seed):
+    fn, mod, pack = QMM[mode]
+    rng = np.random.default_rng(100 + seed)
+    m = int(rng.integers(1, 40))
+    k = 2 * int(rng.integers(1, 2500))
+    n = int(rng.integers(1, 3000))
+    ops = _qmm_operands(m, k, n, pack, seed, cuda_device)
+    before = mod.launches
+    got = fn(*ops, impl="kernel")
+    assert mod.launches == before + 1
+    want = fn(*ops, impl="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got, want), (m, k, n)
+    assert torch.equal(fn(*ops, impl="auto"), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(QMM))
+def test_qmatmul_kernel_on_the_decode_shapes(cuda_device, mode):
+    fn, _, pack = QMM[mode]
+    for k, n in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)):
+        ops = _qmm_operands(4, k, n, pack, k + n, cuda_device)
+        assert torch.equal(fn(*ops, impl="kernel"), fn(*ops, impl="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(QMM))
+def test_qmatmul_kernel_route_refuses_cpu_tensors(cuda_device, mode):
+    fn, _, pack = QMM[mode]
+    ops = _qmm_operands(4, 64, 32, pack, 0, CPU)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(*ops, impl="kernel")
+    assert fn(*ops, impl="auto").device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["w8a8", "w4a8_pow2"])
+def test_reduced_decode_kernel_equals_plain(cuda_device, quant):
+    """A reduced phi4-mini decoded on the card through the kernels and
+    through their plain versions gives identical logits and caches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(reduced(get_config("phi4-mini-3.8b")),
+                              quant=quant)
+    kern = Model(cfg, device=cuda_device, impl="kernel")
+    plain = Model(cfg, device=cuda_device, impl="ref")
+    params = kern.init(torch.Generator(cuda_device).manual_seed(0),
+                       quantize=True)
+    ck, cp = kern.init_cache(2, 6), plain.init_cache(2, 6)
+    tokens = torch.randint(0, cfg.vocab, (2, 6), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(1))
+    for i in range(6):
+        lk, ck = kern.decode_step(params, ck, tokens[:, i:i + 1], i)
+        lp, cp = plain.decode_step(params, cp, tokens[:, i:i + 1], i)
+        assert torch.equal(lk, lp)
+    assert torch.equal(ck["k"], cp["k"]) and torch.equal(ck["v"], cp["v"])
+
+
+@pytest.mark.cuda
+def test_serve_reduced_on_the_card(cuda_device):
+    from repro_torch.launch.serve import serve
+    before = W8.launches
+    res = serve("phi4-mini-3.8b", batch=2, prompt_len=3, gen=4,
+                quantize=True, device=cuda_device)
+    # 7 steps x 2 layers x 7 projections
+    assert W8.launches - before == 7 * 2 * 7
+    toks = res["tokens"]
+    assert toks.device.type == "cuda" and tuple(toks.shape) == (2, 4)
+    assert 0 <= int(toks.min()) and int(toks.max()) < 256

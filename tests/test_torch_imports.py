@@ -29,7 +29,19 @@ def test_every_module_is_listed():
     for name in ("repro_torch.core.dse", "repro_torch.core.dse_batch",
                  "repro_torch.kernels.sweep_kernel",
                  "repro_torch.kernels._build",
-                 "repro_torch.configs.qappa_workloads"):
+                 "repro_torch.configs.qappa_workloads",
+                 "repro_torch.quant.quantizers", "repro_torch.quant.policy",
+                 "repro_torch.quant.qlinear",
+                 "repro_torch.kernels.w8a8_matmul",
+                 "repro_torch.kernels.w4a8_matmul",
+                 "repro_torch.kernels.ops", "repro_torch.configs.base",
+                 "repro_torch.configs.phi4_mini_3_8b",
+                 "repro_torch.configs.starcoder2_7b",
+                 "repro_torch.configs.deepseek_67b",
+                 "repro_torch.models.common",
+                 "repro_torch.models.attention",
+                 "repro_torch.models.model", "repro_torch.models.convert",
+                 "repro_torch.launch.serve"):
         assert name in mods
 
 
@@ -106,3 +118,24 @@ def test_library_names_follow_source_and_flags():
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast" in f for f in _build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("name", ["w8a8_matmul", "w4a8_matmul"])
+def test_matmul_libraries_hash_their_shared_header(name, monkeypatch,
+                                                   tmp_path):
+    """Each matmul source has a bound C entry point, and its library name
+    changes when the shared header changes (no stale build loads)."""
+    import shutil
+    from repro_torch.kernels import _build
+    fn = f"qappa_{name}"
+    assert fn in _build.SIGNATURES[name]
+    assert len(_build.SIGNATURES[name][fn][1]) == 9
+    before = _build.library_path(name)
+    assert before.name.startswith(f"{name}-")
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SOURCE_DIR, src)
+    monkeypatch.setattr(_build, "SOURCE_DIR", src)
+    assert _build.library_path(name).name == before.name
+    with open(src / "qmatmul.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path(name).name != before.name
