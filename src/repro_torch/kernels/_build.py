@@ -44,6 +44,15 @@ SIGNATURES = {
         "qappa_w4a8_matmul": (_I, [_P] * 5 + [_I] * 3 + [_P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
+    "w8a8_decode": {
+        "qappa_w8a8_decode": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+        "qappa_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention": {
+        "qappa_flash_attention": (_I, [_P] * 4 + [_I] * 7
+                                  + [ctypes.c_float, _P]),
+        "qappa_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

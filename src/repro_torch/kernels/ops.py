@@ -1,4 +1,5 @@
-"""Routing of the quantized matmuls between kernel and plain version.
+"""Routing of the port's kernels between kernel and plain version: the
+quantized matmuls, the int8-KV decode attention and flash attention.
 
 ``impl``:
 
@@ -8,21 +9,26 @@
 * ``"ref"``: the plain version on the tensors' device.
 
 A failed build or launch raises; nothing falls back.  The reference's
-padding to block multiples has no counterpart: the kernels mask ragged
-edges themselves.
+padding to block multiples (and its assertion of divisible lengths for
+flash attention) has no counterpart: the kernels mask ragged edges
+themselves.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import w4a8_matmul as _w4a8
+from repro_torch.kernels import w8a8_decode as _dec
 from repro_torch.kernels import w8a8_matmul as _w8a8
 
 IMPLS = ("auto", "kernel", "ref")
 
 
-def _use_kernel(x_q: torch.Tensor, impl: str) -> bool:
+def use_kernel(x_q: torch.Tensor, impl: str) -> bool:
+    """Whether ``impl`` sends an operation on ``x_q``'s device to its
+    kernel."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     return impl == "kernel" or (impl == "auto" and x_q.device.type != "cpu")
@@ -32,7 +38,7 @@ def w8a8_matmul(x_q, w_q, x_scale, w_scale, *, out_dtype=torch.float32,
                 impl: str = "auto") -> torch.Tensor:
     """x_q (m, k) int8 x w_q (k, n) int8, dequantized by the scalar
     ``x_scale`` and per-column ``w_scale``."""
-    if _use_kernel(x_q, impl):
+    if use_kernel(x_q, impl):
         return _w8a8.w8a8_matmul(x_q, w_q, x_scale, w_scale,
                                  out_dtype=out_dtype)
     return _w8a8.w8a8_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
@@ -42,7 +48,40 @@ def w4a8_matmul(x_q, w_packed, x_scale, w_scale, *,
                 out_dtype=torch.float32, impl: str = "auto") -> torch.Tensor:
     """x_q (m, k) int8 x w_packed (k/2, n) packed pow2 codes, dequantized
     by the scalar ``x_scale`` and per-column ``w_scale``."""
-    if _use_kernel(x_q, impl):
+    if use_kernel(x_q, impl):
         return _w4a8.w4a8_matmul(x_q, w_packed, x_scale, w_scale,
                                  out_dtype=out_dtype)
     return _w4a8.w4a8_matmul_ref(x_q, w_packed, x_scale, w_scale, out_dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None, impl: str = "auto") -> torch.Tensor:
+    """Attention forward over q, k, v ``(b, h, s, d)`` with the kv heads
+    broadcast (see ``flash_attention.flash_attention_ref``)."""
+    if use_kernel(q, impl):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+    return _flash.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+
+
+def w8a8_decode_attention(q, k_q, v_q, k_scale, v_scale, pos, *,
+                          bs: int = 512, impl: str = "auto") -> torch.Tensor:
+    """int8-KV grouped decode attention, q quantized in float32 (the TPU
+    entry point; see ``w8a8_decode.w8a8_decode_attention_ref``)."""
+    if use_kernel(q, impl):
+        return _dec.w8a8_decode_attention(q, k_q, v_q, k_scale, v_scale, pos,
+                                          bs=bs)
+    return _dec.w8a8_decode_attention_ref(q, k_q, v_q, k_scale, v_scale, pos,
+                                          bs=bs)
+
+
+def w8a8_decode_attention_body(q_q, factor, k_q, v_q, k_scale, v_scale, pos,
+                               *, bs: int, out_dtype=torch.float32,
+                               impl: str = "auto") -> torch.Tensor:
+    """The body of :func:`w8a8_decode_attention` on q codes and per-row
+    logit factors that the caller computed (the model's bf16 form)."""
+    fn = _dec.w8a8_decode_attention_body if use_kernel(q_q, impl) \
+        else _dec.w8a8_decode_attention_body_ref
+    return fn(q_q, factor, k_q, v_q, k_scale, v_scale, pos, bs=bs,
+              out_dtype=out_dtype)

@@ -6,15 +6,20 @@ deepseek):
 
 * ``init(generator, quantize=...)`` -> params;
 * ``quantize_params(params)`` -> params with every projection quantized;
-* ``init_cache(batch, max_seq)`` -> KV caches;
-* ``decode_step(params, caches, tokens, pos)`` -> (logits, caches).
+* ``forward(params, tokens, last_only=)`` -> (logits, aux);
+* ``init_cache(batch, max_seq, kv_quant=)`` -> KV caches (bf16, or int8
+  with per-(position, head) scales);
+* ``decode_step(params, caches, tokens, pos)`` -> (logits, caches), at
+  one position or one per slot;
+* ``prefill(params, tokens, max_seq=)`` -> (logits, caches).
 
 Params are plain dictionaries: ``embed`` (vocab, d) float32,
 ``final_norm`` (d,), and ``layers``, a list with one dict per layer
 (the reference stacks them on a leading axis for ``lax.scan``; here the
 layers run in a Python loop).  A projection is a float (d_in, d_out)
 tensor or a :class:`~repro_torch.quant.qlinear.QuantizedTensor`.
-Other families raise ``NotImplementedError``.
+Other families raise ``NotImplementedError``; the training loss waits
+for the training slice.
 """
 
 from __future__ import annotations
@@ -43,10 +48,18 @@ def _mlp(xn, lp, cfg, policy, impl):
     return gelu_mlp(xn, lp["w_up"], lp["w_down"], policy, False, impl=impl)
 
 
+def _dense_block(x, lp, cfg, policy, impl):
+    h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
+                               policy=policy, impl=impl)
+    x = x + h
+    return x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, impl)
+
+
 class Model(nn.Module):
-    """Dense decoder-only LM.  ``impl`` picks the quantized matmuls' route
-    (:mod:`repro_torch.kernels.ops`): ``"auto"`` runs the CUDA kernels on
-    the card and their plain versions on the CPU."""
+    """Dense decoder-only LM.  ``impl`` picks the route of the quantized
+    matmuls and of attention (:mod:`repro_torch.kernels.ops`): ``"auto"``
+    runs the CUDA kernels on the card and their plain versions on the
+    CPU."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  impl: str = "auto"):
@@ -114,28 +127,75 @@ class Model(nn.Module):
         return dict(params, layers=[self._quantize_layer(lp)
                                     for lp in params["layers"]])
 
-    # ----------------------------------------------------------- serving
-    def init_cache(self, batch: int, max_seq: int,
-                   dtype=torch.bfloat16) -> dict:
-        """KV caches ``k``, ``v`` of shape (L, batch, max_seq, kvh, hd)."""
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-
-    def decode_step(self, params: dict, caches: dict, tokens: torch.Tensor,
-                    pos: int):
-        """One serving step.  tokens: (b, 1) integer; pos: the current
-        write position (past = [0, pos]).  Updates ``caches`` in place and
-        returns (logits (b, 1, V), caches)."""
+    # ----------------------------------------------------------- forward
+    def forward(self, params: dict, tokens: torch.Tensor, *,
+                last_only: bool = False):
+        """tokens: (b, s) integer -> (logits (b, s, V), aux).  With
+        ``last_only`` the logits of the final position only (serving
+        prefill).  ``aux`` is 0: the dense family has no auxiliary
+        loss."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         x = params["embed"][tokens].to(policy.compute_dtype)
+        for lp in params["layers"]:
+            x = _dense_block(x, lp, cfg, policy, impl)
+        if last_only:
+            x = x[:, -1:]
+        x = rms_norm(x, params["final_norm"])
+        logits = qdot(x, params["embed"].T, policy, train=False)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+
+    # ----------------------------------------------------------- serving
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
+                   kv_quant: bool = False) -> dict:
+        """KV caches ``k``, ``v`` of shape (L, batch, max_seq, kvh, hd);
+        with ``kv_quant``, int8 with float32 scales ``k_scale``,
+        ``v_scale`` of shape (L, batch, max_seq, kvh) (LightPE-2 / W8A8
+        arithmetic on the KV path)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        if kv_quant:
+            dtype = torch.int8
+        c = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+             "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        if kv_quant:
+            for name in ("k_scale", "v_scale"):
+                c[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=self.device)
+        return c
+
+    def decode_step(self, params: dict, caches: dict, tokens: torch.Tensor,
+                    pos):
+        """One serving step.  tokens: (b, 1) integer; pos: the current
+        write position (past = [0, pos]), an int or a ``(b,)`` tensor of
+        per-slot positions.  Updates ``caches`` in place and returns
+        (logits (b, 1, V), caches)."""
+        cfg, policy, impl = self.cfg, self.policy, self.impl
+        kv_quant = "k_scale" in caches
+        x = params["embed"][tokens].to(policy.compute_dtype)
         for l, lp in enumerate(params["layers"]):
-            h, _, _ = attn.decode_self_attention(
+            scales = (caches["k_scale"][l], caches["v_scale"][l]) \
+                if kv_quant else None
+            h = attn.decode_self_attention(
                 rms_norm(x, lp["ln1"]), lp, cfg, caches["k"][l],
-                caches["v"][l], pos, policy=policy, impl=impl)
+                caches["v"][l], pos, policy=policy, kv_scales=scales,
+                impl=impl)[0]
             x = x + h
             x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, impl)
         x = rms_norm(x, params["final_norm"])
         logits = qdot(x, params["embed"].T, policy, train=False)
+        return logits, caches
+
+    def prefill(self, params: dict, tokens: torch.Tensor, *,
+                max_seq: int | None = None):
+        """Logits of the prompt (``forward``) and decode caches filled
+        with it, as the reference builds them: the prompt is replayed
+        through ``decode_step`` into caches of the compute dtype."""
+        b, s = tokens.shape
+        logits, _ = self.forward(params, tokens)
+        caches = self.init_cache(b, max_seq or s,
+                                 dtype=self.policy.compute_dtype)
+        for i in range(s):
+            _, caches = self.decode_step(params, caches, tokens[:, i:i + 1],
+                                         i)
         return logits, caches

@@ -19,8 +19,9 @@ import torch
 POW2_EXP_BIAS = 7
 
 
-def _const(value: float, like: torch.Tensor) -> torch.Tensor:
-    """``value`` as a 0-d tensor of ``like``'s dtype and device."""
+def const_like(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype and device (a tensor
+    divisor keeps a division exact on CUDA)."""
     return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
@@ -34,7 +35,7 @@ def int_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
     """Symmetric scale so that absmax maps to the max quantized level."""
     qmax = 2 ** (bits - 1) - 1
     m = _absmax(x, axis)
-    return m / _const(qmax, m)
+    return m / const_like(qmax, m)
 
 
 def quantize_int(x: torch.Tensor, scale: torch.Tensor,

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: the sweep kernel and the two
-quantized matmuls of the serving path.
+"""The port's CUDA kernels on the card: the sweep kernel, the two
+quantized matmuls of the serving path, the int8-KV decode attention and
+flash attention.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -11,6 +12,10 @@ The sweep kernel is held against its plain PyTorch version on the card
 and against the port's exact float64 CPU path, whose bit-identity to the
 JAX package's numpy kernel the CPU tests pin.  The matmul kernels sum
 exactly in int32, so they must equal their plain versions bit for bit.
+The decode-attention kernel is held to its plain version at 1e-5 x
+max|out| (the reference's kernel-vs-oracle bound; its float operations
+follow the plain version's order, so 0 is expected), flash attention at
+1e-5 (float32) and 2e-2 (bf16).
 """
 
 import numpy as np
@@ -245,3 +250,188 @@ def test_serve_reduced_on_the_card(cuda_device):
     toks = res["tokens"]
     assert toks.device.type == "cuda" and tuple(toks.shape) == (2, 4)
     assert 0 <= int(toks.min()) and int(toks.max()) < 256
+
+
+# ------------------------------------------------------------ attention
+
+def _decode_operands(b, kvh, rep, hd, S, seed, device):
+    g = torch.Generator("cpu").manual_seed(seed)
+    q = torch.randn((b, kvh, rep, hd), generator=g)
+    kq = torch.randint(-127, 128, (b, S, kvh, hd), generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    vq = torch.randint(-127, 128, (b, S, kvh, hd), generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    ks = torch.rand((b, S, kvh), generator=g) * 0.02 + 1e-3
+    vs = torch.rand((b, S, kvh), generator=g) * 0.02 + 1e-3
+    return [t.to(device) for t in (q, kq, vq, ks, vs)]
+
+
+def _scaled_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_decode_kernel_matches_plain_on_random_shapes(cuda_device, seed):
+    from repro_torch.kernels import w8a8_decode as D
+    rng = np.random.default_rng(200 + seed)
+    b, kvh = int(rng.integers(1, 5)), int(rng.integers(1, 9))
+    rep = int(rng.choice([1, 3, 4, 8, 16]))
+    hd = int(rng.choice([20, 64, 128, 256]))
+    bs = int(rng.choice([16, 64, 512]))
+    S = bs * int(rng.integers(1, 5))
+    ops_ = _decode_operands(b, kvh, rep, hd, S, seed, cuda_device)
+    pos = torch.from_numpy(rng.integers(0, S, b).astype(np.int32))
+    pos[0] = 0
+    pos[-1] = S - 1
+    pos = pos.to(cuda_device)
+    for block in (bs, S):
+        before = D.launches
+        got = OPS.w8a8_decode_attention(*ops_, pos, bs=block, impl="kernel")
+        assert D.launches == before + 1
+        want = OPS.w8a8_decode_attention(*ops_, pos, bs=block, impl="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert _scaled_err(got, want) <= 1e-5, (b, kvh, rep, hd, S, block)
+    q_q, factor = D.quantize_q(ops_[0])
+    for dt in (torch.float32, torch.bfloat16):
+        got = OPS.w8a8_decode_attention_body(q_q, factor, *ops_[1:], pos,
+                                             bs=S, out_dtype=dt,
+                                             impl="kernel")
+        want = OPS.w8a8_decode_attention_body(q_q, factor, *ops_[1:], pos,
+                                              bs=S, out_dtype=dt, impl="ref")
+        assert got.dtype == dt
+        assert _scaled_err(got, want) <= (1e-5 if dt == torch.float32
+                                          else 1e-2)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_errors_raise(cuda_device, monkeypatch, tmp_path):
+    """A ragged S raises as the TPU entry does; a launch the C side
+    refuses (a K cache off 4-byte alignment) and a failed build raise
+    instead of falling back."""
+    from repro_torch.kernels import _build
+    q, kq, vq, ks, vs = _decode_operands(1, 2, 3, 64, 128, 0, cuda_device)
+    with pytest.raises(ValueError, match="divisible by the block size"):
+        OPS.w8a8_decode_attention(q, kq, vq, ks, vs, 5, bs=96,
+                                  impl="kernel")
+    flat = torch.zeros(kq.numel() + 1, dtype=torch.int8, device=cuda_device)
+    shifted = flat[1:].view(kq.shape)
+    shifted.copy_(kq)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        OPS.w8a8_decode_attention(q, shifted, vq, ks, vs, 5, bs=64,
+                                  impl="kernel")
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "w8a8_decode.cu").write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "SOURCE_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        OPS.w8a8_decode_attention(q, kq, vq, ks, vs, 5, bs=64,
+                                  impl="kernel")
+
+
+def _qkv(b, h, sq, sk, d, dtype, seed, device):
+    g = torch.Generator("cpu").manual_seed(seed)
+    return [torch.randn((b, h, s, d), generator=g).to(dtype).to(device)
+            for s in (sq, sk, sk)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_flash_kernel_matches_plain_on_random_shapes(cuda_device, seed):
+    from repro_torch.kernels import flash_attention as F
+    rng = np.random.default_rng(300 + seed)
+    b, h = int(rng.integers(1, 3)), int(rng.integers(1, 5))
+    sk = int(rng.integers(1, 600))
+    sq = int(rng.integers(1, sk + 1))
+    d = int(rng.choice([16, 32, 64, 128, 256]))
+    causal = bool(rng.integers(0, 2)) or sq < sk
+    window = None if rng.integers(0, 2) else int(rng.integers(1, 200))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = _qkv(b, h, sq, sk, d, dtype, seed, cuda_device)
+        before = F.launches
+        got = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="kernel")
+        assert F.launches == before + 1
+        want = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, (b, h, sq, sk, d, causal, window, dtype, err)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_is_not_built_for(cuda_device):
+    q, k, v = _qkv(1, 2, 8, 8, 24, torch.float32, 0, cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        OPS.flash_attention(q, k, v, impl="kernel")
+    q, k, v = _qkv(1, 2, 8, 8, 32, torch.float32, 0, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        OPS.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), impl="kernel")
+
+
+def _reduced_model(quant, device, impl):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(reduced(get_config("phi4-mini-3.8b")),
+                              quant=quant)
+    return Model(cfg, device=device, impl=impl)
+
+
+@pytest.mark.cuda
+def test_reduced_int8_kv_decode_kernel_equals_plain(cuda_device):
+    """Per-slot positions through both routes of a reduced phi4-mini:
+    identical int8 caches and logits."""
+    kern = _reduced_model("w8a8", cuda_device, "kernel")
+    plain = _reduced_model("w8a8", cuda_device, "ref")
+    params = kern.init(torch.Generator(cuda_device).manual_seed(0),
+                       quantize=True)
+    ck, cp = kern.init_cache(3, 16, kv_quant=True), \
+        plain.init_cache(3, 16, kv_quant=True)
+    offs = torch.tensor([0, 4, 9], dtype=torch.int32, device=cuda_device)
+    tokens = torch.randint(0, kern.cfg.vocab, (3, 6), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(1))
+    for i in range(6):
+        lk, ck = kern.decode_step(params, ck, tokens[:, i:i + 1], offs + i)
+        lp, cp = plain.decode_step(params, cp, tokens[:, i:i + 1], offs + i)
+        assert torch.equal(lk, lp), i
+    for name in ck:
+        assert torch.equal(ck[name], cp[name]), name
+
+
+@pytest.mark.cuda
+def test_reduced_forward_and_batcher_on_the_card(cuda_device):
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import w8a8_decode as D
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+    kern = _reduced_model("w8a8", cuda_device, "auto")
+    plain = _reduced_model("w8a8", cuda_device, "ref")
+    params = kern.init(torch.Generator(cuda_device).manual_seed(0),
+                       quantize=True)
+    tokens = torch.randint(0, kern.cfg.vocab, (2, 77), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(2))
+    before = F.launches
+    got, _ = kern.forward(params, tokens)
+    assert F.launches == before + kern.cfg.n_layers
+    want, _ = plain.forward(params, tokens)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    bat = ContinuousBatcher(kern, params, n_slots=2, max_seq=32,
+                            kv_quant=True)
+    reqs = [Request(rid=i, prompt=[3 + i, 5, 7], max_new=3)
+            for i in range(3)]
+    for r in reqs:
+        bat.submit(r)
+    before = D.launches
+    done = bat.run()
+    assert D.launches - before == bat.it * kern.cfg.n_layers
+    for r in done:
+        assert r.complete_iter == r.submit_iter + 3 + 3 - 1

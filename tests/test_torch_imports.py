@@ -41,7 +41,10 @@ def test_every_module_is_listed():
                  "repro_torch.models.common",
                  "repro_torch.models.attention",
                  "repro_torch.models.model", "repro_torch.models.convert",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.kernels.w8a8_decode",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.serving", "repro_torch.serving.scheduler"):
         assert name in mods
 
 
@@ -137,5 +140,27 @@ def test_matmul_libraries_hash_their_shared_header(name, monkeypatch,
     monkeypatch.setattr(_build, "SOURCE_DIR", src)
     assert _build.library_path(name).name == before.name
     with open(src / "qmatmul.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path(name).name != before.name
+
+
+@pytest.mark.parametrize("name,fn,n_args", [
+    ("w8a8_decode", "qappa_w8a8_decode", 17),
+    ("flash_attention", "qappa_flash_attention", 13)])
+def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
+                                                  monkeypatch, tmp_path):
+    """Each attention source has a bound C entry point, and its library
+    name changes when its source changes."""
+    import shutil
+    from repro_torch.kernels import _build
+    assert len(_build.SIGNATURES[name][fn][1]) == n_args
+    assert "qappa_error_string" in _build.SIGNATURES[name]
+    before = _build.library_path(name)
+    assert before.name.startswith(f"{name}-")
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SOURCE_DIR, src)
+    monkeypatch.setattr(_build, "SOURCE_DIR", src)
+    assert _build.library_path(name).name == before.name
+    with open(src / f"{name}.cu", "a") as f:
         f.write("// edited\n")
     assert _build.library_path(name).name != before.name
