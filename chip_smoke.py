@@ -8,7 +8,10 @@ int8 KV cache, and the full-sequence forward / prefill.
 Phases (any failure exits non-zero):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, in parallel);
+   (one ``nvcc`` per source, in parallel) and count the tensor-core
+   instructions in each library's SASS (``cuobjdump``): bf16 ``wgmma``
+   (HGMMA) must be in flash's, int8 ``wgmma`` (IGMMA) or ``mma.sync``
+   (IMMA) in W8A8's;
 2. the sweep path, through ``repro_torch.core.dse.run``: the paper's
    720-point VGG-16 sweep (per-layer outputs, then aggregates through the
    sweep kernel) and a 1,029,600-config streamed sweep with a running
@@ -26,19 +29,25 @@ Phases (any failure exits non-zero):
    (``launch.serve.generate``) in W4A8-pow2, 16 prompt + 16 generated
    tokens at batch 4; each matmul kernel must launch exactly
    32 steps x 32 layers x 7 projections = 7168 times in its own run and
-   never in the other's;
+   never in the other's, W8A8 all on its split-k ``dp4a`` regime;
 6. serving parity: the same full-width params and prompts teacher-forced
    for 4 steps through the kernels and through their plain versions —
    logits within 1e-6 x max|logit| (0 expected), identical greedy tokens;
    one decode step profiled for its device-busy share;
-7. matmul parity at the decode shapes and ragged shapes, kernel vs plain
-   version (<= 1e-6 relative, 0 expected), with ``torch._int_mm`` as a
+7. matmul parity at the decode shapes and ragged shapes, and for W8A8 at
+   the tensor-core regime's shapes (m = 4096 and 64 at the four
+   projection shapes, ragged m 41 and 700), kernel vs plain version
+   (<= 1e-6 relative; W8A8 bit for bit), with ``torch._int_mm`` as a
    third witness of the W8A8 integer product;
 8. matmul timing at the four m = 4 projection shapes: device time from
    ``torch.profiler`` and CUDA-event time over back-to-back calls of the
    kernels, their plain versions and ``torch._int_mm``, weights rotated
    through more than the 50 MB L2 cache, beside the byte bound at
-   3.35 TB/s; the kernels line takes the profiler's device time;
+   3.35 TB/s; the kernels line takes the profiler's device time; and
+   W8A8 at m = 4096 (kernel, plain version, ``torch._int_mm``) beside the
+   bound of its int8 operations (``qmatmul_prefill_timing``); both W8A8
+   regimes on a layer at m = 16-64 (``qmatmul_regimes``, where the
+   threshold between them sits);
 9. ``serve_batcher_int8kv``: ``ContinuousBatcher`` over phi4-mini-3.8b at
    full width in W8A8 with an int8 KV cache (4 slots, max_seq 4096), 8
    requests with prompts of 8-32 and 8-16 new tokens from
@@ -51,19 +60,25 @@ Phases (any failure exits non-zero):
     teacher-forced 4 steps at per-slot positions (0 among them): identical
     int8 caches, logits within 2e-2;
 11. ``prefill``: ``Model.prefill`` at 4 x 16 and ``Model.forward(...,
-    last_only=True)`` at 1 x 4096: 32 flash launches per forward, finite
+    last_only=True)`` at 1 x 4096: 32 flash launches per forward, all on
+    the bf16 tensor-core route, and the W8A8 projections on the tensor
+    cores (the replayed decode steps on split-k), finite
     logits; at 1 x 4096 the flash kernel within 2e-2 of the plain route's
     attention on every layer's own q, k, v, and the kernel route with
     that attention swapped in equal to the plain route bit for bit (the
     routes' logits differ beyond 2e-2: the W8A8 network amplifies one-ulp
     attention differences, reported per layer); the forward's wall time
-    and the flash kernel's share of it;
+    and the flash and W8A8 kernels' shares of its device time;
+11b. ``prefill_fp32``: the FP32 mode's forward (phi4-mini at full width,
+    depth cut to 2 layers, 1 x 4096): every flash launch on the float32
+    route, within 1e-5 of the plain attention on each layer;
 12. ``attention_parity``: both attention kernels against their plain
     versions (decode: <= 1e-5 x max|out|; flash: 1e-5 f32, 2e-2 bf16),
     with ``scaled_dot_product_attention`` as a reported third witness;
 13. ``attention_timing``: decode attention at S = 4096 and 32768 (every
-    key live, inputs rotated past L2) and flash at (1, 24, 4096, 128)
-    causal bf16, beside their plain versions, SDPA and their bounds.
+    key live, inputs rotated past L2) and both flash routes at
+    (1, 24, 4096, 128) causal, bf16 and float32, beside their plain
+    versions, SDPA and their bounds.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -119,6 +134,21 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 DECODE_SHAPE = (4, 8, 3, 128)
 DECODE_S = (4096, 32768)
 FLASH_SHAPE = (1, 24, 4096, 128)      # (b, h, s, d), causal, bf16
+# the prefill shape of the W8A8 tensor-core regime: m = 1 x 4096 tokens
+PREFILL_M = 4096
+# m at which both W8A8 regimes are timed, around the threshold
+REGIME_M = (16, 24, 32, 40, 48, 64)
+# the FP32 PE mode's forward: phi4-mini at full width, depth cut to this
+FP32_LAYERS = 2
+# tensor-core instructions each redesigned library must hold: bf16 wgmma
+# (HGMMA) for flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
+SASS_OPS = ("HGMMA", "IGMMA", "IMMA", "HMMA")
+TENSOR_CORE_SASS = {"flash_attention_tc": ("HGMMA",),
+                    "w8a8_matmul": ("IGMMA", "IMMA")}
+# W8A8 only: the tensor-core regime at the prefill shapes (m = 4096 and the
+# 4 x 16 prefill's m = 64) and ragged above its threshold
+W8A8_TC = tuple((m, k, n) for m in (PREFILL_M, 64) for k, n in LAYER_PROJ) \
+    + ((41, 258, 301), (700, 1030, 777))
 
 
 def emit(obj) -> None:
@@ -157,6 +187,17 @@ def nvidia_smi() -> str:
         timeout=60).stdout.strip()
 
 
+def _sass_counts(path) -> dict:
+    """Tensor-core instructions in a library's SASS (``cuobjdump``)."""
+    import re
+    from repro_torch.kernels import _build
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -165,9 +206,13 @@ def phase_build() -> dict:
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
              for name in sorted(paths)}
+    sass = {name: _sass_counts(path) for name, path in sorted(paths.items())}
+    for name, ops in TENSOR_CORE_SASS.items():
+        check(any(sass[name][op] > 0 for op in ops),
+              f"{name}: no {' or '.join(ops)} in its SASS")
     return {"phase": "build", "build_s": build_s,
             "libraries": sorted(p.name for p in paths.values()),
-            "ptxas": ptxas}
+            "ptxas": ptxas, "sass_tensor_core_instructions": sass}
 
 
 def phase_main_path(device) -> dict:
@@ -453,28 +498,41 @@ def _proj_bytes(quant: str) -> int:
         LAYER_PROJ.items())
 
 
+def _reset_matmul_counts() -> None:
+    from repro_torch.kernels import w4a8_matmul, w8a8_matmul
+    w4a8_matmul.launches = 0
+    w8a8_matmul.launches = w8a8_matmul.launches_dp4a = 0
+    w8a8_matmul.launches_tc = 0
+
+
+def _matmul_counts() -> dict:
+    from repro_torch.kernels import w4a8_matmul, w8a8_matmul
+    return {"w8a8_matmul": w8a8_matmul.launches,
+            "w8a8_matmul_dp4a": w8a8_matmul.launches_dp4a,
+            "w8a8_matmul_tc": w8a8_matmul.launches_tc,
+            "w4a8_matmul": w4a8_matmul.launches}
+
+
 def phase_serve(device, quant: str) -> dict:
     """The serving path at full width; W8A8 through ``serve`` itself."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import w4a8_matmul, w8a8_matmul
     from repro_torch.launch.serve import generate, serve
     cfg = get_config(SERVE_ARCH)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     if quant == "w8a8":
-        w8a8_matmul.launches = w4a8_matmul.launches = 0
+        _reset_matmul_counts()
         res = serve(SERVE_ARCH, batch=SERVE["batch"],
                     prompt_len=SERVE["prompt_len"], gen=SERVE["gen"],
                     quantize=True, smoke=False, seed=SERVE["seed"],
                     device=device)
     else:   # serve() has no quant argument: the same loop on the model
         model, params, prompts = _full_model(quant, device)
-        w8a8_matmul.launches = w4a8_matmul.launches = 0
+        _reset_matmul_counts()
         res = generate(model, params, prompts, gen=SERVE["gen"])
         del model, params
-    launches = {"w8a8_matmul": w8a8_matmul.launches,
-                "w4a8_matmul": w4a8_matmul.launches}
+    launches = _matmul_counts()
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
     steps = SERVE["prompt_len"] + SERVE["gen"]
@@ -484,6 +542,10 @@ def phase_serve(device, quant: str) -> dict:
     check(launches[mine] == want,
           f"{mine} launched {launches[mine]} times, expected {want}")
     check(launches[other] == 0, f"{other} launched in the {quant} run")
+    if quant == "w8a8":     # decode is m = batch: the split-k regime only
+        check(launches["w8a8_matmul_dp4a"] == want
+              and launches["w8a8_matmul_tc"] == 0,
+              f"W8A8 regimes at decode: {launches}")
     toks = res["tokens"]
     check(tuple(toks.shape) == (SERVE["batch"], SERVE["gen"]),
           f"token shape {tuple(toks.shape)}")
@@ -653,13 +715,20 @@ def _int_mm_witness(x, w, xs, ws):
 
 
 def phase_qmatmul_parity(device) -> dict:
+    """Kernel vs plain version at the decode, ragged and (W8A8) prefill
+    shapes; the worst errors by W8A8 regime."""
     import torch
     from repro_torch.kernels import ops
-    shapes = [(SERVE["batch"], k, n) for k, n in LAYER_PROJ] + list(RAGGED)
-    rows, worst = [], {"w8a8": [0.0, 0.0], "w4a8": [0.0, 0.0]}
-    for i, (m, k, n) in enumerate(shapes):
-        for mode, fn in (("w8a8", ops.w8a8_matmul),
-                         ("w4a8", ops.w4a8_matmul)):
+    from repro_torch.kernels.w8a8_matmul import plan
+    both = (("w8a8", ops.w8a8_matmul), ("w4a8", ops.w4a8_matmul))
+    shapes = [((SERVE["batch"], k, n), both) for k, n in LAYER_PROJ] \
+        + [(shape, both) for shape in RAGGED] \
+        + [(shape, both[:1]) for shape in W8A8_TC]
+    rows = []
+    worst = {"w8a8": [0.0, 0.0], "w4a8": [0.0, 0.0],
+             "w8a8_dp4a": [0.0, 0.0], "w8a8_tc": [0.0, 0.0]}
+    for i, ((m, k, n), modes) in enumerate(shapes):
+        for mode, fn in modes:
             x, w, xs, ws = _qmm_operands(m, k, n, mode == "w4a8", i, device)
             got = fn(x, w, xs, ws, impl="kernel")
             want = fn(x, w, xs, ws, impl="ref")
@@ -670,16 +739,24 @@ def phase_qmatmul_parity(device) -> dict:
             rel = float((d / want.double().abs().clamp_min(1e-30)).max())
             row = {"mode": mode, "m": m, "k": k, "n": n, "max_abs": err,
                    "max_rel": rel}
+            keys = [mode]
             if mode == "w8a8":
+                row["regime"] = plan(m, k, n).regime
+                keys.append(f"w8a8_{row['regime']}")
                 lib = _int_mm_witness(x, w, xs, ws)
                 row["int_mm_max_abs"] = float((got - lib).abs().max())
                 check(row["int_mm_max_abs"] == 0.0,
                       f"w8a8 kernel vs torch._int_mm at {(m, k, n)}")
+                check(bool(torch.equal(got, want)),
+                      f"w8a8 kernel not bit-identical to plain at "
+                      f"{(m, k, n)}")
             check(rel <= RTOL, f"{mode} kernel vs plain {rel:.3g} at "
                                f"{(m, k, n)}")
-            worst[mode] = [max(worst[mode][0], err),
-                           max(worst[mode][1], rel)]
+            for key in keys:
+                worst[key] = [max(worst[key][0], err),
+                              max(worst[key][1], rel)]
             rows.append(row)
+            del x, w, got, want
     return {"phase": "qmatmul_parity", "rows": rows, "worst": worst}
 
 
@@ -784,17 +861,106 @@ def phase_qmatmul_timing(device) -> dict:
     return {"phase": "qmatmul_timing", "m": m, "timer": timer, **out}
 
 
+def phase_qmatmul_prefill_timing(device) -> dict:
+    """W8A8 at the prefill shape m = 4096 (the tensor-core regime): device
+    time per call of the kernel, its float64 plain version and
+    ``torch._int_mm`` at the four projection shapes, in turns (plain,
+    kernel, kernel, plain); per layer, beside the bound (operations at
+    the int8 peak; the weights stay in L2 at this m, so they are not
+    rotated)."""
+    import torch
+    from repro_torch.kernels import w8a8_matmul as W8
+    m = PREFILL_M
+    out = {}
+    for (k, n) in LAYER_PROJ:
+        check(W8.plan(m, k, n).regime == "tc", f"m = {m} not on the tensor "
+                                              f"cores at {(k, n)}")
+        x, w, xs, ws = _qmm_operands(m, k, n, False, 9, device)
+        wcol = w.t().contiguous().t()
+        row = {}
+        for name, fn, iters in (
+                ("plain", lambda i: W8.w8a8_matmul_ref(x, w, xs, ws), 3),
+                ("kernel", lambda i: W8.w8a8_matmul(x, w, xs, ws), 20),
+                ("kernel_again", lambda i: W8.w8a8_matmul(x, w, xs, ws), 20),
+                ("plain_again", lambda i: W8.w8a8_matmul_ref(x, w, xs, ws),
+                 3),
+                ("library", lambda i: torch._int_mm(x, wcol), 20)):
+            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
+                                                                    iters)
+        bytes_moved = m * k + k * n + 4 + 4 * n + 4 * m * n
+        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+        row.update(bytes=bytes_moved, int8_ops=2 * m * k * n,
+                   bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[f"{k}x{n}"] = row
+        del x, w, wcol
+
+    def layer(key):
+        vals = [c * out[f"{k}x{n}"][key] for (k, n), c in LAYER_PROJ.items()]
+        return None if any(v is None for v in vals) else sum(vals)
+    keys = ["kernel", "kernel_again", "plain", "plain_again", "library"]
+    timer = "profiler" if all(layer(f"{key}_ms") is not None
+                              for key in keys) else "event"
+    sfx = "_ms" if timer == "profiler" else "_event_ms"
+    bounds = {out[f"{k}x{n}"]["bound_by"] for k, n in LAYER_PROJ}
+    out["layer"] = {
+        "kernel_ms": min(layer("kernel" + sfx), layer("kernel_again" + sfx)),
+        "plain_ms": min(layer("plain" + sfx), layer("plain_again" + sfx)),
+        "library_ms": layer("library" + sfx),
+        "bound_ms": layer("bound_ms"), "int8_ops": layer("int8_ops"),
+        "bound_by": "operations" if bounds == {"operations"} else "bytes",
+        "tops": layer("int8_ops") / (min(layer("kernel" + sfx),
+                                         layer("kernel_again" + sfx))
+                                     * 1e-3) / 1e12}
+    return {"phase": "qmatmul_prefill_timing", "m": m, "timer": timer,
+            **out}
+
+
+def phase_qmatmul_regimes(device) -> dict:
+    """Both W8A8 regimes on one phi4 layer's 7 projections at m around
+    the threshold (``TC_MIN_M``, which the planner reads at each call, is
+    moved for the run): device time per layer of each, the evidence for
+    where the threshold sits."""
+    from repro_torch.kernels import w8a8_matmul as W8
+    saved = W8.TC_MIN_M
+    out = {"tc_min_m": saved}
+    try:
+        for m in REGIME_M:
+            ops_ = {kn: _qmm_operands(m, kn[0], kn[1], False, 11, device)
+                    for kn in LAYER_PROJ}
+            row = {}
+            for regime, threshold in (("dp4a", 10 ** 9), ("tc", 1)):
+                W8.TC_MIN_M = threshold
+                total = 0.0
+                for kn, c in LAYER_PROJ.items():
+                    prof, event = _device_ms(
+                        lambda i, o=ops_[kn]: W8.w8a8_matmul(*o), 50)
+                    total += c * (event if prof is None else prof)
+                row[regime] = total
+            out[str(m)] = row
+    finally:
+        W8.TC_MIN_M = saved
+    faster = [m for m in REGIME_M if out[str(m)]["tc"] < out[str(m)]["dp4a"]]
+    out["tc_faster_at"] = faster
+    return {"phase": "qmatmul_regimes", **out}
+
+
 # ---------------------------------------------- int8 KV, batching, prefill
 
 def _reset_attention_counts() -> None:
     from repro_torch.kernels import flash_attention, w8a8_decode
     flash_attention.launches = w8a8_decode.launches = 0
+    flash_attention.launches_tc = flash_attention.launches_f32 = 0
 
 
 def _attention_counts() -> dict:
     from repro_torch.kernels import flash_attention, w8a8_decode
     return {"w8a8_decode_attention": w8a8_decode.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "flash_attention_tc": flash_attention.launches_tc,
+            "flash_attention_f32": flash_attention.launches_f32}
 
 
 def _requests(vocab: int):
@@ -959,13 +1125,21 @@ def phase_prefill(device, params) -> dict:
                                            PREFILL["prompt_len"]),
                             device=device, generator=g)
     _reset_attention_counts()
+    _reset_matmul_counts()
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     logits, caches = kern.prefill(params, prompts)
     torch.cuda.synchronize(device)
     prefill_s = time.perf_counter() - t0
-    n = _attention_counts()["flash_attention"]
-    check(n == cfg.n_layers, f"prefill launched flash {n} times")
+    n = _attention_counts()["flash_attention_tc"]
+    check(n == cfg.n_layers, f"prefill launched bf16 flash {n} times")
+    prefill_mm = _matmul_counts()
+    # the forward's projections at m = 4 x 16 on the tensor cores, the 16
+    # replayed decode steps' at m = 4 on the split-k regime
+    check(prefill_mm["w8a8_matmul_tc"] == 7 * cfg.n_layers
+          and prefill_mm["w8a8_matmul_dp4a"]
+          == 7 * cfg.n_layers * PREFILL["prompt_len"],
+          f"prefill W8A8 regimes: {prefill_mm}")
     check(tuple(logits.shape) == (PREFILL["batch"], PREFILL["prompt_len"],
                                   cfg.vocab), "prefill logits shape")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
@@ -979,17 +1153,28 @@ def phase_prefill(device, params) -> dict:
         with _recording_blocks() as hidden[name]:      # the warm-up run
             model.forward(params, tokens, last_only=True)
         _reset_attention_counts()
+        _reset_matmul_counts()
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         out, _ = model.forward(params, tokens, last_only=True)
         torch.cuda.synchronize(device)
         fwd[name] = {"logits": out,
                      "wall_s": time.perf_counter() - t0,
-                     "flash_launches":
-                         _attention_counts()["flash_attention"]}
-    check(fwd["kernel"]["flash_launches"] == cfg.n_layers,
-          f"forward launched flash {fwd['kernel']['flash_launches']} times")
-    check(fwd["plain"]["flash_launches"] == 0, "plain route launched flash")
+                     "flash_launches": _attention_counts(),
+                     "matmul_launches": _matmul_counts()}
+    flash_n = fwd["kernel"]["flash_launches"]
+    check(flash_n["flash_attention"] == cfg.n_layers
+          and flash_n["flash_attention_tc"] == cfg.n_layers,
+          f"forward's flash launches {flash_n}: all {cfg.n_layers} on the "
+          f"tensor-core route expected")
+    mm_n = fwd["kernel"]["matmul_launches"]
+    check(mm_n["w8a8_matmul_tc"] == 7 * cfg.n_layers
+          and mm_n["w8a8_matmul_dp4a"] == 0,
+          f"forward's W8A8 launches {mm_n}: {7 * cfg.n_layers} on the "
+          f"tensor cores expected")
+    check(fwd["plain"]["flash_launches"]["flash_attention"] == 0
+          and fwd["plain"]["matmul_launches"]["w8a8_matmul"] == 0,
+          "plain route launched a kernel")
     lk, lp = fwd["kernel"]["logits"], fwd["plain"]["logits"]
     check(tuple(lk.shape) == (1, 1, cfg.vocab), "forward logits shape")
     check(bool(torch.isfinite(lk).all()), "non-finite forward logits")
@@ -1034,20 +1219,27 @@ def phase_prefill(device, params) -> dict:
         kern.forward(params, tokens, last_only=True)
         torch.cuda.synchronize(device)
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    flash_us = total_us = 0.0
+    flash_us = w8a8_us = total_us = 0.0
+    kernel_names = set()
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         total_us += us or 0.0
-        if "flash_kernel" in ev.key:
+        if "flash_tc_kernel" in ev.key or "w8a8_" in ev.key:
+            kernel_names.add(ev.key[:80])
+        if "flash_tc_kernel" in ev.key:
             flash_us += us or 0.0
+        if "w8a8_tc_kernel" in ev.key or "w8a8_dp4a_kernel" in ev.key:
+            w8a8_us += us or 0.0
     return {"phase": "prefill", "prefill_batch": PREFILL["batch"],
             "prefill_len": PREFILL["prompt_len"], "prefill_s": prefill_s,
             "forward_len": PREFILL["long_len"],
             "forward_wall_s": fwd["kernel"]["wall_s"],
             "forward_plain_wall_s": fwd["plain"]["wall_s"],
-            "flash_launches_per_forward": fwd["kernel"]["flash_launches"],
+            "flash_launches_per_forward": flash_n["flash_attention_tc"],
+            "forward_launches": {**flash_n, **mm_n},
+            "prefill_matmul_launches": prefill_mm,
             "logits_max_abs_vs_plain": diff,
             "logits_max_abs": float(lp.float().abs().max()),
             "hidden_drift_per_layer": drift,
@@ -1062,8 +1254,68 @@ def phase_prefill(device, params) -> dict:
             "flash_device_ms": flash_us / 1e3 or None,
             "flash_share_of_device": (flash_us / total_us
                                       if total_us else None),
+            "w8a8_device_ms": w8a8_us / 1e3 or None,
+            "w8a8_share_of_device": (w8a8_us / total_us
+                                     if total_us else None),
+            "profiled_kernel_names": sorted(kernel_names),
             "flash_share_of_wall": (flash_us / 1e3 / prof_wall_ms
                                     if flash_us else None)}
+
+
+def phase_prefill_fp32(device) -> dict:
+    """The FP32 PE mode's forward, which takes the float32 flash route:
+    phi4-mini at full width, depth cut to ``FP32_LAYERS``, 1 x 4096
+    tokens through ``Model.forward``.  Every layer's flash launch is on
+    the float32 route, the logits are finite, and on each layer's own
+    q, k, v the kernel stays within the float32 bound of the plain
+    attention."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), quant="fp32",
+                              n_layers=FP32_LAYERS)
+    model = Model(cfg, device=device)
+    params = model.init(torch.Generator(device).manual_seed(4))
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL["long_len"]),
+                           device=device,
+                           generator=torch.Generator(device).manual_seed(5))
+    model.forward(params, tokens, last_only=True)           # warm-up
+    _reset_attention_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, tokens, last_only=True)
+    torch.cuda.synchronize(device)
+    wall_s = time.perf_counter() - t0
+    launches = _attention_counts()
+    check(launches["flash_attention_f32"] == cfg.n_layers
+          and launches["flash_attention_tc"] == 0,
+          f"FP32 forward's flash launches {launches}")
+    check(logits.dtype == torch.float32
+          and tuple(logits.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "FP32 forward logits")
+    layers = []
+    real_attend = attention.attend
+
+    def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
+        got = real_attend(q, k, v, causal=causal, window=window, impl=impl)
+        want = attention.dense_attention(q, k, v, causal=causal,
+                                         window=window)
+        layers.append(float((got - want).abs().max()))
+        return got
+    attention.attend = swapped
+    try:
+        model.forward(params, tokens, last_only=True)
+    finally:
+        attention.attend = real_attend
+    check(max(layers) <= FLASH_TOL["float32"],
+          f"float32 flash vs plain attention {max(layers):.3g} on a layer")
+    del model, params
+    return {"phase": "prefill_fp32", "n_layers": cfg.n_layers,
+            "forward_len": PREFILL["long_len"], "forward_wall_s": wall_s,
+            "launches": launches,
+            "flash_vs_plain_per_layer_max_abs": layers}
 
 
 def _decode_operands(b, kvh, rep, hd, S, seed, device):
@@ -1083,7 +1335,9 @@ def phase_attention_parity(device) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import _mask
-    rows, worst = [], {"decode": [0.0, 0.0], "flash": [0.0, 0.0]}
+    rows = []
+    worst = {"decode": [0.0, 0.0], "flash": [0.0, 0.0],
+             "flash_bfloat16": [0.0, 0.0], "flash_float32": [0.0, 0.0]}
     b, kvh, rep, hd = DECODE_SHAPE
     S = DECODE_S[0]
     pos = torch.tensor([0, 1000, 2047, S - 1], dtype=torch.int32,
@@ -1118,6 +1372,9 @@ def phase_attention_parity(device) -> dict:
         (1, 4, 77, 77, 128, True, None),
         (1, 4, 1000, 1000, 128, True, None),
         (1, 4, 77, 1000, 64, True, None),
+        (1, 2, 300, 300, 16, True, None),
+        (1, 2, 333, 333, 32, False, 40),
+        (1, 2, 500, 500, 256, True, None),
     ]
     for i, (bb, h, sq, sk, d, causal, window) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1138,8 +1395,9 @@ def phase_attention_parity(device) -> dict:
             check(err <= tol, f"flash kernel vs plain {err:.3g} > {tol} at "
                               f"{(bb, h, sq, sk, d, causal, window, dtype)}")
             rel = err / max(float(want.float().abs().max()), 1e-30)
-            worst["flash"] = [max(worst["flash"][0], err),
-                              max(worst["flash"][1], rel)]
+            for key in ("flash", f"flash_{str(dtype).split('.')[1]}"):
+                worst[key] = [max(worst[key][0], err),
+                              max(worst[key][1], rel)]
             rows.append({"kernel": "flash", "case": [bb, h, sq, sk, d,
                                                      causal, window],
                          "dtype": str(dtype), "max_abs": err,
@@ -1184,39 +1442,46 @@ def phase_attention_timing(device) -> dict:
         del sets, coded
 
     bb, h, s, d = FLASH_SHAPE
-    g = torch.Generator(device).manual_seed(60)
-    q, k, v = (torch.randn((bb, h, s, d), generator=g, device=device)
-               .to(torch.bfloat16) for _ in range(3))
-    row = {}
-    for name, fn, iters in (
-            ("plain", lambda i: FA.flash_attention_ref(q, k, v), 3),
-            ("kernel", lambda i: FA.flash_attention(q, k, v), 10),
-            ("kernel_again", lambda i: FA.flash_attention(q, k, v), 10),
-            ("plain_again", lambda i: FA.flash_attention_ref(q, k, v), 3),
-            ("library", lambda i: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 20)):
-        row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn, iters)
-    # the kernel's records kept by the profiler, and its time sustained
-    # over ~1 s with the SM clock and power sampled beside it
-    row["kernel_profiler_records_kept"] = _profile_device_ms(
-        lambda i: FA.flash_attention(q, k, v), 10)[3]
-    with _ClockSampler() as clocks:
-        row["kernel_sustained_event_ms"] = _event_ms(
-            lambda: FA.flash_attention(q, k, v), 200)
-    row["kernel_sustained_clocks"] = clocks.summary()
     flops = 4 * d * h * bb * s * (s + 1) // 2
-    bytes_moved = 4 * bb * h * s * d * 2
-    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    row.update(flops=flops, bytes=bytes_moved, bytes_ms=bytes_ms,
-               ops_ms_bf16_tensor_core=ops_ms,
-               ops_ms_f32_cuda_core=flops / PEAK_F32_FLOPS * 1e3,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    out["flash"] = row
+    for key, dtype in (("flash", torch.bfloat16), ("flash_f32", torch.float32)):
+        g = torch.Generator(device).manual_seed(60)
+        q, k, v = (torch.randn((bb, h, s, d), generator=g, device=device)
+                   .to(dtype) for _ in range(3))
+        row = {"dtype": str(dtype)}
+        for name, fn, iters in (
+                ("plain", lambda i: FA.flash_attention_ref(q, k, v), 3),
+                ("kernel", lambda i: FA.flash_attention(q, k, v), 10),
+                ("kernel_again", lambda i: FA.flash_attention(q, k, v), 10),
+                ("plain_again", lambda i: FA.flash_attention_ref(q, k, v),
+                 3),
+                ("library", lambda i: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 20)):
+            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
+                                                                    iters)
+        if dtype == torch.bfloat16:
+            # the kernel's records kept by the profiler, and its time
+            # sustained over ~1 s with the SM clock and power sampled
+            # beside it
+            row["kernel_profiler_records_kept"] = _profile_device_ms(
+                lambda i: FA.flash_attention(q, k, v), 10)[3]
+            with _ClockSampler() as clocks:
+                row["kernel_sustained_event_ms"] = _event_ms(
+                    lambda: FA.flash_attention(q, k, v), 200)
+            row["kernel_sustained_clocks"] = clocks.summary()
+        elem = q.element_size()
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        bytes_moved = 4 * bb * h * s * d * elem
+        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        ops_ms = flops / peak * 1e3
+        row.update(flops=flops, bytes=bytes_moved, bytes_ms=bytes_ms,
+                   ops_ms=ops_ms, peak_flops=peak,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[key] = row
+        del q, k, v
 
     # device time from the profiler; CUDA events where it gave none
-    for r in list(out["decode"].values()) + [out["flash"]]:
+    for r in list(out["decode"].values()) + [out["flash"], out["flash_f32"]]:
         keys = ["kernel", "kernel_again", "plain", "plain_again"] + (
             ["library"] if "library_ms" in r else [])
         r["timer"] = "profiler" if all(r[f"{k}_ms"] is not None
@@ -1226,9 +1491,11 @@ def phase_attention_timing(device) -> dict:
                                   r["kernel_again" + suffix])
         r["best_plain_ms"] = min(r["plain" + suffix],
                                  r["plain_again" + suffix])
-    out["flash"]["best_library_ms"] = out["flash"][
-        "library" + ("_ms" if out["flash"]["timer"] == "profiler"
-                     else "_event_ms")]
+    for r in (out["flash"], out["flash_f32"]):
+        r["best_library_ms"] = r["library" + ("_ms" if r["timer"] == "profiler"
+                                              else "_event_ms")]
+    out["flash"]["tflops"] = flops / (out["flash"]["best_kernel_ms"]
+                                      * 1e-3) / 1e12
     return {"phase": "attention_timing", **out}
 
 
@@ -1262,6 +1529,9 @@ def main() -> int:
           "bf16_matmul_on_predecoded_w4a8_weights_ms":
           qtiming.pop("bf16_matmul_context_ms")})
     emit(qtiming)
+    qprefill = phase_qmatmul_prefill_timing(device)
+    emit(qprefill)
+    emit(phase_qmatmul_regimes(device))
     model, params, _ = _full_model("w8a8", device)
     batcher = phase_batcher(device, model, params)
     emit(batcher)
@@ -1269,6 +1539,8 @@ def main() -> int:
     prefill = phase_prefill(device, params)
     emit(prefill)
     del model, params
+    fp32 = phase_prefill_fp32(device)
+    emit(fp32)
     aparity = phase_attention_parity(device)
     emit(aparity)
     atiming = phase_attention_timing(device)
@@ -1292,25 +1564,57 @@ def main() -> int:
         "per": f"one launch at N = {timing['n']}, L = {timing['l']}, W = "
                f"{timing['w']} (CUDA-event time)",
     }]
-    for name, mode, quant, line in (
-            ("w8a8_matmul", "w8a8", "w8a8", 69),
-            ("w4a8_matmul", "w4a8", "w4a8_pow2", 96)):
-        lay = qtiming[mode]["layer"]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": serve[quant]["launches"][name],
-            "max_abs_err": qparity["worst"][mode][0],
-            "max_rel_err": qparity["worst"][mode][1],
-            "ms": lay["kernel_ms"],
-            "plain_ms": lay["plain_ms"],
-            "bound_ms": lay["bound_ms"],
-            "bound_by": lay["bound_by"],
-            "library_ms": lay["library_ms"],
-            "per": per,
-        })
+    w8 = "src/repro_torch/kernels/csrc/w8a8_matmul.cu"
+    lay = qtiming["w8a8"]["layer"]
+    kernels.append({
+        "name": "w8a8_matmul_dp4a",
+        "route": "cuda",
+        "source": w8,
+        "replaces": "src/repro/kernels/w8a8_matmul.py:69",
+        "launches": serve["w8a8"]["launches"]["w8a8_matmul_dp4a"],
+        "max_abs_err": qparity["worst"]["w8a8_dp4a"][0],
+        "max_rel_err": qparity["worst"]["w8a8_dp4a"][1],
+        "ms": lay["kernel_ms"],
+        "plain_ms": lay["plain_ms"],
+        "bound_ms": lay["bound_ms"],
+        "bound_by": lay["bound_by"],
+        "library_ms": lay["library_ms"],
+        "per": per + " (split-k dp4a regime, m < TC_MIN_M)",
+    })
+    lay = qprefill["layer"]
+    kernels.append({
+        "name": "w8a8_matmul_tc",
+        "route": "cuda",
+        "source": w8,
+        "replaces": "src/repro/kernels/w8a8_matmul.py:69",
+        "launches": prefill["forward_launches"]["w8a8_matmul_tc"],
+        "max_abs_err": qparity["worst"]["w8a8_tc"][0],
+        "max_rel_err": qparity["worst"]["w8a8_tc"][1],
+        "ms": lay["kernel_ms"],
+        "plain_ms": lay["plain_ms"],
+        "bound_ms": lay["bound_ms"],
+        "bound_by": lay["bound_by"],
+        "library_ms": lay["library_ms"],
+        "per": f"one {SERVE_ARCH} layer's 7 projections at m = "
+               f"{PREFILL_M} (int8 wgmma regime, {qprefill['timer']} "
+               f"time); launches per 1 x {PREFILL_M} forward",
+    })
+    lay = qtiming["w4a8"]["layer"]
+    kernels.append({
+        "name": "w4a8_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/w4a8_matmul.cu",
+        "replaces": "src/repro/kernels/w4a8_matmul.py:96",
+        "launches": serve["w4a8_pow2"]["launches"]["w4a8_matmul"],
+        "max_abs_err": qparity["worst"]["w4a8"][0],
+        "max_rel_err": qparity["worst"]["w4a8"][1],
+        "ms": lay["kernel_ms"],
+        "plain_ms": lay["plain_ms"],
+        "bound_ms": lay["bound_ms"],
+        "bound_by": lay["bound_by"],
+        "library_ms": lay["library_ms"],
+        "per": per,
+    })
     dec = atiming["decode"][str(DECODE_S[0])]
     b, kvh, rep, hd = DECODE_SHAPE
     kernels.append({
@@ -1332,22 +1636,40 @@ def main() -> int:
     })
     fl = atiming["flash"]
     kernels.append({
-        "name": "flash_attention",
+        "name": "flash_attention_tc",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:109",
         "launches": prefill["flash_launches_per_forward"],
-        "max_abs_err": aparity["worst"]["flash"][0],
-        "max_rel_err": aparity["worst"]["flash"][1],
+        "max_abs_err": aparity["worst"]["flash_bfloat16"][0],
+        "max_rel_err": aparity["worst"]["flash_bfloat16"][1],
         "ms": fl["best_kernel_ms"],
         "plain_ms": fl["best_plain_ms"],
         "bound_ms": fl["bound_ms"],
         "bound_by": fl["bound_by"],
         "library_ms": fl["best_library_ms"],
         "per": "one layer's causal attention at (b 1, h 24, s 4096, d 128) "
-               f"bf16 ({fl['timer']} time); launches per 1 x 4096 forward; "
-               "bound at the bf16 tensor-core peak (float32 CUDA-core "
-               f"bound {fl['ops_ms_f32_cuda_core']:.4g} ms)",
+               f"bf16 ({fl['timer']} time), the bf16 tensor-core route; "
+               "launches per 1 x 4096 W8A8 forward",
+    })
+    fl = atiming["flash_f32"]
+    kernels.append({
+        "name": "flash_attention_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:109",
+        "launches": fp32["launches"]["flash_attention_f32"],
+        "max_abs_err": aparity["worst"]["flash_float32"][0],
+        "max_rel_err": aparity["worst"]["flash_float32"][1],
+        "ms": fl["best_kernel_ms"],
+        "plain_ms": fl["best_plain_ms"],
+        "bound_ms": fl["bound_ms"],
+        "bound_by": fl["bound_by"],
+        "library_ms": fl["best_library_ms"],
+        "per": "one layer's causal attention at (b 1, h 24, s 4096, d 128) "
+               f"float32 ({fl['timer']} time), the CUDA-core route, bound "
+               "at the 67 TFLOP/s float32 rate; launches per 1 x 4096 "
+               f"FP32 forward of {FP32_LAYERS} layers",
     })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -37,7 +37,8 @@ SIGNATURES = {
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
     "w8a8_matmul": {
-        "qappa_w8a8_matmul": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+        "qappa_w8a8_matmul": (_I, [_P] * 5 + [_I] * 3
+                              + [_P, ctypes.c_longlong] + [_I] * 3 + [_P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
     "w4a8_matmul": {
@@ -49,8 +50,13 @@ SIGNATURES = {
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
-        "qappa_flash_attention": (_I, [_P] * 4 + [_I] * 7
+        "qappa_flash_attention": (_I, [_P] * 4 + [_I] * 6
                                   + [ctypes.c_float, _P]),
+        "qappa_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention_tc": {
+        "qappa_flash_attention_tc": (_I, [_P] * 4 + [_I] * 6
+                                     + [ctypes.c_float, _P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
 }

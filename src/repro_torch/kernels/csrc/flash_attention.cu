@@ -1,33 +1,32 @@
-// Flash attention forward for Hopper: tiled online-softmax attention.
+// Flash attention forward for Hopper, float32 operands: tiled
+// online-softmax attention on the CUDA cores.  bf16 operands go to the
+// tensor-core kernel, flash_attention_tc.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel, built around pl.pallas_call in flash_attention) and
-// computes the same function: q, k, v (b*h, s, d) float32 or bf16, float32
-// inside; logits = (q . k) * scale, masked to -1e30 where a key is in the
+// computes the same function: q, k, v (b*h, s, d) float32;
+// logits = (q . k) * scale, masked to -1e30 where a key is in the
 // future (causal) or outside the window (ki <= qi - window), the last q row
 // aligned to the last key (qi = i + sk - sq); running max m, l = l * alpha
-// + sum p, acc = acc * alpha + p . v; out = acc / max(l, 1e-30) in q's
-// dtype.  Tiles wholly in the future or wholly outside the window are
+// + sum p, acc = acc * alpha + p . v; out = acc / max(l, 1e-30).
+// Tiles wholly in the future or wholly outside the window are
 // skipped, as the TPU kernel skips them.  Unlike it, any sq and sk are
 // taken: keys past sk get p = 0 and rows past sq are not stored.
 //
 // What bounds it on an H100: operations.  At (1, 24, 4096, 128), causal,
-// it does ~1.03e11 FLOP against ~100 MB of bytes.  This kernel multiplies
-// in float32 on the CUDA cores (explicit fmaf: the library builds with
-// -fmad=false), so its own ceiling is the 67 TFLOP/s float32 rate, not the
-// 989 TFLOP/s of the bf16 tensor cores; a tensor-core design (wgmma) would
-// round P to bf16 or tf32 before the PV product, which the reference does
-// not.  That is the next design; this one is the simple, exact-in-float32
-// form.
+// it does ~1.03e11 FLOP against ~200 MB of bytes.  It multiplies in
+// float32 on the CUDA cores (explicit fmaf: the library builds with
+// -fmad=false), so its ceiling is the 67 TFLOP/s float32 rate.  The
+// tensor cores would round the operands to TF32 (~1e-3), outside the
+// float32 bound of 1e-5, so float32 stays here.
 //
 // Layout: one block of 256 threads per (b*h, 64-row q tile).  Q, a 64-key
-// K tile and V tile are staged in shared memory as float32 (K and Q rows
+// K tile and V tile are staged in shared memory (K and Q rows
 // padded by one float against bank conflicts); a thread owns 4 q rows x 4
 // keys of the logit tile (keys tx + 16 j) and 4 rows x d/16 columns of the
 // output (columns tx + 16 j).  Row max and row sum meet across the 16
 // threads of a row group by warp shuffles; the probabilities go through
 // shared memory to the PV product.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,14 +43,6 @@ constexpr size_t smem_bytes() {
                           + kBQ * (kBK + 1));
 }
 
-template <bool BF16>
-__device__ __forceinline__ float load(const void* p, size_t i) {
-  if constexpr (BF16)
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
-  else
-    return reinterpret_cast<const float*>(p)[i];
-}
-
 __device__ __forceinline__ float group_max(float v) {   // 16 lanes
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
@@ -64,10 +55,10 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <int D, bool BF16>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
-             const void* __restrict__ v, void* __restrict__ out, int sq,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int sq,
              int sk, int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [kBQ][D + 1]
@@ -86,7 +77,7 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     Qs[r * (D + 1) + c] = q0 + r < sq
-        ? load<BF16>(q, qbase + static_cast<size_t>(q0 + r) * D + c) : 0.f;
+        ? q[qbase + static_cast<size_t>(q0 + r) * D + c] : 0.f;
   }
   float o[4][NC], m[4], l[4];
 #pragma unroll
@@ -111,8 +102,8 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
       const int r = i / D, c = i % D;
       const bool in = k_off + r < sk;
       const size_t at = kbase + static_cast<size_t>(k_off + r) * D + c;
-      Ks[r * (D + 1) + c] = in ? load<BF16>(k, at) : 0.f;
-      Vs[r * D + c] = in ? load<BF16>(v, at) : 0.f;
+      Ks[r * (D + 1) + c] = in ? k[at] : 0.f;
+      Vs[r * D + c] = in ? v[at] : 0.f;
     }
     __syncthreads();
 
@@ -187,70 +178,64 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
     for (int j = 0; j < NC; ++j) {
       const float val = o[i][j] / den;
       const size_t at = qbase + static_cast<size_t>(row) * D + tx + 16 * j;
-      if constexpr (BF16)
-        reinterpret_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(val);
-      else
-        reinterpret_cast<float*>(out)[at] = val;
+      out[at] = val;
     }
   }
 }
 
-template <int D, bool BF16>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int sq, int sk, int causal, int window, float scale,
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* out,
+           int bh, int sq, int sk, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
-  flash_kernel<D, BF16><<<grid, kThreads, bytes, stream>>>(
+  flash_kernel<D><<<grid, kThreads, bytes, stream>>>(
       q, k, v, out, sq, sk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16>
-int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int sq, int sk, int d, int causal, int window, float scale,
-             cudaStream_t s) {
+int dispatch(const float* q, const float* k, const float* v, float* out,
+             int bh, int sq, int sk, int d, int causal, int window,
+             float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<16, BF16>(q, k, v, out, bh, sq, sk, causal,
-                                     window, scale, s);
-    case 32: return launch<32, BF16>(q, k, v, out, bh, sq, sk, causal,
-                                     window, scale, s);
-    case 64: return launch<64, BF16>(q, k, v, out, bh, sq, sk, causal,
-                                     window, scale, s);
-    case 128: return launch<128, BF16>(q, k, v, out, bh, sq, sk, causal,
-                                       window, scale, s);
-    case 256: return launch<256, BF16>(q, k, v, out, bh, sq, sk, causal,
-                                       window, scale, s);
+    case 16:
+      return launch<16>(q, k, v, out, bh, sq, sk, causal, window, scale, s);
+    case 32:
+      return launch<32>(q, k, v, out, bh, sq, sk, causal, window, scale, s);
+    case 64:
+      return launch<64>(q, k, v, out, bh, sq, sk, causal, window, scale, s);
+    case 128:
+      return launch<128>(q, k, v, out, bh, sq, sk, causal, window, scale, s);
+    case 256:
+      return launch<256>(q, k, v, out, bh, sq, sk, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d), all contiguous on
-// the device in float32 (is_bf16 = 0) or bf16; window 0 means none;
-// launches on `stream` and returns the CUDA error code of the launch.
+// q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d), all contiguous
+// float32 on the device; window 0 means none; launches on `stream` and
+// returns the CUDA error code of the launch.
 extern "C" int qappa_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int is_bf16,
-                                     int bh, int sq, int sk, int d,
-                                     int causal, int window, float scale,
-                                     void* stream) {
+                                     const void* v, void* out, int bh,
+                                     int sq, int sk, int d, int causal,
+                                     int window, float scale, void* stream) {
   if (bh < 1 || sq < 1 || sk < 1 || window < 0
       || (sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-      ? dispatch<true>(q, k, v, out, bh, sq, sk, d, causal, window, scale, s)
-      : dispatch<false>(q, k, v, out, bh, sq, sk, d, causal, window, scale,
-                        s);
+  return dispatch(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(out), bh,
+                  sq, sk, d, causal, window, scale,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* qappa_error_string(int err) {

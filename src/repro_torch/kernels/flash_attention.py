@@ -2,9 +2,21 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_kernel``, built around its ``pl.pallas_call`` in
-``flash_attention``) with a CUDA kernel written for Hopper,
-``csrc/flash_attention.cu``; its header says what bounds it and how it is
-laid out.  Same function as the TPU kernel: q, k, v ``(b, h, s, d)`` with
+``flash_attention``) with two CUDA kernels written for Hopper, one per
+operand dtype; each source's header says what bounds it and how it is
+laid out:
+
+* bfloat16: ``csrc/flash_attention_tc.cu``, both products on the bf16
+  tensor cores (``wgmma``), for every d in :data:`HEAD_DIMS` (d below 64
+  is zero-padded to 64 in shared memory).  The tensor cores take P in
+  bf16, which the TPU kernel keeps in float32: the kernel splits P into
+  two bf16 parts (~16 bits) for two PV products, within the bf16 bound
+  of 2e-2.
+* float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores,
+  because the tensor cores would round the operands to TF32 (~1e-3) and
+  break the float32 bound of 1e-5.
+
+Same function as the TPU kernel: q, k, v ``(b, h, s, d)`` with
 the kv heads broadcast, float32 or bfloat16, computed in float32; causal
 mask, optional sliding window (``ki > qi - window``), or neither; the last
 q row aligned to the last key (``qi = i + sk - sq``); masked logits
@@ -29,8 +41,11 @@ import torch
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _INT_MAX = 2 ** 31 - 1
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counters were last set to 0: all of them,
+#: the bf16 tensor-core route's and the float32 CUDA-core route's
 launches = 0
+launches_tc = 0
+launches_f32 = 0
 
 
 def _scale(d: int, scale) -> float:
@@ -97,9 +112,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """The CUDA kernel: contiguous q, k, v ``(b, h, s, d)`` on one CUDA
-    device, ``d`` in :data:`HEAD_DIMS`.  Raises on a CPU tensor, a failed
-    build or a failed launch."""
-    global launches
+    device, ``d`` in :data:`HEAD_DIMS`.  bfloat16 goes to the tensor-core
+    kernel (``csrc/flash_attention_tc.cu``, 16-byte aligned operands),
+    float32 to the CUDA-core kernel (``csrc/flash_attention.cu``); the
+    dispatch is on dtype alone.  Raises on a CPU tensor, a failed build or
+    a failed launch."""
+    global launches, launches_tc, launches_f32
     b, h, sq, sk, d = check_operands(q, k, v, window)
     device = q.device
     if device.type != "cuda":
@@ -112,20 +130,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"{HEAD_DIMS}, got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: operands must be contiguous")
+    tc = q.dtype == torch.bfloat16
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 operands must start on "
+                         "16-byte boundaries")
     from repro_torch.kernels import _build
-    lib = _build.library("flash_attention")
+    window_arg = 0 if window is None else min(int(window), _INT_MAX)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v)]
     with torch.cuda.device(device):
         out = torch.empty_like(q)
-        err = lib.qappa_flash_attention(
-            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            int(q.dtype == torch.bfloat16), b * h, sq, sk, d, int(causal),
-            0 if window is None else min(int(window), _INT_MAX),
-            ctypes.c_float(_scale(d, scale)),
-            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        if tc:
+            lib = _build.library("flash_attention_tc")
+            err = lib.qappa_flash_attention_tc(
+                *ptrs, ctypes.c_void_p(out.data_ptr()), b * h, sq, sk, d,
+                int(causal), window_arg, ctypes.c_float(_scale(d, scale)),
+                stream)
+        else:
+            lib = _build.library("flash_attention")
+            err = lib.qappa_flash_attention(
+                *ptrs, ctypes.c_void_p(out.data_ptr()), b * h, sq, sk, d,
+                int(causal), window_arg, ctypes.c_float(_scale(d, scale)),
+                stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} "
             f"({lib.qappa_error_string(err).decode()})")
     launches += 1
+    if tc:
+        launches_tc += 1
+    else:
+        launches_f32 += 1
     return out

@@ -8,6 +8,19 @@ laid out.  It computes ``out = (float(x_q @ w_q) * x_scale) * w_scale``
 with an exact int32 sum, the epilogue's products rounded once each in
 that order.
 
+The one C entry runs one of two regimes, which :func:`plan` picks from
+the shape (one launch per call either way):
+
+* ``"dp4a"`` for ``m < TC_MIN_M`` (decode): ``__dp4a`` on the CUDA cores,
+  the grid split over k so that the card gets at least
+  :data:`SPLIT_TARGET_BLOCKS` blocks; the splits add their int32 sums
+  into an ``(m, n)`` buffer and the last block of each output tile, told
+  by a per-tile counter, runs the epilogue on them.  Sums and counters
+  live in a persistent zeroed workspace, one per stream
+  (:func:`workspace`), that the kernel leaves zeroed;
+* ``"tc"`` for ``m >= TC_MIN_M`` (prefill): the int8 tensor cores
+  (``wgmma``), 128 x 128 output tiles.
+
 The plain version :func:`w8a8_matmul_ref` takes the same route on any
 device: PyTorch has no integer matmul on CUDA, so the product runs in
 float64, which is exact for these sums (below 2^53), and is then cast to
@@ -20,14 +33,80 @@ version.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 # the int32 sum of k products of at most 128 * 128 stays below 2^31
 MAX_K = 2 ** 17 - 1
 
-#: kernel launches since the counter was last set to 0
+#: m from which the tensor-core regime runs; below it the split-k dp4a
+#: regime.  Measured on a phi4 layer on an H100 (chip_smoke.py phase
+#: qmatmul_regimes): dp4a faster at m = 16, the tensor cores from m = 24
+TC_MIN_M = 17
+#: blocks the dp4a regime aims for: two per SM of an H100 (132 SMs)
+SPLIT_TARGET_BLOCKS = 264
+#: least k a split walks (4 k to a quad)
+SPLIT_MIN_QUADS = 16
+TC_TILE = 128             # output rows and columns of a tensor-core block
+DP4A_COLS = 128           # output columns of a dp4a block
+
+#: kernel launches since the counters were last set to 0: all of them,
+#: and each regime's
 launches = 0
+launches_dp4a = 0
+launches_tc = 0
+
+_WORKSPACE: dict = {}     # (device, stream) -> zeroed int32 workspace
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``regime`` "dp4a" or "tc"; ``splits`` of k
+    (1 for "tc"); ``row_tile`` output rows a block; ``workspace`` int32
+    of the split-k workspace, ``m * n`` sums then one counter an output
+    tile (0 when ``splits == 1``).  The C entry takes the row tile and
+    refuses a workspace smaller than the one its grid needs."""
+    regime: str
+    splits: int
+    row_tile: int
+    workspace: int
+
+
+def plan(m: int, k: int, n: int) -> Plan:
+    """The regime and split count for an ``(m, k) x (k, n)`` product.
+
+    ``m >= TC_MIN_M``: the tensor cores, one block a 128 x 128 tile.
+    Else dp4a with ``row_tile`` 4, 8 or 16 rows x ``DP4A_COLS`` columns a
+    block and k split so the grid has at least
+    ``SPLIT_TARGET_BLOCKS`` blocks where k allows
+    (``SPLIT_MIN_QUADS`` quads of 4 k a split at least); the splits take
+    ``ceil(k / 4 / splits)`` quads each, the last the rest, none empty.
+    """
+    if m >= TC_MIN_M:
+        return Plan("tc", 1, TC_TILE, 0)
+    row_tile = 4 if m <= 4 else 8 if m <= 8 else 16
+    tiles = -(-m // row_tile) * -(-n // DP4A_COLS)
+    nq = -(-k // 4)                       # k in quads of 4
+    want = -(-SPLIT_TARGET_BLOCKS // tiles)
+    per = max(SPLIT_MIN_QUADS, nq // want)
+    splits = -(-nq // per)                # then ceil(nq / splits) each
+    return Plan("dp4a", splits, row_tile, m * n + tiles if splits > 1 else 0)
+
+
+def workspace(device: torch.device, size: int) -> torch.Tensor:
+    """The persistent split-k workspace of ``device``'s current stream, at
+    least ``size`` int32, all zero between calls (the kernel zeroes what
+    it used).  Zeroed once per stream, and again only when it grows, on
+    that stream.  Each stream has its own, so products on two streams at
+    once never add into one another's sums."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream
+           if device.type == "cuda" else None)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 2 ** 16), dtype=torch.int32,
+                          device=device)
+        _WORKSPACE[key] = buf
+    return buf
 
 
 def w8a8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -81,11 +160,12 @@ def check_operands(name: str, x_q: torch.Tensor, w: torch.Tensor,
 
 def launch_qmatmul(lib_name: str, fn_name: str, x_q: torch.Tensor,
                    w: torch.Tensor, x_scale: torch.Tensor,
-                   w_scale: torch.Tensor, m: int, k: int,
-                   n: int) -> torch.Tensor:
+                   w_scale: torch.Tensor, m: int, k: int, n: int,
+                   extra: tuple = ()) -> torch.Tensor:
     """Launch one of the quantized matmul kernels on the current stream;
-    the scales stay on the device (no host sync).  Raises on a CPU
-    tensor, a failed build or a failed launch."""
+    the scales stay on the device (no host sync).  ``extra``: C arguments
+    after ``n`` (a tensor passes its address, None a null pointer).
+    Raises on a CPU tensor, a failed build or a failed launch."""
     device = x_q.device
     if device.type != "cuda":
         raise ValueError(
@@ -93,13 +173,15 @@ def launch_qmatmul(lib_name: str, fn_name: str, x_q: torch.Tensor,
             f"plain version runs on the CPU (ops impl='auto' or 'ref')")
     from repro_torch.kernels import _build
     lib = _build.library(lib_name)
+    extra = [ctypes.c_void_p(None if a is None else a.data_ptr())
+             if a is None or torch.is_tensor(a) else a for a in extra]
     with torch.cuda.device(device):
         out = torch.empty((m, n), dtype=torch.float32, device=device)
         err = getattr(lib, fn_name)(
             ctypes.c_void_p(x_q.data_ptr()), ctypes.c_void_p(w.data_ptr()),
             ctypes.c_void_p(x_scale.data_ptr()),
             ctypes.c_void_p(w_scale.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), m, k, n,
+            ctypes.c_void_p(out.data_ptr()), m, k, n, *extra,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if err != 0:
         raise RuntimeError(
@@ -112,11 +194,21 @@ def w8a8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor, *,
                 out_dtype=torch.float32) -> torch.Tensor:
     """The CUDA kernel: x_q (m, k) int8, w_q (k, n) int8, x_scale one
-    float32, w_scale n float32 (any shape), all on one CUDA device."""
-    global launches
+    float32, w_scale n float32 (any shape), all on one CUDA device; the
+    regime and split-k workspace as :func:`plan` says."""
+    global launches, launches_dp4a, launches_tc
     m, k, n = check_operands("w8a8_matmul", x_q, w_q, x_scale, w_scale,
                              packed=False)
-    out = launch_qmatmul("w8a8_matmul", "qappa_w8a8_matmul", x_q, w_q,
-                         x_scale, w_scale, m, k, n)
+    p = plan(m, k, n)
+    buf = (workspace(x_q.device, p.workspace)
+           if p.splits > 1 and x_q.is_cuda else None)
+    out = launch_qmatmul(
+        "w8a8_matmul", "qappa_w8a8_matmul", x_q, w_q, x_scale, w_scale,
+        m, k, n, (buf, 0 if buf is None else buf.numel(),
+                  int(p.regime == "tc"), p.row_tile, p.splits))
     launches += 1
+    if p.regime == "tc":
+        launches_tc += 1
+    else:
+        launches_dp4a += 1
     return out if out_dtype == torch.float32 else out.to(out_dtype)

@@ -252,6 +252,119 @@ def test_serve_reduced_on_the_card(cuda_device):
     assert 0 <= int(toks.min()) and int(toks.max()) < 256
 
 
+# ------------------------------------------- W8A8 regimes (redesign)
+
+def _int_mm(x, w):
+    """``torch._int_mm`` on the W8A8 operands: m padded to 32 and k, n to
+    multiples of 8 with zeros, the weight column-major."""
+    import torch.nn.functional as F
+    m, k = x.shape
+    n = w.shape[1]
+    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    xp = F.pad(x, (0, kp - k, 0, mp - m))
+    wp = F.pad(w, (0, np_ - n, 0, kp - k)).t().contiguous().t()
+    return torch._int_mm(xp, wp)[:m, :n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_w8a8_tensor_core_regime_equals_plain_on_ragged_shapes(cuda_device,
+                                                               seed):
+    rng = np.random.default_rng(500 + seed)
+    m = int(rng.integers(W8.TC_MIN_M, 701))
+    k = 2 * int(rng.integers(1, 1500))
+    n = 2 * int(rng.integers(1, 1500)) + 1
+    assert W8.plan(m, k, n).regime == "tc"
+    ops = _qmm_operands(m, k, n, 1, seed, cuda_device)
+    before = (W8.launches_tc, W8.launches_dp4a)
+    got = OPS.w8a8_matmul(*ops, impl="kernel")
+    assert (W8.launches_tc, W8.launches_dp4a) == (before[0] + 1, before[1])
+    want = OPS.w8a8_matmul(*ops, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (m, k, n)
+
+
+@pytest.mark.cuda
+def test_w8a8_tensor_core_regime_at_the_prefill_shapes(cuda_device):
+    for k, n in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)):
+        x, w, xs, ws = _qmm_operands(4096, k, n, 1, k + n, cuda_device)
+        got = OPS.w8a8_matmul(x, w, xs, ws, impl="kernel")
+        assert torch.equal(got, OPS.w8a8_matmul(x, w, xs, ws, impl="ref"))
+        lib = _int_mm(x, w).to(torch.float32) * xs * ws.reshape(-1)
+        assert torch.equal(got, lib), (k, n)
+
+
+@pytest.mark.cuda
+def test_w8a8_split_k_across_split_counts(cuda_device):
+    """m 1-16 at shapes whose plans split k 1 to 30-odd ways: equal to the
+    plain version, and again on a second call (the workspace the splits
+    meet in is left zeroed)."""
+    shapes = [(1, 96, 40), (3, 130, 257), (4, 3072, 1024), (4, 3072, 8192),
+              (7, 8192, 3072), (8, 1000, 999), (13, 4096, 300),
+              (16, 3072, 3072), (16, 64, 33000)]
+    splits = set()
+    for i, (m, k, n) in enumerate(shapes):
+        p = W8.plan(m, k, n)
+        assert p.regime == "dp4a"
+        splits.add(p.splits)
+        ops = _qmm_operands(m, k, n, 1, 900 + i, cuda_device)
+        want = OPS.w8a8_matmul(*ops, impl="ref")
+        before = W8.launches_dp4a
+        for _ in range(2):
+            got = OPS.w8a8_matmul(*ops, impl="kernel")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, k, n, p.splits)
+        assert W8.launches_dp4a == before + 2
+    assert len(splits) >= 5 and 1 in splits and max(splits) > 16
+    assert not W8.workspace(cuda_device, 1).any()
+
+
+@pytest.mark.cuda
+def test_w8a8_split_k_on_two_streams_at_once(cuda_device):
+    """Split-k products queued on two streams together each meet in their
+    own stream's workspace: both equal the plain version, call after
+    call, and both workspaces are left zeroed."""
+    m, k, n = 4, 8192, 3072
+    assert W8.plan(m, k, n).splits > 1
+    ops = [_qmm_operands(m, k, n, 1, 950 + i, cuda_device) for i in range(2)]
+    wants = [OPS.w8a8_matmul(*o, impl="ref") for o in ops]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                gots[i].append(OPS.w8a8_matmul(*ops[i], impl="kernel"))
+    torch.cuda.synchronize()
+    bufs = []
+    for i, st in enumerate(streams):
+        assert all(torch.equal(g, wants[i]) for g in gots[i]), i
+        with torch.cuda.stream(st):
+            bufs.append(W8.workspace(cuda_device, 1))
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert not bufs[0].any() and not bufs[1].any()
+
+
+@pytest.mark.cuda
+def test_w8a8_entry_refuses_a_plan_it_cannot_hold(cuda_device):
+    """The C entry checks what the planner hands it: a workspace shorter
+    than its grid's sums and counters, or a row tile it has no kernel
+    for, fails the launch instead of writing past the buffer."""
+    m, k, n = 4, 3072, 1024
+    p = W8.plan(m, k, n)
+    assert p.splits > 1
+    x, w, xs, ws = _qmm_operands(m, k, n, 1, 7, cuda_device)
+    short = torch.zeros(p.workspace - 1, dtype=torch.int32,
+                        device=cuda_device)
+    for buf, row_tile in ((short, p.row_tile),
+                          (W8.workspace(cuda_device, p.workspace), 5)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            W8.launch_qmatmul("w8a8_matmul", "qappa_w8a8_matmul", x, w, xs,
+                              ws, m, k, n, (buf, buf.numel(), 0, row_tile,
+                                            p.splits))
+    assert not short.any()
+
+
 # ------------------------------------------------------------ attention
 
 def _decode_operands(b, kvh, rep, hd, S, seed, device):
@@ -362,6 +475,34 @@ def test_flash_kernel_matches_plain_on_random_shapes(cuda_device, seed):
         assert got.dtype == dtype and got.shape == q.shape
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol, (b, h, sq, sk, d, causal, window, dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_bf16_tensor_core_route_on_random_shapes(cuda_device, d):
+    """Every head dim on the bf16 route: windows, sq < sk and ragged
+    tails, at the bf16 bound; each launch counted on that route."""
+    from repro_torch.kernels import flash_attention as F
+    assert d in F.HEAD_DIMS
+    rng = np.random.default_rng(700 + d)
+    for _ in range(3):
+        b, h = int(rng.integers(1, 3)), int(rng.integers(1, 4))
+        sk = int(rng.integers(1, 700))
+        sq = int(rng.integers(1, sk + 1))
+        causal = bool(rng.integers(0, 2)) or sq < sk
+        window = None if rng.integers(0, 2) else int(rng.integers(1, 300))
+        q, k, v = _qkv(b, h, sq, sk, d, torch.bfloat16, int(sk), cuda_device)
+        before = (F.launches, F.launches_tc, F.launches_f32)
+        got = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="kernel")
+        assert (F.launches, F.launches_tc, F.launches_f32) == (
+            before[0] + 1, before[1] + 1, before[2])
+        want = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2e-2, (b, h, sq, sk, d, causal, window, err)
 
 
 @pytest.mark.cuda

@@ -127,12 +127,15 @@ def test_library_names_follow_source_and_flags():
 def test_matmul_libraries_hash_their_shared_header(name, monkeypatch,
                                                    tmp_path):
     """Each matmul source has a bound C entry point, and its library name
-    changes when the shared header changes (no stale build loads)."""
+    changes when the shared header changes (no stale build loads).  The
+    W8A8 entry also takes its split-k workspace and its length, the
+    regime, the row tile and the split count."""
     import shutil
     from repro_torch.kernels import _build
     fn = f"qappa_{name}"
     assert fn in _build.SIGNATURES[name]
-    assert len(_build.SIGNATURES[name][fn][1]) == 9
+    n_args = {"w8a8_matmul": 14, "w4a8_matmul": 9}[name]
+    assert len(_build.SIGNATURES[name][fn][1]) == n_args
     before = _build.library_path(name)
     assert before.name.startswith(f"{name}-")
     src = tmp_path / "csrc"
@@ -146,7 +149,8 @@ def test_matmul_libraries_hash_their_shared_header(name, monkeypatch,
 
 @pytest.mark.parametrize("name,fn,n_args", [
     ("w8a8_decode", "qappa_w8a8_decode", 17),
-    ("flash_attention", "qappa_flash_attention", 13)])
+    ("flash_attention", "qappa_flash_attention", 12),
+    ("flash_attention_tc", "qappa_flash_attention_tc", 12)])
 def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
                                                   monkeypatch, tmp_path):
     """Each attention source has a bound C entry point, and its library
