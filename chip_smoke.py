@@ -10,8 +10,9 @@ Phases (any failure exits non-zero):
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) and count the tensor-core
    instructions in each library's SASS (``cuobjdump``): bf16 ``wgmma``
-   (HGMMA) must be in flash's, int8 ``wgmma`` (IGMMA) or ``mma.sync``
-   (IMMA) in W8A8's;
+   (HGMMA) must be in the bf16 flash library's, TF32 ``wgmma`` (HGMMA) or
+   ``mma.sync`` (HMMA) in the float32 flash library's, int8 ``wgmma``
+   (IGMMA) or ``mma.sync`` (IMMA) in W8A8's;
 2. the sweep path, through ``repro_torch.core.dse.run``: the paper's
    720-point VGG-16 sweep (per-layer outputs, then aggregates through the
    sweep kernel) and a 1,029,600-config streamed sweep with a running
@@ -52,8 +53,9 @@ Phases (any failure exits non-zero):
    full width in W8A8 with an int8 KV cache (4 slots, max_seq 4096), 8
    requests with prompts of 8-32 and 8-16 new tokens from
    ``numpy.random.default_rng(1)``: every request completes at
-   ``submit_iter + P + G - 1``, the decode-attention kernel launches 32
-   times per iteration that ran a step, flash attention never; ms per
+   ``submit_iter + P + G - 1``, decode attention is called 32 times per
+   iteration that ran a step (three kernel launches a call, as its C
+   entry reports them), flash attention never; ms per
    iteration, tok/s, cache bytes, peak memory, one profiled iteration's
    device-busy share;
 10. ``serve_batcher_parity_int8kv``: the kernel and plain routes
@@ -73,12 +75,18 @@ Phases (any failure exits non-zero):
     depth cut to 2 layers, 1 x 4096): every flash launch on the float32
     route, within 1e-5 of the plain attention on each layer;
 12. ``attention_parity``: both attention kernels against their plain
-    versions (decode: <= 1e-5 x max|out|; flash: 1e-5 f32, 2e-2 bf16),
-    with ``scaled_dot_product_attention`` as a reported third witness;
+    versions (decode: bit for bit, at positions on the boundaries of its
+    splits of S, within the 1e-5 x max|out| bound; flash: 1e-5 f32,
+    2e-2 bf16), with ``scaled_dot_product_attention`` as a reported third
+    witness;
 13. ``attention_timing``: decode attention at S = 4096 and 32768 (every
-    key live, inputs rotated past L2) and both flash routes at
-    (1, 24, 4096, 128) causal, bf16 and float32, beside their plain
-    versions, SDPA and their bounds.
+    key live, inputs rotated past L2; the grid and the launches per call
+    its C entry reports, the grid held to the planner's and to at least
+    one block an SM) and both flash routes at (1, 24, 4096, 128) causal, bf16 and
+    float32, beside their plain versions, SDPA (for float32 also SDPA's
+    kernel name and its error against the plain version) and their
+    bounds (float32: 3xTF32 on the tensor cores, and the CUDA-core
+    rate).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -107,6 +115,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
+TF32_PRODUCTS = 3           # the float32 flash route's 3xTF32 split
 # float32 operations of the sweep kernel, counted from csrc/sweep_kernel.cu:
 # per (config, layer) of the layer loop, and per config outside it
 F32_OPS_PER_CELL = 51
@@ -133,6 +143,9 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 # decode attention at phi4-mini's serving shape: (b, kvh, rep, hd)
 DECODE_SHAPE = (4, 8, 3, 128)
 DECODE_S = (4096, 32768)
+# the split decode kernel's design: logits, exp and PV launches a call
+DECODE_LAUNCHES_PER_CALL = 3
+H100_SMS = 132
 FLASH_SHAPE = (1, 24, 4096, 128)      # (b, h, s, d), causal, bf16
 # the prefill shape of the W8A8 tensor-core regime: m = 1 x 4096 tokens
 PREFILL_M = 4096
@@ -141,9 +154,11 @@ REGIME_M = (16, 24, 32, 40, 48, 64)
 # the FP32 PE mode's forward: phi4-mini at full width, depth cut to this
 FP32_LAYERS = 2
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
-# (HGMMA) for flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
+# (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
+# float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
 SASS_OPS = ("HGMMA", "IGMMA", "IMMA", "HMMA")
 TENSOR_CORE_SASS = {"flash_attention_tc": ("HGMMA",),
+                    "flash_attention": ("HGMMA", "HMMA"),
                     "w8a8_matmul": ("IGMMA", "IMMA")}
 # W8A8 only: the tensor-core regime at the prefill shapes (m = 4096 and the
 # 4 x 16 prefill's m = 64) and ragged above its threshold
@@ -760,16 +775,26 @@ def phase_qmatmul_parity(device) -> dict:
     return {"phase": "qmatmul_parity", "rows": rows, "worst": worst}
 
 
-def _device_ms(fn, iters: int) -> tuple[float, float]:
+def _device_ms(fn, iters: int, windows: int = 1,
+               seen: dict | None = None) -> tuple[float, float]:
     """Per call of ``fn(i)``: device time from the profiler (None where
     it gives none) and CUDA-event time over back-to-back calls, which
     includes any host launch time the device waits on.  A profiler
     window that kept no record of the calls is taken again, twice at
-    most."""
-    for _ in range(3):
-        ms = _profile_device_ms(fn, iters)[0]
-        if ms is not None:
-            break
+    most.  With ``windows`` > 1, the largest of that many windows: a call
+    of several kernels reads short in a window that dropped every record
+    of one of them.  ``seen``, where given, receives the chosen window's
+    top kernels (``top``) and device operations per call (``ops``)."""
+    ms = None
+    for _ in range(3 * windows):
+        got, top, ops, _ = _profile_device_ms(fn, iters)
+        if got is not None:
+            if seen is not None and (ms is None or got > ms):
+                seen.update(top=top, ops=ops)
+            ms = got if ms is None else max(ms, got)
+            windows -= 1
+            if windows == 0:
+                break
     cnt = [0]
 
     def call():
@@ -953,11 +978,13 @@ def _reset_attention_counts() -> None:
     from repro_torch.kernels import flash_attention, w8a8_decode
     flash_attention.launches = w8a8_decode.launches = 0
     flash_attention.launches_tc = flash_attention.launches_f32 = 0
+    w8a8_decode.kernel_launches = 0
 
 
 def _attention_counts() -> dict:
     from repro_torch.kernels import flash_attention, w8a8_decode
     return {"w8a8_decode_attention": w8a8_decode.launches,
+            "w8a8_decode_attention_kernels": w8a8_decode.kernel_launches,
             "flash_attention": flash_attention.launches,
             "flash_attention_tc": flash_attention.launches_tc,
             "flash_attention_f32": flash_attention.launches_f32}
@@ -1014,6 +1041,11 @@ def phase_batcher(device, model, params) -> dict:
     check(launches["w8a8_decode_attention"] == want,
           f"decode attention launched {launches['w8a8_decode_attention']} "
           f"times, expected {want}")
+    check(launches["w8a8_decode_attention_kernels"]
+          == DECODE_LAUNCHES_PER_CALL * want,
+          f"decode attention's calls launched "
+          f"{launches['w8a8_decode_attention_kernels']} kernels, expected "
+          f"{DECODE_LAUNCHES_PER_CALL} a call")
     check(launches["flash_attention"] == 0, "flash attention launched in "
                                             "the batcher")
     generated = sum(r.max_new for r in done)
@@ -1338,15 +1370,18 @@ def phase_attention_parity(device) -> dict:
     rows = []
     worst = {"decode": [0.0, 0.0], "flash": [0.0, 0.0],
              "flash_bfloat16": [0.0, 0.0], "flash_float32": [0.0, 0.0]}
+    from repro_torch.kernels.w8a8_decode import plan as decode_plan
     b, kvh, rep, hd = DECODE_SHAPE
     S = DECODE_S[0]
-    pos = torch.tensor([0, 1000, 2047, S - 1], dtype=torch.int32,
-                       device=device)
     for i, (shape, bs) in enumerate((((b, kvh, rep, hd), S),
                                      ((b, kvh, rep, hd), 512),
                                      ((b, kvh, 1, hd), S),
                                      ((b, kvh, 8, hd), 512),
                                      ((b, kvh, rep, 64), S))):
+        split = decode_plan(*shape, S, bs)
+        # inside the first split, on either side of a split boundary, last
+        pos = torch.tensor([7, split.split_keys - 1, split.split_keys,
+                            S - 1], dtype=torch.int32, device=device)
         args = _decode_operands(*shape, S, 10 + i, device)
         got = ops.w8a8_decode_attention(*args, pos, bs=bs, impl="kernel")
         want = ops.w8a8_decode_attention(*args, pos, bs=bs, impl="ref")
@@ -1357,10 +1392,14 @@ def phase_attention_parity(device) -> dict:
         check(rel <= DECODE_TOL,
               f"decode kernel vs plain {rel:.3g} x max|out| at {shape}, "
               f"bs {bs}")
+        check(bool(torch.equal(got, want)),
+              f"decode kernel not bit-identical to plain at {shape}, bs {bs}")
         worst["decode"] = [max(worst["decode"][0], err),
                            max(worst["decode"][1], rel)]
         rows.append({"kernel": "decode", "shape": list(shape), "S": S,
-                     "bs": bs, "max_abs": err, "rel_to_max": rel})
+                     "bs": bs, "splits": split.splits,
+                     "positions": pos.tolist(), "max_abs": err,
+                     "rel_to_max": rel})
 
     cases = [  # (b, h, sq, sk, d, causal, window)
         (1, 4, 512, 512, 128, True, None),
@@ -1408,7 +1447,12 @@ def phase_attention_parity(device) -> dict:
 
 
 def phase_attention_timing(device) -> dict:
-    """Device time per call, in turns (plain, kernel, kernel, plain)."""
+    """Device time per call, in turns (plain, kernel, kernel, plain).
+    Decode attention's grid and launches per call are what its C entry
+    reports it launched in these calls (the profiler's device operations
+    per call stand beside); SDPA's kernel is the top kernel of the
+    profiler window that times it (None where that window kept no
+    record)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -1422,14 +1466,29 @@ def phase_attention_timing(device) -> dict:
                 for c in range(copies)]
         pos = torch.full((b,), S - 1, dtype=torch.int32, device=device)
         coded = [D.quantize_q(s[0]) + s[1:] for s in sets]
-        row = {"copies": copies}
+        split = D.plan(b, kvh, rep, hd, S, S)
+        row = {"copies": copies, "planned_splits": split.splits,
+               "split_keys": split.split_keys}
+        calls, kernels, D.last_grid = D.launches, D.kernel_launches, None
+        seen = {}
         for name, fn, iters in (
                 ("plain", D.w8a8_decode_attention_body_ref, 3),
                 ("kernel", D.w8a8_decode_attention_body, 50),
                 ("kernel_again", D.w8a8_decode_attention_body, 50),
                 ("plain_again", D.w8a8_decode_attention_body_ref, 3)):
             row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
-                lambda i, fn=fn: fn(*coded[i % copies], pos, bs=S), iters)
+                lambda i, fn=fn: fn(*coded[i % copies], pos, bs=S), iters,
+                windows=3, seen=seen if name == "kernel" else None)
+        calls, kernels = D.launches - calls, D.kernel_launches - kernels
+        row.update(grid=list(D.last_grid), splits=D.last_grid[1],
+                   blocks=D.last_grid[0] * D.last_grid[1],
+                   launches_per_call=kernels / calls,
+                   profiler_ops_per_call=seen.get("ops"))
+        check(tuple(D.last_grid) == (b * kvh, split.splits),
+              f"decode grid {D.last_grid}, planned ({b * kvh}, "
+              f"{split.splits})")
+        check(row["blocks"] >= H100_SMS,
+              f"decode grid of {row['blocks']} blocks at S {S}")
         bytes_moved = (b * kvh * rep * (hd + 4) + kv_bytes + 4 * b
                        + 4 * b * kvh * rep * hd)
         ops_ = 4 * b * kvh * rep * S * hd
@@ -1448,6 +1507,7 @@ def phase_attention_timing(device) -> dict:
         q, k, v = (torch.randn((bb, h, s, d), generator=g, device=device)
                    .to(dtype) for _ in range(3))
         row = {"dtype": str(dtype)}
+        seen = {}
         for name, fn, iters in (
                 ("plain", lambda i: FA.flash_attention_ref(q, k, v), 3),
                 ("kernel", lambda i: FA.flash_attention(q, k, v), 10),
@@ -1456,8 +1516,18 @@ def phase_attention_timing(device) -> dict:
                  3),
                 ("library", lambda i: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), 20)):
-            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
-                                                                    iters)
+            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
+                fn, iters, seen=seen if name == "library" else None)
+        row["library_kernel"] = seen["top"][0][0] if seen.get("top") \
+            else None
+        # the kernel and SDPA against the plain version at this shape
+        want = FA.flash_attention_ref(q, k, v).float()
+        row["kernel_max_abs_vs_plain"] = float(
+            (FA.flash_attention(q, k, v).float() - want).abs().max())
+        row["library_max_abs_vs_plain"] = float(
+            (F.scaled_dot_product_attention(q, k, v, is_causal=True).float()
+             - want).abs().max())
+        del want
         if dtype == torch.bfloat16:
             # the kernel's records kept by the profiler, and its time
             # sustained over ~1 s with the SM clock and power sampled
@@ -1469,10 +1539,16 @@ def phase_attention_timing(device) -> dict:
                     lambda: FA.flash_attention(q, k, v), 200)
             row["kernel_sustained_clocks"] = clocks.summary()
         elem = q.element_size()
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         bytes_moved = 4 * bb * h * s * d * elem
         bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        ops_ms = flops / peak * 1e3
+        if dtype == torch.bfloat16:
+            peak, ops_ms = PEAK_BF16_FLOPS, flops / PEAK_BF16_FLOPS * 1e3
+        else:
+            # 3xTF32 on the tensor cores; the CUDA cores' float32 rate
+            # stated beside it
+            peak = PEAK_TF32_FLOPS
+            ops_ms = TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
+            row["ops_cuda_core_ms"] = flops / PEAK_F32_FLOPS * 1e3
         row.update(flops=flops, bytes=bytes_moved, bytes_ms=bytes_ms,
                    ops_ms=ops_ms, peak_flops=peak,
                    bound_ms=max(bytes_ms, ops_ms),
@@ -1494,7 +1570,8 @@ def phase_attention_timing(device) -> dict:
     for r in (out["flash"], out["flash_f32"]):
         r["best_library_ms"] = r["library" + ("_ms" if r["timer"] == "profiler"
                                               else "_event_ms")]
-    out["flash"]["tflops"] = flops / (out["flash"]["best_kernel_ms"]
+    for key in ("flash", "flash_f32"):
+        out[key]["tflops"] = flops / (out[key]["best_kernel_ms"]
                                       * 1e-3) / 1e12
     return {"phase": "attention_timing", **out}
 
@@ -1630,9 +1707,17 @@ def main() -> int:
         "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"],
         "library_ms": None,
+        "event_ms": min(dec["kernel_event_ms"], dec["kernel_again_event_ms"]),
+        "splits": dec["splits"],
+        "kernel_launches": batcher["launches"]["w8a8_decode_attention_kernels"],
+        "launches_per_call": dec["launches_per_call"],
         "per": f"one layer's decode attention at b {b}, kvh {kvh}, rep "
                f"{rep}, hd {hd}, S {DECODE_S[0]}, bs = S, every key live, "
-               f"inputs cold in L2 ({dec['timer']} time)",
+               f"inputs cold in L2 ({dec['timer']} time; event_ms: CUDA "
+               f"events over back-to-back calls), grid {dec['grid']}, "
+               f"{dec['launches_per_call']:g} launches a call; launches: "
+               "calls in the batcher run, kernel_launches: the kernels "
+               "they launched",
     })
     fl = atiming["flash"]
     kernels.append({
@@ -1666,10 +1751,15 @@ def main() -> int:
         "bound_ms": fl["bound_ms"],
         "bound_by": fl["bound_by"],
         "library_ms": fl["best_library_ms"],
+        "bound_cuda_core_ms": fl["ops_cuda_core_ms"],
+        "library_kernel": fl["library_kernel"],
+        "library_max_abs_vs_plain": fl["library_max_abs_vs_plain"],
         "per": "one layer's causal attention at (b 1, h 24, s 4096, d 128) "
-               f"float32 ({fl['timer']} time), the CUDA-core route, bound "
-               "at the 67 TFLOP/s float32 rate; launches per 1 x 4096 "
-               f"FP32 forward of {FP32_LAYERS} layers",
+               f"float32 ({fl['timer']} time), 3xTF32 on the tensor cores, "
+               "bound at 3 x its FLOP at the 494.7 TFLOP/s TF32 rate "
+               "(bound_cuda_core_ms: at the 67 TFLOP/s float32 rate); "
+               f"launches per 1 x 4096 FP32 forward of {FP32_LAYERS} "
+               "layers",
     })
     emit({"kernels": kernels})
     print(smi, flush=True)

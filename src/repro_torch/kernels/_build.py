@@ -46,7 +46,9 @@ SIGNATURES = {
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
     "w8a8_decode": {
-        "qappa_w8a8_decode": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+        "qappa_w8a8_decode": (_I, [_P] * 9 + [ctypes.c_longlong, _P,
+                                               ctypes.c_longlong]
+                              + [_I] * 8 + [_P, _P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {

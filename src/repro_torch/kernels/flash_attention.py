@@ -12,9 +12,12 @@ laid out:
   bf16, which the TPU kernel keeps in float32: the kernel splits P into
   two bf16 parts (~16 bits) for two PV products, within the bf16 bound
   of 2e-2.
-* float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores,
-  because the tensor cores would round the operands to TF32 (~1e-3) and
-  break the float32 bound of 1e-5.
+* float32: ``csrc/flash_attention.cu``, both products on the TF32 tensor
+  cores (``wgmma``) in three products on split operands (3xTF32): each
+  operand is a TF32 hi part plus a TF32 lo part (the float32 rest), and
+  ``a . b = a_lo . b_hi + a_hi . b_lo + a_hi . b_hi`` in float32, ~2^-21
+  relative a product where one TF32 product alone (~1e-3) would break the
+  float32 bound of 1e-5.  The softmax stays float32 on the CUDA cores.
 
 Same function as the TPU kernel: q, k, v ``(b, h, s, d)`` with
 the kv heads broadcast, float32 or bfloat16, computed in float32; causal
@@ -42,7 +45,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _INT_MAX = 2 ** 31 - 1
 
 #: kernel launches since the counters were last set to 0: all of them,
-#: the bf16 tensor-core route's and the float32 CUDA-core route's
+#: the bf16 route's and the float32 (3xTF32) route's
 launches = 0
 launches_tc = 0
 launches_f32 = 0
@@ -112,11 +115,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """The CUDA kernel: contiguous q, k, v ``(b, h, s, d)`` on one CUDA
-    device, ``d`` in :data:`HEAD_DIMS`.  bfloat16 goes to the tensor-core
-    kernel (``csrc/flash_attention_tc.cu``, 16-byte aligned operands),
-    float32 to the CUDA-core kernel (``csrc/flash_attention.cu``); the
-    dispatch is on dtype alone.  Raises on a CPU tensor, a failed build or
-    a failed launch."""
+    device with 16-byte aligned bases, ``d`` in :data:`HEAD_DIMS`.
+    bfloat16 goes to the bf16 tensor-core kernel
+    (``csrc/flash_attention_tc.cu``), float32 to the 3xTF32 kernel
+    (``csrc/flash_attention.cu``); the dispatch is on dtype alone.  Raises
+    on a CPU tensor, a failed build or a failed launch."""
     global launches, launches_tc, launches_f32
     b, h, sq, sk, d = check_operands(q, k, v, window)
     device = q.device
@@ -131,9 +134,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: operands must be contiguous")
     tc = q.dtype == torch.bfloat16
-    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 operands must start on "
-                         "16-byte boundaries")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: operands must start on 16-byte "
+                         "boundaries")
     from repro_torch.kernels import _build
     window_arg = 0 if window is None else min(int(window), _INT_MAX)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v)]

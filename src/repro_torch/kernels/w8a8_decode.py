@@ -32,6 +32,17 @@ rounded to float32, so its value does not depend on the summation order:
 kernel and plain version then compute the same numbers in the same order
 and agree bit for bit (every integer sum is exact in both).
 
+The kernel splits S across blocks (:func:`plan`) and runs in three
+launches a call on one stream (logits, exp, PV and epilogue); the splits
+meet through a scratch buffer and the persistent zeroed workspace of the
+current stream (``kernels/_workspace.py``, shared with the W8A8 split-k
+regime), which the kernel leaves zeroed.  The
+cross-split steps keep the plain version's float order: the row max and
+the probability scale of a block of ``bs`` keys are maxima (order-free),
+``l`` meets as float64 partials, the int32 PV sums meet by integer atomics
+(exact), and the float32 ``acc`` is summed in block order by the split
+that arrives last.
+
 The plain versions (:func:`w8a8_decode_attention_body_ref`,
 :func:`w8a8_decode_attention_ref`) take the integer products in float64,
 exact for these sums, and run on any device.
@@ -40,9 +51,12 @@ exact for these sums, and run on any device.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels._workspace import workspace
 from repro_torch.quant.quantizers import const_like
 
 NEG_INF = -1e30
@@ -53,8 +67,53 @@ MAX_HEAD_DIM = 256
 #: the int32 PV sum of one block, bs * 127 * 127, stays below 2^31
 MAX_BLOCK = (2 ** 31 - 1) // (127 * 127)
 
-#: kernel launches since the counter was last set to 0
+#: blocks the split aims for: two per SM of an H100 (132 SMs)
+SPLIT_TARGET_BLOCKS = 264
+#: keys a split walks at most, and at least (before alignment)
+SPLIT_MAX_KEYS = 2048
+SPLIT_MIN_KEYS = 64
+#: calls of the kernel since the counters were last set to 0, and the
+#: kernel launches those calls made on the card, as the C entry reports
+#: them (three a call: logits, exp, PV)
 launches = 0
+kernel_launches = 0
+#: the grid of the last call, (b * kvh, splits), as the C entry launched it
+last_grid = None
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``splits`` of S, ``split_keys`` keys each (the
+    last the rest), ``blocks`` of the grid (``b * kvh * splits``), and the
+    buffers' sizes the C entry checks: ``scratch`` float32 (float64 ``l``
+    partials, logits, split maxima and, with more than one ``bs`` block,
+    the blocks' float32 terms) and ``workspace`` int32 (``rep * hd`` PV
+    sums and one arrival counter per (b, kv head))."""
+    splits: int
+    split_keys: int
+    blocks: int
+    scratch: int
+    workspace: int
+
+
+def plan(b: int, kvh: int, rep: int, hd: int, S: int, bs: int) -> Plan:
+    """The split of S for one call.
+
+    Enough splits that the grid has ``SPLIT_TARGET_BLOCKS`` blocks and no
+    split walks more than ``SPLIT_MAX_KEYS`` keys, none shorter than
+    ``SPLIT_MIN_KEYS`` where S allows; the split length a multiple of 4
+    and, where ``bs < S``, of ``bs``, so that a ``bs`` block never
+    straddles two splits (with ``bs = S`` the one block spans them all and
+    its probability scale is a maximum over the splits)."""
+    bg = b * kvh
+    want = max(-(-SPLIT_TARGET_BLOCKS // bg), -(-S // SPLIT_MAX_KEYS))
+    align = 4 if bs >= S else bs * 4 // math.gcd(bs, 4)
+    keys = max(-(-S // want), SPLIT_MIN_KEYS)
+    keys = -(-keys // align) * align
+    splits = -(-S // keys)
+    nb = S // bs
+    scratch = bg * (4 * splits * rep + rep * S
+                    + (nb * rep * hd if nb > 1 else 0))
+    return Plan(splits, keys, bg * splits, scratch, bg * rep * hd + bg)
 
 
 def positions(pos, b: int, device) -> torch.Tensor:
@@ -175,7 +234,7 @@ def w8a8_decode_attention_body(q_q, factor, k_q, v_q, k_scale, v_scale,
     device.  Positions are read on the device: ``0 <= pos`` (keys beyond
     ``pos`` are never read, so a position past ``S - 1`` reads them
     all).  Raises on a CPU tensor, a failed build or a failed launch."""
-    global launches
+    global launches, kernel_launches, last_grid
     b, kvh, rep, hd, S = check_operands(q_q, factor, k_q, v_q, k_scale,
                                         v_scale, pos, bs)
     device = q_q.device
@@ -199,15 +258,21 @@ def w8a8_decode_attention_body(q_q, factor, k_q, v_q, k_scale, v_scale,
                              "contiguous")
     from repro_torch.kernels import _build
     lib = _build.library("w8a8_decode")
+    p = plan(b, kvh, rep, hd, S, bs)
     with torch.cuda.device(device):
-        scratch = torch.empty((b * kvh, rep, S), dtype=torch.float32,
-                              device=device)
+        scratch = torch.empty(p.scratch, dtype=torch.float32, device=device)
+        ws = workspace(device, p.workspace)
         out = torch.empty((b, kvh, rep, hd), dtype=out_dtype, device=device)
+        info = (ctypes.c_int * 3)()
         ptr = [ctypes.c_void_p(t.data_ptr()) for t in (
-            q_q, factor, k_q, v_q, k_scale, v_scale, pos, scratch, out)]
+            q_q, factor, k_q, v_q, k_scale, v_scale, pos, out, scratch)]
         err = lib.qappa_w8a8_decode(
-            *ptr, int(out_dtype == torch.bfloat16), b, kvh, rep, hd, S, bs,
+            *ptr, scratch.numel(), ctypes.c_void_p(ws.data_ptr()), ws.numel(),
+            int(out_dtype == torch.bfloat16), b, kvh, rep, hd, S, bs,
+            p.split_keys, info,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    kernel_launches += info[0]
+    last_grid = (info[1], info[2])
     if err != 0:
         raise RuntimeError(
             f"w8a8_decode_attention kernel launch failed: CUDA error {err} "

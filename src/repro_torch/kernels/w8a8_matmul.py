@@ -16,8 +16,8 @@ the shape (one launch per call either way):
   :data:`SPLIT_TARGET_BLOCKS` blocks; the splits add their int32 sums
   into an ``(m, n)`` buffer and the last block of each output tile, told
   by a per-tile counter, runs the epilogue on them.  Sums and counters
-  live in a persistent zeroed workspace, one per stream
-  (:func:`workspace`), that the kernel leaves zeroed;
+  live in the persistent zeroed workspace of the stream
+  (``kernels/_workspace.py``), which the kernel leaves zeroed;
 * ``"tc"`` for ``m >= TC_MIN_M`` (prefill): the int8 tensor cores
   (``wgmma``), 128 x 128 output tiles.
 
@@ -36,6 +36,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels._workspace import workspace
 
 # the int32 sum of k products of at most 128 * 128 stays below 2^31
 MAX_K = 2 ** 17 - 1
@@ -56,8 +58,6 @@ DP4A_COLS = 128           # output columns of a dp4a block
 launches = 0
 launches_dp4a = 0
 launches_tc = 0
-
-_WORKSPACE: dict = {}     # (device, stream) -> zeroed int32 workspace
 
 
 class Plan(NamedTuple):
@@ -91,22 +91,6 @@ def plan(m: int, k: int, n: int) -> Plan:
     per = max(SPLIT_MIN_QUADS, nq // want)
     splits = -(-nq // per)                # then ceil(nq / splits) each
     return Plan("dp4a", splits, row_tile, m * n + tiles if splits > 1 else 0)
-
-
-def workspace(device: torch.device, size: int) -> torch.Tensor:
-    """The persistent split-k workspace of ``device``'s current stream, at
-    least ``size`` int32, all zero between calls (the kernel zeroes what
-    it used).  Zeroed once per stream, and again only when it grows, on
-    that stream.  Each stream has its own, so products on two streams at
-    once never add into one another's sums."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream
-           if device.type == "cuda" else None)
-    buf = _WORKSPACE.get(key)
-    if buf is None or buf.numel() < size:
-        buf = torch.zeros(max(size, 2 ** 16), dtype=torch.int32,
-                          device=device)
-        _WORKSPACE[key] = buf
-    return buf
 
 
 def w8a8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,

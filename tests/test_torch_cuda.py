@@ -14,8 +14,9 @@ JAX package's numpy kernel the CPU tests pin.  The matmul kernels sum
 exactly in int32, so they must equal their plain versions bit for bit.
 The decode-attention kernel is held to its plain version at 1e-5 x
 max|out| (the reference's kernel-vs-oracle bound; its float operations
-follow the plain version's order, so 0 is expected), flash attention at
-1e-5 (float32) and 2e-2 (bf16).
+follow the plain version's order, also across the splits of S, so 0 is
+expected and the split tests ask for equality), flash attention at 1e-5
+(float32, 3xTF32 on the tensor cores) and 2e-2 (bf16).
 """
 
 import numpy as np
@@ -28,6 +29,7 @@ from repro_torch.core.accelerator import design_space_soa
 from repro_torch.core.pe import PEType, pe_spec
 from repro_torch.core.synthesis import synthesize_soa
 from repro_torch.core.workloads import get_workload
+from repro_torch.kernels import _workspace as WS
 from repro_torch.kernels import ops as OPS
 from repro_torch.kernels import sweep_kernel as K
 from repro_torch.kernels import w4a8_matmul as W4
@@ -446,6 +448,81 @@ def test_decode_kernel_errors_raise(cuda_device, monkeypatch, tmp_path):
                                   impl="kernel")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 3, 4, 64, 64, 64),           # one split
+    (8, 32, 1, 32, 256, 256),        # two splits
+    (4, 8, 3, 128, 4096, 4096),      # phi4 serving: nine splits
+    (4, 8, 3, 128, 4096, 512),       # bs < S: splits of whole blocks
+    (1, 1, 16, 256, 8192, 8192),     # 128 splits
+    (2, 3, 8, 20, 1536, 96),         # hd not a multiple of 16
+])
+def test_decode_split_across_s_equals_plain_bit_for_bit(cuda_device, shape):
+    """Split counts 1, 2 and many, with per-slot positions inside the
+    first split, one before, on and one past a split boundary, and at
+    S - 1: bit for bit equal to the plain version, twice in a row (the
+    workspace the splits meet in is left zeroed), one counted call each."""
+    from repro_torch.kernels import w8a8_decode as D
+    b, kvh, rep, hd, S, bs = shape
+    p = D.plan(b, kvh, rep, hd, S, bs)
+    assert p.blocks >= min(132, b * kvh * -(-S // p.split_keys))
+    keys = p.split_keys
+    q, kq, vq, ks, vs = _decode_operands(b, kvh, rep, hd, S, S + rep,
+                                         cuda_device)
+    q_q, factor = D.quantize_q(q)
+    marks = [0, 3, keys - 1, keys, keys + 1, S // 2, S - 1]
+    for j in range(len(marks)):
+        pos = torch.tensor([min(marks[(j + i) % len(marks)], S - 1)
+                            for i in range(b)], dtype=torch.int32,
+                           device=cuda_device)
+        want = D.w8a8_decode_attention_body_ref(q_q, factor, kq, vq, ks, vs,
+                                                pos, bs=bs)
+        for _ in range(2):
+            before = (D.launches, D.kernel_launches)
+            got = D.w8a8_decode_attention_body(q_q, factor, kq, vq, ks, vs,
+                                               pos, bs=bs)
+            torch.cuda.synchronize()
+            assert (D.launches, D.kernel_launches) == (before[0] + 1,
+                                                       before[1] + 3)
+            assert D.last_grid == (b * kvh, p.splits)
+            assert torch.equal(got, want), (shape, p.splits, pos.tolist())
+    assert not WS.workspace(cuda_device, 1).any()
+
+
+@pytest.mark.cuda
+def test_decode_split_on_two_streams_at_once(cuda_device):
+    """Split decode calls queued on two streams together meet in their
+    own stream's workspace: both equal the plain version, call after call,
+    and both workspaces are left zeroed."""
+    from repro_torch.kernels import w8a8_decode as D
+    b, kvh, rep, hd, S = 4, 8, 3, 128, 2048
+    assert D.plan(b, kvh, rep, hd, S, S).splits > 1
+    sets, wants = [], []
+    for i in range(2):
+        q, kq, vq, ks, vs = _decode_operands(b, kvh, rep, hd, S, 960 + i,
+                                             cuda_device)
+        q_q, factor = D.quantize_q(q)
+        pos = torch.tensor([S - 1, 700, 5, 1500], dtype=torch.int32,
+                           device=cuda_device)
+        sets.append((q_q, factor, kq, vq, ks, vs, pos))
+        wants.append(D.w8a8_decode_attention_body_ref(*sets[i], bs=S))
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                gots[i].append(D.w8a8_decode_attention_body(*sets[i], bs=S))
+    torch.cuda.synchronize()
+    bufs = []
+    for i, st in enumerate(streams):
+        assert all(torch.equal(g, wants[i]) for g in gots[i]), i
+        with torch.cuda.stream(st):
+            bufs.append(WS.workspace(cuda_device, 1))
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert not bufs[0].any() and not bufs[1].any()
+
+
 def _qkv(b, h, sq, sk, d, dtype, seed, device):
     g = torch.Generator("cpu").manual_seed(seed)
     return [torch.randn((b, h, s, d), generator=g).to(dtype).to(device)
@@ -503,6 +580,35 @@ def test_flash_bf16_tensor_core_route_on_random_shapes(cuda_device, d):
         assert got.dtype == torch.bfloat16 and got.shape == q.shape
         err = float((got.float() - want.float()).abs().max())
         assert err <= 2e-2, (b, h, sq, sk, d, causal, window, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_float32_3xtf32_route_on_random_shapes(cuda_device, d):
+    """Every head dim on the float32 route (3xTF32 on the tensor cores):
+    windows, sq < sk and ragged tails, at the float32 bound of 1e-5;
+    each launch counted on that route."""
+    from repro_torch.kernels import flash_attention as F
+    rng = np.random.default_rng(800 + d)
+    for _ in range(3):
+        b, h = int(rng.integers(1, 3)), int(rng.integers(1, 4))
+        sk = int(rng.integers(1, 1300))
+        sq = int(rng.integers(1, sk + 1))
+        causal = bool(rng.integers(0, 2)) or sq < sk
+        window = None if rng.integers(0, 2) else int(rng.integers(1, 400))
+        q, k, v = _qkv(b, h, sq, sk, d, torch.float32, int(sk) + d,
+                       cuda_device)
+        before = (F.launches, F.launches_tc, F.launches_f32)
+        got = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="kernel")
+        assert (F.launches, F.launches_tc, F.launches_f32) == (
+            before[0] + 1, before[1], before[2] + 1)
+        want = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        err = float((got - want).abs().max())
+        assert err <= 1e-5, (b, h, sq, sk, d, causal, window, err)
 
 
 @pytest.mark.cuda

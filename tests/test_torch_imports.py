@@ -148,7 +148,7 @@ def test_matmul_libraries_hash_their_shared_header(name, monkeypatch,
 
 
 @pytest.mark.parametrize("name,fn,n_args", [
-    ("w8a8_decode", "qappa_w8a8_decode", 17),
+    ("w8a8_decode", "qappa_w8a8_decode", 22),
     ("flash_attention", "qappa_flash_attention", 12),
     ("flash_attention_tc", "qappa_flash_attention_tc", 12)])
 def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,

@@ -95,19 +95,20 @@ def test_plan_never_splits_what_fills_the_card():
 
 
 def test_workspace_persists_zeroed_and_grows():
+    from repro_torch.kernels import _workspace as WS
     dev = torch.device("cpu")
     key = (dev, None)              # a CPU buffer has no stream
-    W8._WORKSPACE.pop(key, None)
+    WS._WORKSPACE.pop(key, None)
     try:
         a = W8.workspace(dev, 10)
-        assert W8._WORKSPACE[key] is a
+        assert WS._WORKSPACE[key] is a
         assert a.dtype == torch.int32 and a.numel() >= 10
         assert not a.any()
         assert W8.workspace(dev, a.numel()) is a
         b = W8.workspace(dev, a.numel() + 1)
         assert b.numel() > a.numel() and not b.any()
     finally:
-        W8._WORKSPACE.pop(key, None)
+        WS._WORKSPACE.pop(key, None)
 
 
 def test_the_wrapper_refuses_cpu_tensors_with_its_counters_unmoved():
