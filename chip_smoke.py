@@ -38,13 +38,16 @@ Phases (any failure exits non-zero):
 7. matmul parity at the decode shapes and ragged shapes, and for W8A8 at
    the tensor-core regime's shapes (m = 4096 and 64 at the four
    projection shapes, ragged m 41 and 700), kernel vs plain version
-   (<= 1e-6 relative; W8A8 bit for bit), with ``torch._int_mm`` as a
+   bit for bit (both sum exactly in int32; W4A8 on the grid its planner
+   gives, as its C entry reports the launch), with ``torch._int_mm`` as a
    third witness of the W8A8 integer product;
 8. matmul timing at the four m = 4 projection shapes: device time from
    ``torch.profiler`` and CUDA-event time over back-to-back calls of the
    kernels, their plain versions and ``torch._int_mm``, weights rotated
    through more than the 50 MB L2 cache, beside the byte bound at
-   3.35 TB/s; the kernels line takes the profiler's device time; and
+   3.35 TB/s, W4A8's rows with the grid, splits and blocks of each shape
+   as its C entry reports the launch; the kernels line takes the
+   profiler's device time; and
    W8A8 at m = 4096 (kernel, plain version, ``torch._int_mm``) beside the
    bound of its int8 operations (``qmatmul_prefill_timing``); both W8A8
    regimes on a layer at m = 16-64 (``qmatmul_regimes``, where the
@@ -96,6 +99,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -730,10 +734,11 @@ def _int_mm_witness(x, w, xs, ws):
 
 
 def phase_qmatmul_parity(device) -> dict:
-    """Kernel vs plain version at the decode, ragged and (W8A8) prefill
-    shapes; the worst errors by W8A8 regime."""
+    """Kernel vs plain version, bit for bit, at the decode, ragged and
+    (W8A8) prefill shapes; the worst errors by W8A8 regime."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import w4a8_matmul as W4
     from repro_torch.kernels.w8a8_matmul import plan
     both = (("w8a8", ops.w8a8_matmul), ("w4a8", ops.w4a8_matmul))
     shapes = [((SERVE["batch"], k, n), both) for k, n in LAYER_PROJ] \
@@ -762,11 +767,15 @@ def phase_qmatmul_parity(device) -> dict:
                 row["int_mm_max_abs"] = float((got - lib).abs().max())
                 check(row["int_mm_max_abs"] == 0.0,
                       f"w8a8 kernel vs torch._int_mm at {(m, k, n)}")
-                check(bool(torch.equal(got, want)),
-                      f"w8a8 kernel not bit-identical to plain at "
-                      f"{(m, k, n)}")
-            check(rel <= RTOL, f"{mode} kernel vs plain {rel:.3g} at "
-                               f"{(m, k, n)}")
+            else:       # the grid the C entry launched
+                p = W4.plan(m, k, n)
+                row["grid"] = list(W4.last_grid)
+                check(W4.last_grid[2] == p.splits,
+                      f"w4a8 at {(m, k, n)} launched {W4.last_grid}, "
+                      f"planned {p}")
+            check(bool(torch.equal(got, want)),
+                  f"{mode} kernel not bit-identical to plain at {(m, k, n)}"
+                  f" (max rel {rel:.3g})")
             for key in keys:
                 worst[key] = [max(worst[key][0], err),
                               max(worst[key][1], rel)]
@@ -837,6 +846,15 @@ def phase_qmatmul_timing(device) -> dict:
                 wcol = [w.t().contiguous().t() for w in wl]
                 lib = lambda i: torch._int_mm(xp, wcol[i % copies])
             row = {"copies": copies}
+            if packed:      # what the C entry launched, held to the plan
+                W4.last_grid = None
+                kern(x, wl[0], xs, ws)
+                p, grid = W4.plan(m, k, n), W4.last_grid
+                row.update(grid=list(grid), splits=grid[2],
+                           blocks=math.prod(grid))
+                check(grid[2] == p.splits > 1
+                      and row["blocks"] >= W8.SPLIT_TARGET_BLOCKS,
+                      f"W4A8 at {(m, k, n)} launched {grid}, planned {p}")
             for name, fn, iters in (
                     ("plain", ref, 10), ("kernel", kern, 200),
                     ("kernel_again", kern, 200), ("plain_again", ref, 10)):
@@ -1690,7 +1708,11 @@ def main() -> int:
         "bound_ms": lay["bound_ms"],
         "bound_by": lay["bound_by"],
         "library_ms": lay["library_ms"],
-        "per": per,
+        "grid": {f"{k}x{n}": {key: qtiming["w4a8"][f"{k}x{n}"][key]
+                              for key in ("splits", "blocks")}
+                 for k, n in LAYER_PROJ},
+        "per": per + " (split-k; splits and blocks as the C entry "
+                     "reported its launch; launches: W4A8 serve run)",
     })
     dec = atiming["decode"][str(DECODE_S[0])]
     b, kvh, rep, hd = DECODE_SHAPE

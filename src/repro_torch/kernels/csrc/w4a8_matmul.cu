@@ -11,113 +11,250 @@
 // |sum| <= 128 * 128 * k < 2^31 for k < 2^17) and applies 2^-7 in the
 // epilogue, out = ((float(acc) * 2^-7) * x_scale) * w_scale[n].  That is
 // bit-identical to the plain version's exact float64 sum, and differs
-// from the TPU kernel's float32 sum only by that sum's rounding.
+// from the TPU kernel's float32 sum only by that sum's rounding.  The
+// wrapper's planner picks the row tile and the split count by shape and
+// hands over the split-k workspace, whose size the entry checks; one
+// launch a call.
 //
-// What bounds it on an H100: bytes, half those of W8A8 for the same
-// shape.  Block shape and activation staging are those of qmatmul.cuh.
-// A 256-entry table in shared memory turns a weight byte into its two
-// signed 16-bit values +-2^e in one word, and __dp2a_lo / __dp2a_hi add
-// two 16 x 8-bit products each into int32.  Ragged m, k and n are masked
-// in the kernel.  No tensor cores, TMA or split-k yet.
+// One split-k kernel serves every m.  At m = 4 (decode) a packed weight byte
+// feeds 8 multiply-adds, so the integer instructions that decode the codes
+// and sum the products weigh as much as the bytes (half those of W8A8).  The
+// block is W8A8's dp4a block (qmatmul.cuh): 8 warps are k-slices, lane l
+// owns columns 4 l .. 4 l + 3 of a 128-column tile, so a warp's load reads a
+// 128-byte line of a packed row; a step takes 4 k (two packed rows: pairs of
+// codes are never cut).  A slice walks its steps in batches of 32 / MT whose
+// loads are all issued first: the weights, and one activation word a lane,
+// read straight from global memory and handed to the products by __shfl_sync
+// (no shared staging, no barrier in the loop).  The grid's third dimension
+// splits k as W8A8's does, the splits adding int32 sums by atomics in the
+// stream's zeroed workspace, the last block of a tile running the epilogue
+// and re-zeroing.  The codes are decoded in registers: one PRMT gathers a
+// column's four codes into a selector, one PRMT turns the four exponents
+// into the magnitude bytes 2^e (1..128, unsigned: +128 does not fit a signed
+// byte), one PRMT with the sign nibbles and a rotate give the bytes' sign
+// mask, and the magnitudes are split into a positive and a negative word.
+// dp4a.s32.u32 multiplies x (signed) by each; the negative word meets ~x =
+// -x - 1 (x = -128 has no int8 negation) in the same accumulator, and the
+// column's sum of its negative magnitudes, kept once for all rows, adds the
+// -1 back: x.pos + (~x).neg + sum(neg) = x.pos - x.neg, exactly.  Two dp4a
+// per 4 multiply-adds is the least with 8-bit operands (a weight takes 16
+// values in [-128, 128]); on an H100 the dp4a, the decode and the load
+// latency of each block's few batches share what it takes (PERF.md).
+//
+// A tiled design (a 256-entry table in shared memory, __dp2a, 32 columns
+// a block, k unsplit) took 2.1 times as long at m = 4096 and 1.7-1.9
+// times at m = 17-128 on an H100 (PERF.md), so split-k serves prefill
+// too.  Ragged m, k and n are masked.
 #include "qmatmul.cuh"
 
 namespace {
 
 using namespace qmm;
 
-// +-2^e of one 4-bit code, unscaled by the 2^-7 bias
-__device__ __forceinline__ int pow2_value(int code) {
-  const int v = 1 << (code & 7);
-  return (code & 8) ? -v : v;
+// the magnitudes 2^0 .. 2^7 as the bytes 0-7 of {kMagHi, kMagLo}
+constexpr unsigned kMagLo = 0x08040201u, kMagHi = 0x80402010u;
+
+// PRMT in its generic mode: byte i of the result is byte s[4i+2:4i] of
+// {b, a}, or that byte's sign bit replicated over 8 bits when s[4i+3]
+// is set
+__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b,
+                                         unsigned s) {
+  unsigned d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-w4a8_matmul_kernel(const int8_t* __restrict__ x,
-                   const int8_t* __restrict__ wp,
-                   const float* __restrict__ xs, const float* __restrict__ ws,
-                   float* __restrict__ out, int m, int k, int n, bool x_vec,
-                   bool w_vec) {
-  __shared__ Smem<MT> sm;
-  __shared__ int lut[256];   // byte -> (low code's value | high's << 16)
-  for (int b = threadIdx.x; b < 256; b += kThreads)
-    lut[b] = static_cast<int>(
-        (static_cast<unsigned>(pow2_value(b & 15)) & 0xffffu) |
-        (static_cast<unsigned>(pow2_value(b >> 4)) << 16));
+// c + the dot product of a's four signed bytes with b's four unsigned
+__device__ __forceinline__ int dp4a_su(int a, unsigned b, int c) {
+  int d;
+  asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
 
-  const int slice = threadIdx.x / kColThreads;
-  const int col_base = blockIdx.x * kCols;
-  const int col = col_base + 4 * (threadIdx.x % kColThreads);
-  const int row0 = blockIdx.y * MT;
-  const int nq = (k + 3) / 4;
+// Column c's four codes (k = 4q .. 4q + 3: byte c of packed rows 2q and
+// 2q + 1) as two words of magnitude bytes 2^e in k order: pos holds the
+// positive codes' and neg the negative codes', 0 elsewhere.
+__device__ __forceinline__ void decode_pow2(unsigned w0, unsigned w1, int c,
+                                            unsigned& pos, unsigned& neg) {
+  const unsigned sel = prmt(w0, w1, 0x40u + 0x11u * c);     // 4 code nibbles
+  const unsigned mag = prmt(kMagLo, kMagHi, sel & 0x7777u);
+  // 0xff where the code is negative, 0x80 where positive; the rotate puts
+  // each byte's own bit 7 (set in all) at bit 0 of the next one, so the
+  // product of the two keeps 0xff and clears 0x80
+  const unsigned sgn = prmt(0x80808080u, 0x80808080u, sel);
+  const unsigned rot = __funnelshift_l(sgn, sgn, 1);
+  pos = mag & ~(sgn & rot);
+  neg = mag & sgn & rot;
+}
+
+// One slice's walk over its quads q_begin, q_begin + 8, ... < q_end
+// (4 k a step) into acc[MT][4] (columns col .. col + 3) and neg_sum[4]
+// (each column's sum of negative magnitudes), in batches of U = 32 / MT
+// steps whose loads are all issued before the first product: 2 U weight
+// words a lane, and one activation word a lane (row lane / U, step
+// lane % U), which the products take by __shfl_sync.  A step past q_end
+// reads x = 0, and then any weight bytes add 0 (x.pos + (~x).neg + sum(neg)
+// = x.(pos - neg)), so the weights' addresses are only kept in range.
+// kFast (k and n multiples of 4, aligned bases): straight 32-bit loads;
+// else bytewise masked ones.
+template <int MT, bool kFast>
+__device__ __forceinline__ void splitk_walk(int (&acc)[MT][4],
+                                            int (&neg_sum)[4],
+                                            const int8_t* __restrict__ x,
+                                            const int8_t* __restrict__ wp,
+                                            int m, int k, int n, int row0,
+                                            int col, int lane, int q_begin,
+                                            int q_end) {
+  constexpr int U = kSplitLanes / MT;               // steps a batch
   const int kp = k / 2;
-
-  int acc[MT][4];
+  const int xrow = row0 + lane / U, xstep = lane % U;
+  const int8_t* xp = x + static_cast<size_t>(xrow < m ? xrow : row0) * k;
+  const int8_t* wc = wp + (col < n ? col : 0);
+#pragma unroll 1
+  for (int qb = q_begin; qb < q_end; qb += U * kSplitSlices) {
+    unsigned w[U][2];
 #pragma unroll
-  for (int r = 0; r < MT; ++r)
+    for (int u = 0; u < U; ++u) {
+      const int q = qb + u * kSplitSlices;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0;
-
-  for (int q0 = 0; q0 < nq; q0 += kChunkQuads) {
-    const int cq = min(kChunkQuads, nq - q0);
-    __syncthreads();                               // table built, chunk consumed
-    stage_x<MT>(sm.x, x, m, k, row0, q0, cq, x_vec);
-    __syncthreads();
-#pragma unroll 2
-    for (int q = slice; q < cq; q += kSlices) {
-      const int p = 2 * (q0 + q);                  // packed rows of k..k+3
-      // a row past the end reads as code 0 (+1) but meets x == 0 there
-      const int w0 = p < kp ? load_word(wp + static_cast<size_t>(p) * n + col,
-                                        n - col, w_vec)
-                            : 0;
-      const int w1 = p + 1 < kp
-                         ? load_word(wp + static_cast<size_t>(p + 1) * n + col,
-                                     n - col, w_vec)
-                         : 0;
-      int lo[4], hi[4];
+      for (int j = 0; j < 2; ++j) {
+        if constexpr (kFast) {
+          w[u][j] = __ldg(reinterpret_cast<const unsigned*>(
+              wc + static_cast<size_t>(2 * (q < q_end ? q : qb) + j) * n));
+        } else {
+          const int row = 2 * q + j;
+          w[u][j] = static_cast<unsigned>(load_word(
+              wp + static_cast<size_t>(row) * n + col,
+              q < q_end && row < kp ? n - col : 0, false));
+        }
+      }
+    }
+    const int xq = qb + xstep * kSplitSlices;
+    const bool x_in = xrow < m && xq < q_end;
+    int xw;
+    if constexpr (kFast) {
+      xw = __ldg(reinterpret_cast<const int*>(xp + 4 * (x_in ? xq : qb)));
+      xw = x_in ? xw : 0;
+    } else {
+      xw = load_word(xp + 4 * xq, x_in ? k - 4 * xq : 0, false);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      int xr[MT];
+#pragma unroll
+      for (int r = 0; r < MT; ++r)
+        xr[r] = __shfl_sync(0xffffffffu, xw, r * U + u);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        lo[c] = lut[(w0 >> (8 * c)) & 0xff];       // k = 4q, 4q + 1
-        hi[c] = lut[(w1 >> (8 * c)) & 0xff];       // k = 4q + 2, 4q + 3
-      }
-      const int4* xv = reinterpret_cast<const int4*>(sm.x + q * MT);
+        unsigned pos, neg;
+        decode_pow2(w[u][0], w[u][1], c, pos, neg);
+        neg_sum[c] = dp4a_su(0x01010101, neg, neg_sum[c]);
 #pragma unroll
-      for (int r4 = 0; r4 < MT / 4; ++r4) {
-        const int4 x4 = xv[r4];
-        const int xr[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[4 * r4 + i][c] = __dp2a_hi(
-                hi[c], xr[i], __dp2a_lo(lo[c], xr[i], acc[4 * r4 + i][c]));
+        for (int r = 0; r < MT; ++r)
+          acc[r][c] = dp4a_su(~xr[r], neg, dp4a_su(xr[r], pos, acc[r][c]));
       }
     }
   }
-  reduce_store<MT, true>(acc, sm, xs, ws, out, m, n, row0, col_base);
+}
+
+// out = ((float(acc) * 2^-7) * x_scale) * w_scale[col], each product
+// rounded once
+struct Pow2Dequant {
+  float x_scale;
+  const float* __restrict__ ws;
+  __device__ __forceinline__ float operator()(int acc, int col) const {
+    const float v = __fmul_rn(__int2float_rn(acc), 0.0078125f);  // 2^-7
+    return __fmul_rn(__fmul_rn(v, x_scale), ws[col]);
+  }
+};
+
+// A block: 256 threads = 8 warps, one k-slice each, over an MT x 128
+// output tile; split z of the grid walks quads [z per, (z + 1) per).
+template <int MT>
+__global__ void __launch_bounds__(kThreads, MT == 4 ? 3 : MT == 8 ? 2 : 1)
+w4a8_splitk_kernel(const int8_t* __restrict__ x,
+                   const int8_t* __restrict__ wp,
+                   const float* __restrict__ xs, const float* __restrict__ ws,
+                   float* __restrict__ out, int* __restrict__ sums,
+                   unsigned* __restrict__ counters, int m, int k, int n,
+                   int quads_per_split, bool x_vec, bool w_vec) {
+  const int lane = threadIdx.x % kSplitLanes;
+  const int slice = threadIdx.x / kSplitLanes;
+  const int col_base = blockIdx.x * kSplitCols;
+  const int col = col_base + 4 * lane;
+  const int row0 = blockIdx.y * MT;
+  const int nq = (k + 3) / 4;
+  const int q_end =
+      min(nq, static_cast<int>(blockIdx.z + 1) * quads_per_split);
+
+  int acc[MT][4], neg_sum[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    neg_sum[c] = 0;
+#pragma unroll
+    for (int r = 0; r < MT; ++r) acc[r][c] = 0;
+  }
+  const int q_begin = blockIdx.z * quads_per_split + slice;
+  if (x_vec && w_vec)
+    splitk_walk<MT, true>(acc, neg_sum, x, wp, m, k, n, row0, col, lane,
+                          q_begin, q_end);
+  else
+    splitk_walk<MT, false>(acc, neg_sum, x, wp, m, k, n, row0, col, lane,
+                           q_begin, q_end);
+#pragma unroll
+  for (int r = 0; r < MT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] += neg_sum[c];
+  splitk_finish<MT>(acc, out, sums, counters, m, n, row0, col_base,
+                    Pow2Dequant{xs[0], ws});
 }
 
 template <int MT>
-int launch(const int8_t* x, const int8_t* wp, const float* xs,
-           const float* ws, float* out, int m, int k, int n,
-           cudaStream_t stream) {
-  const dim3 grid((n + kCols - 1) / kCols, (m + MT - 1) / MT);
-  w4a8_matmul_kernel<MT><<<grid, kThreads, 0, stream>>>(
-      x, wp, xs, ws, out, m, k, n, k % 4 == 0 && aligned4(x),
-      n % 4 == 0 && aligned4(wp));
-  return static_cast<int>(cudaGetLastError());
+int launch_splitk(const int8_t* x, const int8_t* wp, const float* xs,
+                  const float* ws, float* out, int* sums, unsigned* counters,
+                  int m, int k, int n, int splits, cudaStream_t stream,
+                  int* info) {
+  int per;
+  const dim3 grid = splitk_grid(m, k, n, MT, splits, &per);
+  if (grid.z == 0) return static_cast<int>(cudaErrorInvalidValue);
+  w4a8_splitk_kernel<MT><<<grid, kThreads, 0, stream>>>(
+      x, wp, xs, ws, out, sums, counters, m, k, n, per,
+      k % 4 == 0 && aligned4(x), n % 4 == 0 && aligned4(wp));
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) {
+    info[0] = grid.x;
+    info[1] = grid.y;
+    info[2] = grid.z;
+  }
+  return err;
 }
 
 }  // namespace
 
 // x (m, k) int8 with k even, w_packed (k/2, n) int8, x_scale (1,) f32,
-// w_scale (n,) f32 and out (m, n) f32, all contiguous on the device;
-// launches on `stream` and returns the CUDA error code of the launch.
+// w_scale (n,) f32 and out (m, n) f32, all contiguous on the device.
+// row_tile 4, 8 or 16 output rows a block and `splits` k-splits.  When
+// splits > 1, `workspace` holds workspace_len zeroed int32: the m * n
+// sums, then one counter per output tile of row_tile x 128; it is left
+// zeroed, and a shorter one is refused.  `info` (3 ints, host memory)
+// receives the grid launched: columns / 128, row tiles, splits; all 0
+// when nothing was.
+// Launches on `stream` and returns the CUDA error code of the launch.
 extern "C" int qappa_w4a8_matmul(const void* x, const void* w_packed,
                                  const void* x_scale, const void* w_scale,
                                  void* out, int m, int k, int n,
+                                 void* workspace, long long workspace_len,
+                                 int row_tile, int splits, int* info,
                                  void* stream) {
-  if (m < 1 || k < 2 || k % 2 || n < 1)
+  if (info == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  info[0] = info[1] = info[2] = 0;
+  if (m < 1 || k < 2 || k % 2 || n < 1 || splits < 1 ||
+      (row_tile != 4 && row_tile != 8 && row_tile != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long sums = static_cast<long long>(m) * n;
+  const long long tiles = static_cast<long long>((m + row_tile - 1) / row_tile)
+                          * ((n + kSplitCols - 1) / kSplitCols);
+  if (splits > 1 && (workspace == nullptr || workspace_len < sums + tiles))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xq = static_cast<const int8_t*>(x);
   const auto* wq = static_cast<const int8_t*>(w_packed);
@@ -125,7 +262,11 @@ extern "C" int qappa_w4a8_matmul(const void* x, const void* w_packed,
   const auto* ws = static_cast<const float*>(w_scale);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (m <= 4) return launch<4>(xq, wq, xs, ws, o, m, k, n, s);
-  if (m <= 8) return launch<8>(xq, wq, xs, ws, o, m, k, n, s);
-  return launch<16>(xq, wq, xs, ws, o, m, k, n, s);
+  auto* p = static_cast<int*>(workspace);
+  auto* c = reinterpret_cast<unsigned*>(p + (splits > 1 ? sums : 0));
+  if (row_tile == 4)
+    return launch_splitk<4>(xq, wq, xs, ws, o, p, c, m, k, n, splits, s, info);
+  if (row_tile == 8)
+    return launch_splitk<8>(xq, wq, xs, ws, o, p, c, m, k, n, splits, s, info);
+  return launch_splitk<16>(xq, wq, xs, ws, o, p, c, m, k, n, splits, s, info);
 }

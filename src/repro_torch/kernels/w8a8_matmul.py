@@ -32,12 +32,13 @@ version.
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels._workspace import workspace
+from repro_torch.kernels._workspace import current_stream, workspace
 
 # the int32 sum of k products of at most 128 * 128 stays below 2^31
 MAX_K = 2 ** 17 - 1
@@ -72,25 +73,38 @@ class Plan(NamedTuple):
     workspace: int
 
 
-def plan(m: int, k: int, n: int) -> Plan:
-    """The regime and split count for an ``(m, k) x (k, n)`` product.
+def split_k(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """``(splits, row_tile, workspace)`` of a split-k grid for an
+    ``(m, k) x (k, n)`` product: the grid of W8A8's ``dp4a`` regime and of
+    the W4A8 kernel (``kernels/w4a8_matmul.plan``).
 
-    ``m >= TC_MIN_M``: the tensor cores, one block a 128 x 128 tile.
-    Else dp4a with ``row_tile`` 4, 8 or 16 rows x ``DP4A_COLS`` columns a
-    block and k split so the grid has at least
-    ``SPLIT_TARGET_BLOCKS`` blocks where k allows
-    (``SPLIT_MIN_QUADS`` quads of 4 k a split at least); the splits take
-    ``ceil(k / 4 / splits)`` quads each, the last the rest, none empty.
+    ``row_tile`` 4, 8 or 16 rows x ``DP4A_COLS`` columns a block, and k
+    split so the grid has at least ``SPLIT_TARGET_BLOCKS`` blocks where k
+    allows (``SPLIT_MIN_QUADS`` quads of 4 k a split at least); the
+    kernels give the splits ``ceil(k / 4 / splits)`` quads each, the last
+    the rest, none empty.  ``workspace``: int32 of ``m * n`` sums then one
+    counter an output tile, 0 when ``splits == 1``.
     """
-    if m >= TC_MIN_M:
-        return Plan("tc", 1, TC_TILE, 0)
     row_tile = 4 if m <= 4 else 8 if m <= 8 else 16
     tiles = -(-m // row_tile) * -(-n // DP4A_COLS)
     nq = -(-k // 4)                       # k in quads of 4
     want = -(-SPLIT_TARGET_BLOCKS // tiles)
     per = max(SPLIT_MIN_QUADS, nq // want)
     splits = -(-nq // per)                # then ceil(nq / splits) each
-    return Plan("dp4a", splits, row_tile, m * n + tiles if splits > 1 else 0)
+    return splits, row_tile, m * n + tiles if splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, k: int, n: int) -> Plan:
+    """The regime and split count for an ``(m, k) x (k, n)`` product
+    (cached: a decode step asks for the same few shapes every layer).
+
+    ``m >= TC_MIN_M``: the tensor cores, one block a 128 x 128 tile.
+    Else dp4a on the grid of :func:`split_k`.
+    """
+    if m >= TC_MIN_M:
+        return Plan("tc", 1, TC_TILE, 0)
+    return Plan("dp4a", *split_k(m, k, n))
 
 
 def w8a8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -145,11 +159,13 @@ def check_operands(name: str, x_q: torch.Tensor, w: torch.Tensor,
 def launch_qmatmul(lib_name: str, fn_name: str, x_q: torch.Tensor,
                    w: torch.Tensor, x_scale: torch.Tensor,
                    w_scale: torch.Tensor, m: int, k: int, n: int,
-                   extra: tuple = ()) -> torch.Tensor:
-    """Launch one of the quantized matmul kernels on the current stream;
-    the scales stay on the device (no host sync).  ``extra``: C arguments
-    after ``n`` (a tensor passes its address, None a null pointer).
-    Raises on a CPU tensor, a failed build or a failed launch."""
+                   extra: tuple = (), stream: int | None = None
+                   ) -> torch.Tensor:
+    """Launch one of the quantized matmul kernels on ``stream`` (a CUDA
+    stream handle; default the current stream); the scales stay on the
+    device (no host sync).  ``extra``: C arguments after ``n`` (a tensor
+    passes its address, None a null pointer).  Raises on a CPU tensor, a
+    failed build or a failed launch."""
     device = x_q.device
     if device.type != "cuda":
         raise ValueError(
@@ -157,21 +173,44 @@ def launch_qmatmul(lib_name: str, fn_name: str, x_q: torch.Tensor,
             f"plain version runs on the CPU (ops impl='auto' or 'ref')")
     from repro_torch.kernels import _build
     lib = _build.library(lib_name)
-    extra = [ctypes.c_void_p(None if a is None else a.data_ptr())
-             if a is None or torch.is_tensor(a) else a for a in extra]
-    with torch.cuda.device(device):
-        out = torch.empty((m, n), dtype=torch.float32, device=device)
+    if stream is None:
+        stream = current_stream(device)
+    extra = [a.data_ptr() if torch.is_tensor(a) else a for a in extra]
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    # the launch goes to the tensors' device (a context only when that is
+    # not the current one: entering it costs a few µs a call)
+    with (contextlib.nullcontext()
+          if device.index == torch.cuda.current_device()
+          else torch.cuda.device(device)):
         err = getattr(lib, fn_name)(
-            ctypes.c_void_p(x_q.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-            ctypes.c_void_p(x_scale.data_ptr()),
-            ctypes.c_void_p(w_scale.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), m, k, n, *extra,
-            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+            x_q.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), out.data_ptr(), m, k, n, *extra, stream)
     if err != 0:
         raise RuntimeError(
             f"{fn_name} kernel launch failed: CUDA error {err} "
             f"({lib.qappa_error_string(err).decode()})")
     return out
+
+
+def launch_planned(lib_name: str, fn_name: str, regime: int | None,
+                   p: Plan, x_q: torch.Tensor, w: torch.Tensor,
+                   x_scale: torch.Tensor, w_scale: torch.Tensor, m: int,
+                   k: int, n: int, info=None) -> torch.Tensor:
+    """:func:`launch_qmatmul` with a plan's C arguments: the stream's
+    split-k workspace (when ``p.splits > 1``) and its length, the regime's
+    number in the C entry (None: the entry takes none), the row tile and
+    the split count, then ``info`` (a ctypes int array the entry reports
+    its launch in) where given."""
+    stream = buf = None
+    if x_q.is_cuda:
+        stream = current_stream(x_q.device)
+        if p.splits > 1:
+            buf = workspace(x_q.device, p.workspace, stream)
+    extra = ((buf, 0 if buf is None else buf.numel())
+             + (() if regime is None else (regime,))
+             + (p.row_tile, p.splits) + (() if info is None else (info,)))
+    return launch_qmatmul(lib_name, fn_name, x_q, w, x_scale, w_scale, m, k,
+                          n, extra, stream)
 
 
 def w8a8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
@@ -184,12 +223,9 @@ def w8a8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     m, k, n = check_operands("w8a8_matmul", x_q, w_q, x_scale, w_scale,
                              packed=False)
     p = plan(m, k, n)
-    buf = (workspace(x_q.device, p.workspace)
-           if p.splits > 1 and x_q.is_cuda else None)
-    out = launch_qmatmul(
-        "w8a8_matmul", "qappa_w8a8_matmul", x_q, w_q, x_scale, w_scale,
-        m, k, n, (buf, 0 if buf is None else buf.numel(),
-                  int(p.regime == "tc"), p.row_tile, p.splits))
+    out = launch_planned("w8a8_matmul", "qappa_w8a8_matmul",
+                         int(p.regime == "tc"), p, x_q, w_q, x_scale,
+                         w_scale, m, k, n)
     launches += 1
     if p.regime == "tc":
         launches_tc += 1

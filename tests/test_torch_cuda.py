@@ -11,13 +11,16 @@ where the JAX package is not installed:
 The sweep kernel is held against its plain PyTorch version on the card
 and against the port's exact float64 CPU path, whose bit-identity to the
 JAX package's numpy kernel the CPU tests pin.  The matmul kernels sum
-exactly in int32, so they must equal their plain versions bit for bit.
+exactly in int32, so they must equal their plain versions bit for bit,
+in every regime and at every split of k.
 The decode-attention kernel is held to its plain version at 1e-5 x
 max|out| (the reference's kernel-vs-oracle bound; its float operations
 follow the plain version's order, also across the splits of S, so 0 is
 expected and the split tests ask for equality), flash attention at 1e-5
 (float32, 3xTF32 on the tensor cores) and 2e-2 (bf16).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -364,6 +367,164 @@ def test_w8a8_entry_refuses_a_plan_it_cannot_hold(cuda_device):
             W8.launch_qmatmul("w8a8_matmul", "qappa_w8a8_matmul", x, w, xs,
                               ws, m, k, n, (buf, buf.numel(), 0, row_tile,
                                             p.splits))
+    assert not short.any()
+
+
+# --------------------------------------- W4A8 split-k (redesign)
+
+def _w4a8_launch(ops, m, k, n, buf, row_tile, splits):
+    """The W4A8 C entry with an explicit row tile and split count; checks
+    that the entry reports that launch's grid (columns / 128, row tiles,
+    splits)."""
+    info = (ctypes.c_int * 3)(-1, -1, -1)
+    out = W8.launch_qmatmul(
+        "w4a8_matmul", "qappa_w4a8_matmul", *ops, m, k, n,
+        (buf, 0 if buf is None else buf.numel(), row_tile, splits, info))
+    assert list(info) == [-(-n // 128), -(-m // row_tile), splits]
+    return out
+
+
+def _valid_splits(k):
+    """Split counts the kernel takes for k: ceil(quads / splits) quads
+    each, none empty."""
+    nq = -(-k // 4)
+    return [s for s in range(1, nq + 1) if -(-nq // -(-nq // s)) == s]
+
+
+@pytest.mark.cuda
+def test_w4a8_split_k_across_forced_split_counts(cuda_device):
+    """The split-k regime at split counts from 1 to one quad a split, k
+    ragged to 2 mod 4 among them: equal to the plain version, again on a
+    second call, with the workspace left zeroed."""
+    shapes = [(1, 96, 40), (3, 130, 257), (4, 3072, 1024), (8, 1002, 999),
+              (13, 4098, 300), (16, 64, 1000)]
+    for i, (m, k, n) in enumerate(shapes):
+        ops = _qmm_operands(m, k, n, 2, 1100 + i, cuda_device)
+        want = OPS.w4a8_matmul(*ops, impl="ref")
+        p = W4.plan(m, k, n)
+        assert p.regime == "splitk"
+        valid = _valid_splits(k)
+        counts = sorted({1, 2, 3, p.splits, valid[len(valid) // 2],
+                         valid[-1]} & set(valid))
+        buf = torch.zeros(m * n + -(-m // p.row_tile) * -(-n // 128),
+                          dtype=torch.int32, device=cuda_device)
+        for splits in counts:
+            for _ in range(2):
+                got = _w4a8_launch(ops, m, k, n, buf, p.row_tile, splits)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (m, k, n, splits)
+            assert not buf.any(), (m, k, n, splits)
+        assert len(counts) >= 3 and max(counts) == -(-k // 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_w4a8_split_k_on_ragged_shapes(cuda_device, seed):
+    """m 1-16 with k = 2 mod 4 and n of any residue, through the wrapper:
+    the split-k regime, bit for bit the plain version."""
+    rng = np.random.default_rng(1200 + seed)
+    m = int(rng.integers(1, 17))
+    k = 4 * int(rng.integers(0, 1500)) + 2
+    n = int(rng.integers(1, 3000))
+    ops = _qmm_operands(m, k, n, 2, seed, cuda_device)
+    before = W4.launches
+    got = OPS.w4a8_matmul(*ops, impl="kernel")
+    assert W4.launches == before + 1
+    p = W4.plan(m, k, n)
+    assert W4.last_grid == (-(-n // 128), -(-m // p.row_tile), p.splits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, OPS.w4a8_matmul(*ops, impl="ref")), (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(17, 1030, 777), (17, 512, 1000),
+                                   (64, 3072, 1024), (700, 1026, 333),
+                                   (4096, 8192, 3072)])
+def test_w4a8_split_k_above_16_rows(cuda_device, m, k, n):
+    """Ragged and prefill m on 16-row tiles, split or not as the plan
+    says: bit for bit the plain version, with the grid the plan gives."""
+    ops = _qmm_operands(m, k, n, 2, m + k, cuda_device)
+    p = W4.plan(m, k, n)
+    got = OPS.w4a8_matmul(*ops, impl="kernel")
+    assert W4.last_grid == (-(-n // 128), -(-m // 16), p.splits)
+    assert torch.equal(got, OPS.w4a8_matmul(*ops, impl="ref"))
+
+
+@pytest.mark.cuda
+def test_w4a8_all_plus_and_minus_128_at_k_8192(cuda_device):
+    """Every code +128 (0x77) or every code -128 (0xff): the magnitude that
+    does not fit a signed byte, at the longest phi4 k.  x rows of 127, of
+    -128 and random: |sum| <= 128 * 128 * 8192 = 2^27."""
+    m, k, n = 4, 8192, 3072
+    rng = np.random.default_rng(5)
+    x = rng.integers(-128, 128, (m, k), dtype=np.int8)
+    x[0], x[1] = 127, -128
+    xs = torch.tensor(0.01, device=cuda_device)
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-1, n).astype(np.float32)
+                          ).to(cuda_device)
+    xt = torch.from_numpy(x).to(cuda_device)
+    for byte, sign in ((0x77, 1), (-1, -1)):           # 0xff as int8
+        w = torch.full((k // 2, n), byte, dtype=torch.int8,
+                       device=cuda_device)
+        got = OPS.w4a8_matmul(xt, w, xs, ws, impl="kernel")
+        want = OPS.w4a8_matmul(xt, w, xs, ws, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), sign
+        acc = sign * 128 * torch.from_numpy(x.astype(np.int64)).sum(1)
+        assert int(acc[0]) == sign * 127 * 128 * k
+        exact = ((acc.to(torch.float32) * 2.0 ** -7)[:, None]
+                 .to(cuda_device) * xs * ws)
+        assert torch.equal(got, exact), sign
+
+
+@pytest.mark.cuda
+def test_w4a8_split_k_on_two_streams_at_once(cuda_device):
+    """Split-k products queued on two streams together each meet in their
+    own stream's workspace: both equal the plain version, call after
+    call, and both workspaces are left zeroed."""
+    m, k, n = 4, 8192, 3072
+    assert W4.plan(m, k, n).splits > 1
+    ops = [_qmm_operands(m, k, n, 2, 1150 + i, cuda_device)
+           for i in range(2)]
+    wants = [OPS.w4a8_matmul(*o, impl="ref") for o in ops]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                gots[i].append(OPS.w4a8_matmul(*ops[i], impl="kernel"))
+    torch.cuda.synchronize()
+    bufs = []
+    for i, st in enumerate(streams):
+        assert all(torch.equal(g, wants[i]) for g in gots[i]), i
+        with torch.cuda.stream(st):
+            bufs.append(WS.workspace(cuda_device, 1))
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert not bufs[0].any() and not bufs[1].any()
+
+
+@pytest.mark.cuda
+def test_w4a8_entry_refuses_a_plan_it_cannot_hold(cuda_device):
+    """The C entry checks what the planner hands it: a workspace shorter
+    than its grid's sums and counters, a row tile it has no kernel for,
+    or a split count that leaves a split empty fails the launch instead of
+    writing past the buffer."""
+    m, k, n = 4, 3072, 1024
+    p = W4.plan(m, k, n)
+    assert p.regime == "splitk" and p.splits > 1
+    ops = _qmm_operands(m, k, n, 2, 7, cuda_device)
+    short = torch.zeros(p.workspace - 1, dtype=torch.int32,
+                        device=cuda_device)
+    full = WS.workspace(cuda_device, p.workspace)
+    nq = k // 4
+    empty = next(s for s in range(2, nq) if s not in _valid_splits(k))
+    for buf, row_tile, splits in (
+            (short, p.row_tile, p.splits), (full, 5, p.splits),
+            (full, 32, 1), (None, p.row_tile, p.splits),
+            (full, p.row_tile, empty)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _w4a8_launch(ops, m, k, n, buf, row_tile, splits)
     assert not short.any()
 
 

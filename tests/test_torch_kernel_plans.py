@@ -5,6 +5,16 @@
   every phi4-mini projection shape; the tensor-core regime from
   ``TC_MIN_M`` on; splits that cover k with none empty; the workspace
   sizes it states; the persistent zeroed workspace.
+* The W4A8 planner (``kernels/w4a8_matmul.plan``): the same split rule
+  (``w8a8_matmul.split_k``) at every m, splits in whole quads of 4 k
+  (so a packed pair of codes is never cut), 16-row tiles above m = 8.
+* The W4A8 split-k kernel's arithmetic (``csrc/w4a8_matmul.cu``): a
+  plain-torch emulation of its decode (PTX ``prmt`` with its sign
+  replication, the magnitude bytes and the sign mask) over every pair of
+  code bytes equals the port's ``pow2_integers`` and the JAX
+  ``_decode_pow2_block`` x 2^7, +128 and -128 included; its split-k sum
+  (``x.pos + (~x).neg + sum(neg)`` per split) equals the plain version bit
+  for bit, and the JAX reference and Pallas kernel within their bound.
 * The bf16 flash kernel's rounding (``csrc/flash_attention_tc.cu``): the
   tensor cores take P in bf16 per 64-key tile, ``l`` sums the rounded
   values, the softmax runs in base 2.  A plain-torch emulation of that
@@ -27,7 +37,11 @@ import torch
 
 from repro.kernels import ref as R_ref
 from repro.kernels.flash_attention import flash_attention as R_flash
+from repro.kernels.w4a8_matmul import _decode_pow2_block as R_decode_pow2
+from repro.kernels.w4a8_matmul import w4a8_matmul as R_w4a8
+from repro.quant import quantizers as R_qz
 from repro_torch.kernels import flash_attention as T_flash
+from repro_torch.kernels import w4a8_matmul as W4
 from repro_torch.kernels import w8a8_matmul as W8
 
 # phi4-mini-3.8b's projections: (k, n) of q/o, k/v, gate/up, down
@@ -118,6 +132,227 @@ def test_the_wrapper_refuses_cpu_tensors_with_its_counters_unmoved():
     with pytest.raises(ValueError, match="CUDA tensors"):
         W8.w8a8_matmul(x, w, torch.ones(()), torch.ones(32))
     assert (W8.launches, W8.launches_dp4a, W8.launches_tc) == before
+
+
+# ------------------------------------------------------------ W4A8 plans
+
+def _w4_grid(p, m, n):
+    tiles = math.ceil(m / p.row_tile) * math.ceil(n / W8.DP4A_COLS)
+    return tiles, tiles * p.splits
+
+
+@pytest.mark.parametrize("k,n", PHI4_PROJ)
+@pytest.mark.parametrize("m", range(1, W8.TC_MIN_M))
+def test_w4a8_plan_splits_k_on_the_phi4_decode_shapes(m, k, n):
+    p = W4.plan(m, k, n)
+    assert p.regime == "splitk"
+    assert p.splits > 1
+    assert _w4_grid(p, m, n)[1] >= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_w4a8_plan_splits_cover_k_in_whole_quads(seed):
+    """Every split but the last walks ceil(quads / splits) quads of 4 k,
+    the last the rest, none empty; so a split starts at a multiple of 4 k
+    (an even packed row) even where k = 2 mod 4, and never cuts a packed
+    pair.  The workspace holds m x n sums and one counter a tile; the
+    grid is W8A8's."""
+    rng = np.random.default_rng(40 + seed)
+    for i in range(60):
+        m = int(rng.integers(1, W8.TC_MIN_M))
+        k = 4 * int(rng.integers(1, 5000)) + (2 if i % 2 else 0)
+        n = int(rng.integers(1, 9000))
+        p = W4.plan(m, k, n)
+        assert p.regime == "splitk"
+        assert p[1:] == W8.split_k(m, k, n) == W8.plan(m, k, n)[1:]
+        nq = math.ceil(k / 4)
+        per = math.ceil(nq / p.splits)
+        assert (p.splits - 1) * per < nq <= p.splits * per
+        starts = [4 * per * z for z in range(p.splits)]
+        assert all(s0 % 4 == 0 and s0 < k for s0 in starts)
+        tiles, _ = _w4_grid(p, m, n)
+        assert p.workspace == (m * n + tiles if p.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("m", [W8.TC_MIN_M, 64, 700, 4096])
+def test_w4a8_plan_above_16_rows_is_split_k_on_16_row_tiles(m):
+    """Prefill and ragged m take the same split-k grid, 16 rows a block:
+    at least two blocks an SM on every phi4 shape, and no split where the
+    tiles alone fill the card (m = 4096)."""
+    for k, n in PHI4_PROJ:
+        p = W4.plan(m, k, n)
+        assert p == ("splitk", *W8.split_k(m, k, n)) and p.row_tile == 16
+        assert _w4_grid(p, m, n)[1] >= 2 * H100_SMS
+        assert p.splits > 1 or _w4_grid(p, m, n)[0] >= 2 * H100_SMS
+    assert m < 4096 or W4.plan(m, 3072, 3072).splits == 1
+
+
+def test_the_w4a8_wrapper_refuses_cpu_tensors_with_its_counters_unmoved():
+    x = torch.zeros((4, 64), dtype=torch.int8)
+    w = torch.zeros((32, 32), dtype=torch.int8)
+    before = (W4.launches, W4.last_grid)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        W4.w4a8_matmul(x, w, torch.ones(()), torch.ones(32))
+    assert (W4.launches, W4.last_grid) == before
+
+
+# ------------------------------- W4A8 split-k: the kernel's arithmetic
+
+K_MAG_LO, K_MAG_HI = 0x08040201, 0x80402010    # bytes 2^0 .. 2^7
+U32 = 0xFFFFFFFF
+
+
+def prmt(a, b, s):
+    """PTX ``prmt.b32`` in its generic mode on int64 tensors holding
+    32-bit words: byte i of the result is byte ``s[4i+2:4i]`` of {b, a},
+    or that byte's bit 7 replicated over the byte when ``s[4i+3]`` is
+    set."""
+    a, b, s = (torch.as_tensor(t, dtype=torch.int64) for t in (a, b, s))
+    out = torch.zeros(torch.broadcast_shapes(a.shape, b.shape, s.shape),
+                      dtype=torch.int64)
+    for i in range(4):
+        nib = (s >> (4 * i)) & 15
+        idx = nib & 7
+        byte = (torch.where(idx < 4, a, b) >> (8 * (idx & 3))) & 0xFF
+        byte = torch.where((nib & 8) != 0,
+                           torch.where(byte >= 0x80, 0xFF, 0), byte)
+        out = out | (byte << (8 * i))
+    return out
+
+
+def decode_pow2(w0, w1, c: int):
+    """The kernel's ``decode_pow2``: column c's four codes (byte c of the
+    words of packed rows 2q and 2q + 1) -> (pos, neg) words of magnitude
+    bytes in k order."""
+    sel = prmt(w0, w1, 0x40 + 0x11 * c)
+    mag = prmt(K_MAG_LO, K_MAG_HI, sel & 0x7777)
+    sgn = prmt(0x80808080, 0x80808080, sel)
+    rot = ((sgn << 1) | (sgn >> 31)) & U32
+    return mag & ~(sgn & rot) & U32, mag & sgn & rot
+
+
+def _bytes(word):
+    """(..., ) words -> (..., 4) bytes, byte j at index j."""
+    return torch.stack([(word >> (8 * j)) & 0xFF for j in range(4)], -1)
+
+
+def test_register_decode_equals_the_reference_decode_on_every_code_pair():
+    """All 65,536 pairs of code bytes in each of the four column slots of
+    a word (the other bytes random): pos - neg, byte by byte, is
+    ``pow2_integers`` and the JAX ``_decode_pow2_block`` x 2^7; pos and
+    neg are disjoint magnitudes 2^e; +128 (code 0x7) and -128 (0xf)
+    among them."""
+    b0, b1 = (t.reshape(-1) for t in torch.meshgrid(
+        torch.arange(256), torch.arange(256), indexing="ij"))
+    packed = torch.stack([b0, b1]).to(torch.uint8).view(torch.int8)
+    want = W4.pow2_integers(packed).to(torch.int64).T       # (65536, 4)
+    jax_want = np.asarray(R_decode_pow2(jnp.asarray(packed.numpy()))).T
+    np.testing.assert_array_equal(jax_want * 2 ** 7, want.numpy())
+    assert {int(want.max()), int(want.min())} == {128, -128}
+    rng = np.random.default_rng(3)
+    for c in range(4):
+        w0, w1 = (torch.from_numpy(rng.integers(0, 2 ** 32, 65536,
+                                                dtype=np.int64))
+                  for _ in range(2))
+        w0 = (w0 & ~(0xFF << (8 * c))) | (b0 << (8 * c))
+        w1 = (w1 & ~(0xFF << (8 * c))) | (b1 << (8 * c))
+        pos, neg = decode_pow2(w0, w1, c)
+        pb, nb = _bytes(pos), _bytes(neg)
+        assert torch.equal(pb - nb, want), c
+        assert not (pb * nb).any()
+        mags = pb + nb
+        assert torch.equal(mags & (mags - 1), torch.zeros_like(mags))
+
+
+def splitk_emulation(x_q, w_packed, x_scale, w_scale, splits: int):
+    """The split-k kernel's arithmetic in plain torch: the codes decoded
+    as ``decode_pow2`` does, k padded to whole quads with x = 0 (the
+    masked loads), each split's partial ``x.pos + (~x).neg + sum(neg)``
+    over its ``ceil(quads / splits)`` quads, the partials summed in int32,
+    then ``((float(acc) * 2^-7) * x_scale) * w_scale``."""
+    m, k = x_q.shape
+    kp, n = w_packed.shape
+    nq = -(-k // 4)
+    per = -(-nq // splits)
+    assert -(-nq // per) == splits
+    n4 = -(-n // 4) * 4
+    wb = torch.nn.functional.pad(w_packed.to(torch.int64) & 0xFF,
+                                 (0, n4 - n, 0, 2 * nq - kp))
+    words = (wb.reshape(2 * nq, n4 // 4, 4)
+             << torch.tensor([0, 8, 16, 24])).sum(-1)
+    pos = torch.empty((nq, n4 // 4, 4, 4), dtype=torch.int64)
+    neg = torch.empty_like(pos)
+    for c in range(4):
+        p, q = decode_pow2(words[0::2], words[1::2], c)
+        pos[:, :, c], neg[:, :, c] = _bytes(p), _bytes(q)
+    # (quads, column, k in quad) -> (quads, k in quad, column)
+    pos = pos.reshape(nq, n4, 4).transpose(1, 2)
+    neg = neg.reshape(nq, n4, 4).transpose(1, 2)
+    xb = torch.nn.functional.pad(x_q.to(torch.int64),
+                                 (0, 4 * nq - k)).reshape(m, nq, 4)
+    acc = torch.zeros((m, n4), dtype=torch.int64)
+    for z in range(splits):
+        qs = slice(z * per, min(nq, (z + 1) * per))
+        part = (torch.einsum("mqj,qjn->mn", xb[:, qs], pos[qs])
+                + torch.einsum("mqj,qjn->mn", ~xb[:, qs], neg[qs])
+                + neg[qs].sum((0, 1)))
+        acc = acc + part
+    acc = acc[:, :n].to(torch.int32)
+    out = acc.to(torch.float32) * 2.0 ** -7
+    return out * x_scale * w_scale
+
+
+def _w4_operands(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k // 2, n),
+                                      dtype=np.int8))
+    xs = torch.tensor(rng.uniform(1e-3, 1e-1), dtype=torch.float32)
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-1, n).astype(np.float32))
+    return x, w, xs, ws
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 3072, 1024), (3, 130, 257),
+                                   (16, 66, 200), (1, 8190, 130),
+                                   (7, 1002, 999)])
+def test_splitk_emulation_equals_the_plain_version_bit_for_bit(m, k, n):
+    """At the plan's split count and at forced ones (one split, two, one
+    quad a split), k = 2 mod 4 and ragged n among the shapes."""
+    ops = _w4_operands(m, k, n, m * k + n)
+    want = W4.w4a8_matmul_ref(*ops)
+    nq = -(-k // 4)
+    counts = {W4.plan(m, k, n).splits, 1, 2, nq}
+    for splits in sorted(c for c in counts
+                         if -(-nq // -(-nq // c)) == c):
+        got = splitk_emulation(*ops, splits)
+        assert torch.equal(got, want), splits
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 64, 96), (32, 128, 48),
+                                   (8, 256, 32)])
+def test_splitk_emulation_close_to_the_jax_reference_and_pallas(m, k, n):
+    """Operands quantized by the reference (pow2 codes of normal weights,
+    per-column scales) and handed to both packages: the emulated kernel
+    at its planned split count is within the reference's W4A8 bound
+    (``tests/test_torch_quant.py``) of ``ref.w4a8_matmul_ref`` and of the
+    Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(m + k + n)
+    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32))
+    w = jnp.asarray(rng.standard_normal((k, n)).astype(np.float32))
+    xs = R_qz.int_scale(x, 8)
+    xq = R_qz.quantize_int(x, xs, 8)
+    ws = R_qz.pow2_scale(w, axis=0)
+    wq = R_qz.pack_int4(R_qz.pow2_encode(w, ws).T).T
+    t = [torch.from_numpy(np.array(a)) for a in (xq, wq, xs, ws)]
+    t[2], t[3] = t[2].reshape(()), t[3].reshape(-1)
+    splits = W4.plan(m, k, n).splits
+    got = splitk_emulation(*t, splits).numpy()
+    for want in (R_ref.w4a8_matmul_ref(xq, wq, xs, ws),
+                 R_w4a8(xq, wq, xs, ws, bm=8, bn=16, bk=32,
+                        interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    assert np.array_equal(got, W4.w4a8_matmul_ref(*t).numpy())
 
 
 # -------------------------------------------- flash: P rounded to bf16
