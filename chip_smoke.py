@@ -22,8 +22,14 @@ Phases (any failure exits non-zero):
    102,960-config grid, a mixed-precision batch and the VGG-16 + ResNet-34
    + ResNet-50 concatenation — at <= 1e-6 relative, with identical
    streamed fronts;
-4. sweep timing at N = 32768, L = 16 with CUDA events, beside the
-   kernel's bound on an H100 (67 TFLOP/s float32, 3.35 TB/s);
+4. sweep timing at N = 32768: VGG-16 (L = 16, the main path's chunk),
+   the same with ``(N, 16)`` mixed-precision columns, and VGG-16 +
+   ResNet-34 + ResNet-50 (L = 107, W = 3); profiler device time and CUDA
+   events, the grid the C entry reports (held to
+   ``kernels/sweep_kernel.plan``), beside the kernel's bound on an H100
+   (float32 operations unfused at 33.5 TFLOP/s, since the build passes
+   ``-fmad=false``; 3.35 TB/s) and an issue bound from the SASS
+   instructions of a cell (``cuobjdump``) over the card's 528 schedulers;
 5. the serving path at phi4-mini-3.8b's full width (32 layers, d 3072,
    vocab 200064, random weights from a seed): ``serve(...,
    quantize=True, smoke=False)`` in W8A8, and the same loop
@@ -121,10 +127,18 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 494.7e12
 TF32_PRODUCTS = 3           # the float32 flash route's 3xTF32 split
-# float32 operations of the sweep kernel, counted from csrc/sweep_kernel.cu:
-# per (config, layer) of the layer loop, and per config outside it
+# float32 operations of the sweep function, counted from the reference's
+# expressions: per (config, layer), and per (config, segment) outside the
+# layers; the kernel builds with -fmad=false, so each issues unfused at
+# half the 67 TFLOP/s FMA-counted rate
 F32_OPS_PER_CELL = 51
 F32_OPS_PER_CONFIG = 18
+PEAK_F32_OPS_UNFUSED = PEAK_F32_FLOPS / 2
+# the sweep kernel's timing shapes: the main path's chunk (VGG-16, uniform
+# columns), the same with (N, 16) mixed-precision columns, and the W = 3
+# concatenation of the many-workload path
+TIMING_SHAPES = ("vgg16", "mixed", "w3")
+TIMING_W3 = ("vgg16", "resnet34", "resnet50")
 
 # the serving path: phi4-mini-3.8b at full width
 SERVE_ARCH = "phi4-mini-3.8b"
@@ -415,77 +429,181 @@ def _event_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_timing(device) -> dict:
-    """Kernel device time vs its plain version at the main path's shape."""
-    import torch
-    from repro_torch.core.dse_batch import (_cfg_to_device, _lay_to_device,
-                                            _make_cfg_lay, _workload_batch)
+def _sweep_cell_instructions(path):
+    """SASS instructions one cell issues on the reciprocal-division path
+    of the sweep kernel's uniform instantiation (``cuobjdump``): the cell
+    loop (from the backward branch after its ``STS.64`` of the staged pair)
+    less the integer-division path it branches over and the IEEE
+    divisions' slow paths.  None where the SASS does not show that
+    shape."""
+    import re
+    from repro_torch.kernels import _build
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    fn = re.search(r"Function : \S*sweep_aggregates_kernelILb0E\S*\n"
+                   r"(.*?)(?=\n\s*Function : |\Z)", sass, re.S)
+    if fn is None:
+        return None
+    ins = [(int(m.group(1), 16), m.group(2)) for m in (
+        re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        for ln in fn.group(1).splitlines()) if m]
+
+    def target(text):
+        t = re.search(r"BRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", text)
+        return int(t.group(1), 16) if t else None
+    store = next((a for a, t in ins if t.startswith("STS.64")), None)
+    loop = next(((target(t), a) for a, t in ins
+                 if store is not None and a > store
+                 and (target(t) or a) < a), None)
+    if loop is None:
+        return None
+    body = [(a, t) for a, t in ins if loop[0] <= a <= loop[1]]
+    text_at = dict(body)
+    skipped = set()
+    for a, t in body:
+        tg = target(t)
+        if not t.startswith("@") or tg is None or not a < tg <= loop[1]:
+            continue
+        span = {x for x, _ in body if a < x < tg}
+        before = text_at.get(tg - 16, "")
+        jumps_over = (before.startswith("BRA")
+                      and (target(before) or 0) > tg)
+        if jumps_over or any("CALL" in text_at[x] for x in span):
+            skipped |= span
+    return len(body) - len(skipped)
+
+
+def _timing_inputs(shape: str):
+    """The first 32768-config chunk of the 102,960-config grid: VGG-16
+    with uniform or mixed ``(N, 16)`` precision columns, or VGG-16 +
+    ResNet-34 + ResNet-50 in three segments."""
+    import numpy as np
+    from repro_torch.core.dse_batch import _make_cfg_lay, _workload_batch
+    from repro_torch.core.pe import PEType, pe_spec
     from repro_torch.core.synthesis import synthesize_soa
     from repro_torch.core.workloads import get_workload
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.sweep_kernel import (KERNEL_CFG_FIELDS,
-                                                  MIXED_CFG_FIELDS,
-                                                  _layer_table,
-                                                  sweep_aggregates_packed,
-                                                  sweep_aggregates_ref)
-
     soa = next(iter(grid(GRID_FULL)))
-    cfg, lay = _make_cfg_lay(soa, synthesize_soa(soa),
-                             _workload_batch(get_workload("vgg16")))
-    dcfg = _cfg_to_device(cfg, device, exact=False)
-    hlay = _lay_to_device(lay, torch.device("cpu"), exact=False)
-    dlay = _lay_to_device(lay, device, exact=False)
-    n, l, w = len(soa["pe_rows"]), 16, 1
-    bounds = ((0, l),)
+    names = TIMING_W3 if shape == "w3" else ("vgg16",)
+    wbs = [_workload_batch(get_workload(w)) for w in names]
+    cfg, _ = _make_cfg_lay(soa, synthesize_soa(soa), wbs[0])
+    lay = {k: np.concatenate([w.arrays[k] for w in wbs])[None, :]
+           for k in wbs[0].arrays}
+    bounds, s = [], 0
+    for w in wbs:
+        bounds.append((s, s + len(w)))
+        s += len(w)
+    if shape == "mixed":
+        specs = [pe_spec(t) for t in PEType]
+        a = np.random.default_rng(20220516).integers(
+            0, len(specs), size=(len(soa["pe_rows"]), s))
+        cfg = dict(cfg,
+                   act_bits=np.array([p.act_bits for p in specs])[a],
+                   weight_bits=np.array([p.weight_bits for p in specs])[a],
+                   mac_energy_pj=np.array([p.mac_energy_pj
+                                           for p in specs])[a])
+    return cfg, lay, tuple(bounds)
 
-    # back-to-back launches of the kernel alone (table built once)
+
+def phase_timing(device) -> dict:
+    """Kernel device time vs its plain version at the main path's shape,
+    and at the mixed-precision and W = 3 shapes, beside its bounds."""
+    import torch
+    from repro_torch.core.dse_batch import _cfg_to_device, _lay_to_device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sweep_kernel as K
+
     lib = _build.library("sweep_kernel")
-    table = torch.from_numpy(_layer_table(hlay, bounds)).to(device)
-    out = torch.empty((n, 6 * w), dtype=torch.float32, device=device)
+    cell_ins = _sweep_cell_instructions(_build.library_path("sweep_kernel"))
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
     stream = torch.cuda.current_stream(device).cuda_stream
-    args = ([ctypes.c_void_p(dcfg[k].data_ptr()) for k in KERNEL_CFG_FIELDS]
-            + [ctypes.c_void_p(table.data_ptr()),
-               ctypes.c_void_p(out.data_ptr()), n, l, w, l]
-            + [int(dcfg[k].shape[1] != 1) for k in MIXED_CFG_FIELDS]
-            + [ctypes.c_void_p(stream)])
+    out = {"phase": "timing", "cell_instructions": cell_ins,
+           "sm_clock_max_mhz": clock_mhz}
+    for shape in TIMING_SHAPES:
+        cfg, lay, bounds = _timing_inputs(shape)
+        dcfg = _cfg_to_device(cfg, device, exact=False)
+        hlay = _lay_to_device(lay, torch.device("cpu"), exact=False)
+        dlay = _lay_to_device(lay, device, exact=False)
+        n, l, w = len(cfg["pe_rows"]), int(hlay["r"].shape[1]), len(bounds)
+        p = K.plan(n, bounds)
+        K.sweep_aggregates_packed(dcfg, hlay, bounds=bounds)
+        grid_launched = list(K.last_grid)
+        check(grid_launched == [p.blocks, K.THREADS, p.smem],
+              f"{shape}: launched grid {grid_launched} is not the plan's")
 
-    def launch():
-        err = lib.qappa_sweep_aggregates(*args)
-        if err != 0:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
+        # back-to-back launches of the kernel alone (table built once)
+        table = torch.from_numpy(K._layer_table(hlay, bounds)).to(device)
+        res = torch.empty((n, 6 * w), dtype=torch.float32, device=device)
+        info = (ctypes.c_int * 3)()
+        args = ([ctypes.c_void_p(dcfg[k].data_ptr())
+                 for k in K.KERNEL_CFG_FIELDS]
+                + [ctypes.c_void_p(table.data_ptr()),
+                   ctypes.c_void_p(res.data_ptr()), n, l, w, p.blocks,
+                   p.smem]
+                + [int(dcfg[k].shape[1] != 1) for k in K.MIXED_CFG_FIELDS]
+                + [info, ctypes.c_void_p(stream)])
 
-    # plain, kernel, kernel, plain: both measured twice within this call
-    plain_ms = [_event_ms(lambda: sweep_aggregates_ref(dcfg, dlay), 20)]
-    kernel_ms = [_event_ms(launch, 500) for _ in range(2)]
-    plain_ms.append(_event_ms(lambda: sweep_aggregates_ref(dcfg, dlay), 20))
-    wrapper_ms = _event_ms(lambda: sweep_aggregates_packed(dcfg, hlay), 200)
+        def launch():
+            err = lib.qappa_sweep_aggregates(*args)
+            if err != 0:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
 
-    profiled_ms = None
+        def plain():
+            return K.sweep_aggregates_ref(dcfg, dlay, bounds=bounds)
+
+        # plain, kernel, kernel, plain: both measured twice within this call
+        plain_ms = [_event_ms(plain, 20)]
+        kernel_ms = [_event_ms(launch, 500) for _ in range(2)]
+        plain_ms.append(_event_ms(plain, 20))
+        wrapper_ms = _event_ms(
+            lambda: K.sweep_aggregates_packed(dcfg, hlay, bounds=bounds), 200)
+        windows = [_profiled_kernel_ms(launch, 50) for _ in range(3)]
+        kept = [x for x in windows if x is not None]
+
+        n_read = len(K.KERNEL_CFG_FIELDS) + sum(
+            int(dcfg[k].shape[1] != 1) for k in K.MIXED_CFG_FIELDS) * (l - 1)
+        bytes_moved = n * (n_read * 4 + 6 * w * 4) + table.numel() * 4
+        ops = n * l * F32_OPS_PER_CELL + n * w * F32_OPS_PER_CONFIG
+        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_F32_OPS_UNFUSED * 1e3
+        issue_ms = (None if cell_ins is None else
+                    n * l / 32 * cell_ins
+                    / (H100_SMS * 4 * clock_mhz * 1e6) * 1e3)
+        out[shape] = {
+            "n": n, "l": l, "w": w, "grid": grid_launched,
+            "tiles": list(p.tiles), "kernel_ms": kernel_ms,
+            "profiled_kernel_ms": min(kept) if kept else None,
+            "profiler_windows": windows, "plain_ms": plain_ms,
+            "wrapper_ms": wrapper_ms, "bytes": bytes_moved, "f32_ops": ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "issue_bound_ms": issue_ms}
+    return out
+
+
+def _profiled_kernel_ms(fn, iters: int):
+    """The sweep kernel's device time per launch from ``torch.profiler``
+    over ``iters`` back-to-back launches; None where tracing kept none."""
+    import torch
     try:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(50):
-                launch()
+            for _ in range(iters):
+                fn()
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if "sweep_aggregates_kernel" in ev.key:
-                dev_us = getattr(ev, "device_time", None) or getattr(
-                    ev, "cuda_time", 0.0)
-                profiled_ms = dev_us / 1e3 if dev_us else None
     except (RuntimeError, AttributeError) as exc:   # tracing unavailable
         print(f"profiler unavailable: {exc}", file=sys.stderr)
-
-    n_read = len(KERNEL_CFG_FIELDS)
-    bytes_moved = n * (n_read * 4 + 6 * w * 4) + table.numel() * 4
-    ops = n * l * F32_OPS_PER_CELL + n * F32_OPS_PER_CONFIG
-    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_FLOPS * 1e3
-    return {"phase": "timing", "n": n, "l": l, "w": w,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "wrapper_ms": wrapper_ms, "profiled_kernel_ms": profiled_ms,
-            "bytes": bytes_moved, "f32_ops": ops, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        return None
+    for ev in prof.key_averages():
+        if "sweep_aggregates_kernel" in ev.key and ev.count:
+            us = getattr(ev, "self_device_time_total", 0.0)
+            return us / ev.count / 1e3 if us else None
+    return None
 
 
 # ---------------------------------------------------------------- serving
@@ -1643,6 +1761,7 @@ def main() -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     per = (f"one {SERVE_ARCH} layer's 7 projections at m = "
            f"{SERVE['batch']}, weights cold in L2")
+    sweep = timing["vgg16"]
     kernels = [{
         "name": "sweep_aggregates",
         "route": "cuda",
@@ -1651,13 +1770,26 @@ def main() -> int:
         "launches": main_path["launches"],
         "max_abs_err": parity["worst"]["max_abs_vs_plain"],
         "max_rel_err": parity["worst"]["rel_vs_plain"],
-        "ms": min(timing["kernel_ms"]),
-        "plain_ms": min(timing["plain_ms"]),
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        "ms": sweep["profiled_kernel_ms"],
+        "plain_ms": min(sweep["plain_ms"]),
+        "bound_ms": sweep["bound_ms"],
+        "bound_by": sweep["bound_by"],
         "library_ms": None,
-        "per": f"one launch at N = {timing['n']}, L = {timing['l']}, W = "
-               f"{timing['w']} (CUDA-event time)",
+        "event_ms": min(sweep["kernel_ms"]),
+        "issue_bound_ms": sweep["issue_bound_ms"],
+        "grid": sweep["grid"],
+        "other_shapes": {
+            shape: {key: timing[shape][key] for key in (
+                "n", "l", "w", "grid", "profiled_kernel_ms", "bound_ms",
+                "issue_bound_ms")}
+            for shape in TIMING_SHAPES if shape != "vgg16"},
+        "per": f"one launch at N = {sweep['n']}, L = {sweep['l']}, W = "
+               f"{sweep['w']} (profiler device time, the smallest of three "
+               "windows; event_ms: CUDA events over back-to-back launches; "
+               "grid: blocks, threads and shared-memory bytes as the C "
+               "entry reported them; issue_bound_ms: the cells' SASS "
+               "instructions over the card's schedulers at its maximum SM "
+               "clock)",
     }]
     w8 = "src/repro_torch/kernels/csrc/w8a8_matmul.cu"
     lay = qtiming["w8a8"]["layer"]

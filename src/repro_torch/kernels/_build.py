@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "sweep_kernel": {
-        "qappa_sweep_aggregates": (_I, [_P] * 16 + [_I] * 7 + [_P]),
+        "qappa_sweep_aggregates": (_I, [_P] * 16 + [_I] * 8 + [_P, _P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
     "w8a8_matmul": {

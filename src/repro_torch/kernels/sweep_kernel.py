@@ -15,16 +15,26 @@ float32.
 What bounds it on an H100: neither memory nor arithmetic.  It reads ~60
 bytes and writes 24 bytes per config for ~50 float32 operations per
 (config, layer) — at N = 32768, L = 16 that is under a microsecond of
-either — so a launch costs its fixed overhead plus the latency of the
-serial layer loop, in which about ten integer divisions per layer
-dominate the issued instructions.  There is no matrix product, so tensor
-cores, TMA and ``wgmma`` do not apply.  The design is one thread per
-(config, segment) on a ``(ceil(N / 256), W)`` grid: each thread walks its
-segment's layers in order with the Kahan state in registers — the TPU
-kernel's sequential grid axis over layer tiles becomes that loop — and
-the block stages the segment's layer fields in shared memory, where every
-thread of the block reads the same word (a broadcast).  Per-config
-columns are read coalesced; the ragged N edge is masked in the kernel, so
+either — but each (config, layer) cell issues a few hundred instructions,
+most of them for ten integer divisions by values that vary from cell to
+cell.  There is no matrix product, so tensor cores, TMA and ``wgmma`` do
+not apply.  The design (the header of ``csrc/sweep_kernel.cu`` has the
+detail):
+
+* one (config, layer) cell per thread and step: a block takes a tile of
+  configs x the layers of one segment (:func:`plan` sizes the tiles and
+  the one-axis grid over every segment's tiles), stages each cell's cycles
+  and energy in shared memory, then one thread per config runs the Kahan
+  updates in layer order and the epilogue — the TPU kernel's
+  ``(block_n, block_l)`` tile followed by its sequential sum;
+* exact integer division through the float reciprocal wherever a cell's
+  operands lie in the domain where that is exact, C++ ``/`` elsewhere;
+* the packed layer table lives on the device, cached per (layer arrays,
+  bounds, device) by :func:`device_table`, so a stream of chunks copies
+  it once.
+
+Layers run fastest within a block, so ``(N, L)`` precision columns are
+read along contiguous rows; the ragged N edge is masked in the kernel, so
 nothing is padded.  Results hold to ≤1e-6 relative of the exact float64
 path only because the build keeps IEEE float32 semantics: no fast-math and
 no FMA contraction (see ``kernels/_build.py``).
@@ -36,13 +46,17 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.dse_batch import (_CFG_INT32, AGGREGATE_OUTPUTS,
                                         _segment_aggregates, _sweep_kernel)
+from repro_torch.kernels._workspace import current_stream
 
 CFG_FIELDS = ("pe_rows", "pe_cols", "num_pes", "act_bits", "weight_bits",
               "glb_kb", "glb_bits", "filter_spad", "psum_spad",
@@ -58,11 +72,59 @@ KERNEL_CFG_FIELDS = ("pe_rows", "pe_cols", "act_bits", "weight_bits",
                      "clock_ghz", "area_mm2", "leak_mw")
 # the layer-table rows staged in shared memory (int32), then macs (f32)
 _TABLE_INT_FIELDS = ("r", "s", "e", "f", "c", "k", "h", "w", "batch")
-# shared memory holds 10 words per layer of the longest segment
+#: the longest segment a block stages in shared memory
 MAX_SEGMENT_LAYERS = 1024
+#: threads a block (the kernel's kThreads)
+THREADS = 256
+#: cells (configs x layers of one segment) a block aims for, and the most
+#: configs it takes (one Kahan thread each)
+TILE_CELLS = 1024
+MAX_TILE_CONFIGS = THREADS
+# shared-memory words per layer and per config of a tile, and bytes per
+# staged (cycles, energy) pair (the kernel's kLayerWords, kConfigWords)
+_LAYER_WORDS = 20
+_CONFIG_WORDS = 20
+_PAIR_BYTES = 8
+# packed device tables kept by device_table
+_MAX_TABLES = 16
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+#: the grid of the last launch as the C entry reported it: (blocks,
+#: threads a block, shared-memory bytes a block)
+last_grid = None
+_Info = ctypes.c_int * 3
+_TABLES: dict = {}     # (layer bytes, bounds, device) -> packed table
+
+
+class Plan(NamedTuple):
+    """A launch's geometry: configs per block of each segment, blocks in
+    all (every segment's ``ceil(N / tile)``, in segment order) and the
+    dynamic shared memory of a block, in bytes."""
+    tiles: tuple[int, ...]
+    blocks: int
+    smem: int
+
+
+def _tiles(bounds) -> tuple[int, ...]:
+    return tuple(min(MAX_TILE_CONFIGS, max(1, TILE_CELLS // (e - s)))
+                 for s, e in bounds)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, bounds: tuple[tuple[int, int], ...]) -> Plan:
+    """The grid for ``n`` configs over the segments ``bounds``: each
+    segment of ``len`` layers takes tiles of ``min(MAX_TILE_CONFIGS,
+    TILE_CELLS // len)`` configs (at least one), so every block computes
+    about ``TILE_CELLS`` cells whatever its segment; shared memory holds
+    the tile's staged pairs (rows padded to an odd length), its configs'
+    values and the segment's layer rows."""
+    tiles = _tiles(bounds)
+    blocks = sum(-(-n // t) for t in tiles)
+    smem = max(_PAIR_BYTES * t * ((e - s) | 1)
+               + 4 * (_CONFIG_WORDS * t + _LAYER_WORDS * (e - s))
+               for (s, e), t in zip(bounds, tiles))
+    return Plan(tiles, blocks, smem)
 
 
 def _check_inputs(cfg: dict, lay: dict, bounds) -> tuple:
@@ -120,7 +182,7 @@ def _check_inputs(cfg: dict, lay: dict, bounds) -> tuple:
             raise ValueError(
                 f"sweep_aggregates: lay[{name!r}] is on {t.device}; the "
                 f"layer table is host data (the wrapper packs it with the "
-                f"segment sums and copies it with the launch)")
+                f"segment sums and caches it on the device: device_table)")
     if bounds is None:
         bounds = ((0, l),)
     bounds = tuple((int(s), int(e)) for s, e in bounds)
@@ -164,39 +226,59 @@ def sweep_aggregates_ref(cfg: dict, lay: dict, *,
 
 def _layer_table(lay: dict, bounds) -> np.ndarray:
     """One int32 buffer: the 9 integer layer rows, the float32 macs row
-    (as bits), the ``(W, 2)`` segment bounds and the float32 segment MAC
-    totals (as bits)."""
+    (as bits), the ``(W, 2)`` segment bounds, the float32 segment MAC
+    totals (as bits) and each segment's configs per block."""
     ints = np.stack([lay[k].numpy()[0] for k in _TABLE_INT_FIELDS])
     macs = lay["macs"].numpy()[0]
     return np.concatenate([
         ints.reshape(-1).astype(np.int32),
         macs.astype(np.float32).view(np.int32),
         np.asarray(bounds, dtype=np.int32).reshape(-1),
-        segment_macs(macs, bounds).view(np.int32)])
+        segment_macs(macs, bounds).view(np.int32),
+        np.asarray(_tiles(bounds), dtype=np.int32)])
+
+
+def device_table(lay: dict, bounds, device: torch.device) -> torch.Tensor:
+    """The packed layer table (:func:`_layer_table`) on ``device``, built
+    and copied once per (layer arrays, bounds, device): the last
+    ``_MAX_TABLES`` stay cached, so a stream of chunks over one workload
+    copies its table once."""
+    key = (b"".join(lay[k].numpy().tobytes() for k in LAY_FIELDS),
+           bounds, device)
+    table = _TABLES.get(key)
+    if table is None:
+        if len(_TABLES) >= _MAX_TABLES:
+            del _TABLES[next(iter(_TABLES))]
+        table = torch.from_numpy(_layer_table(lay, bounds)).to(device)
+        _TABLES[key] = table
+    return table
 
 
 def _launch(cfg: dict, lay: dict, bounds, n: int, l: int) -> torch.Tensor:
-    global launches
+    global launches, last_grid
     from repro_torch.kernels import _build
     lib = _build.library("sweep_kernel")
     device = cfg["pe_rows"].device
-    w = len(bounds)
-    with torch.cuda.device(device):
-        table = torch.from_numpy(_layer_table(lay, bounds)).pin_memory() \
-            .to(device, non_blocking=True)
-        out = torch.empty((n, 6 * w), dtype=torch.float32, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        wide = [int(cfg[k].shape[1] != 1) for k in MIXED_CFG_FIELDS]
+    p = plan(n, bounds)
+    table = device_table(lay, bounds, device)
+    out = torch.empty((n, 6 * len(bounds)), dtype=torch.float32,
+                      device=device)
+    wide = [int(cfg[k].shape[1] != 1) for k in MIXED_CFG_FIELDS]
+    info = _Info()
+    # the launch goes to the tensors' device (a context only when that is
+    # not the current one: entering it costs a few µs a call)
+    with (contextlib.nullcontext()
+          if device.index == torch.cuda.current_device()
+          else torch.cuda.device(device)):
         err = lib.qappa_sweep_aggregates(
-            *[ctypes.c_void_p(cfg[k].data_ptr()) for k in KERNEL_CFG_FIELDS],
-            ctypes.c_void_p(table.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            n, l, w, max(e - s for s, e in bounds), *wide,
-            ctypes.c_void_p(stream))
+            *[cfg[k].data_ptr() for k in KERNEL_CFG_FIELDS],
+            table.data_ptr(), out.data_ptr(), n, l, len(bounds), p.blocks,
+            p.smem, *wide, info, current_stream(device))
     if err != 0:
         raise RuntimeError(
             f"sweep_aggregates kernel launch failed: CUDA error {err} "
             f"({lib.qappa_error_string(err).decode()})")
+    last_grid = tuple(info)
     launches += 1
     return out
 

@@ -162,6 +162,82 @@ def test_chunked_front_on_card_matches_exact(cuda_device, depth):
         == [c.name() for c in want.front_configs()]
 
 
+def _edge_segments(cfg, segs: str):
+    """VGG-16's layers cut into one-layer segments, tiled into one segment
+    of MAX_SEGMENT_LAYERS layers, or the ragged W = 3 concatenation."""
+    if segs == "ragged_w3":
+        return _cfg_lay(len(cfg["pe_rows"]), WORKLOADS, seed=4)[1:]
+    wb = TB._workload_batch(get_workload("vgg16"))
+    if segs == "one_layer":
+        lay = {k: v[None, :] for k, v in wb.arrays.items()}
+        return lay, tuple((j, j + 1) for j in range(len(wb)))
+    reps = K.MAX_SEGMENT_LAYERS // len(wb)
+    lay = {k: np.tile(v, reps)[None, :] for k, v in wb.arrays.items()}
+    return lay, ((0, K.MAX_SEGMENT_LAYERS),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segs", ["one_layer", "longest", "ragged_w3"])
+@pytest.mark.parametrize("n", [1, 255, 257, 32768])
+def test_kernel_grid_and_edge_shapes_on_card(cuda_device, n, segs):
+    """The grid the C entry reports is the planner's, and the kernel holds
+    to its plain version at the planner's edge shapes (the longest
+    segment takes more than 48 KB of shared memory)."""
+    soa = next(iter(design_space_soa(**QUICK)))
+    idx = np.random.default_rng(n).choice(len(soa["pe_rows"]), n)
+    soa = {k: v[idx] for k, v in soa.items()}
+    cfg, _ = TB._make_cfg_lay(soa, synthesize_soa(soa),
+                              TB._workload_batch(get_workload("vgg16")))
+    lay, bounds = _edge_segments(cfg, segs)
+    dcfg = TB._cfg_to_device(cfg, cuda_device, exact=False)
+    got = K.sweep_aggregates(dcfg, TB._lay_to_device(lay, CPU, False),
+                             bounds=bounds)
+    torch.cuda.synchronize()
+    p = K.plan(n, bounds)
+    assert K.last_grid == (p.blocks, K.THREADS, p.smem)
+    plain = K.sweep_aggregates_ref(
+        dcfg, TB._lay_to_device(lay, cuda_device, False), bounds=bounds)
+    for k in TB.AGGREGATE_OUTPUTS:
+        g = got[k].cpu().numpy()
+        assert g.shape == (len(bounds), n) and np.isfinite(g).all(), k
+        assert _rel(g, plain[k].cpu().numpy()) <= RTOL, k
+
+
+@pytest.mark.cuda
+def test_large_glb_takes_integer_division_on_card(cuda_device):
+    """GLBs of 16 MB and more lie outside the reciprocal division's domain
+    (8 MB, ``kGlbHalfMax``): those cells divide with C++ '/' and still
+    match the exact path, as the 8 MB cells beside them do."""
+    soa = next(iter(design_space_soa(glb_kbs=(8192, 16384, 65536, 131072),
+                                     bws=(2.0, 25.6))))
+    wbs = [TB._workload_batch(get_workload(w)) for w in WORKLOADS]
+    cfg, _ = TB._make_cfg_lay(soa, synthesize_soa(soa), wbs[0])
+    lay = {k: np.concatenate([w.arrays[k] for w in wbs])[None, :]
+           for k in wbs[0].arrays}
+    bounds = _cfg_lay(1, WORKLOADS)[2]
+    dcfg = TB._cfg_to_device(cfg, cuda_device, exact=False)
+    got = K.sweep_aggregates(dcfg, TB._lay_to_device(lay, CPU, False),
+                             bounds=bounds)
+    plain = K.sweep_aggregates_ref(
+        dcfg, TB._lay_to_device(lay, cuda_device, False), bounds=bounds)
+    ecfg, elay = TB._to_device_inputs(cfg, lay, CPU, exact=True)
+    totals = TB._sweep_kernel(ecfg, elay, exact=True, outputs="layer_totals")
+    exact = TB._segment_aggregates(totals, ecfg, elay, bounds, exact=True)
+    for k in TB.AGGREGATE_OUTPUTS:
+        g = got[k].cpu().numpy()
+        assert _rel(g, plain[k].cpu().numpy()) <= RTOL, k
+        plain_err = _rel(plain[k].cpu().numpy(), exact[k].numpy())
+        assert _rel(g, exact[k].numpy()) <= max(RTOL, plain_err + RTOL), k
+
+
+@pytest.mark.cuda
+def test_stream_copies_its_layer_table_once(cuda_device):
+    K._TABLES.clear()
+    got = TB._sweep_chunked(get_workload("vgg16"), design_space_soa(**QUICK),
+                            device=cuda_device, chunk_size=4096)
+    assert got.n_chunks > 1 and len(K._TABLES) == 1
+
+
 # ------------------------------------------------- quantized matmuls
 
 QMM = {"w8a8": (OPS.w8a8_matmul, W8, 1), "w4a8": (OPS.w4a8_matmul, W4, 2)}

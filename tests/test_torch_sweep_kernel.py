@@ -238,15 +238,17 @@ def test_layer_table_layout():
     _, dlay = _x64free(cfg, lay)
     table = K._layer_table(dlay, bounds)
     l, w = lay["r"].shape[1], len(bounds)
-    assert table.dtype == np.int32 and table.shape == (10 * l + 3 * w,)
+    assert table.dtype == np.int32 and table.shape == (10 * l + 4 * w,)
     assert np.array_equal(table[:l], lay["r"][0])
     assert np.array_equal(table[8 * l:9 * l], lay["batch"][0])
     assert np.array_equal(table[9 * l:10 * l].view(np.float32),
                           lay["macs"][0].astype(np.float32))
     assert np.array_equal(table[10 * l:10 * l + 2 * w],
                           np.asarray(bounds).reshape(-1))
-    assert np.array_equal(table[10 * l + 2 * w:].view(np.float32),
+    assert np.array_equal(table[10 * l + 2 * w:10 * l + 3 * w]
+                          .view(np.float32),
                           K.segment_macs(lay["macs"], bounds))
+    assert tuple(table[10 * l + 3 * w:]) == K.plan(1, bounds).tiles
 
 
 # ---------------------------------------------------------------------------
