@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: the
-design-space sweep, quantized LM serving, continuous batching over an
+design-space sweep, the mixed-precision co-exploration search, quantized
+LM serving, continuous batching over an
 int8 KV cache, and the full-sequence forward / prefill.
 
     python3 chip_smoke.py
@@ -22,9 +23,28 @@ Phases (any failure exits non-zero):
    102,960-config grid, a mixed-precision batch and the VGG-16 + ResNet-34
    + ResNet-50 concatenation — at <= 1e-6 relative, with identical
    streamed fronts;
+3b. the many-workload and co-exploration paths, through
+   ``repro_torch.core.dse.run``, each on the card and on the exact CPU
+   path, the kernel's launch count read around each card run:
+   ``explore_many`` (the uniform 720-point sweep of VGG-16, ResNet-34 and
+   ResNet-50: headline ratios within 1e-6 of the exact path);
+   ``coexplore`` (``ExploreSpec.mixed("vgg16", preset="default")``: nsga2,
+   2048 evaluations, population 64) and ``coexplore_many`` (the three
+   workloads, ``precision="mixed"``, preset ``many-default``): one kernel
+   launch per evaluation chunk, wall time and the Evaluator's counters
+   of both runs, every front row of the card's run re-scored on the
+   exact path within 1e-6 (column by column within the plain version's
+   own distance plus 1e-6, ROADMAP C.1), ``accuracy_noise`` identical,
+   and whether the two fronts are identical (else the first evaluation
+   at which the runs part); ``coexplore_golden`` (the setting of
+   ``tests/golden_coexplore_many.json``): front genomes identical to the
+   golden's on the card and on the CPU, objectives within 1e-9 of it on
+   the CPU and 1e-6 on the card (float32 aggregates);
 4. sweep timing at N = 32768: VGG-16 (L = 16, the main path's chunk),
    the same with ``(N, 16)`` mixed-precision columns, and VGG-16 +
-   ResNet-34 + ResNet-50 (L = 107, W = 3); profiler device time and CUDA
+   ResNet-34 + ResNet-50 (L = 107, W = 3); and at the search's launch, 64
+   genomes with mixed columns on VGG-16 and on the three workloads
+   (``search_l16``, ``search_w3``); profiler device time and CUDA
    events, the grid the C entry reports (held to
    ``kernels/sweep_kernel.plan``), beside the kernel's bound on an H100
    (float32 operations unfused at 33.5 TFLOP/s, since the build passes
@@ -97,7 +117,9 @@ Phases (any failure exits non-zero):
     bounds (float32: 3xTF32 on the tensor cores, and the CUDA-core
     rate).
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
+The sweep kernel's entry of the kernels line also gives its launches in
+the two full-budget searches (``launches_coexplore``).  The last lines
+are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -137,8 +159,24 @@ PEAK_F32_OPS_UNFUSED = PEAK_F32_FLOPS / 2
 # the sweep kernel's timing shapes: the main path's chunk (VGG-16, uniform
 # columns), the same with (N, 16) mixed-precision columns, and the W = 3
 # concatenation of the many-workload path
-TIMING_SHAPES = ("vgg16", "mixed", "w3")
+TIMING_SHAPES = ("vgg16", "mixed", "w3", "search_l16", "search_w3")
 TIMING_W3 = ("vgg16", "resnet34", "resnet50")
+# the co-exploration's launch shape: one nsga2 generation of genomes
+SEARCH_N = 64
+# the full-budget searches of the co-exploration phases (their presets'
+# budgets: 2048 evaluations, population 64) and the golden setting of
+# tests/golden_coexplore_many.json
+COEXPLORE = dict(workload="vgg16", preset="default", seed=0)
+COEXPLORE_MANY = dict(workloads=TIMING_W3, preset="many-default", seed=0)
+GOLDEN = ROOT / "tests" / "golden_coexplore_many.json"
+# the stages of a search whose cumulative host time the phases report:
+# the whole engine, the Evaluator (sweep and objectives), the per-
+# generation hypervolume of the archive, sorting and crowding, the
+# archive's non-dominated reduction, crossover and mutation
+SEARCH_STAGES = ("nsga2", "evaluate", "_sweep_mixed", "_sweep_mixed_many",
+                 "hypervolume", "_ranks_and_crowding", "_front",
+                 "crossover", "mutate")
+GOLDEN_RTOL = 1e-9
 
 # the serving path: phi4-mini-3.8b at full width
 SERVE_ARCH = "phi4-mini-3.8b"
@@ -414,6 +452,229 @@ def phase_parity(device) -> dict:
             "front_size": len(fronts["cpu"]), "fronts_identical": same}
 
 
+def phase_explore_many(device) -> dict:
+    """The uniform sweep of the workload suite on the paper's 720-point
+    space, through run(ExploreSpec.many(...)): each workload's headline
+    ratios against the same spec on the exact CPU path."""
+    from repro_torch.core.dse import DSEPoint, DSEResult, ExploreSpec, run
+    from repro_torch.kernels import sweep_kernel
+
+    spec = ExploreSpec.many(TIMING_W3, outputs="aggregates")
+    sweep_kernel.launches = 0
+    t0 = time.perf_counter()
+    card = run(spec, device=device)
+    card_s = time.perf_counter() - t0
+    launches = sweep_kernel.launches
+    check(launches == len(TIMING_W3),
+          f"explore_many: {launches} kernel launches, one per workload "
+          f"expected")
+    t0 = time.perf_counter()
+    exact = run(spec, device="cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def ratios(sweep):
+        return DSEResult(sweep.workload, [
+            DSEPoint(c, sweep.result_view(i))
+            for i, c in enumerate(sweep.configs)]).headline_ratios()
+    errs = {}
+    for name in TIMING_W3:
+        got, want = ratios(card[name]), ratios(exact[name])
+        errs[name] = max(abs(got[k] / v - 1.0) for k, v in want.items())
+        check(errs[name] <= RTOL,
+              f"explore_many {name}: headline ratios {errs[name]:.3g} "
+              f"from the exact path")
+    return {"phase": "explore_many", "launches": launches,
+            "configs": len(card[TIMING_W3[0]]), "card_s": card_s,
+            "cpu_s": cpu_s, "headline_max_rel_vs_exact": errs,
+            "headline_card": {n: ratios(card[n]) for n in TIMING_W3}}
+
+
+def _front_objectives_plain(res, workloads, device):
+    """The front genomes of a search through the sweep kernel's plain
+    version on the card, scored as the search scores them."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dse_batch import (_cfg_to_device, _lay_to_device,
+                                            _make_cfg_lay,
+                                            _workload_batch_many,
+                                            mixed_assign_cfg)
+    from repro_torch.core.synthesis import synthesize_soa
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.explore.objectives import (multi_objective_matrix,
+                                                objective_matrix)
+    from repro_torch.kernels.sweep_kernel import sweep_aggregates_ref
+    wls = tuple(get_workload(w) for w in workloads)
+    soa, assign = res.space.decode(res.genomes)
+    multi = len(wls) > 1
+    assigns = res.space.split_assign(assign) if multi else [assign]
+    combined, bounds = _workload_batch_many(wls)
+    cfg, lay = _make_cfg_lay(soa, synthesize_soa(soa), combined)
+    cfg = mixed_assign_cfg(cfg, assign)
+    agg = sweep_aggregates_ref(_cfg_to_device(cfg, device, False),
+                               _lay_to_device(lay, device, False),
+                               bounds=bounds)
+    torch.cuda.synchronize(device)
+    agg = {k: v.cpu().numpy() for k, v in agg.items()}
+    macs = [np.array([l.macs for l in w.layers], dtype=np.float64)
+            for w in wls]
+    if multi:
+        return multi_objective_matrix(agg, assigns, macs, res.objectives)
+    one = {k: v[0] for k, v in agg.items()}
+    one["area_mm2"] = cfg["area_mm2"][:, 0]
+    return objective_matrix(one, assign, macs[0], res.objectives)
+
+
+def _first_divergence(card, cpu):
+    """The first evaluation (row of ``all_objectives``) at which the two
+    runs scored different genomes — objective rows more than 1e-4 apart —
+    and its nsga2 generation; None where they never part."""
+    import numpy as np
+    a, b = card.all_objectives, cpu.all_objectives
+    n = min(len(a), len(b))
+    rel = np.abs(a[:n] - b[:n]) / np.maximum(np.abs(b[:n]), 1e-30)
+    rows = np.nonzero((rel > 1e-4).any(axis=1))[0]
+    if not len(rows):
+        return None
+    pop = len(card.population) if card.population is not None else 1
+    return {"eval": int(rows[0]), "generation": int(rows[0]) // pop}
+
+
+def _search_phase(name: str, spec, workloads, device) -> dict:
+    """One search through run() on the card and on the exact CPU path:
+    wall time, Evaluator stats, front size, kernel launches and, from a
+    third (profiled) card run, the host time of the search's stages; every
+    front row of the card's run re-scored on the exact path within 1e-6
+    (held, column by column, to the plain version's own distance from the
+    exact path plus 1e-6: ROADMAP C.1), accuracy_noise identical."""
+    import numpy as np
+    from repro_torch.core.dse import run
+    from repro_torch.explore.search import Evaluator
+    from repro_torch.kernels import sweep_kernel
+
+    sweep_kernel.launches = 0
+    t0 = time.perf_counter()
+    card = run(spec, device=device)
+    card_s = time.perf_counter() - t0
+    launches = sweep_kernel.launches
+    t0 = time.perf_counter()
+    cpu = run(spec, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(launches == card.stats["chunks"] >= 1,
+          f"{name}: {launches} kernel launches for "
+          f"{card.stats['chunks']} evaluation chunks")
+    check(card.n_evals == cpu.n_evals, f"{name}: evaluation counts")
+    check(bool(np.isfinite(card.front_objectives).all()),
+          f"{name}: non-finite front objectives")
+
+    exact = Evaluator(card.space, list(workloads) if len(workloads) > 1
+                      else workloads[0], card.objectives,
+                      device="cpu").evaluate(card.genomes)
+    plain = _front_objectives_plain(card, workloads, device)
+    cols = {}
+    for j, obj in enumerate(card.objectives):
+        got = rel_err(card.front_objectives[:, j], exact[:, j])
+        plain_err = rel_err(plain[:, j], exact[:, j])
+        cols[obj] = {"rel_vs_exact": got, "plain_rel_vs_exact": plain_err,
+                     "rel_vs_plain": rel_err(card.front_objectives[:, j],
+                                             plain[:, j])}
+        check(got <= max(RTOL, plain_err + RTOL),
+              f"{name}: front {obj} {got:.3g} from the exact path, beyond "
+              f"the float32 policy's {plain_err:.3g}")
+    acc = [j for j, o in enumerate(card.objectives) if "accuracy" in o]
+    for j in acc:
+        check(np.array_equal(card.front_objectives[:, j], exact[:, j]),
+              f"{name}: accuracy_noise differs between card and CPU")
+    same = (card.genomes.shape == cpu.genomes.shape
+            and bool(np.array_equal(card.genomes, cpu.genomes)))
+
+    # where a card search's host time goes: one more card run under
+    # cProfile, cumulative seconds of the search's stages
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    run(spec, device=device)
+    prof.disable()
+    cum = {}
+    for (path, _, fn), row in pstats.Stats(prof).stats.items():
+        if "repro_torch" in path and fn in SEARCH_STAGES:
+            cum[fn] = cum.get(fn, 0.0) + row[3]
+
+    def report(res, wall):
+        st = dict(res.stats)
+        st["wall_s"] = wall
+        st["evals_per_s"] = res.n_evals / wall
+        st["kernel_evals_per_eval_s"] = (
+            st["kernel_evals"] / st["eval_seconds"]
+            if st["eval_seconds"] else None)
+        st["front_size"] = res.front_size
+        return st
+    return {"phase": name, "launches": launches,
+            "card": report(card, card_s), "cpu": report(cpu, cpu_s),
+            "fronts_identical": same,
+            "first_divergence": None if same
+            else _first_divergence(card, cpu),
+            "host_profile_s": cum,
+            "hypervolume_card": card.hypervolume(cpu.ref_point),
+            "hypervolume_cpu": cpu.hypervolume(),
+            "front_vs_exact": cols}
+
+
+def phase_coexplore(device) -> dict:
+    from repro_torch.core.dse import ExploreSpec
+    c = COEXPLORE
+    return _search_phase("coexplore", ExploreSpec.mixed(
+        c["workload"], preset=c["preset"], seed=c["seed"]),
+        (c["workload"],), device)
+
+
+def phase_coexplore_many(device) -> dict:
+    from repro_torch.core.dse import ExploreSpec
+    c = COEXPLORE_MANY
+    return _search_phase("coexplore_many", ExploreSpec.many(
+        c["workloads"], precision="mixed", preset=c["preset"],
+        seed=c["seed"]), c["workloads"], device)
+
+
+def phase_coexplore_golden(device) -> dict:
+    """The setting of tests/golden_coexplore_many.json on the card and on
+    the exact CPU path: front genomes identical to the golden's in both;
+    the CPU's objectives within 1e-9 of it, the card's (float32
+    aggregates) within 1e-6."""
+    import numpy as np
+    from repro_torch.core.dse import ExploreSpec, run
+    from repro_torch.kernels import sweep_kernel
+
+    golden = json.loads(GOLDEN.read_text())
+    spec = ExploreSpec.many(
+        golden["workloads"], precision="mixed", preset=golden["preset"],
+        budget=golden["budget"], seed=golden["seed"],
+        pop_size=golden["pop_size"])
+    sweep_kernel.launches = 0
+    card = run(spec, device=device)
+    launches = sweep_kernel.launches
+    cpu = run(spec, device="cpu")
+    want_g = card.space.unpack_genomes(
+        np.array(golden["front_genomes_u16"], dtype=np.uint16))
+    want_f = np.array(golden["front_objectives"], dtype=np.float64)
+    check(list(card.objectives) == golden["objectives"],
+          "golden: objective names")
+    check(launches == card.stats["chunks"] >= 1,
+          f"golden: {launches} launches for {card.stats['chunks']} chunks")
+    for res, tol, where in ((card, RTOL, "card"), (cpu, GOLDEN_RTOL, "cpu")):
+        check(res.genomes.shape == want_g.shape
+              and bool(np.array_equal(res.genomes, want_g)),
+              f"golden: the {where}'s front genomes differ from the golden")
+        err = rel_err(res.front_objectives, want_f)
+        check(err <= tol, f"golden: the {where}'s front objectives "
+              f"{err:.3g} from the golden (> {tol})")
+    return {"phase": "coexplore_golden", "launches": launches,
+            "chunks": card.stats["chunks"], "front_size": card.front_size,
+            "fronts_identical": True,
+            "card_rel_vs_golden": rel_err(card.front_objectives, want_f),
+            "cpu_rel_vs_golden": rel_err(cpu.front_objectives, want_f)}
+
+
 def _event_ms(fn, iters: int, warmup: int = 5) -> float:
     import torch
     for _ in range(warmup):
@@ -478,22 +739,34 @@ def _sweep_cell_instructions(path):
 def _timing_inputs(shape: str):
     """The first 32768-config chunk of the 102,960-config grid: VGG-16
     with uniform or mixed ``(N, 16)`` precision columns, or VGG-16 +
-    ResNet-34 + ResNet-50 in three segments."""
+    ResNet-34 + ResNet-50 in three segments; or the search's launch
+    (``search_*``): 64 genomes with mixed columns, on VGG-16 or on the
+    three segments."""
     import numpy as np
     from repro_torch.core.dse_batch import _make_cfg_lay, _workload_batch
     from repro_torch.core.pe import PEType, pe_spec
     from repro_torch.core.synthesis import synthesize_soa
     from repro_torch.core.workloads import get_workload
-    soa = next(iter(grid(GRID_FULL)))
-    names = TIMING_W3 if shape == "w3" else ("vgg16",)
+    names = TIMING_W3 if shape.endswith("w3") else ("vgg16",)
     wbs = [_workload_batch(get_workload(w)) for w in names]
-    cfg, _ = _make_cfg_lay(soa, synthesize_soa(soa), wbs[0])
     lay = {k: np.concatenate([w.arrays[k] for w in wbs])[None, :]
            for k in wbs[0].arrays}
     bounds, s = [], 0
     for w in wbs:
         bounds.append((s, s + len(w)))
         s += len(w)
+    if shape.startswith("search"):
+        # one generation of the search: SEARCH_N genomes of the joint
+        # space, their hardware synthesized and their modes per layer
+        from repro_torch.core.dse_batch import mixed_assign_cfg
+        from repro_torch.explore.space import space_for_workloads
+        space = space_for_workloads(names)
+        soa, assign = space.decode(space.random_population(
+            SEARCH_N, np.random.default_rng(0)))
+        cfg, _ = _make_cfg_lay(soa, synthesize_soa(soa), wbs[0])
+        return mixed_assign_cfg(cfg, assign), lay, tuple(bounds)
+    soa = next(iter(grid(GRID_FULL)))
+    cfg, _ = _make_cfg_lay(soa, synthesize_soa(soa), wbs[0])
     if shape == "mixed":
         specs = [pe_spec(t) for t in PEType]
         a = np.random.default_rng(20220516).integers(
@@ -1728,6 +2001,12 @@ def main() -> int:
     emit(phase_headline_exact(main_path))
     parity = phase_parity(device)
     emit(parity)
+    emit(phase_explore_many(device))
+    coexplore = phase_coexplore(device)
+    emit(coexplore)
+    coexplore_many = phase_coexplore_many(device)
+    emit(coexplore_many)
+    emit(phase_coexplore_golden(device))
     timing = phase_timing(device)
     emit(timing)
     serve = {q: phase_serve(device, q) for q in ("w8a8", "w4a8_pow2")}
@@ -1778,6 +2057,8 @@ def main() -> int:
         "event_ms": min(sweep["kernel_ms"]),
         "issue_bound_ms": sweep["issue_bound_ms"],
         "grid": sweep["grid"],
+        "launches_coexplore": {"coexplore": coexplore["launches"],
+                               "coexplore_many": coexplore_many["launches"]},
         "other_shapes": {
             shape: {key: timing[shape][key] for key in (
                 "n", "l", "w", "grid", "profiled_kernel_ms", "bound_ms",

@@ -1,24 +1,38 @@
 """Design-space exploration: the port's entry point.
 
-Port of the uniform single-workload sweep of :mod:`repro.core.dse`: an
-:class:`ExploreSpec` built with :meth:`ExploreSpec.single` describes the
-sweep and :func:`run` executes it on a device — the card unless the caller
-passes ``device="cpu"``.  Results normalize performance-per-area and
-energy against the best INT16 configuration, as the paper's Figs. 3-5 do.
+Port of :mod:`repro.core.dse`: an :class:`ExploreSpec` describes one
+campaign and :func:`run` executes it on a device — the card unless the
+caller passes ``device="cpu"``.  Specs are built with
+
+* :meth:`ExploreSpec.single` — a uniform-precision sweep of one workload
+  (optionally chunk-streamed);
+* :meth:`ExploreSpec.mixed` — guided mixed-precision co-exploration of one
+  workload (:mod:`repro_torch.explore`);
+* :meth:`ExploreSpec.many` — a workload suite: uniform precision sweeps
+  the batch per workload, ``precision="mixed"`` searches one shared
+  hardware config with a per-workload precision assignment.
+
+Sweep results normalize performance-per-area and energy against the best
+INT16 configuration, as the paper's Figs. 3-5 do.
+:class:`IncrementalSweep` extends a sweep without re-evaluating known
+configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.accelerator import AcceleratorConfig, design_space
+from repro_torch.core.accelerator import (AcceleratorConfig, configs_to_soa,
+                                          design_space)
+from repro_torch.core.confighash import config_digests, digest_keys
 from repro_torch.core.device import resolve_device
-from repro_torch.core.dse_batch import (BatchedWorkloadResult, _sweep_chunked,
-                                        _sweep_workload, pareto_mask)
+from repro_torch.core.dse_batch import (BatchedWorkloadResult, _synthesize,
+                                        _sweep_chunked, _sweep_workload,
+                                        pareto_mask)
 from repro_torch.core.pe import PEType
 from repro_torch.core.workloads import Workload, get_workload
 
@@ -94,20 +108,224 @@ def pareto_front(points: Sequence[DSEPoint]) -> list[DSEPoint]:
     return sorted(front, key=lambda p: p.energy_j)
 
 
-def _resolve(workload: Workload | str) -> Workload:
-    return get_workload(workload) if isinstance(workload, str) else workload
 
 
 _OUTPUT_MODES = ("points", "sweep", "aggregates")
 
 
+def _resolve(workload: Workload | str) -> Workload:
+    return get_workload(workload) if isinstance(workload, str) else workload
+
+
+def _explore_many(workloads: Sequence[Workload | str],
+                  configs: Iterable[AcceleratorConfig] | None = None,
+                  *,
+                  use_cache: bool = True,
+                  device: str | torch.device = "cuda",
+                  outputs: str = "points") -> dict:
+    """Uniform-precision sweep of a workload suite: synthesis and the SoA
+    conversion run once for the config batch and are shared by every
+    workload.  Returns ``{workload name: result}`` with each result as
+    ``outputs`` asks (see :func:`run`)."""
+    if outputs not in _OUTPUT_MODES:
+        raise ValueError(
+            f"unknown outputs mode {outputs!r} "
+            f"(choose from {_OUTPUT_MODES})")
+    device = resolve_device(device)
+    cfgs = tuple(design_space() if configs is None else configs)
+    soa = configs_to_soa(cfgs)
+    cols = _synthesize(soa, use_cache)
+    out: dict = {}
+    for wl in workloads:
+        wl = _resolve(wl)
+        sweep = _sweep_workload(
+            wl, cfgs, cols, soa=soa, device=device,
+            outputs="aggregates" if outputs == "aggregates" else "full")
+        if outputs != "points":
+            out[wl.name] = sweep
+        else:
+            out[wl.name] = DSEResult(
+                workload=wl.name,
+                points=[DSEPoint(config=c, result=sweep.result_view(i))
+                        for i, c in enumerate(cfgs)])
+    return out
+
+
+class IncrementalSweep:
+    """Resumable, extensible sweep of one workload: each :meth:`extend`
+    evaluates, in one batched pass, only the configs not seen before
+    (keyed by config digest); :meth:`result` returns the accumulated
+    :class:`DSEResult`."""
+
+    def __init__(self, workload: Workload | str,
+                 configs: Iterable[AcceleratorConfig] | None = None,
+                 *, device: str | torch.device = "cuda"):
+        self.workload = _resolve(workload)
+        self.device = resolve_device(device)
+        self._points: dict[bytes, DSEPoint] = {}
+        if configs is not None:
+            self.extend(configs)
+
+    def __len__(self) -> int:
+        return len(self._points)
+
+    def extend(self, configs: Iterable[AcceleratorConfig]) -> int:
+        """Evaluate any new configs; returns how many were new."""
+        batch = list(configs)
+        fresh: list[AcceleratorConfig] = []
+        keys: list[bytes] = []
+        seen_now = set()
+        # one digest pass over the batch
+        batch_keys = (digest_keys(config_digests(configs_to_soa(batch)))
+                      if batch else [])
+        for cfg, key in zip(batch, batch_keys):
+            if key in self._points or key in seen_now:
+                continue
+            seen_now.add(key)
+            fresh.append(cfg)
+            keys.append(key)
+        if fresh:
+            sweep = _sweep_workload(self.workload, fresh, device=self.device)
+            for i, (cfg, key) in enumerate(zip(fresh, keys)):
+                self._points[key] = DSEPoint(config=cfg,
+                                             result=sweep.result_view(i))
+        return len(fresh)
+
+    def result(self) -> DSEResult:
+        return DSEResult(workload=self.workload.name,
+                         points=list(self._points.values()))
+
+
+def _search_kwargs(p, method: str, **kwargs) -> dict:
+    """The engine's knobs from a preset ``p`` and explicit overrides."""
+    if method == "nsga2":
+        kwargs.update(pop_size=p.pop_size, mutation_rate=p.mutation_rate)
+        if p.archive_epsilon is not None:
+            kwargs["archive_epsilon"] = p.archive_epsilon
+    elif method == "successive_halving":
+        kwargs.update(eta=p.eta)
+    return kwargs
+
+
+def _method(p, method: str | None):
+    from repro_torch.explore.search import SEARCH_METHODS
+    method = p.method if method is None else method
+    fn = SEARCH_METHODS.get(method)
+    if fn is None:
+        raise ValueError(
+            f"unknown co-exploration method {method!r} "
+            f"(choose from {sorted(SEARCH_METHODS)})")
+    return method, fn
+
+
+def _coexplore(workload: Workload | str,
+               *,
+               preset: str = "default",
+               method: str | None = None,
+               budget: int | None = None,
+               seed: int | None = None,
+               device: str | torch.device = "cuda",
+               objectives=None,
+               ref_point=None,
+               space_overrides: dict | None = None,
+               accuracy=None,
+               chunk_size: int | None = None,
+               **method_kwargs):
+    """Guided co-exploration of one workload's joint (config x per-layer
+    precision) space: resolves a named preset
+    (:mod:`repro_torch.configs.coexplore_presets`), applies explicit
+    overrides, sizes the genome space to the workload and runs the chosen
+    engine of :mod:`repro_torch.explore.search`.  Returns a
+    :class:`~repro_torch.explore.search.SearchResult`."""
+    from repro_torch.configs.coexplore_presets import get_preset
+    from repro_torch.explore.accuracy import resolve_accuracy
+    from repro_torch.explore.space import space_for_workload
+
+    p = get_preset(preset)
+    acc = accuracy if accuracy is not None else p.accuracy
+    acc_model = None if acc is None else resolve_accuracy(acc)
+    wl = _resolve(workload)
+    space = space_for_workload(wl, **(space_overrides or {}))
+    method, fn = _method(p, method)
+    kwargs = _search_kwargs(
+        p, method,
+        objectives=p.objectives if objectives is None else tuple(objectives),
+        seed=p.seed if seed is None else seed, device=device,
+        chunk_size=p.chunk_size if chunk_size is None else chunk_size,
+        ref_point=ref_point, accuracy=acc_model)
+    kwargs.update(method_kwargs)
+    return fn(space, wl, p.budget if budget is None else budget, **kwargs)
+
+
+def _coexplore_many(workloads: Sequence[Workload | str],
+                    *,
+                    preset: str = "many-default",
+                    method: str | None = None,
+                    budget: int | None = None,
+                    seed: int | None = None,
+                    device: str | torch.device = "cuda",
+                    objectives=None,
+                    ref_point=None,
+                    weights=None,
+                    accuracy=None,
+                    space_overrides: dict | None = None,
+                    chunk_size: int | None = None,
+                    **method_kwargs):
+    """Multi-workload co-exploration (the QUIDAM setting): one shared
+    hardware config, one per-layer precision assignment per workload.
+    Each evaluation chunk runs all W workloads in one pass (on the card,
+    one sweep-kernel launch), and the objectives aggregate across the
+    suite (worst case, or weighted means).  Returns a
+    :class:`~repro_torch.explore.search.SearchResult` whose
+    ``front_points()`` decode to (config, ``{workload: modes}``)."""
+    from repro_torch.configs.coexplore_presets import get_preset
+    from repro_torch.explore.accuracy import resolve_accuracy
+    from repro_torch.explore.space import space_for_workloads
+
+    p = get_preset(preset)
+    acc = accuracy if accuracy is not None else p.accuracy
+    acc_model = None if acc is None else resolve_accuracy(acc)
+    wls = tuple(_resolve(w) for w in workloads)
+    if not wls:
+        raise ValueError("coexplore_many needs at least one workload")
+    space = space_for_workloads(wls, **(space_overrides or {}))
+    method, fn = _method(p, method)
+    kwargs = _search_kwargs(
+        p, method,
+        objectives=p.objectives if objectives is None else tuple(objectives),
+        seed=p.seed if seed is None else seed, device=device,
+        chunk_size=p.chunk_size if chunk_size is None else chunk_size,
+        ref_point=ref_point, accuracy=acc_model,
+        weights=p.weights if weights is None else weights)
+    kwargs.update(method_kwargs)
+    return fn(space, wls, p.budget if budget is None else budget, **kwargs)
+
+
+# reference knobs the port does not run yet: the queue item of ROADMAP.md
+# that brings each
+_NOT_PORTED = {
+    "traffic": "serving-fleet objectives need the fleet simulator "
+               "(ROADMAP A.5)",
+    "n_slots": "serving-fleet objectives need the fleet simulator "
+               "(ROADMAP A.5)",
+    "checkpoint_dir": "checkpointing and resume (ROADMAP A.3)",
+    "checkpoint_every": "checkpointing and resume (ROADMAP A.3)",
+    "telemetry": "the obs spans and metrics (ROADMAP A.3)",
+    "mesh": "the port runs on one card; multi-device sharding is not "
+            "queued (ROADMAP A.8 ports only what one card exercises)",
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class ExploreSpec:
-    """One uniform-precision sweep of one workload.  Build it with
-    :meth:`single`; ``__post_init__`` rejects contradictory fields before
-    any work."""
+    """One declarative exploration campaign.  Build it with
+    :meth:`single`, :meth:`mixed` or :meth:`many`; fields that do not
+    apply to the chosen mode must stay at their defaults, and
+    ``__post_init__`` rejects contradictory fields before any work."""
 
     workloads: tuple = ()
+    precision: str = "uniform"          # "uniform" | "mixed"
+    # uniform-precision knobs
     configs: tuple | None = None
     outputs: str = "points"             # "points" | "sweep" | "aggregates"
     cache: object = None                # persisted synthesis cache (chunked)
@@ -115,15 +333,41 @@ class ExploreSpec:
     overlap: bool = True
     # in-flight chunk bound of the streamed pipeline (chunked sweeps)
     prefetch_depth: int = 2
+    # mixed-precision (search) knobs
+    preset: str | None = None
+    method: str | None = None
+    budget: int | None = None
+    objectives: tuple | None = None
+    ref_point: tuple | None = None
+    weights: tuple | None = None
+    # accuracy model of the accuracy_noise objectives: None (the preset's,
+    # else the tier-0 proxy), a spec string, an AccuracySpec or a model
+    accuracy: object = None
+    space_overrides: dict | None = None
+    search_kwargs: dict | None = None
+    # shared knobs
+    seed: int | None = None
     use_cache: bool = True
     chunk_size: int | None = None
+    # knobs of the reference not ported yet (_NOT_PORTED): must stay None
+    traffic: object = None
+    n_slots: int | None = None
+    checkpoint_dir: str | None = None
+    checkpoint_every: int | None = None
+    telemetry: object = None
+    mesh: object = None
 
     def __post_init__(self):
+        if not self.workloads:
+            raise ValueError("ExploreSpec needs at least one workload")
         object.__setattr__(self, "workloads", tuple(self.workloads))
-        if len(self.workloads) != 1:
+        for name, why in _NOT_PORTED.items():
+            if getattr(self, name) is not None:
+                raise ValueError(f"{name}= is not ported yet: {why}")
+        if self.precision not in ("uniform", "mixed"):
             raise ValueError(
-                f"ExploreSpec sweeps exactly one workload, got "
-                f"{len(self.workloads)}")
+                f"precision must be 'uniform' or 'mixed', "
+                f"got {self.precision!r}")
         if self.outputs not in _OUTPUT_MODES:
             raise ValueError(
                 f"unknown outputs mode {self.outputs!r} "
@@ -132,6 +376,8 @@ class ExploreSpec:
             # chunk-streamed feeds stay lazy; a one-batch sweep
             # materializes its configs once
             object.__setattr__(self, "configs", tuple(self.configs))
+        if self.objectives is not None:
+            object.__setattr__(self, "objectives", tuple(self.objectives))
         if self.chunk_size is not None and self.chunk_size < 1:
             raise ValueError(
                 f"chunk_size must be >= 1, got {self.chunk_size}")
@@ -142,22 +388,64 @@ class ExploreSpec:
             raise ValueError(
                 "prefetch_depth tunes the streamed chunk pipeline; it "
                 "needs chunk_size=")
-        if self.chunk_size is not None:
-            if self.configs is None:
-                raise ValueError(
-                    "chunked streaming needs an explicit config feed "
-                    "(configs=); the default design space fits in one "
-                    "batch")
-            if self.outputs != "points":
-                raise ValueError(
-                    "chunked streaming returns a ChunkedSweep (aggregates "
-                    'only); leave outputs="points"')
+        if isinstance(self.accuracy, str):
+            # validate spec strings early, before any work
+            from repro_torch.explore.accuracy import AccuracySpec
+            object.__setattr__(self, "accuracy",
+                               AccuracySpec.parse(self.accuracy))
+        if self.precision == "uniform":
+            self._check_uniform()
+        else:
+            self._check_mixed()
+
+    def _check_uniform(self):
+        bad = [n for n, v in (
+            ("preset", self.preset), ("method", self.method),
+            ("budget", self.budget), ("objectives", self.objectives),
+            ("ref_point", self.ref_point), ("weights", self.weights),
+            ("accuracy", self.accuracy),
+            ("space_overrides", self.space_overrides),
+            ("search_kwargs", self.search_kwargs)) if v is not None]
+        if bad:
+            raise ValueError(
+                f"search knob(s) {bad} only apply to "
+                f'precision="mixed" specs')
+        if self.chunk_size is None:
+            return
+        if len(self.workloads) > 1:
+            raise ValueError(
+                "chunked streaming (chunk_size=) supports a single "
+                "workload; sweep the suite per workload instead")
+        if self.configs is None:
+            raise ValueError(
+                "chunked streaming needs an explicit config feed "
+                "(configs=); the default design space fits in one batch")
+        if self.outputs != "points":
+            raise ValueError(
+                "chunked streaming returns a ChunkedSweep (aggregates "
+                'only); leave outputs="points"')
+
+    def _check_mixed(self):
+        bad = [n for n, v in (("configs", self.configs),
+                              ("cache", self.cache)) if v is not None]
+        if self.outputs != "points":
+            bad.append("outputs")
+        if bad:
+            raise ValueError(
+                f"sweep knob(s) {bad} only apply to "
+                f'precision="uniform" specs')
+        if self.weights is not None and len(self.workloads) == 1:
+            raise ValueError(
+                "weights aggregate across a workload suite; pass >= 2 "
+                "workloads")
+
+    # -- constructors ------------------------------------------------------
 
     @classmethod
     def single(cls, workload, configs=None, *, outputs: str = "points",
                chunk_size: int | None = None, use_cache: bool = True,
                cache=None, save_cache: bool = True, overlap: bool = True,
-               prefetch_depth: int = 2) -> "ExploreSpec":
+               prefetch_depth: int = 2, **not_ported) -> "ExploreSpec":
         """Uniform-precision sweep of one workload over a config batch
         (the paper's design space when ``configs`` is None).  A
         ``chunk_size`` streams an arbitrary-size feed with bounded memory
@@ -165,23 +453,104 @@ class ExploreSpec:
         return cls(workloads=(workload,), configs=configs, outputs=outputs,
                    chunk_size=chunk_size, use_cache=use_cache, cache=cache,
                    save_cache=save_cache, overlap=overlap,
-                   prefetch_depth=prefetch_depth)
+                   prefetch_depth=prefetch_depth, **not_ported)
+
+    @classmethod
+    def mixed(cls, workload, *, preset: str | None = None,
+              method: str | None = None, budget: int | None = None,
+              objectives=None, accuracy=None, seed: int | None = None,
+              ref_point=None, space_overrides: dict | None = None,
+              chunk_size: int | None = None, traffic=None,
+              n_slots: int | None = None, mesh=None,
+              checkpoint_dir: str | None = None,
+              checkpoint_every: int | None = None, telemetry=None,
+              **search_kwargs) -> "ExploreSpec":
+        """Guided mixed-precision co-exploration of one workload (preset
+        ``"default"`` unless named); extra keywords go to the engine."""
+        return cls(workloads=(workload,), precision="mixed",
+                   preset=preset, method=method, budget=budget,
+                   objectives=objectives, accuracy=accuracy, seed=seed,
+                   ref_point=ref_point, space_overrides=space_overrides,
+                   chunk_size=chunk_size, traffic=traffic, n_slots=n_slots,
+                   mesh=mesh, checkpoint_dir=checkpoint_dir,
+                   checkpoint_every=checkpoint_every, telemetry=telemetry,
+                   search_kwargs=search_kwargs or None)
+
+    @classmethod
+    def many(cls, workloads, *, precision: str = "uniform",
+             configs=None, outputs: str = "points",
+             preset: str | None = None, method: str | None = None,
+             budget: int | None = None, objectives=None,
+             weights=None, accuracy=None, seed: int | None = None,
+             ref_point=None, space_overrides: dict | None = None,
+             chunk_size: int | None = None, use_cache: bool = True,
+             mesh=None, checkpoint_dir: str | None = None,
+             checkpoint_every: int | None = None, telemetry=None,
+             **search_kwargs) -> "ExploreSpec":
+        """A workload suite.  ``precision="uniform"`` sweeps the config
+        batch once per workload (synthesis shared);
+        ``precision="mixed"`` searches one shared hardware config with a
+        per-workload precision assignment (preset ``"many-default"``
+        unless named)."""
+        if precision == "uniform" and search_kwargs:
+            raise ValueError(
+                f"search kwarg(s) {sorted(search_kwargs)} only apply to "
+                f'precision="mixed" specs')
+        return cls(workloads=tuple(workloads), precision=precision,
+                   configs=None if configs is None else tuple(configs),
+                   outputs=outputs, preset=preset, method=method,
+                   budget=budget, objectives=objectives, weights=weights,
+                   accuracy=accuracy, seed=seed, ref_point=ref_point,
+                   space_overrides=space_overrides, chunk_size=chunk_size,
+                   use_cache=use_cache, mesh=mesh,
+                   checkpoint_dir=checkpoint_dir,
+                   checkpoint_every=checkpoint_every, telemetry=telemetry,
+                   search_kwargs=search_kwargs or None)
 
 
 def run(spec: ExploreSpec, *, device: str | torch.device = "cuda"):
     """Execute an :class:`ExploreSpec` on ``device``.
 
-    Returns a :class:`DSEResult` (``outputs="points"``), a
-    :class:`~repro_torch.core.dse_batch.BatchedSweep` (``"sweep"`` /
-    ``"aggregates"``), or a :class:`~repro_torch.core.dse_batch.ChunkedSweep`
-    when ``chunk_size`` streams the feed.  ``device="cuda"`` raises
-    ``RuntimeError`` on a host without CUDA.
+    Returns, by mode:
+
+    * uniform, one workload — a :class:`DSEResult` (``outputs="points"``),
+      a :class:`~repro_torch.core.dse_batch.BatchedSweep` (``"sweep"`` /
+      ``"aggregates"``), or a
+      :class:`~repro_torch.core.dse_batch.ChunkedSweep` when
+      ``chunk_size`` streams the feed;
+    * uniform, many workloads — ``{workload name: result}``;
+    * mixed — a :class:`~repro_torch.explore.search.SearchResult`.
+
+    ``device="cuda"`` raises ``RuntimeError`` on a host without CUDA; the
+    sweeps' aggregates and every search evaluation then run on the card
+    through the CUDA sweep kernel.
     """
     if not isinstance(spec, ExploreSpec):
         raise TypeError(
             f"run() takes an ExploreSpec, got {type(spec).__name__}; "
-            f"build one with ExploreSpec.single")
+            f"build one with ExploreSpec.single/.mixed/.many")
     device = resolve_device(device)
+    extra = dict(spec.search_kwargs or {})
+    if spec.precision == "mixed":
+        common = dict(method=spec.method, budget=spec.budget,
+                      seed=spec.seed, device=device,
+                      objectives=spec.objectives, ref_point=spec.ref_point,
+                      space_overrides=spec.space_overrides,
+                      accuracy=spec.accuracy, chunk_size=spec.chunk_size,
+                      **extra)
+        if len(spec.workloads) == 1:
+            return _coexplore(
+                spec.workloads[0],
+                preset="default" if spec.preset is None else spec.preset,
+                **common)
+        return _coexplore_many(
+            spec.workloads,
+            preset="many-default" if spec.preset is None else spec.preset,
+            weights=spec.weights, **common)
+    if len(spec.workloads) > 1:
+        return _explore_many(spec.workloads, spec.configs,
+                             use_cache=spec.use_cache, device=device,
+                             outputs=spec.outputs)
     wl = _resolve(spec.workloads[0])
     if spec.chunk_size is not None:
         return _sweep_chunked(

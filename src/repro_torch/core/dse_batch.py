@@ -18,6 +18,11 @@ The dtype policy follows the device, as the reference's ``auto`` does:
   (:mod:`repro_torch.kernels.sweep_kernel`); the per-layer ``"full"`` and
   ``"layer_totals"`` outputs run the plain tensor expressions on the card.
 
+Mixed precision (one execution mode per config and layer) and many
+workloads (W layer axes concatenated, reduced per segment) go through the
+same kernel: :func:`_sweep_mixed` and :func:`_sweep_mixed_many`, which the
+co-exploration search calls per genome batch.
+
 Enumeration, synthesis, hashing and the Pareto reduction stay host numpy
 code; the device boundary is the sweep kernel's inputs.
 """
@@ -37,7 +42,8 @@ from repro_torch.core.accelerator import (AcceleratorConfig, configs_to_soa,
                                           soa_to_configs)
 from repro_torch.core.dataflow import LayerResult, leakage_mw_soa
 from repro_torch.core.device import resolve_device
-from repro_torch.core.pe import rf_access_energy_pj, sram_access_energy_pj
+from repro_torch.core.pe import (PEType, mode_compat_matrix, pe_spec,
+                                 rf_access_energy_pj, sram_access_energy_pj)
 from repro_torch.core.synthesis import (PersistentSynthesisCache,
                                         sweep_synthesis_cache,
                                         synthesize_soa)
@@ -447,20 +453,28 @@ class BatchedWorkloadResult:
         return float(self._sweep.arrays["perf_per_area"][self._i])
 
 
+def _synthesize(soa: dict, use_cache: bool) -> dict[str, np.ndarray]:
+    return (sweep_synthesis_cache().synthesize(soa) if use_cache
+            else synthesize_soa(soa))
+
+
 def _sweep_workload(workload: Workload,
                     configs: Sequence[AcceleratorConfig],
+                    cols: dict[str, np.ndarray] | None = None,
                     *,
                     device: str | torch.device = "cuda",
                     use_cache: bool = True,
                     soa: dict[str, np.ndarray] | None = None,
                     outputs: str = "full") -> BatchedSweep:
-    """Evaluate ``workload`` on every config in one batched pass."""
+    """Evaluate ``workload`` on every config in one batched pass.
+    ``cols`` / ``soa`` let a many-workload sweep synthesize and convert
+    the batch once and reuse it for every workload."""
     device = resolve_device(device)
     configs = tuple(configs)
     if soa is None:
         soa = configs_to_soa(configs)
-    cols = (sweep_synthesis_cache().synthesize(soa) if use_cache
-            else synthesize_soa(soa))
+    if cols is None:
+        cols = _synthesize(soa, use_cache)
     wb = _workload_batch(workload)
     cfg, lay = _make_cfg_lay(soa, cols, wb)
     out = _run_kernel(cfg, lay, device, outputs=outputs)
@@ -468,6 +482,174 @@ def _sweep_workload(workload: Workload,
                         layer_names=wb.layer_names, macs=wb.arrays["macs"],
                         clock_ghz=cfg["clock_ghz"][:, 0],
                         area_mm2=cfg["area_mm2"][:, 0], arrays=out)
+
+
+# ---------------------------------------------------------------------------
+# Mixed-precision sweeps: one execution mode per (config, layer), over one
+# workload or W workloads whose layer axes are concatenated
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _mode_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-PE-type (act_bits, weight_bits, mac_energy_pj) lookup tables in
+    ``tuple(PEType)`` order."""
+    specs = [pe_spec(t) for t in PEType]
+    return (np.array([s.act_bits for s in specs], dtype=np.int64),
+            np.array([s.weight_bits for s in specs], dtype=np.int64),
+            np.array([s.mac_energy_pj for s in specs], dtype=np.float64))
+
+
+def mixed_assign_cfg(cfg: dict, assign: np.ndarray) -> dict:
+    """Replace the per-config precision columns with per-layer ones.
+
+    ``assign`` is an ``(N, L)`` int array of PE-type indices.  Only
+    ``act_bits`` / ``weight_bits`` / ``mac_energy_pj`` become ``(N, L)``;
+    everything physical keeps its hardware value, so synthesis and its
+    digest-keyed caches see only the hardware config.
+    """
+    ab_t, wb_t, me_t = _mode_tables()
+    a = np.asarray(assign, dtype=np.int64)
+    if a.size and (a.min() < 0 or a.max() >= len(ab_t)):
+        raise ValueError(
+            f"assignment contains PE-type indices outside "
+            f"[0, {len(ab_t)})")
+    out = dict(cfg)
+    out["act_bits"] = ab_t[a]
+    out["weight_bits"] = wb_t[a]
+    out["mac_energy_pj"] = me_t[a]
+    return out
+
+
+def check_assignment(soa: dict, assign: np.ndarray) -> None:
+    """Raise ``ValueError`` unless every (config, layer) mode is executable
+    on that config's hardware (operand widths fit the datapath)."""
+    a = np.asarray(assign)
+    n_types = len(tuple(PEType))
+    if a.ndim != 2 or a.shape[0] != len(soa["pe_rows"]):
+        raise ValueError(
+            f"assignment shape {a.shape} does not match "
+            f"{len(soa['pe_rows'])} configs")
+    if a.min(initial=0) < 0 or a.max(initial=0) >= n_types:
+        raise ValueError(
+            f"assignment contains PE-type indices outside [0, {n_types})")
+    ok = mode_compat_matrix()[soa["pe_type_idx"][:, None], a]
+    if not ok.all():
+        n_bad = int((~ok).sum())
+        raise ValueError(
+            f"{n_bad} (config, layer) mode assignment(s) are not "
+            f"executable on their hardware PE type")
+
+
+def _sweep_mixed(workload: Workload,
+                 soa: dict[str, np.ndarray],
+                 assign: np.ndarray,
+                 cols: dict[str, np.ndarray] | None = None,
+                 *,
+                 use_cache: bool = True,
+                 device: str | torch.device = "cuda",
+                 outputs: str = "aggregates") -> dict[str, np.ndarray]:
+    """Evaluate a batch of mixed-precision genomes in one pass.
+
+    ``soa`` is the hardware half of the batch, ``assign`` the ``(N, L)``
+    per-layer mode half.  Synthesis runs on the hardware alone, through
+    the digest-keyed sweep cache by default.  Returns the sweep's output
+    columns plus ``clock_ghz`` / ``area_mm2``: on the CPU bit-identical to
+    the reference's numpy path, on CUDA the ``"aggregates"`` come from the
+    sweep kernel and per-layer outputs from the plain expressions.
+    """
+    device = resolve_device(device)
+    wb = _workload_batch(workload)
+    assign = np.asarray(assign, dtype=np.int64)
+    if assign.shape != (len(soa["pe_rows"]), len(wb)):
+        raise ValueError(
+            f"assignment shape {assign.shape} != "
+            f"({len(soa['pe_rows'])} configs, {len(wb)} layers)")
+    check_assignment(soa, assign)
+    if cols is None:
+        cols = _synthesize(soa, use_cache)
+    cfg, lay = _make_cfg_lay(soa, cols, wb)
+    cfg = mixed_assign_cfg(cfg, assign)
+    out = dict(_run_kernel(cfg, lay, device, outputs=outputs))
+    out["clock_ghz"] = cfg["clock_ghz"][:, 0]
+    out["area_mm2"] = cfg["area_mm2"][:, 0]
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _workload_batch_many(wls: tuple[Workload, ...]
+                         ) -> tuple[WorkloadBatch,
+                                    tuple[tuple[int, int], ...]]:
+    """Concatenate W workloads into one layer-axis batch plus the
+    ``(start, end)`` column bounds of each workload's segment."""
+    wbs = [_workload_batch(w) for w in wls]
+    bounds: list[tuple[int, int]] = []
+    start = 0
+    for wb in wbs:
+        bounds.append((start, start + len(wb)))
+        start += len(wb)
+    arrays = {k: np.concatenate([wb.arrays[k] for wb in wbs])
+              for k in wbs[0].arrays}
+    names = tuple(f"{wb.name}/{nm}" for wb in wbs for nm in wb.layer_names)
+    combined = WorkloadBatch(name="+".join(wb.name for wb in wbs),
+                             layer_names=names, arrays=arrays)
+    return combined, tuple(bounds)
+
+
+def _sweep_mixed_many(workloads: Sequence[Workload],
+                      soa: dict[str, np.ndarray],
+                      assigns: Sequence[np.ndarray],
+                      cols: dict[str, np.ndarray] | None = None,
+                      *,
+                      use_cache: bool = True,
+                      device: str | torch.device = "cuda"
+                      ) -> dict[str, np.ndarray]:
+    """Evaluate one genome batch against W workloads in one pass.
+
+    ``soa`` is the shared hardware half (N configs); ``assigns`` holds one
+    ``(N, L_w)`` mode matrix per workload.  The W layer axes are
+    concatenated into one ``(N, sum L_w)`` evaluation and reduced per
+    workload segment, so the call costs one synthesis pass and, on CUDA,
+    one sweep-kernel launch whatever W.
+
+    Returns ``{column: (W, N)}`` over :data:`AGGREGATE_OUTPUTS` plus
+    ``clock_ghz`` / ``area_mm2`` as ``(N,)``.  On the CPU workload ``w``'s
+    row is bit-identical to the reference's numpy path.
+    """
+    device = resolve_device(device)
+    wls = tuple(workloads)
+    if not wls:
+        raise ValueError("sweep_mixed_many needs at least one workload")
+    combined, bounds = _workload_batch_many(wls)
+    n = len(soa["pe_rows"])
+    assigns = [np.asarray(a, dtype=np.int64) for a in assigns]
+    if len(assigns) != len(wls):
+        raise ValueError(
+            f"{len(assigns)} assignment matrices for {len(wls)} workloads")
+    for (s, e), a, wl in zip(bounds, assigns, wls):
+        if a.shape != (n, e - s):
+            raise ValueError(
+                f"assignment shape {a.shape} != ({n} configs, "
+                f"{e - s} layers) for workload {wl.name!r}")
+    assign_all = np.concatenate(assigns, axis=1)
+    check_assignment(soa, assign_all)
+    if cols is None:
+        cols = _synthesize(soa, use_cache)
+    cfg, lay = _make_cfg_lay(soa, cols, combined)
+    cfg = mixed_assign_cfg(cfg, assign_all)
+    if device.type == "cpu":
+        dcfg, dlay = _to_device_inputs(cfg, lay, device, exact=True)
+        totals = _sweep_kernel(dcfg, dlay, exact=True,
+                               outputs="layer_totals")
+        agg = _segment_aggregates(totals, dcfg, dlay, bounds, exact=True)
+    else:
+        from repro_torch.kernels.sweep_kernel import sweep_aggregates
+        agg = sweep_aggregates(_cfg_to_device(cfg, device, exact=False),
+                               _lay_to_device(lay, _CPU, exact=False),
+                               bounds=bounds)
+    out = {k: v.cpu().numpy() for k, v in agg.items()}
+    out["clock_ghz"] = cfg["clock_ghz"][:, 0]
+    out["area_mm2"] = cfg["area_mm2"][:, 0]
+    return out
 
 
 # ---------------------------------------------------------------------------

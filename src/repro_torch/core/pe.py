@@ -1,16 +1,18 @@
 """Processing-element models for the QAPPA accelerator template.
 
-Copy of :mod:`repro.core.pe` (the constants and the PE types the sweep
-reads).  The SRAM / register-file energy helpers take numpy arrays (host
-synthesis) or torch tensors (the sweep body on any device); on tensors the
-integer size is cast to ``dtype`` first, because torch divides an int64
-tensor by a float scalar in float32 where numpy divides in float64.
+Copy of :mod:`repro.core.pe` (the constants, the PE types the sweep
+reads, and the execution modes a datapath can run).  The SRAM /
+register-file energy helpers take numpy arrays (host synthesis) or torch
+tensors (the sweep body on any device); on tensors the integer size is
+cast to ``dtype`` first, because torch divides an int64 tensor by a
+float scalar in float32 where numpy divides in float64.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 
 import numpy as np
 import torch
@@ -88,6 +90,32 @@ _SPECS = {
 
 def pe_spec(pe_type: PEType | str) -> PESpec:
     return _SPECS[PEType(pe_type)]
+
+
+# A datapath built for PE type ``hw`` runs a layer in the *mode* of a
+# narrower PE type: operands move at the mode's widths and unused slices
+# gate off, so byte counts and MAC energy follow the mode while area,
+# clock and leakage stay the hardware's.
+
+def supports_mode(hw: PEType | str, mode: PEType | str) -> bool:
+    """True iff ``mode``'s activation and weight widths both fit ``hw``'s
+    native widths."""
+    h, m = pe_spec(hw), pe_spec(mode)
+    return m.act_bits <= h.act_bits and m.weight_bits <= h.weight_bits
+
+
+def supported_modes(hw: PEType | str) -> tuple[PEType, ...]:
+    """All modes executable on ``hw`` hardware, in enum order."""
+    return tuple(t for t in PEType if supports_mode(hw, t))
+
+
+@functools.lru_cache(maxsize=1)
+def mode_compat_matrix() -> np.ndarray:
+    """``(T, T)`` bool matrix, ``[hw_idx, mode_idx]`` = mode runs on hw, in
+    ``tuple(PEType)`` order.  Cached; treat it as read-only."""
+    types = tuple(PEType)
+    return np.array([[supports_mode(h, m) for m in types] for h in types],
+                    dtype=bool)
 
 
 def _size_kb(size_bits, dtype):

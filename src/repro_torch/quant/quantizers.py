@@ -1,9 +1,11 @@
-"""Serving quantizers in PyTorch: the subset of ``repro.quant.quantizers``
-that quantized serving needs.
+"""Quantizers in PyTorch: the subset of ``repro.quant.quantizers`` that
+quantized serving and the co-exploration's accuracy proxy need.
 
 * symmetric int8 (per-tensor or per-channel): the LightPE-2 / W8A8 format;
 * power-of-two 4-bit codes ``[sign | exp(3)]``: the LightPE-1 / W4A8 format;
-* int4 nibble packing for the W4A8 kernel.
+* int4 nibble packing for the W4A8 kernel;
+* quantize-dequantize driven by one :class:`FakeQuantSpec` (int, pow2,
+  two-term pow2), in the reference's operation order.
 
 Every division is a tensor by tensor division on the input's device, so it
 is a true IEEE division: PyTorch turns the division of a CUDA tensor by a
@@ -12,6 +14,8 @@ off and flip a ``round`` at .5.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -88,3 +92,81 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     lo = (p & 0xF).to(torch.int8)
     hi = ((p >> 4) & 0xF).to(torch.int8)
     return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+
+
+def _qdq_int(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    scale = int_scale(x, bits, axis).to(x.dtype)
+    qmax = 2 ** (bits - 1) - 1
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax)
+    return (q * scale).to(x.dtype)
+
+
+def _qdq_pow2(w: torch.Tensor, axis=None) -> torch.Tensor:
+    scale = pow2_scale(w, axis)
+    return pow2_decode(pow2_encode(w, scale), scale, w.dtype)
+
+
+def _qdq_pow2_2term(w: torch.Tensor, axis=None) -> torch.Tensor:
+    """Two-term pow2 (LightPE-2): v1 = pow2(w), v2 = pow2(w - v1); the sum
+    where it reduces the error, else v1."""
+    scale = pow2_scale(w, axis)
+    v1 = pow2_decode(pow2_encode(w, scale), scale, w.dtype)
+    r = w - v1
+    v2 = pow2_decode(pow2_encode(r, scale), scale, w.dtype)
+    better = (w - (v1 + v2)).abs() < (w - v1).abs()
+    return torch.where(better, v1 + v2, v1)
+
+
+FAKE_QUANT_KINDS = ("none", "int", "pow2", "pow2_2term")
+
+# code width is fixed by the datapath for the shift-based kinds
+_KIND_BITS = {"none": 0, "int": 8, "pow2": 4, "pow2_2term": 8}
+
+
+@dataclasses.dataclass(frozen=True)
+class FakeQuantSpec:
+    """One fake-quant transform: ``kind`` (``"none"`` passes through),
+    ``bits`` (fixed per kind except ``"int"``), and the scale's ``axis``;
+    ``per_channel`` without an ``axis`` means axis 0."""
+
+    kind: str = "int"
+    bits: int | None = None
+    axis: int | None = None
+    per_channel: bool = False
+
+    def __post_init__(self):
+        if self.kind not in FAKE_QUANT_KINDS:
+            raise ValueError(
+                f"unknown fake-quant kind {self.kind!r}; "
+                f"expected one of {FAKE_QUANT_KINDS}")
+        if self.bits is None:
+            object.__setattr__(self, "bits", _KIND_BITS[self.kind])
+        elif self.kind in ("pow2", "pow2_2term", "none"):
+            if self.bits != _KIND_BITS[self.kind]:
+                raise ValueError(
+                    f"kind {self.kind!r} has a fixed {_KIND_BITS[self.kind]}"
+                    f"-bit code; got bits={self.bits}")
+        elif not 2 <= self.bits <= 32:
+            raise ValueError(f"int bits must be in [2, 32]; got {self.bits}")
+        if self.axis is not None and not self.per_channel:
+            object.__setattr__(self, "per_channel", True)
+
+    @property
+    def resolved_axis(self) -> int | None:
+        """Scale axis after applying the per_channel default (axis 0)."""
+        if self.axis is not None:
+            return self.axis
+        return 0 if self.per_channel else None
+
+
+def quantize_dequantize(x: torch.Tensor, spec: FakeQuantSpec) -> torch.Tensor:
+    """Quantize-dequantize ``x`` per ``spec`` (no straight-through
+    gradient)."""
+    if spec.kind == "none":
+        return x
+    axis = spec.resolved_axis
+    if spec.kind == "int":
+        return _qdq_int(x, spec.bits, axis)
+    if spec.kind == "pow2":
+        return _qdq_pow2(x, axis)
+    return _qdq_pow2_2term(x, axis)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card: the sweep kernel, the two
+"""The port's CUDA kernels on the card: the sweep kernel (and the
+mixed-precision sweeps and searches that launch it), the two
 quantized matmuls of the serving path, the int8-KV decode attention and
 flash attention.
 
@@ -241,6 +242,108 @@ def test_stream_copies_its_layer_table_once(cuda_device):
 # ------------------------------------------------- quantized matmuls
 
 QMM = {"w8a8": (OPS.w8a8_matmul, W8, 1), "w4a8": (OPS.w4a8_matmul, W4, 2)}
+
+
+def _search_genomes(suite, n, seed):
+    from repro_torch.explore.space import space_for_workloads
+    space = space_for_workloads(suite)
+    soa, assign = space.decode(space.random_population(
+        n, np.random.default_rng(seed)))
+    return soa, space.split_assign(assign)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outputs", ["aggregates", "full"])
+@pytest.mark.parametrize("n", [1, 64, 200])
+def test_sweep_mixed_on_card_matches_exact(cuda_device, outputs, n):
+    """The mixed sweep on the card (aggregates: the kernel, one launch;
+    full: the plain expressions) against the exact CPU path."""
+    soa, (assign,) = _search_genomes(("vgg16",), n, seed=n)
+    wl = get_workload("vgg16")
+    want = TB._sweep_mixed(wl, soa, assign, device="cpu")
+    before = K.launches
+    got = TB._sweep_mixed(wl, soa, assign, device=cuda_device,
+                          outputs=outputs)
+    assert K.launches == before + (outputs == "aggregates")
+    for k in TB.AGGREGATE_OUTPUTS:
+        assert _rel(got[k], want[k]) <= RTOL, k
+    assert np.array_equal(got["area_mm2"], want["area_mm2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [None, 1, 2])
+@pytest.mark.parametrize("n", [7, 64])
+def test_sweep_mixed_many_on_card_matches_exact(cuda_device, n, prefix):
+    """W = 3 in one launch, also on the successive-halving prefixes that
+    cut every segment to one or two layers; the ResNet segments held to
+    the float32 policy's own distance from the exact path (ROADMAP
+    C.1)."""
+    from repro_torch.core.workloads import Workload
+    wls = [get_workload(w) for w in WORKLOADS]
+    soa, assigns = _search_genomes(WORKLOADS, n, seed=n)
+    if prefix is not None:
+        wls = [Workload(name=w.name, layers=w.layers[:prefix]) for w in wls]
+        assigns = [a[:, :prefix] for a in assigns]
+    want = TB._sweep_mixed_many(wls, soa, assigns, device="cpu")
+    before = K.launches
+    got = TB._sweep_mixed_many(wls, soa, assigns, device=cuda_device)
+    assert K.launches == before + 1
+    combined, bounds = TB._workload_batch_many(tuple(wls))
+    cfg, lay = TB._make_cfg_lay(soa, synthesize_soa(soa), combined)
+    cfg = TB.mixed_assign_cfg(cfg, np.concatenate(assigns, axis=1))
+    plain = K.sweep_aggregates_ref(
+        TB._cfg_to_device(cfg, cuda_device, exact=False),
+        TB._lay_to_device(lay, cuda_device, exact=False), bounds=bounds)
+    for k in TB.AGGREGATE_OUTPUTS:
+        assert got[k].shape == (3, n)
+        assert _rel(got[k], plain[k].cpu().numpy()) <= RTOL, k
+        plain_err = _rel(plain[k].cpu().numpy(), want[k])
+        assert _rel(got[k], want[k]) <= max(RTOL, plain_err + RTOL), k
+
+
+@pytest.mark.cuda
+def test_golden_front_on_card(cuda_device):
+    """tests/golden_coexplore_many.json on the card: genomes identical,
+    one kernel launch per evaluation chunk.  The objectives come from
+    float32 aggregates, so they are held at the float32 policy's 1e-6
+    (the exact CPU path holds the golden's 1e-9, test_torch_explore)."""
+    import json
+    import pathlib
+    golden = json.loads((pathlib.Path(__file__).parent
+                         / "golden_coexplore_many.json").read_text())
+    spec = TD.ExploreSpec.many(
+        golden["workloads"], precision="mixed", preset=golden["preset"],
+        budget=golden["budget"], seed=golden["seed"],
+        pop_size=golden["pop_size"])
+    before = K.launches
+    res = TD.run(spec, device=cuda_device)
+    assert K.launches - before == res.stats["chunks"] >= 8
+    assert res.stats["device"].startswith("cuda")
+    want_g = res.space.unpack_genomes(
+        np.array(golden["front_genomes_u16"], dtype=np.uint16))
+    assert np.array_equal(res.genomes, want_g)
+    assert _rel(res.front_objectives,
+                np.array(golden["front_objectives"])) <= RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["random", "nsga2",
+                                    "successive_halving"])
+def test_search_on_card_launches_once_a_chunk(cuda_device, method):
+    """Each evaluation chunk is one kernel launch, and every front row of
+    the card's search re-evaluated on the exact CPU path is within 1e-6
+    (accuracy_noise equal: it is host arithmetic)."""
+    from repro_torch.explore.search import SEARCH_METHODS, Evaluator
+    from repro_torch.explore.space import space_for_workload
+    space = space_for_workload("vgg16")
+    before = K.launches
+    res = SEARCH_METHODS[method](space, "vgg16", 200, seed=3,
+                                 device=cuda_device, chunk_size=48)
+    assert K.launches - before == res.stats["chunks"] >= 5
+    exact = Evaluator(space, "vgg16", res.objectives, device="cpu")
+    F = exact.evaluate(res.genomes)
+    assert _rel(res.front_objectives[:, :2], F[:, :2]) <= RTOL
+    assert np.array_equal(res.front_objectives[:, 2], F[:, 2])
 
 
 def _qmm_operands(m, k, n, pack, seed, device):

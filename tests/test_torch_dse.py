@@ -145,7 +145,10 @@ def test_explore_spec_validation():
     with pytest.raises(ValueError, match="ChunkedSweep"):
         TD.ExploreSpec.single("vgg16", [], chunk_size=8, outputs="sweep")
     with pytest.raises(ValueError, match="one workload"):
-        TD.ExploreSpec(workloads=("vgg16", "resnet34"))
+        TD.ExploreSpec(workloads=())
+    with pytest.raises(ValueError, match="single workload"):
+        TD.ExploreSpec(workloads=("vgg16", "resnet34"), configs=(),
+                       chunk_size=8)
     spec = TD.ExploreSpec.single("vgg16", [AcceleratorConfig()])
     assert spec.configs == (AcceleratorConfig(),)
     with pytest.raises(TypeError, match="ExploreSpec"):

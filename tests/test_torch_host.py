@@ -1,7 +1,8 @@
 """The port's host-side copies against the JAX package's modules.
 
-Enumeration, config hashing, synthesis and the synthesis cache stay numpy
-code in the port, copied rather than imported; these tests pin each copy
+Enumeration, config hashing, synthesis, the synthesis cache, the PE
+execution modes, the traffic traces and the search presets stay host code
+in the port, copied rather than imported; these tests pin each copy
 bit-identical to the reference on the same inputs, and load a cache file
 written by the reference into the port's cache.
 """
@@ -73,6 +74,67 @@ def test_pe_constants_and_energy_helpers():
                           TP.sram_access_energy_pj(bits))
     assert np.array_equal(RP.sram_area_um2(bits.astype(float)),
                           TP.sram_area_um2(bits.astype(float)))
+
+
+def test_pe_execution_modes():
+    for h in RP.PEType:
+        assert [m.value for m in TP.supported_modes(h.value)] \
+            == [m.value for m in RP.supported_modes(h)]
+        for m in RP.PEType:
+            assert TP.supports_mode(h.value, m.value) \
+                == RP.supports_mode(h, m)
+    got, want = TP.mode_compat_matrix(), RP.mode_compat_matrix()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_workload_batch_many_identical():
+    from repro.core.dse_batch import _workload_batch_many as r_many
+    from repro_torch.core.dse_batch import _workload_batch_many as t_many
+    names = ("vgg16", "resnet34", "resnet50")
+    rb, rbounds = r_many(tuple(RW.get_workload(n) for n in names))
+    tb, tbounds = t_many(tuple(TW.get_workload(n) for n in names))
+    assert tbounds == rbounds == ((0, 16), (16, 53), (53, 107))
+    assert (tb.name, tb.layer_names) == (rb.name, rb.layer_names)
+    _assert_dicts_equal(rb.arrays, tb.arrays)
+
+
+def test_traffic_copy_bit_identical():
+    from repro.serving import traffic as RT
+    from repro_torch.serving import traffic as TT
+    assert list(TT.TRAFFIC_PRESETS) == list(RT.TRAFFIC_PRESETS)
+    for name in RT.TRAFFIC_PRESETS:
+        assert TT.get_traffic(name).__dict__ == RT.get_traffic(name).__dict__
+        for seed in (None, 3):
+            r = RT.make_trace(name, seed=seed)
+            t = TT.resolve_traffic(TT.get_traffic(name)) if seed is None \
+                else TT.make_trace(name, seed=seed)
+            assert t.name == r.name and t.slo_s == r.slo_s
+            for f in ("arrival_s", "prompt_tokens", "decode_tokens"):
+                assert np.array_equal(getattr(t, f), getattr(r, f)), f
+            assert t.total_tokens == r.total_tokens
+    with pytest.raises(ValueError, match="unknown traffic preset"):
+        TT.get_traffic("flood")
+
+
+def test_presets_equal_reference():
+    from repro.configs import coexplore_presets as RC
+    from repro_torch.configs import coexplore_presets as TC
+    assert list(TC.PRESETS) == list(RC.PRESETS)
+    for name, r in RC.PRESETS.items():
+        t = TC.get_preset(name)
+        for f in ("method", "budget", "pop_size", "mutation_rate",
+                  "objectives", "seed", "chunk_size", "eta", "weights",
+                  "traffic", "n_slots", "archive_epsilon"):
+            assert getattr(t, f) == getattr(r, f), (name, f)
+        assert (t.accuracy is None) == (r.accuracy is None)
+        if r.accuracy is not None:
+            assert t.accuracy.__dict__ == r.accuracy.__dict__
+    with pytest.raises(ValueError, match="unknown co-exploration preset"):
+        TC.get_preset("fastest")
+    with pytest.raises(ValueError, match="archive_epsilon"):
+        TC.CoExplorePreset(name="x", method="random", archive_epsilon=0.1)
+    with pytest.raises(ValueError, match="need traffic"):
+        TC.CoExplorePreset(name="x", objectives=("p99_latency_s",))
 
 
 def test_workloads_identical():

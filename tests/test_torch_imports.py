@@ -44,7 +44,13 @@ def test_every_module_is_listed():
                  "repro_torch.launch.serve",
                  "repro_torch.kernels.w8a8_decode",
                  "repro_torch.kernels.flash_attention",
-                 "repro_torch.serving", "repro_torch.serving.scheduler"):
+                 "repro_torch.serving", "repro_torch.serving.scheduler",
+                 "repro_torch.serving.traffic", "repro_torch.quant.calibrate",
+                 "repro_torch.configs.coexplore_presets",
+                 "repro_torch.explore", "repro_torch.explore.accuracy",
+                 "repro_torch.explore.objectives",
+                 "repro_torch.explore.pareto", "repro_torch.explore.search",
+                 "repro_torch.explore.space"):
         assert name in mods
 
 
