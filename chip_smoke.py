@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: the
-design-space sweep, the mixed-precision co-exploration search, quantized
+design-space sweep, the mixed-precision co-exploration search, the PPA
+models and RTL generator, the preemption-safe runtime, quantized
 LM serving, continuous batching over an
 int8 KV cache, and the full-sequence forward / prefill.
 
@@ -40,6 +41,26 @@ Phases (any failure exits non-zero):
    ``tests/golden_coexplore_many.json``): front genomes identical to the
    golden's on the card and on the CPU, objectives within 1e-9 of it on
    the CPU and 1e-6 on the card (float32 aggregates);
+3c. ``ppa``: the paper's Fig. 2 suite (polynomial ridge models, k-fold
+   CV) fitted on the 720-point space per PE type on the card and on the
+   CPU: the same (degree, lambda) for all 12 models, cv_rmse, r2, mape
+   and predictions within 1e-9 of the CPU's, the reference test's bars
+   (r2 > 0.97, mape < 0.10); fit time on both, ``predict_batch`` and the
+   oracle in µs a design; ``rtl``: each PE type's Verilog and that of
+   the main path's first front config, structural stats and a sha256;
+   ``resume``: the main path's stream through ``resume_sweep`` with
+   injected failures, a child process (this script with
+   ``--resume-child DIR CACHE``) SIGKILLed after two snapshots and
+   resumed here, and a watchdog deadline each chunk misses (a spin
+   kernel queued ahead of it), each with front bytes, counts and cache
+   hits/misses equal to an uninterrupted card run's and every
+   re-dispatch a kernel launch; and the ``default`` search resumed
+   through an injected failure, equal to ``coexplore``'s card run;
+   ``telemetry``: the stream (three runs each way, interleaved) and the
+   search with tracing on and off, identical results, the Chrome trace
+   valid with the stage spans, the overhead, and in one
+   ``torch.profiler`` window the ``sweep.kernel`` ranges that enclose a
+   sweep-kernel launch;
 4. sweep timing at N = 32768: VGG-16 (L = 16, the main path's chunk),
    the same with ``(N, 16)`` mixed-precision columns, and VGG-16 +
    ResNet-34 + ResNet-50 (L = 107, W = 3); and at the search's launch, 64
@@ -177,6 +198,38 @@ SEARCH_STAGES = ("nsga2", "evaluate", "_sweep_mixed", "_sweep_mixed_many",
                  "hypervolume", "_ranks_and_crowding", "_front",
                  "crossover", "mutate")
 GOLDEN_RTOL = 1e-9
+# results of earlier phases that later phases compare with (the main
+# path's stream, the card's searches)
+KEEP: dict = {}
+
+# the PPA models (paper Fig. 2) on the paper's 720-point space: the
+# reference test's bars, and how far the card's fit may stray from the
+# CPU's (float64 solve rounding)
+PPA_R2_MIN = 0.97
+PPA_MAPE_MAX = 0.10
+PPA_RTOL = 1e-9
+# the preemption-safe runtime on the main path's stream: snapshots every
+# 4 chunks, injected failures at chunk boundaries 5 (once) and 17
+# (twice), a real SIGKILL of a child once 2 snapshots exist, a watchdog
+# deadline that fires on every chunk, and nsga2 failing once at
+# generation 8 of the default search
+RESUME_EVERY = 4
+RESUME_FAIL_AT = {5: 1, 17: 2}
+KILL_AFTER_SNAPSHOTS = 2
+WATCHDOG_DEADLINE_S = 1e-6
+# a chunk's results are back before the watchdog's first look (the host
+# takes longer to stage and launch a chunk than the card to run it); a
+# spin of this many SM cycles (~10 ms) queued ahead of each chunk on the
+# card makes it late
+WATCHDOG_SPIN_CYCLES = 20_000_000
+SEARCH_FAIL_AT = {8: 1}
+# the telemetry phase: interleaved stream runs with tracing on and off,
+# and the stage spans the exported Chrome trace must carry
+TELEMETRY_REPEATS = 3
+TRACE_SPANS = ("sweep.pull", "sweep.synthesize", "sweep.dispatch",
+               "sweep.kernel", "sweep.reduce", "nsga2.generation",
+               "explore.evaluate")
+CHILD_FLAG = "--resume-child"
 
 # the serving path: phi4-mini-3.8b at full width
 SERVE_ARCH = "phi4-mini-3.8b"
@@ -305,6 +358,7 @@ def phase_main_path(device) -> dict:
                                     chunk_size=CHUNK), device=device)
     t_stream = time.perf_counter() - t0
     launches = sweep_kernel.launches
+    KEEP["stream"] = stream
 
     n_configs = grid_size(GRID_STREAM)
     n_chunks = -(-n_configs // CHUNK)
@@ -556,6 +610,8 @@ def _search_phase(name: str, spec, workloads, device) -> dict:
     card = run(spec, device=device)
     card_s = time.perf_counter() - t0
     launches = sweep_kernel.launches
+    KEEP[name] = card
+    KEEP[f"{name}_wall_s"] = card_s
     t0 = time.perf_counter()
     cpu = run(spec, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -673,6 +729,458 @@ def phase_coexplore_golden(device) -> dict:
             "fronts_identical": True,
             "card_rel_vs_golden": rel_err(card.front_objectives, want_f),
             "cpu_rel_vs_golden": rel_err(cpu.front_objectives, want_f)}
+
+
+# ------------------------------------------------- PPA models and RTL
+
+def _ppa_configs():
+    from repro_torch.core.accelerator import design_space
+    from repro_torch.core.pe import PEType
+    cfgs = list(design_space())
+    return cfgs, {t: [c for c in cfgs if c.pe_type == t] for t in PEType}
+
+
+def phase_ppa(device) -> dict:
+    """The paper's Fig. 2 on the card: the polynomial PPA suite fitted on
+    the 720-point space per PE type, on the card and on the CPU; the same
+    (degree, lambda) for all 12 models, the card's cv_rmse, r2, mape and
+    predictions within float64 solve rounding of the CPU's, the
+    reference test's bars; fit, prediction and oracle times."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ppa_model import TARGETS, fit_ppa_suite
+    from repro_torch.core.synthesis import synthesize
+
+    cfgs, by_type = _ppa_configs()
+    fit_s = {}
+    for key, dev in (("card_cold", device), ("card", device),
+                     ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        suite, stats = fit_ppa_suite(by_type, device=dev)
+        if dev is device:
+            torch.cuda.synchronize(device)
+        fit_s[key] = time.perf_counter() - t0
+        if key == "card":
+            card_suite, card_stats = suite, stats
+    cpu_suite, cpu_stats = suite, stats
+    check(list(card_stats) == list(cpu_stats) and len(card_stats) == 12,
+          "ppa: model keys")
+    rel = {"cv_rmse": 0.0, "r2": 0.0, "mape": 0.0}
+    models = {}
+    for key, c in card_stats.items():
+        h = cpu_stats[key]
+        check((c["degree"], c["lam"]) == (h["degree"], h["lam"]),
+              f"ppa {key}: card picked ({c['degree']}, {c['lam']}), CPU "
+              f"({h['degree']}, {h['lam']})")
+        for m in rel:
+            rel[m] = max(rel[m], abs(c[m] - h[m]) / abs(h[m]))
+        check(c["r2"] > PPA_R2_MIN and c["mape"] < PPA_MAPE_MAX,
+              f"ppa {key}: r2 {c['r2']:.4f} / mape {c['mape']:.4f} miss "
+              f"the reference's bars")
+        models[key] = {k: c[k] for k in ("degree", "lam", "r2", "mape",
+                                         "cv_rmse")}
+    card_pred = card_suite.predict_batch(cfgs)
+    cpu_pred = cpu_suite.predict_batch(cfgs)
+    rel["predictions"] = max(rel_err(card_pred[t], cpu_pred[t])
+                             for t in TARGETS)
+    for m, v in rel.items():
+        check(v <= PPA_RTOL, f"ppa: card {m} {v:.3g} from the CPU's")
+    for t in TARGETS:
+        check(bool(np.all(np.isfinite(card_pred[t]))), f"ppa: {t} finite")
+
+    def per_design_us(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps / len(cfgs) * 1e6
+    predict_us = {
+        "card": per_design_us(lambda: card_suite.predict_batch(cfgs), 20),
+        "cpu": per_design_us(lambda: cpu_suite.predict_batch(cfgs), 20)}
+    oracle_us = per_design_us(lambda: [synthesize(c) for c in cfgs], 3)
+    return {"phase": "ppa", "n_configs": len(cfgs), "fit_s": fit_s,
+            "card_vs_cpu_max_rel": rel, "models": models,
+            "predict_batch_us_per_design": predict_us,
+            "oracle_synthesize_us_per_design": oracle_us,
+            "oracle_over_predict_card": oracle_us / predict_us["card"]}
+
+
+def phase_rtl() -> dict:
+    """The Verilog of each PE type's default config and of the first
+    config of the main path's front: structural stats and a sha256 of
+    each (the byte identity to the reference is a CPU test)."""
+    import hashlib
+    from repro_torch.core.accelerator import AcceleratorConfig
+    from repro_torch.core.pe import PEType
+    from repro_torch.core.rtl import generate_rtl, rtl_stats
+
+    designs = {t.value: AcceleratorConfig(pe_type=t) for t in PEType}
+    front = KEEP["stream"].front_configs()[0]
+    designs["main_path_front_0"] = front
+    out = {}
+    for key, cfg in designs.items():
+        text = generate_rtl(cfg)
+        st = rtl_stats(text)
+        check(st["modules"] == st["endmodules"] == 6,
+              f"rtl {key}: {st['modules']} modules / {st['endmodules']} "
+              f"endmodules")
+        multiplier_free = cfg.pe_type in (PEType.LIGHTPE1, PEType.LIGHTPE2)
+        check(st["has_shift"] == multiplier_free,
+              f"rtl {key}: shift datapath")
+        out[key] = dict(st, config=cfg.name(),
+                        sha256=hashlib.sha256(text.encode()).hexdigest())
+    return {"phase": "rtl", "designs": out}
+
+
+# ------------------------------------------ the preemption-safe runtime
+
+def _stream_summary(res, cache) -> dict:
+    return {"n_configs": res.n_configs, "n_chunks": res.n_chunks,
+            "front_size": res.front_size,
+            "cache_hits": cache.hits, "cache_misses": cache.misses}
+
+
+def _check_same_stream(what: str, got, got_cache, want, want_cache):
+    check((got.n_configs, got.n_chunks) == (want.n_configs, want.n_chunks),
+          f"{what}: {got.n_configs} configs / {got.n_chunks} chunks, "
+          f"uninterrupted {want.n_configs} / {want.n_chunks}")
+    for m in want.front_metrics:
+        check(got.front_metrics[m].tobytes()
+              == want.front_metrics[m].tobytes(), f"{what}: front {m}")
+    for k in want.front_soa:
+        check(got.front_soa[k].tobytes() == want.front_soa[k].tobytes(),
+              f"{what}: front {k}")
+    if want_cache is not None:
+        check((got_cache.hits, got_cache.misses)
+              == (want_cache.hits, want_cache.misses),
+              f"{what}: cache hits/misses {got_cache.hits}/"
+              f"{got_cache.misses}, uninterrupted {want_cache.hits}/"
+              f"{want_cache.misses}")
+
+
+def _snapshot_steps(ckpt_dir) -> list:
+    import os
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                  if d.startswith("step_") and not d.endswith(".tmp"))
+
+
+def resume_child(ckpt_dir: str, cache_path: str) -> int:
+    """The child of the ``resume`` phase: stream the main path's grid on
+    the card with snapshots until the parent kills it."""
+    import torch
+    from repro_torch.core.synthesis import PersistentSynthesisCache
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.runtime.dse_checkpoint import resume_sweep
+    resume_sweep(get_workload("vgg16"), lambda: grid(GRID_STREAM),
+                 checkpoint_dir=ckpt_dir, checkpoint_every=RESUME_EVERY,
+                 cache=PersistentSynthesisCache(cache_path),
+                 chunk_size=CHUNK, device=torch.device("cuda", 0))
+    return 0
+
+
+class _LateChunks:
+    """Queue a spin kernel (``torch.cuda._sleep``) ahead of every chunk
+    the stream dispatches, so its results come back late on the card: the
+    device-side stall the watchdog exists for."""
+
+    def __init__(self, cycles: int):
+        self.cycles = cycles
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import dse_batch
+        self.real = real = dse_batch._dispatch_chunk
+
+        def late(cfg, klay, device):
+            torch.cuda._sleep(self.cycles)
+            return real(cfg, klay, device)
+        dse_batch._dispatch_chunk = late
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import dse_batch
+        dse_batch._dispatch_chunk = self.real
+        return False
+
+
+def phase_resume(device) -> dict:
+    """The main path's 1,029,600-config stream through the preemption-safe
+    runtime on the card, each run against an uninterrupted card run with
+    the same cache setup: (a) resume_sweep through injected failures,
+    (b) a child process SIGKILLed after two snapshots and resumed here,
+    (c) a watchdog deadline that fires, every re-dispatch a launch of the
+    CUDA kernel; (d) the default search resumed through an injected
+    failure, against the coexplore phase's uninterrupted card search."""
+    import os
+    import signal
+    import tempfile
+    import numpy as np
+    from repro_torch.configs.coexplore_presets import get_preset
+    from repro_torch.core import dse as D
+    from repro_torch.core.dse_batch import _sweep_chunked
+    from repro_torch.core.synthesis import PersistentSynthesisCache
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.explore.accuracy import resolve_accuracy
+    from repro_torch.explore.space import space_for_workload
+    from repro_torch.kernels import sweep_kernel
+    from repro_torch.runtime.dse_checkpoint import (resume_search,
+                                                    resume_sweep)
+
+    wl = get_workload("vgg16")
+    feed = lambda: grid(GRID_STREAM)                     # noqa: E731
+    out = {"phase": "resume"}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the uninterrupted card run with a persisted cache
+        ref_cache = PersistentSynthesisCache(os.path.join(tmp, "ref.npz"))
+        sweep_kernel.launches = 0
+        t0 = time.perf_counter()
+        ref = _sweep_chunked(wl, feed(), device=device, chunk_size=CHUNK,
+                             cache=ref_cache)
+        out["uninterrupted"] = dict(_stream_summary(ref, ref_cache),
+                                    wall_s=time.perf_counter() - t0,
+                                    launches=sweep_kernel.launches)
+        main = KEEP["stream"]
+        check(ref.front_soa.keys() == main.front_soa.keys() and all(
+            np.array_equal(ref.front_soa[k], main.front_soa[k])
+            for k in main.front_soa),
+            "resume: the uninterrupted front's configs differ from "
+            "main_path's")
+
+        # (a) injected failures at chunk boundaries
+        cache = PersistentSynthesisCache(os.path.join(tmp, "a.npz"))
+        sweep_kernel.launches = 0
+        t0 = time.perf_counter()
+        got = resume_sweep(wl, feed, checkpoint_dir=os.path.join(tmp, "a"),
+                           checkpoint_every=RESUME_EVERY,
+                           fail_at=dict(RESUME_FAIL_AT), cache=cache,
+                           chunk_size=CHUNK, device=device)
+        wall = time.perf_counter() - t0
+        launches = sweep_kernel.launches
+        _check_same_stream("resume (a)", got, cache, ref, ref_cache)
+        check(got.timings["restarts"] == sum(RESUME_FAIL_AT.values()),
+              f"resume (a): {got.timings['restarts']} restarts")
+        check(launches >= got.n_chunks, f"resume (a): {launches} launches")
+        out["injected"] = dict(_stream_summary(got, cache), wall_s=wall,
+                               launches=launches,
+                               restarts=got.timings["restarts"],
+                               fail_at={str(k): v for k, v in
+                                        RESUME_FAIL_AT.items()})
+
+        # (b) a real preemption: SIGKILL a streaming child process
+        ck = os.path.join(tmp, "b")
+        cache_b = os.path.join(tmp, "b.npz")
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             CHILD_FLAG, ck, cache_b], cwd=str(ROOT))
+        try:
+            while len(_snapshot_steps(ck)) < KILL_AFTER_SNAPSHOTS:
+                check(child.poll() is None,
+                      f"resume (b): the child ended ({child.returncode}) "
+                      f"before {KILL_AFTER_SNAPSHOTS} snapshots")
+                check(time.perf_counter() - t0 < 300,
+                      "resume (b): no snapshots from the child in 300 s")
+                time.sleep(0.005)
+            alive = child.poll() is None
+            child.send_signal(signal.SIGKILL)
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+        child_s = time.perf_counter() - t0
+        steps = _snapshot_steps(ck)
+        check(alive and child.returncode == -signal.SIGKILL,
+              f"resume (b): child exit {child.returncode}")
+        check(max(steps) < ref.n_chunks,
+              f"resume (b): the child finished (snapshot {max(steps)})")
+        cache = PersistentSynthesisCache(cache_b)
+        sweep_kernel.launches = 0
+        t0 = time.perf_counter()
+        got = resume_sweep(wl, feed, checkpoint_dir=ck,
+                           checkpoint_every=RESUME_EVERY, cache=cache,
+                           chunk_size=CHUNK, device=device)
+        wall = time.perf_counter() - t0
+        _check_same_stream("resume (b)", got, cache, ref, ref_cache)
+        out["sigkill"] = dict(_stream_summary(got, cache),
+                              snapshots_at_kill=steps, child_s=child_s,
+                              resume_wall_s=wall,
+                              launches=sweep_kernel.launches,
+                              chunks_replayed=ref.n_chunks - max(steps))
+
+        # (c) the watchdog: each chunk stalled on the card behind a spin
+        # kernel, a deadline it misses; depth 1, so each chunk is
+        # finalized right after its launch
+        sweep_kernel.launches = 0
+        t0 = time.perf_counter()
+        import warnings
+        with warnings.catch_warnings(record=True) as warned, \
+                _LateChunks(WATCHDOG_SPIN_CYCLES):
+            warnings.simplefilter("always")
+            got = _sweep_chunked(wl, feed(), device=device,
+                                 chunk_size=CHUNK, prefetch_depth=1,
+                                 chunk_deadline_s=WATCHDOG_DEADLINE_S)
+        wall = time.perf_counter() - t0
+        launches = sweep_kernel.launches
+        t = got.timings
+        _check_same_stream("resume (c)", got, None, ref, None)
+        check(t["watchdog_redispatches"] > 0,
+              "resume (c): the watchdog never fired")
+        check(launches == got.n_chunks + t["watchdog_redispatches"],
+              f"resume (c): {launches} launches for {got.n_chunks} chunks "
+              f"+ {t['watchdog_redispatches']} re-dispatches")
+        out["watchdog"] = {
+            "deadline_s": WATCHDOG_DEADLINE_S,
+            "spin_cycles_ahead_of_each_chunk": WATCHDOG_SPIN_CYCLES,
+            "wall_s": wall,
+            "launches": launches, "n_chunks": got.n_chunks,
+            "warnings": sum("watchdog" in str(w.message) for w in warned),
+            **{k: t[k] for k in ("watchdog_redispatches",
+                                 "abandoned_finalizers",
+                                 "executor_replacements",
+                                 "cancelled_recomputes", "kernel_busy_s",
+                                 "kernel_wait_s")}}
+
+        # (d) the default search resumed through an injected failure
+        c = COEXPLORE
+        p = get_preset(c["preset"])
+        kwargs = D._search_kwargs(
+            p, "nsga2", objectives=p.objectives, seed=c["seed"],
+            device=device, chunk_size=p.chunk_size, ref_point=None,
+            accuracy=None if p.accuracy is None
+            else resolve_accuracy(p.accuracy))
+        sweep_kernel.launches = 0
+        t0 = time.perf_counter()
+        res = resume_search(space_for_workload(c["workload"]),
+                            get_workload(c["workload"]), p.budget,
+                            checkpoint_dir=os.path.join(tmp, "d"),
+                            fail_at_generation=dict(SEARCH_FAIL_AT),
+                            **kwargs)
+        wall = time.perf_counter() - t0
+        want = KEEP["coexplore"]
+        check(np.array_equal(res.genomes, want.genomes)
+              and res.front_objectives.tobytes()
+              == want.front_objectives.tobytes(),
+              "resume (d): front differs from coexplore's")
+        check(res.history == want.history,
+              "resume (d): hypervolume history differs from coexplore's")
+        check(res.stats["restarts"] == sum(SEARCH_FAIL_AT.values()),
+              f"resume (d): {res.stats['restarts']} restarts")
+        out["search"] = {"restarts": res.stats["restarts"], "wall_s": wall,
+                         "uninterrupted_wall_s": KEEP["coexplore_wall_s"],
+                         "launches": sweep_kernel.launches,
+                         "chunks": res.stats["chunks"],
+                         "front_size": res.front_size,
+                         "n_evals": res.n_evals}
+    return out
+
+
+def _enclosing(ranges, points) -> int:
+    """How many ``(start, end)`` ranges hold at least one of ``points``."""
+    import bisect
+    pts = sorted(points)
+    n = 0
+    for a, b in ranges:
+        i = bisect.bisect_left(pts, a)
+        n += int(i < len(pts) and pts[i] <= b)
+    return n
+
+
+def phase_telemetry(device) -> dict:
+    """Span tracing on the card's stream and search: fronts and cache
+    accounting identical with tracing on and off, the exported Chrome
+    trace valid and carrying the stage spans, the tracing overhead on the
+    stream (the smallest of three interleaved runs each way; the
+    reference targets 2 %, not a gate), and, with ``torch_annotations``,
+    how many ``sweep.kernel`` profiler ranges enclose a sweep-kernel
+    launch."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.core.dse import ExploreSpec, run
+    from repro_torch.core.synthesis import PersistentSynthesisCache
+    from repro_torch.kernels import sweep_kernel
+
+    def stream(telemetry):
+        cache = PersistentSynthesisCache()
+        t0 = time.perf_counter()
+        res = run(ExploreSpec.single("vgg16", grid(GRID_STREAM),
+                                     chunk_size=CHUNK, cache=cache,
+                                     telemetry=telemetry), device=device)
+        return res, cache, time.perf_counter() - t0
+
+    obs.configure(enabled=False, reset=True)
+    walls = {"on": [], "off": []}
+    ref = ref_cache = None
+    for _ in range(TELEMETRY_REPEATS):
+        for mode in ("off", "on"):
+            res, cache, wall = stream(mode == "on")
+            walls[mode].append(wall)
+            if ref is None:
+                ref, ref_cache = res, cache
+            else:
+                _check_same_stream(f"telemetry ({mode})", res, cache, ref,
+                                   ref_cache)
+    n_spans = len(obs.get_tracer().spans())
+    c = COEXPLORE
+    t0 = time.perf_counter()
+    search = run(ExploreSpec.mixed(c["workload"], preset=c["preset"],
+                                   seed=c["seed"], telemetry=True),
+                 device=device)
+    search_s = time.perf_counter() - t0
+    want = KEEP["coexplore"]
+    check(np.array_equal(search.genomes, want.genomes)
+          and search.front_objectives.tobytes()
+          == want.front_objectives.tobytes()
+          and search.history == want.history,
+          "telemetry: the traced search differs from coexplore's")
+    check(not obs.is_enabled(), "telemetry: tracing left on after run()")
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = obs.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        problems = obs.validate_chrome_trace(
+            json.loads(pathlib.Path(tmp, "trace.json").read_text()))
+    check(not problems, f"telemetry: chrome trace invalid: {problems[:3]}")
+    names = {}
+    for e in doc["traceEvents"]:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    missing = [n for n in TRACE_SPANS if n not in names]
+    check(not missing, f"telemetry: trace lacks spans {missing}")
+    summary = obs.summarize()
+
+    # one profiler window over a stream with the spans mirrored into it
+    sweep_kernel.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res, _, _ = stream({"torch_annotations": True})
+        torch.cuda.synchronize(device)
+    launches = sweep_kernel.launches
+    ranges, kernels = [], []
+    for e in prof.events():
+        if e.name == "sweep.kernel" and e.device_type == DeviceType.CPU:
+            ranges.append((e.time_range.start, e.time_range.end))
+        elif "sweep_aggregates_kernel" in e.name \
+                and e.device_type == DeviceType.CUDA:
+            kernels.append(e.time_range.start)
+    obs.configure(enabled=False, reset=True)
+    on, off = min(walls["on"]), min(walls["off"])
+    return {"phase": "telemetry", "stream_wall_s": walls,
+            "overhead": on / off - 1.0, "overhead_target": 0.02,
+            "spans_recorded_stream": n_spans, "search_wall_s": search_s,
+            "search_uninterrupted_wall_s": KEEP["coexplore_wall_s"],
+            "trace_events": len(doc["traceEvents"]),
+            "trace_span_counts": {n: names[n] for n in TRACE_SPANS},
+            "stage_seconds": {n: a["total_s"] for n, a in
+                              summary["spans"].items()},
+            "profiler": {"launches": launches,
+                         "sweep_kernel_ranges": len(ranges),
+                         "kernel_records": len(kernels),
+                         "ranges_enclosing_a_kernel":
+                         _enclosing(ranges, kernels)}}
 
 
 def _event_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -1987,6 +2495,8 @@ def phase_attention_timing(device) -> dict:
 
 def main() -> int:
     import torch
+    if len(sys.argv) == 4 and sys.argv[1] == CHILD_FLAG:
+        return resume_child(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script measures the "
               "port on an NVIDIA GPU", file=sys.stderr)
@@ -2007,6 +2517,10 @@ def main() -> int:
     coexplore_many = phase_coexplore_many(device)
     emit(coexplore_many)
     emit(phase_coexplore_golden(device))
+    emit(phase_ppa(device))
+    emit(phase_rtl())
+    emit(phase_resume(device))
+    emit(phase_telemetry(device))
     timing = phase_timing(device)
     emit(timing)
     serve = {q: phase_serve(device, q) for q in ("w8a8", "w4a8_pow2")}

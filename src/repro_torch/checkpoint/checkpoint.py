@@ -1,0 +1,178 @@
+"""Checkpoint snapshots: step-indexed, checksummed, rotated.
+
+Port of the self-describing state format of
+:mod:`repro.checkpoint.checkpoint`, which the exploration runtime
+(:mod:`repro_torch.runtime.dse_checkpoint`) snapshots through:
+
+* snapshots are atomic (write to tmp, fsync, rename);
+* every snapshot carries a content checksum; restore skips corrupt ones
+  and falls back to the newest valid snapshot;
+* :func:`save_state` / :func:`restore_state` store nested dicts of arrays
+  and scalars whose shapes grow between snapshots (a Pareto front, a
+  synthesis cache), with no ``like`` structure at restore time; array
+  dtype and shape round-trip exactly.
+
+The directory layout (``step_<n>/arrays.npz`` + ``meta.json``), the
+checksum rule and keep-N rotation are the reference's, so a snapshot
+written by either package restores in the other.
+
+The reference's pytree ``save`` / ``restore`` serve its training loop and
+go through ``jax.tree_util``; they wait for the training stack's port
+(ROADMAP A.8).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+
+import numpy as np
+
+
+def _rotate(ckpt_dir: str, keep: int):
+    steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_")
+                   and not d.endswith(".tmp"))
+    for d in steps[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def _valid(path: str) -> bool:
+    try:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(path, "arrays.npz"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        return digest == meta["sha256"]
+    except Exception:
+        return False
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for s in reversed(steps):
+        if _valid(os.path.join(ckpt_dir, f"step_{s:08d}")):
+            return s
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Self-describing state snapshots (nested dicts, no `like` needed)
+# ---------------------------------------------------------------------------
+
+_PATH_SEP = "/"
+
+
+def _flatten_state(state: dict, prefix: str = ""
+                   ) -> tuple[dict[str, np.ndarray], dict[str, object]]:
+    """Walk a nested dict: arrays by joined path, JSON scalars apart."""
+    arrays: dict[str, np.ndarray] = {}
+    scalars: dict[str, object] = {}
+    for key, val in state.items():
+        if not isinstance(key, str) or _PATH_SEP in key:
+            raise ValueError(
+                f"state keys must be '/'-free strings, got {key!r}")
+        path = prefix + key
+        if isinstance(val, dict):
+            sub_a, sub_s = _flatten_state(val, path + _PATH_SEP)
+            arrays.update(sub_a)
+            scalars.update(sub_s)
+        elif isinstance(val, np.ndarray):
+            arrays[path] = val
+        elif isinstance(val, (bool, int, float, str)) or val is None:
+            scalars[path] = val
+        elif isinstance(val, (np.integer, np.floating, np.bool_)):
+            scalars[path] = val.item()
+        else:
+            raise TypeError(
+                f"state leaf {path!r} has unsupported type "
+                f"{type(val).__name__} (use np.ndarray, int, float, "
+                f"bool, str, None, or a nested dict)")
+    return arrays, scalars
+
+
+def _unflatten_state(arrays: dict, scalars: dict) -> dict:
+    state: dict = {}
+    for path, val in list(arrays.items()) + list(scalars.items()):
+        parts = path.split(_PATH_SEP)
+        node = state
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return state
+
+
+def save_state(ckpt_dir: str, step: int, state: dict, *,
+               keep: int = 3) -> str:
+    """Atomically save a nested dict of arrays/scalars as
+    checkpoints/step_<n>/ and rotate.
+
+    The snapshot is self-describing: array dtypes, shapes, and the dict
+    structure restore exactly with no ``like`` tree — required for
+    exploration state whose arrays (Pareto front, synthesis cache rows)
+    change shape between snapshots.  A directory may also hold the
+    reference's pytree checkpoints (same layout, checksum and rotation).
+    """
+    arrays, scalars = _flatten_state(state)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _valid(path):
+        # re-saving a step re-serializes identical state (snapshots are
+        # deterministic functions of the step); keep the durable copy
+        return path
+    if os.path.exists(path):
+        shutil.rmtree(path)      # corrupt leftover: replace it
+    tmp = path + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    npz = os.path.join(tmp, "arrays.npz")
+    with open(npz, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    with open(npz, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    meta = {"step": step, "format": "state", "sha256": digest,
+            "scalars": scalars, "array_paths": sorted(arrays)}
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, path)                      # atomic publish
+    _rotate(ckpt_dir, keep)
+    return path
+
+
+def restore_state(ckpt_dir: str, step: int) -> dict:
+    """Restore a :func:`save_state` snapshot (validates checksum)."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not _valid(path):
+        raise IOError(f"checkpoint {path} is corrupt or missing")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("format") != "state":
+        raise IOError(
+            f"checkpoint {path} is a pytree checkpoint, not a state "
+            f"snapshot")
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        arrays = {k: z[k] for k in meta["array_paths"]}
+    return _unflatten_state(arrays, meta["scalars"])
+
+
+def restore_latest_state(ckpt_dir: str) -> tuple[int | None, dict | None]:
+    """``(step, state)`` of the newest *valid* state snapshot, or
+    ``(None, None)``.  Corrupt or truncated snapshots are skipped, falling
+    back to the next-newest valid one."""
+    if not os.path.isdir(ckpt_dir):
+        return None, None
+    steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for s in reversed(steps):
+        try:
+            return s, restore_state(ckpt_dir, s)
+        except Exception:
+            continue
+    return None, None

@@ -1,6 +1,7 @@
 """Parameterized spatial-array accelerator template (QAPPA Fig. 1).
 
-Copy of :mod:`repro.core.accelerator`: the design point, its
+Copy of :mod:`repro.core.accelerator`: the design point (with the
+derived quantities and the features the PPA models read), its
 struct-of-arrays (SoA) form and the paper's full-factorial design space.
 Host numpy code; the sweep moves SoA columns to the device.
 """
@@ -13,7 +14,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from repro_torch.core.pe import _P_PE_LEAK_UW, _SPECS, PEType
+from repro_torch.core.pe import _P_PE_LEAK_UW, _SPECS, PESpec, PEType, pe_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,10 +35,49 @@ class AcceleratorConfig:
     def __post_init__(self):
         object.__setattr__(self, "pe_type", PEType(self.pe_type))
 
+    @property
+    def num_pes(self) -> int:
+        return self.pe_rows * self.pe_cols
+
+    @property
+    def spec(self) -> PESpec:
+        return pe_spec(self.pe_type)
+
+    @property
+    def effective_clock_ghz(self) -> float:
+        max_clk = self.spec.max_clock_ghz
+        if self.clock_ghz is None:
+            return max_clk
+        return min(self.clock_ghz, max_clk)
+
+    @property
+    def peak_macs_per_s(self) -> float:
+        return self.num_pes * self.effective_clock_ghz * 1e9
+
+    @property
+    def glb_bits(self) -> int:
+        return self.glb_kb * 1024 * 8
+
     def name(self) -> str:
         return (f"{self.pe_type.value}_{self.pe_rows}x{self.pe_cols}"
                 f"_glb{self.glb_kb}k_sp{self.ifmap_spad}-{self.filter_spad}-"
                 f"{self.psum_spad}_bw{self.dram_bw_gbps:g}")
+
+    def features(self) -> dict[str, float]:
+        """Numeric features of the polynomial PPA models."""
+        s = self.spec
+        return {
+            "num_pes": float(self.num_pes),
+            "pe_rows": float(self.pe_rows),
+            "pe_cols": float(self.pe_cols),
+            "ifmap_spad": float(self.ifmap_spad),
+            "filter_spad": float(self.filter_spad),
+            "psum_spad": float(self.psum_spad),
+            "glb_kb": float(self.glb_kb),
+            "dram_bw_gbps": float(self.dram_bw_gbps),
+            "act_bits": float(s.act_bits),
+            "weight_bits": float(s.weight_bits),
+        }
 
 
 def soa_from_fields(pe_type_idx: np.ndarray,

@@ -15,7 +15,10 @@ caller passes ``device="cpu"``.  Specs are built with
 Sweep results normalize performance-per-area and energy against the best
 INT16 configuration, as the paper's Figs. 3-5 do.
 :class:`IncrementalSweep` extends a sweep without re-evaluating known
-configs.
+configs.  ``checkpoint_dir`` makes a chunked sweep or an nsga2 search
+preemption-safe (:mod:`repro_torch.runtime.dse_checkpoint`), and
+``telemetry`` scopes :mod:`repro_torch.obs` span tracing to one
+:func:`run`.
 """
 
 from __future__ import annotations
@@ -196,6 +199,24 @@ class IncrementalSweep:
                          points=list(self._points.values()))
 
 
+def _apply_checkpointing(kwargs: dict, method: str,
+                         checkpoint_dir: str | None,
+                         checkpoint_every: int | None) -> None:
+    """Thread the search's checkpointing knobs through to the engine —
+    only nsga2 carries resumable generation state."""
+    if checkpoint_dir is None:
+        if checkpoint_every is not None:
+            raise ValueError("checkpoint_every needs checkpoint_dir")
+        return
+    if method != "nsga2":
+        raise ValueError(
+            f"checkpoint_dir requires method='nsga2' (generation "
+            f"snapshots); got method={method!r}")
+    kwargs["checkpoint_dir"] = checkpoint_dir
+    if checkpoint_every is not None:
+        kwargs["checkpoint_every"] = checkpoint_every
+
+
 def _search_kwargs(p, method: str, **kwargs) -> dict:
     """The engine's knobs from a preset ``p`` and explicit overrides."""
     if method == "nsga2":
@@ -230,6 +251,8 @@ def _coexplore(workload: Workload | str,
                space_overrides: dict | None = None,
                accuracy=None,
                chunk_size: int | None = None,
+               checkpoint_dir: str | None = None,
+               checkpoint_every: int | None = None,
                **method_kwargs):
     """Guided co-exploration of one workload's joint (config x per-layer
     precision) space: resolves a named preset
@@ -253,6 +276,7 @@ def _coexplore(workload: Workload | str,
         seed=p.seed if seed is None else seed, device=device,
         chunk_size=p.chunk_size if chunk_size is None else chunk_size,
         ref_point=ref_point, accuracy=acc_model)
+    _apply_checkpointing(kwargs, method, checkpoint_dir, checkpoint_every)
     kwargs.update(method_kwargs)
     return fn(space, wl, p.budget if budget is None else budget, **kwargs)
 
@@ -270,6 +294,8 @@ def _coexplore_many(workloads: Sequence[Workload | str],
                     accuracy=None,
                     space_overrides: dict | None = None,
                     chunk_size: int | None = None,
+                    checkpoint_dir: str | None = None,
+                    checkpoint_every: int | None = None,
                     **method_kwargs):
     """Multi-workload co-exploration (the QUIDAM setting): one shared
     hardware config, one per-layer precision assignment per workload.
@@ -297,6 +323,7 @@ def _coexplore_many(workloads: Sequence[Workload | str],
         chunk_size=p.chunk_size if chunk_size is None else chunk_size,
         ref_point=ref_point, accuracy=acc_model,
         weights=p.weights if weights is None else weights)
+    _apply_checkpointing(kwargs, method, checkpoint_dir, checkpoint_every)
     kwargs.update(method_kwargs)
     return fn(space, wls, p.budget if budget is None else budget, **kwargs)
 
@@ -308,9 +335,6 @@ _NOT_PORTED = {
                "(ROADMAP A.5)",
     "n_slots": "serving-fleet objectives need the fleet simulator "
                "(ROADMAP A.5)",
-    "checkpoint_dir": "checkpointing and resume (ROADMAP A.3)",
-    "checkpoint_every": "checkpointing and resume (ROADMAP A.3)",
-    "telemetry": "the obs spans and metrics (ROADMAP A.3)",
     "mesh": "the port runs on one card; multi-device sharding is not "
             "queued (ROADMAP A.8 ports only what one card exercises)",
 }
@@ -349,12 +373,18 @@ class ExploreSpec:
     seed: int | None = None
     use_cache: bool = True
     chunk_size: int | None = None
+    # fault tolerance: periodic snapshots + resume, for chunked uniform
+    # sweeps (resume_sweep) and nsga2 searches (generation snapshots)
+    checkpoint_dir: str | None = None
+    checkpoint_every: int | None = None
+    # None leaves the process-wide repro_torch.obs switch untouched;
+    # True/False flips span tracing for the run; a dict goes to
+    # repro_torch.obs.configure() (e.g. {"jsonl_path": ...,
+    # "torch_annotations": True}).  The metrics registry is always on.
+    telemetry: object = None
     # knobs of the reference not ported yet (_NOT_PORTED): must stay None
     traffic: object = None
     n_slots: int | None = None
-    checkpoint_dir: str | None = None
-    checkpoint_every: int | None = None
-    telemetry: object = None
     mesh: object = None
 
     def __post_init__(self):
@@ -388,6 +418,22 @@ class ExploreSpec:
             raise ValueError(
                 "prefetch_depth tunes the streamed chunk pipeline; it "
                 "needs chunk_size=")
+        if self.checkpoint_every is not None:
+            if self.checkpoint_dir is None:
+                raise ValueError(
+                    "checkpoint_every needs checkpoint_dir")
+            if self.checkpoint_every < 1:
+                raise ValueError(
+                    f"checkpoint_every must be >= 1, "
+                    f"got {self.checkpoint_every}")
+        if self.checkpoint_dir is not None \
+                and self.precision == "uniform" and self.chunk_size is None:
+            raise ValueError(
+                "checkpoint_dir applies to chunked uniform sweeps "
+                "(chunk_size=) or mixed-precision searches; a one-batch "
+                "sweep has no resumable stream")
+        from repro_torch.obs.trace import check_telemetry
+        check_telemetry(self.telemetry)
         if isinstance(self.accuracy, str):
             # validate spec strings early, before any work
             from repro_torch.explore.accuracy import AccuracySpec
@@ -445,15 +491,23 @@ class ExploreSpec:
     def single(cls, workload, configs=None, *, outputs: str = "points",
                chunk_size: int | None = None, use_cache: bool = True,
                cache=None, save_cache: bool = True, overlap: bool = True,
-               prefetch_depth: int = 2, **not_ported) -> "ExploreSpec":
+               prefetch_depth: int = 2, checkpoint_dir: str | None = None,
+               checkpoint_every: int | None = None, telemetry=None,
+               **not_ported) -> "ExploreSpec":
         """Uniform-precision sweep of one workload over a config batch
         (the paper's design space when ``configs`` is None).  A
         ``chunk_size`` streams an arbitrary-size feed with bounded memory
-        and returns a :class:`~repro_torch.core.dse_batch.ChunkedSweep`."""
+        and returns a :class:`~repro_torch.core.dse_batch.ChunkedSweep`;
+        a ``checkpoint_dir`` makes the stream preemption-safe (periodic
+        snapshots, resumed automatically — ``configs`` should then be a
+        re-iterable feed or a zero-arg factory)."""
         return cls(workloads=(workload,), configs=configs, outputs=outputs,
                    chunk_size=chunk_size, use_cache=use_cache, cache=cache,
                    save_cache=save_cache, overlap=overlap,
-                   prefetch_depth=prefetch_depth, **not_ported)
+                   prefetch_depth=prefetch_depth,
+                   checkpoint_dir=checkpoint_dir,
+                   checkpoint_every=checkpoint_every, telemetry=telemetry,
+                   **not_ported)
 
     @classmethod
     def mixed(cls, workload, *, preset: str | None = None,
@@ -466,7 +520,9 @@ class ExploreSpec:
               checkpoint_every: int | None = None, telemetry=None,
               **search_kwargs) -> "ExploreSpec":
         """Guided mixed-precision co-exploration of one workload (preset
-        ``"default"`` unless named); extra keywords go to the engine."""
+        ``"default"`` unless named); extra keywords go to the engine.  A
+        ``checkpoint_dir`` snapshots the search each ``checkpoint_every``
+        generations and resumes from the newest snapshot (nsga2 only)."""
         return cls(workloads=(workload,), precision="mixed",
                    preset=preset, method=method, budget=budget,
                    objectives=objectives, accuracy=accuracy, seed=seed,
@@ -523,13 +579,20 @@ def run(spec: ExploreSpec, *, device: str | torch.device = "cuda"):
 
     ``device="cuda"`` raises ``RuntimeError`` on a host without CUDA; the
     sweeps' aggregates and every search evaluation then run on the card
-    through the CUDA sweep kernel.
+    through the CUDA sweep kernel.  ``spec.telemetry`` configures span
+    tracing for the duration of the call.
     """
     if not isinstance(spec, ExploreSpec):
         raise TypeError(
             f"run() takes an ExploreSpec, got {type(spec).__name__}; "
             f"build one with ExploreSpec.single/.mixed/.many")
+    from repro_torch.obs import trace as obs_trace
     device = resolve_device(device)
+    with obs_trace.configured(spec.telemetry):
+        return _run_dispatch(spec, device)
+
+
+def _run_dispatch(spec: ExploreSpec, device: torch.device):
     extra = dict(spec.search_kwargs or {})
     if spec.precision == "mixed":
         common = dict(method=spec.method, budget=spec.budget,
@@ -537,7 +600,8 @@ def run(spec: ExploreSpec, *, device: str | torch.device = "cuda"):
                       objectives=spec.objectives, ref_point=spec.ref_point,
                       space_overrides=spec.space_overrides,
                       accuracy=spec.accuracy, chunk_size=spec.chunk_size,
-                      **extra)
+                      checkpoint_dir=spec.checkpoint_dir,
+                      checkpoint_every=spec.checkpoint_every, **extra)
         if len(spec.workloads) == 1:
             return _coexplore(
                 spec.workloads[0],
@@ -553,11 +617,17 @@ def run(spec: ExploreSpec, *, device: str | torch.device = "cuda"):
                              outputs=spec.outputs)
     wl = _resolve(spec.workloads[0])
     if spec.chunk_size is not None:
-        return _sweep_chunked(
-            wl, spec.configs, device=device, chunk_size=spec.chunk_size,
-            use_cache=spec.use_cache, cache=spec.cache,
-            save_cache=spec.save_cache, overlap=spec.overlap,
-            prefetch_depth=spec.prefetch_depth)
+        kwargs = dict(device=device, chunk_size=spec.chunk_size,
+                      use_cache=spec.use_cache, cache=spec.cache,
+                      save_cache=spec.save_cache, overlap=spec.overlap,
+                      prefetch_depth=spec.prefetch_depth)
+        if spec.checkpoint_dir is not None:
+            from repro_torch.runtime.dse_checkpoint import resume_sweep
+            if spec.checkpoint_every is not None:
+                kwargs["checkpoint_every"] = spec.checkpoint_every
+            return resume_sweep(wl, spec.configs,
+                                checkpoint_dir=spec.checkpoint_dir, **kwargs)
+        return _sweep_chunked(wl, spec.configs, **kwargs)
     cfgs = tuple(design_space() if spec.configs is None else spec.configs)
     sweep = _sweep_workload(
         wl, cfgs, device=device, use_cache=spec.use_cache,

@@ -31,7 +31,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 import time
+import warnings
 from collections import deque
 from typing import Iterable, Iterator, Sequence
 
@@ -48,6 +50,8 @@ from repro_torch.core.synthesis import (PersistentSynthesisCache,
                                         sweep_synthesis_cache,
                                         synthesize_soa)
 from repro_torch.core.workloads import Workload
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 _CPU = torch.device("cpu")
 
@@ -676,7 +680,9 @@ class ChunkedSweep:
     front_metrics: dict[str, np.ndarray]  # _FRONT_METRICS columns
     synthesis_cache: PersistentSynthesisCache | None = None
     # wall_s (whole stream), synth_s (host synthesis + feed pull),
-    # kernel_wait_s (host time blocked on kernel results)
+    # kernel_wait_s (host time blocked on kernel results), kernel_busy_s
+    # (dispatch -> results, summed over chunks), the watchdog's counters,
+    # and restarts (resume_sweep)
     timings: dict | None = None
 
     @property
@@ -718,20 +724,28 @@ def _as_soa_chunks(chunks, chunk_size: int) -> Iterator[dict]:
         yield configs_to_soa(tuple(pending))
 
 
+class ChunkDeadlineExceeded(TimeoutError):
+    """A dispatched chunk's results did not arrive within the streamed
+    sweep's watchdog deadline (``chunk_deadline_s``)."""
+
+
 def _dispatch_chunk(cfg: dict, klay: dict, device: torch.device):
-    """Start the aggregates kernel on one chunk; returns ``finalize()``
-    giving the host ``(n,)`` aggregate columns.
+    """Start the aggregates kernel on one chunk; returns
+    ``finalize(timeout=None)`` giving the host ``(n,)`` aggregate columns.
 
     On CUDA the kernel launches on the current stream, its ``(n, 6)``
     result is copied without blocking into pinned host memory, and an
-    event marks the copy's end; ``finalize`` waits on that event.  On the
-    CPU the exact path runs at once.
+    event marks the copy's end.  ``finalize`` waits on that event, or,
+    given ``timeout`` seconds, polls it and raises
+    :class:`ChunkDeadlineExceeded` once the deadline passes (the
+    watchdog's hook; the launched work is abandoned, not cancelled).  On
+    the CPU the exact path runs at once, so a deadline cannot fire.
     """
     if device.type == "cpu":
         out = _sweep_kernel(_cfg_to_device(cfg, device, exact=True), klay,
                             exact=True, outputs="aggregates")
         res = {k: v.numpy() for k, v in out.items()}
-        return lambda: res
+        return lambda timeout=None: res
     from repro_torch.kernels.sweep_kernel import sweep_aggregates_packed
     packed = sweep_aggregates_packed(_cfg_to_device(cfg, device, False),
                                      klay)
@@ -740,8 +754,16 @@ def _dispatch_chunk(cfg: dict, klay: dict, device: torch.device):
     done = torch.cuda.Event()
     done.record()
 
-    def finalize():
-        done.synchronize()
+    def finalize(timeout: float | None = None):
+        if timeout is None:
+            done.synchronize()
+        else:
+            deadline = time.perf_counter() + timeout
+            while not done.query():
+                if time.perf_counter() >= deadline:
+                    raise ChunkDeadlineExceeded(
+                        f"chunk results not ready within {timeout}s")
+                time.sleep(50e-6)
         a = host.numpy()
         return {k: a[:, i] for i, k in enumerate(AGGREGATE_OUTPUTS)}
 
@@ -757,7 +779,10 @@ def _sweep_chunked(workload: Workload,
                    cache: PersistentSynthesisCache | str | None = None,
                    save_cache: bool = True,
                    overlap: bool = True,
-                   prefetch_depth: int = 2) -> ChunkedSweep:
+                   prefetch_depth: int = 2,
+                   checkpoint=None,
+                   fail_at: dict[int, int] | None = None,
+                   chunk_deadline_s: float | None = None) -> ChunkedSweep:
     """Stream an arbitrary-size config feed through the sweep in bounded
     memory, keeping only running totals + the Pareto front.
 
@@ -772,6 +797,31 @@ def _sweep_chunked(workload: Workload,
     reduction drains them in FIFO stream order, so fronts and cache
     hit/miss counts are identical at every depth.  ``overlap=False`` is
     depth 1.  On the CPU each chunk is evaluated when it is dispatched.
+
+    Fault tolerance, as the reference's:
+
+    * ``checkpoint`` — a snapshotter such as
+      :class:`repro_torch.runtime.dse_checkpoint.SweepCheckpointer`
+      (``restore()``, ``should_save(cursor)``, ``save(...)``).  On entry
+      the newest valid snapshot restores the stream cursor, the running
+      front and the cache's rows and accounting; chunks reduced before it
+      are pulled from the feed but not synthesized.  A snapshot's cache
+      state is captured at the synthesis boundary of its cursor, so the
+      chunks prefetched behind it never leak in; the last snapshot is
+      written when the stream ends.
+    * ``fail_at`` — ``{chunk_index: n_times}`` raises
+      :class:`~repro_torch.runtime.fault_tolerance.InjectedFailure` at
+      those chunk boundaries (decremented in place, so a dict shared
+      across restarts fails each boundary ``n_times`` in all).
+    * ``chunk_deadline_s`` — watchdog: a chunk whose results are not back
+      within the deadline is abandoned and dispatched again, synchronously,
+      on the same device through the same kernel (counted in
+      ``timings["watchdog_redispatches"]`` and
+      ``["abandoned_finalizers"]``); if that launch fails, the stream
+      raises.  Nothing falls back to another device.
+
+    The stages record ``sweep.*`` spans when :mod:`repro_torch.obs`
+    tracing is on, and the totals always land in its metrics registry.
     """
     device = resolve_device(device)
     if int(prefetch_depth) < 1:
@@ -782,6 +832,7 @@ def _sweep_chunked(workload: Workload,
         cache = PersistentSynthesisCache(cache)
     wb = _workload_batch(workload)
     exact = device.type == "cpu"
+    fail_at = fail_at if fail_at is not None else {}
     # the layer table is host data: the kernel wrapper packs it per launch
     klay = _lay_to_device({k: v[None, :] for k, v in wb.arrays.items()},
                           _CPU, exact)
@@ -790,9 +841,57 @@ def _sweep_chunked(workload: Workload,
     front_metrics: dict[str, np.ndarray] | None = None
     n_total = 0
     n_chunks = 0
-    timings = {"overlap": bool(overlap), "prefetch_depth": depth,
-               "wall_s": 0.0, "synth_s": 0.0, "kernel_wait_s": 0.0}
+    resume_cursor = 0
+    if checkpoint is not None:
+        snap = checkpoint.restore()
+        if snap is not None:
+            resume_cursor = int(snap["cursor"])
+            if resume_cursor > 0:
+                n_total = int(snap["n_total"])
+                n_chunks = resume_cursor
+                front_soa = snap["front_soa"]
+                front_metrics = snap["front_metrics"]
+                if cache is not None \
+                        and snap.get("cache_state") is not None:
+                    cache.import_state(snap["cache_state"])
     t_wall = time.perf_counter()
+    # executor_replacements / cancelled_recomputes are the reference's
+    # worker-executor counters; the port has no executor, so they stay 0
+    timings = {"overlap": bool(overlap), "prefetch_depth": depth,
+               "wall_s": 0.0, "synth_s": 0.0, "kernel_wait_s": 0.0,
+               "kernel_busy_s": 0.0, "watchdog_redispatches": 0,
+               "executor_replacements": 0, "cancelled_recomputes": 0,
+               "abandoned_finalizers": 0}
+    reg = obs_metrics.get_registry()
+    root_span = obs_trace.span_start(
+        "sweep_chunked", workload=workload.name, device=str(device),
+        chunk_size=int(chunk_size), overlap=bool(overlap),
+        prefetch_depth=depth, resume_cursor=resume_cursor)
+    n_total0, n_chunks0 = n_total, n_chunks   # restored-from-snapshot base
+    flushed = False
+
+    def flush_telemetry(status: str) -> None:
+        # once per attempt, also from a failed one: only the work done in
+        # this attempt is counted, not the totals restored from a snapshot
+        nonlocal flushed
+        if flushed:
+            return
+        flushed = True
+        timings["wall_s"] = time.perf_counter() - t_wall
+        reg.inc("sweep.chunks", n_chunks - n_chunks0)
+        reg.inc("sweep.configs", n_total - n_total0)
+        reg.inc("sweep.wall_s", timings["wall_s"])
+        reg.inc("sweep.synth_s", timings["synth_s"])
+        reg.inc("sweep.kernel_wait_s", timings["kernel_wait_s"])
+        reg.inc("sweep.kernel_busy_s", timings["kernel_busy_s"])
+        reg.set("sweep.prefetch_depth", depth)
+        if status != "ok":
+            reg.inc("sweep.failures")
+        if timings["wall_s"] > 0:
+            reg.set("sweep.configs_per_s",
+                    (n_total - n_total0) / timings["wall_s"])
+        obs_trace.span_end(root_span, status=status, configs=n_total,
+                           chunks=n_chunks, wall_s=timings["wall_s"])
 
     def reduce_chunk(soa: dict, n: int, out: dict) -> None:
         nonlocal front_soa, front_metrics
@@ -816,52 +915,130 @@ def _sweep_chunked(workload: Workload,
         front_soa = {k: v[keep] for k, v in front_soa.items()}
         front_metrics = {m: v[keep] for m, v in front_metrics.items()}
 
-    pending: deque = deque()     # (soa, n, finalize), in stream order
+    # in flight, in stream order: (soa, n, cfg, finalize, save_info,
+    # cache_state, chunk_index, kernel_span, t_dispatch)
+    pending: deque = deque()
 
     def drain_one() -> None:
-        psoa, pn, pfin = pending.popleft()
+        (psoa, pn, pcfg, pfin, psave, pcache, pci, kspan,
+         tdisp) = pending.popleft()
         t0 = time.perf_counter()
-        out = pfin()
-        timings["kernel_wait_s"] += time.perf_counter() - t0
-        reduce_chunk(psoa, pn, out)
+        kstatus = "ok"
+        try:
+            out = pfin(timeout=chunk_deadline_s)
+        except ChunkDeadlineExceeded:
+            warnings.warn(
+                f"chunk kernel exceeded the {chunk_deadline_s:.3g}s "
+                f"watchdog deadline; abandoned and re-dispatched on "
+                f"{device}", RuntimeWarning, stacklevel=3)
+            timings["watchdog_redispatches"] += 1
+            timings["abandoned_finalizers"] += 1
+            reg.inc("sweep.watchdog_redispatches")
+            kstatus = "watchdog"
+            with obs_trace.span("sweep.watchdog_redispatch", chunk=pci):
+                out = _dispatch_chunk(pcfg, klay, device)()
+        except Exception:
+            obs_trace.span_end(kspan, status="error")
+            raise
+        now = time.perf_counter()
+        timings["kernel_wait_s"] += now - t0
+        # dispatch -> results: the kernel stage's busy time (chunks in
+        # flight together each count their own)
+        timings["kernel_busy_s"] += now - tdisp
+        obs_trace.span_end(kspan, status=kstatus)
+        with obs_trace.span("sweep.reduce", chunk=pci, n=pn):
+            reduce_chunk(psoa, pn, out)
+        if psave is not None:
+            with obs_trace.span("sweep.checkpoint", cursor=psave[0]):
+                checkpoint.save(cursor=psave[0], n_total=psave[1],
+                                front_soa=front_soa,
+                                front_metrics=front_metrics,
+                                cache_state=pcache)
 
-    feed = _as_soa_chunks(configs, chunk_size)
-    while True:
-        t0 = time.perf_counter()
-        soa = next(feed, None)
-        if soa is None:
-            break
-        n = len(soa["pe_rows"])
-        if n == 0:
-            continue
-        n_total += n
-        n_chunks += 1
-        # host synthesis in stream order, so cache lookups and inserts
-        # match the serial loop row for row
-        if cache is not None:
-            cols = cache.synthesize(soa)
-        elif use_cache:
-            cols = sweep_synthesis_cache().synthesize(soa)
-        else:
-            cols = synthesize_soa(soa)
-        cfg, _ = _make_cfg_lay(soa, cols, wb)
-        timings["synth_s"] += time.perf_counter() - t0
-        pending.append((soa, n, _dispatch_chunk(cfg, klay, device)))
-        # bounded prefetch: at most depth-1 chunks stay in flight behind
-        # the next synthesis
-        while len(pending) >= depth:
+    try:
+        feed = _as_soa_chunks(configs, chunk_size)
+        ci = -1                 # absolute index of the chunk being pulled
+        while True:
+            t0 = time.perf_counter()
+            with obs_trace.span("sweep.pull"):
+                soa = next(feed, None)
+            if soa is None:
+                break
+            n = len(soa["pe_rows"])
+            if n == 0:
+                continue
+            ci += 1
+            if ci < resume_cursor:
+                # reduced before the restart: the snapshot carries its
+                # front contribution and cache accounting
+                continue
+            if fail_at.get(ci, 0) > 0:
+                fail_at[ci] -= 1
+                from repro_torch.runtime.fault_tolerance import \
+                    InjectedFailure
+                raise InjectedFailure(
+                    f"injected failure at chunk boundary {ci}")
+            n_total += n
+            n_chunks += 1
+            # host synthesis in stream order, so cache lookups and inserts
+            # match the serial loop row for row
+            with obs_trace.span("sweep.synthesize", chunk=ci, n=n):
+                if cache is not None:
+                    cols = cache.synthesize(soa)
+                elif use_cache:
+                    cols = sweep_synthesis_cache().synthesize(soa)
+                else:
+                    cols = synthesize_soa(soa)
+                cfg, _ = _make_cfg_lay(soa, cols, wb)
+            timings["synth_s"] += time.perf_counter() - t0
+            save_info = cache_state = None
+            if checkpoint is not None and checkpoint.should_save(ci + 1):
+                # capture the cache now, while it covers exactly chunks
+                # 0..ci: chunk ci+1 is synthesized before chunk ci's
+                # snapshot is written, and its rows must not turn into
+                # hits after a resume
+                save_info = (ci + 1, n_total)
+                if cache is not None:
+                    cache_state = cache.export_state()
+            kspan = obs_trace.span_start("sweep.kernel", chunk=ci, n=n,
+                                         device=str(device))
+            try:
+                with obs_trace.span("sweep.dispatch", chunk=ci):
+                    finalize = _dispatch_chunk(cfg, klay, device)
+            except Exception:
+                obs_trace.span_end(kspan, status="error")
+                raise
+            pending.append((soa, n, cfg, finalize, save_info, cache_state,
+                            ci, kspan, time.perf_counter()))
+            reg.observe("sweep.inflight", len(pending))
+            # bounded prefetch: at most depth-1 chunks stay in flight
+            # behind the next synthesis
+            while len(pending) >= depth:
+                drain_one()
+        while pending:
             drain_one()
-    while pending:
-        drain_one()
+    finally:
+        if sys.exc_info()[0] is not None:
+            flush_telemetry("error")
 
     if front_soa is None:
         front_soa = {k: np.empty(0, dtype=np.int64)
                      for k in _SOA_ID_FIELDS}
         front_metrics = {m: np.empty(0, dtype=np.float64)
                          for m in _FRONT_METRICS}
+    if checkpoint is not None:
+        # terminal snapshot: resuming a finished run restores the whole
+        # front and skips the feed
+        with obs_trace.span("sweep.checkpoint", cursor=n_chunks,
+                            terminal=True):
+            checkpoint.save(
+                cursor=n_chunks, n_total=n_total, front_soa=front_soa,
+                front_metrics=front_metrics,
+                cache_state=cache.export_state() if cache is not None
+                else None)
     if cache is not None and save_cache and cache.path is not None:
         cache.save()
-    timings["wall_s"] = time.perf_counter() - t_wall
+    flush_telemetry("ok")
     return ChunkedSweep(workload=workload.name, device=str(device),
                         n_configs=n_total, n_chunks=n_chunks,
                         front_soa=front_soa, front_metrics=front_metrics,

@@ -24,6 +24,15 @@ class PEType(str, enum.Enum):
     LIGHTPE1 = "lightpe1"
     LIGHTPE2 = "lightpe2"
 
+    @property
+    def pretty(self) -> str:
+        return {
+            PEType.FP32: "FP32",
+            PEType.INT16: "INT16",
+            PEType.LIGHTPE1: "LightPE-1",
+            PEType.LIGHTPE2: "LightPE-2",
+        }[self]
+
 
 # 45nm per-op constants, calibrated against the paper's synthesis ratios
 # (see repro.core.pe for the derivation)

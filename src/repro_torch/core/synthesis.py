@@ -1,24 +1,46 @@
 """Analytical synthesis oracle (stands in for Synopsys DC + VCS @ 45 nm).
 
-Copy of the array path of :mod:`repro.core.synthesis`: batched synthesis
-over a SoA config batch with a digest-seeded process jitter, and the
-digest-keyed synthesis cache with the same npz format, so a cache file
-written by either package loads in the other.  Host numpy code.
+Copy of :mod:`repro.core.synthesis`: batched synthesis over a SoA config
+batch with a digest-seeded process jitter, the per-config report
+(:func:`synthesize`, :func:`synthesize_many`) behind a bounded in-process
+LRU, and the digest-keyed synthesis cache with the same npz format, so a
+cache file written by either package loads in the other.  Host numpy
+code; the PPA models (:mod:`repro_torch.core.ppa_model`) fit to its
+reports.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import os
 import pathlib
 import warnings
+from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core.accelerator import AcceleratorConfig, configs_to_soa
 from repro_torch.core.confighash import (config_digests, digest_keys,
                                          digests_to_u64, uniform01)
 from repro_torch.core.dataflow import leakage_mw_soa
 from repro_torch.core.pe import (rf_access_energy_pj, sram_access_energy_pj,
                                  sram_area_um2)
+from repro_torch.obs import metrics as obs_metrics
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthesisReport:
+    """What the synthesis + simulation flow reports for one design."""
+
+    area_mm2: float            # post-synthesis cell area
+    power_mw: float            # dynamic + leakage at nominal activity
+    clock_ghz: float           # achieved clock after timing closure
+    throughput_gmacs: float    # peak effective GMAC/s at that clock
+
+    def as_dict(self) -> dict[str, float]:
+        return dataclasses.asdict(self)
+
 
 # columns of the array-form synthesis result, in stable (npz) order
 REPORT_COLUMNS = ("area_mm2", "power_mw", "clock_ghz", "throughput_gmacs")
@@ -69,6 +91,130 @@ def synthesize_soa(soa: dict[str, np.ndarray],
     }
 
 
+def synthesize(cfg: AcceleratorConfig) -> SynthesisReport:
+    """Synthesize one design point: a length-1 batch through
+    :func:`synthesize_soa`, so scalar and batched results are equal."""
+    cols = synthesize_soa(configs_to_soa((cfg,)))
+    return SynthesisReport(**{k: float(cols[k][0]) for k in REPORT_COLUMNS})
+
+
+def config_hash(cfg: AcceleratorConfig) -> str:
+    """Hex form of a config's 128-bit packed-field digest (every field,
+    ``clock_ghz`` included)."""
+    return config_keys((cfg,))[0].hex()
+
+
+def config_keys(configs: Sequence[AcceleratorConfig],
+                soa: dict[str, np.ndarray] | None = None) -> list[bytes]:
+    """16-byte digest keys for a config batch."""
+    if soa is None:
+        soa = configs_to_soa(tuple(configs))
+    return digest_keys(config_digests(soa))
+
+
+# ---------------------------------------------------------------------------
+# In-process report cache: bounded LRU keyed by the 16-byte digest.
+# ---------------------------------------------------------------------------
+
+_SYNTH_CACHE: collections.OrderedDict[bytes, SynthesisReport] = \
+    collections.OrderedDict()
+_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_CACHE_LIMIT = 1 << 18          # ~260k reports, bounded
+
+
+def synthesis_cache_stats() -> dict[str, int]:
+    stats = dict(_CACHE_STATS, size=len(_SYNTH_CACHE), limit=_CACHE_LIMIT)
+    stats.update(array_hits=_SWEEP_CACHE.hits,
+                 array_misses=_SWEEP_CACHE.misses,
+                 array_size=len(_SWEEP_CACHE),
+                 array_evictions=_SWEEP_CACHE.evictions)
+    return stats
+
+
+def set_synthesis_cache_limit(limit: int) -> int:
+    """Cap both in-process synthesis caches (entries / rows); returns the
+    old cap.  Shrinking evicts the oldest entries at once."""
+    global _CACHE_LIMIT
+    old, _CACHE_LIMIT = _CACHE_LIMIT, max(0, int(limit))
+    _evict_to_limit()
+    _SWEEP_CACHE.max_rows = _CACHE_LIMIT
+    _SWEEP_CACHE._compact()
+    return old
+
+
+def clear_synthesis_cache() -> None:
+    _SYNTH_CACHE.clear()
+    _CACHE_STATS.update(hits=0, misses=0, evictions=0)
+    _SWEEP_CACHE.clear()
+
+
+def _evict_to_limit() -> None:
+    while len(_SYNTH_CACHE) > _CACHE_LIMIT:
+        _SYNTH_CACHE.popitem(last=False)
+        _CACHE_STATS["evictions"] += 1
+
+
+def _cache_put(key: bytes, rep: SynthesisReport) -> None:
+    _SYNTH_CACHE[key] = rep
+    _evict_to_limit()
+
+
+def synthesize_cached(cfg: AcceleratorConfig) -> SynthesisReport:
+    """:func:`synthesize` through the in-process report cache."""
+    key = config_keys((cfg,))[0]
+    hit = _SYNTH_CACHE.get(key)
+    if hit is not None:
+        _CACHE_STATS["hits"] += 1
+        _SYNTH_CACHE.move_to_end(key)
+        return hit
+    _CACHE_STATS["misses"] += 1
+    rep = synthesize(cfg)
+    _cache_put(key, rep)
+    return rep
+
+
+def synthesize_many(configs: Sequence[AcceleratorConfig],
+                    use_cache: bool = True,
+                    soa: dict[str, np.ndarray] | None = None
+                    ) -> list[SynthesisReport]:
+    """Synthesize a batch of design points in one array pass; cached
+    configs are skipped.  ``soa`` reuses an existing SoA conversion."""
+    configs = list(configs)
+    if not configs:
+        return []
+    if soa is None:
+        soa = configs_to_soa(configs)
+    out: list[SynthesisReport | None] = [None] * len(configs)
+    digests = config_digests(soa)
+    if use_cache:
+        keys = digest_keys(digests)
+        todo = []
+        for i, key in enumerate(keys):
+            hit = _SYNTH_CACHE.get(key)
+            if hit is not None:
+                _CACHE_STATS["hits"] += 1
+                _SYNTH_CACHE.move_to_end(key)
+                out[i] = hit
+            else:
+                _CACHE_STATS["misses"] += 1
+                todo.append(i)
+        if not todo:
+            return out  # type: ignore[return-value]
+        idx = np.array(todo, dtype=np.intp)
+        sub = {k: v[idx] for k, v in soa.items()}
+        cols = synthesize_soa(sub, digests=tuple(d[idx] for d in digests))
+        for j, i in enumerate(todo):
+            rep = SynthesisReport(
+                **{k: float(cols[k][j]) for k in REPORT_COLUMNS})
+            out[i] = rep
+            _cache_put(keys[i], rep)
+        return out  # type: ignore[return-value]
+    cols = synthesize_soa(soa, digests=digests)
+    return [SynthesisReport(**{k: float(cols[k][i])
+                               for k in REPORT_COLUMNS})
+            for i in range(len(configs))]
+
+
 class PersistentSynthesisCache:
     """Digest-keyed synthesis store with npz persistence.
 
@@ -101,6 +247,12 @@ class PersistentSynthesisCache:
                     f"unreadable ({type(exc).__name__}: {exc}); starting "
                     f"with an empty cache and rebuilding",
                     RuntimeWarning, stacklevel=2)
+
+    def clear(self) -> None:
+        """Drop all rows and stats; keeps the cap and the save path."""
+        path, self.path = self.path, None     # don't reload from disk
+        self.__init__(path=None, max_rows=self.max_rows)
+        self.path = path
 
     def _compact(self) -> None:
         if self.max_rows is None or self._n <= self.max_rows:
@@ -135,8 +287,12 @@ class PersistentSynthesisCache:
         if mask.any():
             vals[mask] = self._vals[rows[mask]]
         nh = int(mask.sum())
+        nm = len(keys) - nh
         self.hits += nh
-        self.misses += len(keys) - nh
+        self.misses += nm
+        reg = obs_metrics.get_registry()
+        reg.inc("synth_cache.hits", nh)
+        reg.inc("synth_cache.misses", nm)
         return mask, {c: vals[:, j] for j, c in enumerate(REPORT_COLUMNS)}
 
     def insert(self, digests, cols: dict[str, np.ndarray]) -> int:
@@ -183,6 +339,41 @@ class PersistentSynthesisCache:
             if tmp.exists():
                 tmp.unlink()
         return self._n
+
+    def export_state(self) -> dict:
+        """Rows and accounting as a plain dict of arrays / scalars: the
+        synthesis-cache slice of a sweep snapshot
+        (:mod:`repro_torch.runtime.dse_checkpoint`), counters included so
+        a resumed run's hit/miss accounting equals the uninterrupted
+        run's."""
+        return {
+            "keys": self._keys[:self._n].copy(),
+            "vals": self._vals[:self._n].copy(),
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+        }
+
+    def import_state(self, state: dict) -> None:
+        """Replace rows and counters with an :meth:`export_state`
+        snapshot (existing contents are dropped, not merged)."""
+        keys = np.ascontiguousarray(state["keys"], dtype=np.uint64)
+        vals = np.asarray(state["vals"], dtype=np.float64)
+        if keys.ndim != 2 or keys.shape[1] != 2 \
+                or vals.shape != (len(keys), len(REPORT_COLUMNS)):
+            raise ValueError(
+                f"cache snapshot shapes {keys.shape} / {vals.shape} are "
+                f"not (N, 2) / (N, {len(REPORT_COLUMNS)})")
+        self._keys = keys.copy()
+        self._vals = vals.copy()
+        self._n = len(keys)
+        buf = keys.tobytes()
+        self._index = {buf[16 * i:16 * (i + 1)]: i
+                       for i in range(self._n)}
+        self.hits = int(state["hits"])
+        self.misses = int(state["misses"])
+        self.evictions = int(state["evictions"])
+        self._compact()
 
     def load(self, path: str | pathlib.Path) -> int:
         """Merge rows from an npz file; returns how many were new.  Raises
@@ -240,8 +431,8 @@ class PersistentSynthesisCache:
 
 
 # process-wide array store behind use_cache=True, bounded like the
-# reference's (~260k rows)
-_SWEEP_CACHE = PersistentSynthesisCache(max_rows=1 << 18)
+# report cache
+_SWEEP_CACHE = PersistentSynthesisCache(max_rows=_CACHE_LIMIT)
 
 
 def sweep_synthesis_cache() -> PersistentSynthesisCache:

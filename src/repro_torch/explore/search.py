@@ -16,8 +16,13 @@ only) — on the card one sweep-kernel launch per evaluation chunk:
 Determinism: every loop threads one explicit ``numpy.random.Generator``,
 draws happen in data-independent order and ranking ties break stably by
 index, so a seed names one trajectory; on the CPU it is the reference's.
-Checkpointing and fault injection (ROADMAP A.3) and the serving-fleet
-objectives (ROADMAP A.5) are not ported yet.
+:func:`nsga2` snapshots its generations and resumes from them
+(``checkpoint_dir``, :mod:`repro_torch.runtime.dse_checkpoint`).  The
+engines record ``explore.evaluate`` / ``random_search.batch`` /
+``nsga2.generation`` / ``successive_halving.rung`` spans while
+:mod:`repro_torch.obs` tracing is on, and the Evaluator's counters always
+land in its metrics registry.  The serving-fleet objectives (ROADMAP A.5)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from repro_torch.explore.pareto import (EpsilonDominanceArchive,
                                         nondominated_sort, pareto_mask_k,
                                         reference_point)
 from repro_torch.explore.space import CoExploreManySpace, CoExploreSpace
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass
@@ -243,32 +250,44 @@ class Evaluator:
         ``subset`` evaluates on the first ``subset`` layers only (per
         workload in multi mode)."""
         t0 = time.perf_counter()
-        g = self.space.validate(genomes, raise_on_invalid=True)
-        m = self.full_subset if subset is None else min(
-            int(subset), self.full_subset)
-        self.n_requested += len(g)
-        keys = self.space.genome_keys(g)
-        out = np.empty((len(g), len(self.objectives)), dtype=np.float64)
-        todo: list[int] = []
-        for i, key in enumerate(keys):
-            row = self._memo.get((key, m))
-            if row is None:
-                todo.append(i)
-            else:
-                self.n_memo_hits += 1
-                out[i] = row
-        wls, macs = self._subset(m)
-        for s in range(0, len(todo), self.chunk_size):
-            idx = np.asarray(todo[s:s + self.chunk_size], dtype=np.intp)
-            # rows were validated above
-            soa, assign = self.space.decode(g[idx], skip_validation=True)
-            out[idx] = self._objective_rows(wls, macs, soa, assign)
-            self.n_kernel += len(idx)
-            self.n_chunks += 1
-            for i in idx:
-                # a copy: the caller owns `out`
-                self._memo[(keys[i], m)] = out[i].copy()
-        self.eval_seconds += time.perf_counter() - t0
+        with obs_trace.span("explore.evaluate", n=len(genomes),
+                            subset=subset) as esp:
+            g = self.space.validate(genomes, raise_on_invalid=True)
+            m = self.full_subset if subset is None else min(
+                int(subset), self.full_subset)
+            self.n_requested += len(g)
+            keys = self.space.genome_keys(g)
+            out = np.empty((len(g), len(self.objectives)),
+                           dtype=np.float64)
+            todo: list[int] = []
+            for i, key in enumerate(keys):
+                row = self._memo.get((key, m))
+                if row is None:
+                    todo.append(i)
+                else:
+                    self.n_memo_hits += 1
+                    out[i] = row
+            wls, macs = self._subset(m)
+            for s in range(0, len(todo), self.chunk_size):
+                idx = np.asarray(todo[s:s + self.chunk_size],
+                                 dtype=np.intp)
+                # rows were validated above
+                soa, assign = self.space.decode(g[idx],
+                                                skip_validation=True)
+                out[idx] = self._objective_rows(wls, macs, soa, assign)
+                self.n_kernel += len(idx)
+                self.n_chunks += 1
+                for i in idx:
+                    # a copy: the caller owns `out`
+                    self._memo[(keys[i], m)] = out[i].copy()
+            esp.set(kernel=len(todo), memo_hits=len(g) - len(todo))
+        dt = time.perf_counter() - t0
+        self.eval_seconds += dt
+        reg = obs_metrics.get_registry()
+        reg.inc("explore.requested_evals", len(g))
+        reg.inc("explore.kernel_evals", len(todo))
+        reg.inc("explore.memo_hits", len(g) - len(todo))
+        reg.inc("explore.eval_seconds", dt)
         return out
 
     def reset_stats(self) -> None:
@@ -337,15 +356,16 @@ def random_search(space: CoExploreSpace, workload, budget: int, *,
     evals = 0
     while evals < budget:
         n = min(batch_size, budget - evals)
-        g = space.random_population(n, rng)
-        F = ev.evaluate(g)
-        evals += n
-        all_F.append(F)
-        if ref is None:
-            ref = reference_point(F)
-        front_g, front_F = _front(np.concatenate([front_g, g]),
-                                  np.concatenate([front_F, F]))
-        history.append((evals, hypervolume(front_F, ref)))
+        with obs_trace.span("random_search.batch", n=n, evals=evals):
+            g = space.random_population(n, rng)
+            F = ev.evaluate(g)
+            evals += n
+            all_F.append(F)
+            if ref is None:
+                ref = reference_point(F)
+            front_g, front_F = _front(np.concatenate([front_g, g]),
+                                      np.concatenate([front_F, F]))
+            history.append((evals, hypervolume(front_F, ref)))
     return _result("random", ev, seed, front_g, front_F, ref, history,
                    all_F, evals)
 
@@ -379,6 +399,7 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
           ref_point: np.ndarray | None = None,
           weights=None, accuracy=None, archive_epsilon=None,
           checkpoint_dir: str | None = None,
+          checkpoint_every: int = 5,
           fail_at_generation: dict[int, int] | None = None
           ) -> SearchResult:
     """NSGA-II-style evolutionary multi-objective search.
@@ -396,70 +417,146 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
     relative resolution of each objective's (ideal, reference) span, a
     sequence an absolute per-objective epsilon.
 
-    ``checkpoint_dir`` and ``fail_at_generation`` (snapshots and fault
-    injection) are not ported yet and raise (ROADMAP A.3).
+    ``checkpoint_dir`` snapshots the whole search state — generation,
+    population, archive, hypervolume history, objective trail and the
+    threaded RNG stream — every ``checkpoint_every`` generations
+    (:class:`repro_torch.runtime.dse_checkpoint.SearchCheckpointer`); on
+    entry the newest valid snapshot is restored and the run continues as
+    the uninterrupted one would.  ``fail_at_generation`` injects
+    :class:`~repro_torch.runtime.fault_tolerance.InjectedFailure`\\ s at
+    generation boundaries (decremented in place, so a dict shared across
+    restarts fails each boundary ``n`` times in all).
     """
-    if checkpoint_dir is not None or fail_at_generation is not None:
-        raise NotImplementedError(
-            "nsga2 checkpointing and fault injection are not ported yet "
-            "(ROADMAP A.3)")
     if budget < 1:
         raise ValueError("budget must be >= 1")
     if pop_size < 4:
         raise ValueError("pop_size must be >= 4")
+    fail_at_generation = (fail_at_generation
+                          if fail_at_generation is not None else {})
+
+    def maybe_fail(gen: int) -> None:
+        if fail_at_generation.get(gen, 0) > 0:
+            fail_at_generation[gen] -= 1
+            from repro_torch.runtime.fault_tolerance import InjectedFailure
+            raise InjectedFailure(
+                f"injected failure at generation boundary {gen}")
+
+    ckpt = None
+    if checkpoint_dir is not None:
+        from repro_torch.runtime.dse_checkpoint import SearchCheckpointer
+        ckpt = SearchCheckpointer(checkpoint_dir, every=checkpoint_every)
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
                    accuracy=accuracy)
 
-    pop = space.random_population(min(pop_size, budget), rng)
-    F = ev.evaluate(pop)
-    evals = len(pop)
-    ref = reference_point(F) if ref_point is None else ref_point
-    eps_archive = None
-    eps_vec = None
-    if archive_epsilon is not None:
-        eps_vec = (epsilon_from_reference(ref, F.min(axis=0),
+    def eps_vector(ref, F0) -> np.ndarray | None:
+        if archive_epsilon is None:
+            return None
+        if np.ndim(archive_epsilon) == 0:
+            return epsilon_from_reference(ref, F0.min(axis=0),
                                           float(archive_epsilon))
-                   if np.ndim(archive_epsilon) == 0
-                   else np.asarray(archive_epsilon, dtype=np.float64))
-        eps_archive = EpsilonDominanceArchive(eps_vec)
-        eps_archive.add(pop, F)
-        arch_g, arch_F = eps_archive.genomes, eps_archive.objectives
+        return np.asarray(archive_epsilon, dtype=np.float64)
+
+    def acc_payload() -> dict:
+        if ev.accuracy is None:
+            return {}
+        return {"accuracy_state": ev.accuracy.state(),
+                "accuracy_digest": ev.accuracy.digest()}
+
+    eps_archive = None
+    snap = ckpt.restore() if ckpt is not None else None
+    if snap is not None:
+        # pin the accuracy table the interrupted run scored with, and
+        # refuse to resume under a different one
+        if ev.accuracy is not None \
+                and snap.get("accuracy_state") is not None:
+            ev.accuracy.restore_state(snap["accuracy_state"])
+            want = snap.get("accuracy_digest")
+            got = ev.accuracy.digest()
+            if want is not None and want != got:
+                raise ValueError(
+                    f"checkpoint was scored under accuracy digest "
+                    f"{want}; this run's accuracy spec yields {got} — "
+                    f"refusing to resume against a different calibration")
+        gen = snap["gen"]
+        evals = snap["evals"]
+        pop, F = snap["pop"], snap["F"]
+        arch_g, arch_F = snap["arch_g"], snap["arch_F"]
+        ref = snap["ref"]
+        history = snap["history"]
+        all_F = snap["all_F"]
+        rng.bit_generator.state = snap["rng_state"]
+        eps_vec = snap["eps_vec"]
+        if eps_vec is not None:
+            # re-offering the surviving representatives in stored order
+            # rebuilds the grid exactly
+            eps_archive = EpsilonDominanceArchive(eps_vec)
+            eps_archive.add(arch_g, arch_F)
     else:
-        arch_g, arch_F = _front(pop, F)
-    history = [(evals, hypervolume(arch_F, ref))]
-    all_F = [F]
-    while evals < budget:
-        n_off = min(pop_size, budget - evals)
-        ranks, crowd = _ranks_and_crowding(F)
-        p1 = _tournament(rng, n_off, ranks, crowd)
-        p2 = _tournament(rng, n_off, ranks, crowd)
-        children = space.crossover(pop[p1], pop[p2], rng)
-        children = space.mutate(children, rng, mutation_rate)
-        Fc = ev.evaluate(children)
-        evals += n_off
-        all_F.append(Fc)
-        if eps_archive is not None:
-            eps_archive.add(children, Fc)
-            arch_g = eps_archive.genomes
-            arch_F = eps_archive.objectives
+        maybe_fail(0)
+        pop = space.random_population(min(pop_size, budget), rng)
+        F = ev.evaluate(pop)
+        evals = len(pop)
+        gen = 0
+        ref = reference_point(F) if ref_point is None else ref_point
+        eps_vec = eps_vector(ref, F)
+        if eps_vec is not None:
+            eps_archive = EpsilonDominanceArchive(eps_vec)
+            eps_archive.add(pop, F)
+            arch_g, arch_F = eps_archive.genomes, eps_archive.objectives
         else:
-            comb_g = np.concatenate([arch_g, children])
-            comb_F = np.concatenate([arch_F, Fc])
-            # a genome re-visited across generations has an identical
-            # memoized row; keep its first occurrence, so the archive is
-            # the *set* of non-dominated genomes found
-            _, uidx = np.unique(comb_g, axis=0, return_index=True)
-            uidx.sort()
-            arch_g, arch_F = _front(comb_g[uidx], comb_F[uidx])
-        comb = np.concatenate([pop, children])
-        Fcomb = np.concatenate([F, Fc])
-        ranks2, crowd2 = _ranks_and_crowding(Fcomb)
-        order = np.lexsort((np.arange(len(comb)), -crowd2, ranks2))
-        sel = order[:pop_size]
-        pop, F = comb[sel], Fcomb[sel]
-        history.append((evals, hypervolume(arch_F, ref)))
+            arch_g, arch_F = _front(pop, F)
+        history = [(evals, hypervolume(arch_F, ref))]
+        all_F = [F]
+        if ckpt is not None and ckpt.should_save(0, done=evals >= budget):
+            ckpt.save(gen=0, evals=evals, pop=pop, F=F, arch_g=arch_g,
+                      arch_F=arch_F, ref=ref, history=history,
+                      all_F=all_F, rng_state=rng.bit_generator.state,
+                      eps_vec=eps_vec, **acc_payload())
+    reg = obs_metrics.get_registry()
+    while evals < budget:
+        maybe_fail(gen + 1)
+        n_off = min(pop_size, budget - evals)
+        with obs_trace.span("nsga2.generation", gen=gen + 1, evals=evals,
+                            n_off=n_off):
+            ranks, crowd = _ranks_and_crowding(F)
+            p1 = _tournament(rng, n_off, ranks, crowd)
+            p2 = _tournament(rng, n_off, ranks, crowd)
+            children = space.crossover(pop[p1], pop[p2], rng)
+            children = space.mutate(children, rng, mutation_rate)
+            Fc = ev.evaluate(children)
+            evals += n_off
+            gen += 1
+            all_F.append(Fc)
+            if eps_archive is not None:
+                eps_archive.add(children, Fc)
+                arch_g = eps_archive.genomes
+                arch_F = eps_archive.objectives
+            else:
+                comb_g = np.concatenate([arch_g, children])
+                comb_F = np.concatenate([arch_F, Fc])
+                # a genome re-visited across generations has an identical
+                # memoized row; keep its first occurrence, so the archive
+                # is the *set* of non-dominated genomes found
+                _, uidx = np.unique(comb_g, axis=0, return_index=True)
+                uidx.sort()
+                arch_g, arch_F = _front(comb_g[uidx], comb_F[uidx])
+            comb = np.concatenate([pop, children])
+            Fcomb = np.concatenate([F, Fc])
+            ranks2, crowd2 = _ranks_and_crowding(Fcomb)
+            order = np.lexsort((np.arange(len(comb)), -crowd2, ranks2))
+            sel = order[:pop_size]
+            pop, F = comb[sel], Fcomb[sel]
+            history.append((evals, hypervolume(arch_F, ref)))
+        reg.inc("nsga2.generations")
+        reg.set("nsga2.archive_size", int(len(arch_F)))
+        if ckpt is not None and ckpt.should_save(gen,
+                                                 done=evals >= budget):
+            ckpt.save(gen=gen, evals=evals, pop=pop, F=F, arch_g=arch_g,
+                      arch_F=arch_F, ref=ref, history=history,
+                      all_F=all_F, rng_state=rng.bit_generator.state,
+                      eps_vec=eps_vec, **acc_payload())
     res = _result("nsga2", ev, seed, arch_g, arch_F, ref, history, all_F,
                   evals, population=pop, population_objectives=F)
     res.stats["archive_size"] = int(len(arch_F))
@@ -513,16 +610,18 @@ def successive_halving(space: CoExploreSpace, workload, budget: int, *,
     history: list[tuple[int, float]] = []
     F = None
     for r, (m, n_r) in enumerate(zip(sizes, pops)):
-        pop = pop[:n_r]
-        F = ev.evaluate(pop, subset=None if m == L else m)
-        evals += len(pop)
-        if m == L:
-            # only full-workload rows are comparable across runs
-            all_F.append(F)
-        if r < r_count - 1:
-            ranks, crowd = _ranks_and_crowding(F)
-            order = np.lexsort((np.arange(len(pop)), -crowd, ranks))
-            pop = pop[order]
+        with obs_trace.span("successive_halving.rung", rung=r, subset=m,
+                            n=n_r):
+            pop = pop[:n_r]
+            F = ev.evaluate(pop, subset=None if m == L else m)
+            evals += len(pop)
+            if m == L:
+                # only full-workload rows are comparable across runs
+                all_F.append(F)
+            if r < r_count - 1:
+                ranks, crowd = _ranks_and_crowding(F)
+                order = np.lexsort((np.arange(len(pop)), -crowd, ranks))
+                pop = pop[order]
     ref = reference_point(F) if ref_point is None else ref_point
     history.append((evals, hypervolume(F[pareto_mask_k(F)], ref)))
     return _result("successive_halving", ev, seed, pop, F, ref, history,

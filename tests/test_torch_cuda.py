@@ -346,6 +346,153 @@ def test_search_on_card_launches_once_a_chunk(cuda_device, method):
     assert np.array_equal(res.front_objectives[:, 2], F[:, 2])
 
 
+# ---------------------------------------------------------------------------
+# the PPA models and the preemption-safe runtime on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_ppa_fit_on_card_matches_cpu(cuda_device):
+    """The suite on the paper's 720 points: the card picks the CPU's
+    (degree, lambda) for every model, its predictions and CV errors agree
+    to float64 solve rounding (1e-9), and it meets the Fig. 2 bars."""
+    from repro_torch.core.accelerator import design_space
+    from repro_torch.core.ppa_model import TARGETS, fit_ppa_suite
+    cfgs = list(design_space())
+    by_type = {t: [c for c in cfgs if c.pe_type == t] for t in PEType}
+    card, card_stats = fit_ppa_suite(by_type, device=cuda_device)
+    cpu, cpu_stats = fit_ppa_suite(by_type, device="cpu")
+    for key, c in card_stats.items():
+        h = cpu_stats[key]
+        assert (c["degree"], c["lam"]) == (h["degree"], h["lam"]), key
+        for m in ("cv_rmse", "r2", "mape"):
+            assert _rel(c[m], h[m]) <= 1e-9, (key, m)
+        assert c["r2"] > 0.97 and c["mape"] < 0.10, key
+    got, want = card.predict_batch(cfgs), cpu.predict_batch(cfgs)
+    for t in TARGETS:
+        assert _rel(got[t], want[t]) <= 1e-9, t
+    one = card.models[PEType.INT16]["power_mw"]
+    assert one.coef.device.type == "cuda"
+    assert _rel(one.predict(cfgs[:5], "cpu"), one.predict(cfgs[:5])) <= 1e-9
+
+
+def _same_stream(got, want):
+    assert (got.n_configs, got.n_chunks) == (want.n_configs, want.n_chunks)
+    for m in want.front_metrics:
+        assert got.front_metrics[m].tobytes() == \
+            want.front_metrics[m].tobytes(), m
+    for k in want.front_soa:
+        assert got.front_soa[k].tobytes() == want.front_soa[k].tobytes(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_resumed_card_stream_equals_uninterrupted(cuda_device, tmp_path,
+                                                  depth):
+    """Injected failures and snapshots on the card: the resumed front and
+    cache accounting equal the uninterrupted card run's bit for bit, and
+    every chunk of every attempt launched the kernel."""
+    from repro_torch.core.synthesis import PersistentSynthesisCache
+    from repro_torch.runtime.dse_checkpoint import resume_sweep
+    wl = get_workload("vgg16")
+    feed = lambda: design_space_soa(**QUICK)        # noqa: E731
+    ref_cache = PersistentSynthesisCache()
+    want = TB._sweep_chunked(wl, feed(), device=cuda_device,
+                             chunk_size=1024, cache=ref_cache,
+                             prefetch_depth=depth)
+    cache = PersistentSynthesisCache()
+    before = K.launches
+    got = resume_sweep(wl, feed, checkpoint_dir=str(tmp_path),
+                       checkpoint_every=3, fail_at={2: 1, 9: 2},
+                       cache=cache, chunk_size=1024, device=cuda_device,
+                       prefetch_depth=depth)
+    assert got.timings["restarts"] == 3
+    assert K.launches - before >= got.n_chunks
+    _same_stream(got, want)
+    assert (cache.hits, cache.misses) == (ref_cache.hits, ref_cache.misses)
+
+
+@pytest.mark.cuda
+def test_watchdog_redispatches_on_the_card(cuda_device, monkeypatch):
+    """Chunks stalled on the card (a spin kernel queued ahead of each)
+    miss the deadline: each is launched again on the card (launches =
+    chunks + re-dispatches), and the front equals the run without a
+    deadline."""
+    wl = get_workload("vgg16")
+    want = TB._sweep_chunked(wl, design_space_soa(**QUICK),
+                             device=cuda_device, chunk_size=1024)
+    real = TB._dispatch_chunk
+
+    def late(cfg, klay, device):
+        torch.cuda._sleep(20_000_000)          # ~10 ms
+        return real(cfg, klay, device)
+    monkeypatch.setattr(TB, "_dispatch_chunk", late)
+    before = K.launches
+    with pytest.warns(RuntimeWarning, match="watchdog deadline"):
+        got = TB._sweep_chunked(wl, design_space_soa(**QUICK),
+                                device=cuda_device, chunk_size=1024,
+                                prefetch_depth=1, chunk_deadline_s=1e-6)
+    t = got.timings
+    assert 0 < t["watchdog_redispatches"] <= got.n_chunks
+    assert t["abandoned_finalizers"] == t["watchdog_redispatches"]
+    assert K.launches - before == got.n_chunks + t["watchdog_redispatches"]
+    _same_stream(got, want)
+
+
+@pytest.mark.cuda
+def test_card_finalize_waits_within_its_deadline(cuda_device):
+    """The card's finalize polls its event: a generous deadline returns
+    the results, which equal the blocking wait's."""
+    wl = get_workload("vgg16")
+    soa = next(iter(design_space_soa(**QUICK)))
+    cfg, _ = TB._make_cfg_lay(soa, synthesize_soa(soa),
+                              TB._workload_batch(wl))
+    klay = TB._lay_to_device(
+        {k: v[None, :] for k, v in TB._workload_batch(wl).arrays.items()},
+        CPU, exact=False)
+    a = TB._dispatch_chunk(cfg, klay, cuda_device)(timeout=30.0)
+    b = TB._dispatch_chunk(cfg, klay, cuda_device)()
+    for k in TB.AGGREGATE_OUTPUTS:
+        assert a[k].tobytes() == b[k].tobytes(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fail_at", [{0: 1}, {3: 1, 6: 2}])
+def test_resumed_card_search_equals_uninterrupted(cuda_device, tmp_path,
+                                                  fail_at):
+    from repro_torch.explore.search import nsga2
+    from repro_torch.explore.space import space_for_workload
+    from repro_torch.runtime.dse_checkpoint import resume_search
+    space = space_for_workload("vgg16")
+    want = nsga2(space, "vgg16", 256, pop_size=32, seed=4,
+                 device=cuda_device)
+    got = resume_search(space, "vgg16", 256, pop_size=32, seed=4,
+                        device=cuda_device, checkpoint_dir=str(tmp_path),
+                        checkpoint_every=2, fail_at_generation=fail_at)
+    assert got.stats["restarts"] == sum(fail_at.values())
+    assert np.array_equal(got.genomes, want.genomes)
+    assert got.front_objectives.tobytes() == want.front_objectives.tobytes()
+    assert got.all_objectives.tobytes() == want.all_objectives.tobytes()
+    assert got.history == want.history
+
+
+@pytest.mark.cuda
+def test_telemetry_on_card_leaves_the_stream_identical(cuda_device):
+    from repro_torch import obs
+    wl = get_workload("vgg16")
+    want = TB._sweep_chunked(wl, design_space_soa(**QUICK),
+                             device=cuda_device, chunk_size=1024)
+    obs.configure(enabled=True, reset=True)
+    try:
+        got = TB._sweep_chunked(wl, design_space_soa(**QUICK),
+                                device=cuda_device, chunk_size=1024)
+    finally:
+        obs.configure(enabled=False, reset=False)
+    _same_stream(got, want)
+    kernels = obs.get_tracer().spans("sweep.kernel")
+    assert len(kernels) == got.n_chunks
+    assert all(sp.attrs["device"].startswith("cuda") for sp in kernels)
+    obs.configure(enabled=False, reset=True)
+
 def _qmm_operands(m, k, n, pack, seed, device):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))

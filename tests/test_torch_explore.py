@@ -382,8 +382,6 @@ def test_golden_many_workload_front_reproduced():
 @pytest.mark.parametrize("kwargs,match", [
     (dict(traffic="quick"), "ROADMAP A.5"),
     (dict(n_slots=4), "ROADMAP A.5"),
-    (dict(checkpoint_dir="ckpt"), "ROADMAP A.3"),
-    (dict(telemetry=True), "ROADMAP A.3"),
     (dict(mesh=4), "one card")])
 def test_spec_refuses_knobs_not_ported(kwargs, match):
     with pytest.raises(ValueError, match=match):
@@ -393,6 +391,29 @@ def test_spec_refuses_knobs_not_ported(kwargs, match):
             TD.ExploreSpec.many(SUITE, **kwargs)
         with pytest.raises(ValueError, match=match):
             TD.ExploreSpec.single("vgg16", **kwargs)
+
+
+@pytest.mark.parametrize("knob", ["checkpoint_dir", "telemetry"])
+def test_spec_runs_the_a3_knobs_as_reference(tmp_path, knob):
+    """``checkpoint_dir`` and ``telemetry``, once refused, run a mixed and
+    a many-workload search to the reference's numpy result."""
+    for many in (False, True):
+        kw = dict(budget=64, seed=2, pop_size=16)
+        kw[knob] = (str(tmp_path / f"ck{int(many)}") if knob ==
+                    "checkpoint_dir" else True)
+        if many:
+            ref = RD.run(RD.ExploreSpec.many(SUITE[:2], precision="mixed",
+                                             backend="numpy", **kw))
+            got = TD.run(TD.ExploreSpec.many(SUITE[:2], precision="mixed",
+                                             **kw), device="cpu")
+        else:
+            ref = RD.run(RD.ExploreSpec.mixed("vgg16", backend="numpy",
+                                              **kw))
+            got = TD.run(TD.ExploreSpec.mixed("vgg16", **kw), device="cpu")
+        assert np.array_equal(got.genomes, ref.genomes)
+        assert got.front_objectives.tobytes() == \
+            ref.front_objectives.tobytes()
+        assert got.history == ref.history
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -420,6 +441,35 @@ def test_spec_constructors():
         "pop_size": 8}
 
 
+@pytest.mark.parametrize("knob", ["checkpoint_dir", "fail_at_generation"])
+def test_nsga2_runs_the_a3_knobs_as_reference(tmp_path, knob):
+    """nsga2's snapshots and fault injection, once refused, give the
+    reference's search: an injected failure at generation 2 raises in
+    both, and a rerun from the snapshots finishes as the uninterrupted
+    reference run."""
+    r_space = RSp.space_for_workload(R_TINY[0])
+    t_space = TSp.space_for_workload(T_TINY[0])
+    kw = dict(pop_size=8, seed=1)
+    ref = RS.nsga2(r_space, R_TINY[0], 48, backend="numpy", **kw)
+    if knob == "fail_at_generation":
+        for fn, sp, wl, dev in ((RS.nsga2, r_space, R_TINY[0],
+                                 dict(backend="numpy")),
+                                (TS.nsga2, t_space, T_TINY[0],
+                                 dict(device="cpu"))):
+            with pytest.raises(RuntimeError, match="generation boundary 2"):
+                fn(sp, wl, 48, fail_at_generation={2: 1}, **dev, **kw)
+        return
+    d = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="generation boundary 3"):
+        TS.nsga2(t_space, T_TINY[0], 48, device="cpu", checkpoint_dir=d,
+                 checkpoint_every=1, fail_at_generation={3: 1}, **kw)
+    got = TS.nsga2(t_space, T_TINY[0], 48, device="cpu", checkpoint_dir=d,
+                   **kw)
+    assert np.array_equal(got.genomes, ref.genomes)
+    assert got.front_objectives.tobytes() == ref.front_objectives.tobytes()
+    assert got.history == ref.history
+
+
 def test_search_refusals():
     with pytest.raises(ValueError, match="ROADMAP A.7"):
         TD.run(TD.ExploreSpec.mixed("vgg16", preset="calibrated-quick"),
@@ -435,9 +485,6 @@ def test_search_refusals():
         TD.run(TD.ExploreSpec.mixed("vgg16", objectives=("p99_latency_s",)),
                device="cpu")
     space = TSp.space_for_workload(T_TINY[0])
-    for kw in (dict(checkpoint_dir="ckpt"), dict(fail_at_generation={1: 1})):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-            TS.nsga2(space, T_TINY[0], 16, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown co-exploration method"):
         TD.run(TD.ExploreSpec.mixed("vgg16", method="hill-climb"),
                device="cpu")

@@ -214,3 +214,72 @@ def test_corrupt_cache_file_warns_and_rebuilds(tmp_path):
     assert len(cache) == 0
     with pytest.raises(Exception):
         cache.load(path)
+
+
+def test_accelerator_properties_and_features_identical():
+    cfgs = list(RA.design_space()) + [RA.AcceleratorConfig(clock_ghz=0.4),
+                                      RA.AcceleratorConfig(clock_ghz=9.0)]
+    for rc in cfgs:
+        tc = TA.AcceleratorConfig(**{f: getattr(rc, f) for f in (
+            "pe_type", "pe_rows", "pe_cols", "ifmap_spad", "filter_spad",
+            "psum_spad", "glb_kb", "dram_bw_gbps", "clock_ghz")})
+        for prop in ("num_pes", "effective_clock_ghz", "peak_macs_per_s",
+                     "glb_bits"):
+            assert getattr(tc, prop) == getattr(rc, prop), prop
+        assert tc.features() == rc.features()
+        assert tc.spec.__dict__.keys() == rc.spec.__dict__.keys()
+        assert tc.pe_type.pretty == rc.pe_type.pretty
+
+
+def test_synthesis_reports_and_keys_identical():
+    rcs, tcs = list(RA.design_space()), list(TA.design_space())
+    assert [r.as_dict() for r in TS.synthesize_many(tcs, use_cache=False)] \
+        == [r.as_dict() for r in RS.synthesize_many(rcs, use_cache=False)]
+    assert TS.config_keys(tcs) == RS.config_keys(rcs)
+    capped = dict(pe_type="int16", clock_ghz=0.5)
+    assert TS.config_hash(TA.AcceleratorConfig(**capped)) == \
+        RS.config_hash(RA.AcceleratorConfig(**capped))
+    assert TS.synthesize(tcs[7]).as_dict() == RS.synthesize(rcs[7]).as_dict()
+
+
+def test_report_cache_accounting_as_reference():
+    """The in-process report LRU counts, evicts and serves as the
+    reference's."""
+    rcs, tcs = list(RA.design_space())[:50], list(TA.design_space())[:50]
+    stats = []
+    for S, cfgs in ((RS, rcs), (TS, tcs)):
+        S.clear_synthesis_cache()
+        old = S.set_synthesis_cache_limit(20)
+        try:
+            S.synthesize_many(cfgs[:30])
+            S.synthesize_many(cfgs[20:50])
+            S.synthesize_cached(cfgs[49])
+            S.synthesize_cached(cfgs[0])
+            st = S.synthesis_cache_stats()
+        finally:
+            S.set_synthesis_cache_limit(old)
+            S.clear_synthesis_cache()
+        stats.append({k: st[k] for k in ("hits", "misses", "evictions",
+                                         "size", "limit")})
+    assert stats[0] == stats[1]
+
+
+def test_cache_export_import_state_as_reference():
+    soa = next(iter(TA.design_space_soa(chunk_size=300)))
+    r_cache, t_cache = RS.PersistentSynthesisCache(max_rows=256), \
+        TS.PersistentSynthesisCache(max_rows=256)
+    for c in (r_cache, t_cache):
+        c.synthesize(soa)
+        c.synthesize({k: v[:40] for k, v in soa.items()})
+    r_st, t_st = r_cache.export_state(), t_cache.export_state()
+    assert list(t_st) == list(r_st)
+    for k in r_st:
+        assert np.array_equal(t_st[k], r_st[k]), k
+    back = TS.PersistentSynthesisCache()
+    back.import_state(r_st)
+    assert (back.hits, back.misses, back.evictions, len(back)) == (
+        r_cache.hits, r_cache.misses, r_cache.evictions, len(r_cache))
+    with pytest.raises(ValueError, match="not \\(N, 2\\)"):
+        back.import_state(dict(r_st, vals=r_st["vals"][:, :2]))
+    back.clear()
+    assert len(back) == 0 and back.hits == 0

@@ -50,7 +50,14 @@ def test_every_module_is_listed():
                  "repro_torch.explore", "repro_torch.explore.accuracy",
                  "repro_torch.explore.objectives",
                  "repro_torch.explore.pareto", "repro_torch.explore.search",
-                 "repro_torch.explore.space"):
+                 "repro_torch.explore.space", "repro_torch.core.ppa_model",
+                 "repro_torch.core.rtl", "repro_torch.obs",
+                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                 "repro_torch.obs.report", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.runtime",
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.runtime.dse_checkpoint"):
         assert name in mods
 
 
@@ -175,3 +182,37 @@ def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
     with open(src / f"{name}.cu", "a") as f:
         f.write("// edited\n")
     assert _build.library_path(name).name != before.name
+
+
+@pytest.mark.parametrize("entry", ["fit_ppa_suite", "predict", "resume_sweep",
+                                   "resume_search", "run_checkpointed"])
+def test_slice_entry_points_default_to_the_card(entry, tmp_path):
+    """The PPA fit, its predictions and the resumable sweep and search
+    run on the card unless asked for the CPU, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import numpy as np
+    from repro_torch.core.accelerator import AcceleratorConfig
+    from repro_torch.core.dse import ExploreSpec, run
+    from repro_torch.core.pe import PEType
+    from repro_torch.core.ppa_model import fit_poly_model, fit_ppa_suite
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.explore.space import space_for_workload
+    from repro_torch.runtime.dse_checkpoint import resume_search, resume_sweep
+    cfgs = [AcceleratorConfig(pe_rows=r, pe_cols=c) for r in (8, 12, 16)
+            for c in (8, 14)]
+    calls = {
+        "fit_ppa_suite": lambda: fit_ppa_suite({PEType.INT16: cfgs}),
+        "predict": lambda: fit_poly_model(
+            cfgs, np.arange(1.0, 7.0), device="cpu").predict(cfgs, "cuda"),
+        "resume_sweep": lambda: resume_sweep(
+            get_workload("vgg16"), [cfgs], checkpoint_dir=str(tmp_path),
+            chunk_size=4),
+        "resume_search": lambda: resume_search(
+            space_for_workload("vgg16"), "vgg16", 16,
+            checkpoint_dir=str(tmp_path)),
+        "run_checkpointed": lambda: run(ExploreSpec.single(
+            "vgg16", [cfgs], chunk_size=4, checkpoint_dir=str(tmp_path))),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
