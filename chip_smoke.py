@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: the
-design-space sweep, the mixed-precision co-exploration search, the PPA
-models and RTL generator, the preemption-safe runtime, quantized
-LM serving, continuous batching over an
-int8 KV cache, and the full-sequence forward / prefill.
+design-space sweep, the mixed-precision co-exploration search, the
+serving-fleet simulator and the serving-objective searches, the scalar
+dataflow oracle, the PPA models and RTL generator, the preemption-safe
+runtime, quantized LM serving, continuous batching over an int8 KV
+cache, and the full-sequence forward / prefill.
 
     python3 chip_smoke.py
 
@@ -41,6 +42,32 @@ Phases (any failure exits non-zero):
    ``tests/golden_coexplore_many.json``): front genomes identical to the
    golden's on the card and on the CPU, objectives within 1e-9 of it on
    the CPU and 1e-6 on the card (float32 aggregates);
+3b'. the serving-fleet simulator (``csrc/fleet_sim.cu``): ``fleet_parity``
+   runs the fleet kernel on the latency / energy aggregates of the main
+   path's first 32768-config chunk under the steady, bursty and
+   interactive traces at 1, 8 and 17 slots (17: above the slots it keeps
+   in registers) and in a 60-iteration window that cuts each trace:
+   stamps and every ``metrics()`` column equal to its plain version's on
+   the card bit for bit, 256 seeded candidates equal to the event-driven
+   scalar oracle's; ``fleet_timing`` at N = 32768 and N = 1,048,576 (the
+   chunk tiled 32x), steady, 8 slots: the kernel's profiler time and the
+   call's (with its (R, N) -> (N, R) transposes) profiler and event
+   times, the plain version on the card, the CPU route, the byte and
+   issue bounds and the stamps' copy to the host;
+   ``coexplore_serving`` (``ExploreSpec.mixed("vgg16",
+   preset="serving-default")``: nsga2, 2048 evaluations, population 64,
+   the steady trace, 8 slots) as the searches above, with one fleet-kernel
+   launch per evaluation chunk; its serving columns re-scored on the exact
+   CPU path request by request: every arrival iteration that differs is a
+   counted ceil flip (``ceil(arrival / step)`` within the float32 step's
+   distance of an integer), rows without one within the aggregates' own
+   distance + 1e-6; ``serving_front_shift`` (the reference bench's claim:
+   for the three traces at budget 1024, population 48, the serving
+   objectives' front differs from the EDP front on at least one trace, on
+   the card; front sizes and evaluations/s on the card and the CPU);
+   ``scalar_oracle`` (``ExploreSpec.single("vgg16", engine="scalar")`` on
+   the CPU: the 720 points equal the exact batched path's bit for bit,
+   the main path's card points within 1e-6, headline ratios identical);
 3c. ``ppa``: the paper's Fig. 2 suite (polynomial ridge models, k-fold
    CV) fitted on the 720-point space per PE type on the card and on the
    CPU: the same (degree, lambda) for all 12 models, cv_rmse, r2, mape
@@ -139,7 +166,10 @@ Phases (any failure exits non-zero):
     rate).
 
 The sweep kernel's entry of the kernels line also gives its launches in
-the two full-budget searches (``launches_coexplore``).  The last lines
+the three full-budget searches (``launches_coexplore``); the seventh
+entry, ``fleet_sim``, is the kernel that replaces the reference's jitted
+``fori_loop`` (not a Pallas kernel), its launches those of the
+serving-default search.  The last lines
 are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 """
@@ -196,8 +226,24 @@ GOLDEN = ROOT / "tests" / "golden_coexplore_many.json"
 # archive's non-dominated reduction, crossover and mutation
 SEARCH_STAGES = ("nsga2", "evaluate", "_sweep_mixed", "_sweep_mixed_many",
                  "hypervolume", "_ranks_and_crowding", "_front",
-                 "crossover", "mutate")
+                 "crossover", "mutate", "simulate_fleet", "fleet_stamps",
+                 "metrics")
 GOLDEN_RTOL = 1e-9
+# the serving-fleet simulator: the traces of the reference bench
+# (benchmarks/serving_dse_bench.py), a serving window that cuts each, the
+# scalar oracle's seeded sample, the timing shape (8 slots; the 1,048,576
+# candidates are the chunk tiled 32x), the serving-default search and the
+# front-shift campaigns (budget 1024, population 48, seed 0)
+FLEET_TRACES = ("steady", "bursty", "interactive")
+FLEET_CUT_ITERS = 60
+FLEET_SAMPLE = 256
+FLEET_SAMPLE_SEED = 20220516
+FLEET_SLOTS_TIMED = 8
+FLEET_TILE = 32
+COEXPLORE_SERVING = dict(workload="vgg16", preset="serving-default", seed=0)
+FRONT_SHIFT = dict(budget=1024, pop_size=48, seed=0)
+SERVING_OBJS = ("p99_latency_s", "energy_per_token_j", "accuracy_noise")
+EDP_OBJS = ("edp", "accuracy_noise")
 # results of earlier phases that later phases compare with (the main
 # path's stream, the card's searches)
 KEEP: dict = {}
@@ -359,6 +405,7 @@ def phase_main_path(device) -> dict:
     t_stream = time.perf_counter() - t0
     launches = sweep_kernel.launches
     KEEP["stream"] = stream
+    KEEP["points"] = points
 
     n_configs = grid_size(GRID_STREAM)
     n_chunks = -(-n_configs // CHUNK)
@@ -543,9 +590,19 @@ def phase_explore_many(device) -> dict:
             "headline_card": {n: ratios(card[n]) for n in TIMING_W3}}
 
 
+def _serving_kw(res, device) -> dict:
+    """A search's serving setting, as objective_matrix takes it."""
+    if res.stats.get("traffic") is None:
+        return {}
+    from repro_torch.serving.traffic import resolve_traffic
+    return {"traffic": resolve_traffic(res.stats["traffic"]),
+            "n_slots": res.stats["n_slots"], "device": device}
+
+
 def _front_objectives_plain(res, workloads, device):
     """The front genomes of a search through the sweep kernel's plain
-    version on the card, scored as the search scores them."""
+    version on the card, scored as the search scores them (a serving
+    search's fleets through the fleet kernel on the card)."""
     import numpy as np
     import torch
     from repro_torch.core.dse_batch import (_cfg_to_device, _lay_to_device,
@@ -575,7 +632,8 @@ def _front_objectives_plain(res, workloads, device):
         return multi_objective_matrix(agg, assigns, macs, res.objectives)
     one = {k: v[0] for k, v in agg.items()}
     one["area_mm2"] = cfg["area_mm2"][:, 0]
-    return objective_matrix(one, assign, macs[0], res.objectives)
+    return objective_matrix(one, assign, macs[0], res.objectives,
+                            **_serving_kw(res, device))
 
 
 def _first_divergence(card, cpu):
@@ -602,14 +660,18 @@ def _search_phase(name: str, spec, workloads, device) -> dict:
     exact path plus 1e-6: ROADMAP C.1), accuracy_noise identical."""
     import numpy as np
     from repro_torch.core.dse import run
+    from repro_torch.explore.objectives import SERVING_OBJECTIVES
     from repro_torch.explore.search import Evaluator
-    from repro_torch.kernels import sweep_kernel
+    from repro_torch.kernels import fleet_sim, sweep_kernel
 
     sweep_kernel.launches = 0
+    fleet_sim.launches = 0
     t0 = time.perf_counter()
     card = run(spec, device=device)
     card_s = time.perf_counter() - t0
     launches = sweep_kernel.launches
+    fleet_launches = fleet_sim.launches
+    serving = card.stats["traffic"] is not None
     KEEP[name] = card
     KEEP[f"{name}_wall_s"] = card_s
     t0 = time.perf_counter()
@@ -618,16 +680,29 @@ def _search_phase(name: str, spec, workloads, device) -> dict:
     check(launches == card.stats["chunks"] >= 1,
           f"{name}: {launches} kernel launches for "
           f"{card.stats['chunks']} evaluation chunks")
+    check(fleet_launches == (card.stats["chunks"] if serving else 0),
+          f"{name}: {fleet_launches} fleet-kernel launches for "
+          f"{card.stats['chunks']} evaluation chunks")
+    check(card.stats["device"] == str(device) and cpu.stats["device"] ==
+          "cpu", f"{name}: devices {card.stats['device']} / "
+          f"{cpu.stats['device']}")
     check(card.n_evals == cpu.n_evals, f"{name}: evaluation counts")
     check(bool(np.isfinite(card.front_objectives).all()),
           f"{name}: non-finite front objectives")
 
+    skw = _serving_kw(card, "cpu")
     exact = Evaluator(card.space, list(workloads) if len(workloads) > 1
-                      else workloads[0], card.objectives,
-                      device="cpu").evaluate(card.genomes)
+                      else workloads[0], card.objectives, device="cpu",
+                      **{k: v for k, v in skw.items() if k != "device"}
+                      ).evaluate(card.genomes)
     plain = _front_objectives_plain(card, workloads, device)
+    # serving columns: held apart, request by request (_ceil_flips)
+    flips = (_ceil_flips(card, workloads[0], exact, device) if serving
+             else None)
     cols = {}
     for j, obj in enumerate(card.objectives):
+        if obj in SERVING_OBJECTIVES:
+            continue
         got = rel_err(card.front_objectives[:, j], exact[:, j])
         plain_err = rel_err(plain[:, j], exact[:, j])
         cols[obj] = {"rel_vs_exact": got, "plain_rel_vs_exact": plain_err,
@@ -666,6 +741,7 @@ def _search_phase(name: str, spec, workloads, device) -> dict:
         st["front_size"] = res.front_size
         return st
     return {"phase": name, "launches": launches,
+            "fleet_launches": fleet_launches, "ceil_flips": flips,
             "card": report(card, card_s), "cpu": report(cpu, cpu_s),
             "fronts_identical": same,
             "first_divergence": None if same
@@ -729,6 +805,364 @@ def phase_coexplore_golden(device) -> dict:
             "fronts_identical": True,
             "card_rel_vs_golden": rel_err(card.front_objectives, want_f),
             "cpu_rel_vs_golden": rel_err(cpu.front_objectives, want_f)}
+
+
+# --------------------------------------------- the serving-fleet simulator
+
+def _chunk_fleet_inputs(device):
+    """The latency_s / energy_j aggregates of the main path's first
+    32768-config chunk (VGG-16), from the sweep kernel on the card, as the
+    fleet's seconds an iteration and joules a token-slot."""
+    import torch
+    from repro_torch.core.dse_batch import (_cfg_to_device, _lay_to_device,
+                                            _make_cfg_lay, _workload_batch)
+    from repro_torch.core.synthesis import synthesize_soa
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.kernels.sweep_kernel import sweep_aggregates
+    soa = next(iter(grid(GRID_STREAM)))
+    cfg, lay = _make_cfg_lay(soa, synthesize_soa(soa),
+                             _workload_batch(get_workload("vgg16")))
+    agg = sweep_aggregates(_cfg_to_device(cfg, device, False),
+                           _lay_to_device(lay, torch.device("cpu"), False))
+    return (agg["latency_s"].double().cpu().numpy(),
+            agg["energy_j"].double().cpu().numpy())
+
+
+def _fleet_device_inputs(step, trace, device):
+    import torch
+    return (torch.from_numpy(step).to(device),
+            torch.from_numpy(trace.arrival_s).to(device),
+            torch.from_numpy(trace.service_iters).to(device))
+
+
+def phase_fleet_parity(device) -> dict:
+    """The fleet kernel on one chunk of the main path's aggregates under
+    the steady, bursty and interactive traces at 1, 8 and more slots than
+    it keeps in registers, and in a serving window that cuts each trace:
+    stamps and every metrics() column equal to the plain version's on the
+    card bit for bit, and a seeded sample of candidates equal to the
+    event-driven scalar oracle's."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.kernels import fleet_sim
+    from repro_torch.serving.fleet_sim import (simulate_fleet,
+                                               simulate_fleet_scalar)
+    from repro_torch.serving.traffic import resolve_traffic
+
+    step, etok = _chunk_fleet_inputs(device)
+    KEEP["fleet_chunk"] = (step, etok)
+    rng = np.random.default_rng(FLEET_SAMPLE_SEED)
+    wide = fleet_sim.MAX_REGISTER_SLOTS + 1
+    runs = [(t, s, None) for t in FLEET_TRACES for s in (1, 8, wide)]
+    runs += [(t, 8, FLEET_CUT_ITERS) for t in FLEET_TRACES]
+    fleet_sim.launches = 0
+    cases = []
+    worst = 0
+    for name, n_slots, max_iters in runs:
+        trace = resolve_traffic(name)
+        t0 = time.perf_counter()
+        res = simulate_fleet(step, etok, trace, n_slots=n_slots,
+                             max_iters=max_iters, device=device)
+        card_s = time.perf_counter() - t0
+        check(res.backend == "cuda", f"fleet {name}: route {res.backend}")
+        plain = fleet_sim.fleet_stamps_ref(
+            *_fleet_device_inputs(step, trace, device), n_slots, res.n_iters)
+        plain_res = dataclasses.replace(
+            res, submit_iter=plain.submit.cpu().numpy(),
+            comp_iter=plain.comp.cpu().numpy(),
+            active_iters=plain.active.cpu().numpy())
+        what = f"fleet {name}, {n_slots} slots, max_iters {max_iters}"
+        for f in ("submit_iter", "comp_iter", "active_iters"):
+            got, want = getattr(res, f), getattr(plain_res, f)
+            check(np.array_equal(got, want),
+                  f"{what}: kernel {f} differs from the plain version")
+            worst = max(worst, int(np.max(np.abs(got - want))))
+        m, pm = res.metrics(), plain_res.metrics()
+        for k in m:
+            check(m[k].tobytes() == pm[k].tobytes(),
+                  f"{what}: metrics {k} differ from the plain version")
+        idx = rng.choice(len(step), FLEET_SAMPLE, replace=False)
+        for i in idx:
+            one = simulate_fleet_scalar(step[i], etok[i], trace,
+                                        n_slots=n_slots, max_iters=max_iters)
+            check(np.array_equal(one.submit_iter[0], res.submit_iter[i])
+                  and np.array_equal(one.comp_iter[0], res.comp_iter[i])
+                  and one.active_iters[0] == res.active_iters[i],
+                  f"{what}: candidate {i} differs from the scalar oracle")
+        served = float(res.served.mean())
+        if max_iters is not None:
+            check(served < 1.0, f"{what}: the window cuts nothing")
+        cases.append({"trace": name, "n_slots": n_slots,
+                      "max_iters": max_iters, "n_iters": res.n_iters,
+                      "grid": fleet_sim.last_grid, "card_s": card_s,
+                      "served_frac": served,
+                      "p99_latency_s_median": float(np.median(
+                          m["p99_latency_s"]))})
+    check(fleet_sim.launches == len(runs),
+          f"fleet parity: {fleet_sim.launches} launches for {len(runs)} "
+          f"simulations")
+    return {"phase": "fleet_parity", "candidates": len(step),
+            "launches": fleet_sim.launches, "scalar_sample": FLEET_SAMPLE,
+            "max_abs_vs_plain": worst, "cases": cases}
+
+
+def phase_fleet_timing(device) -> dict:
+    """The fleet kernel at N = 32768 (the chunk) and N = 1,048,576 (the
+    chunk tiled 32x), steady trace, 8 slots: profiler device time (the
+    largest of three windows) of the kernel and of the call with its
+    transposes, and CUDA events; beside its plain version on the card, the CPU route, the byte and
+    issue bounds and the device-to-host copy of the stamps."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fleet_sim
+    from repro_torch.serving.traffic import resolve_traffic
+
+    step0, _ = KEEP["fleet_chunk"]
+    trace = resolve_traffic("steady")
+    r = trace.n_requests
+    out = {"phase": "fleet_timing", "trace": trace.name,
+           "n_slots": FLEET_SLOTS_TIMED, "requests": r}
+    for tile in (1, FLEET_TILE):
+        step = np.tile(step0, tile)
+        n = len(step)
+        args = _fleet_device_inputs(step, trace, device)
+        n_iters = (int(np.ceil(trace.arrival_s.max() / step.min()))
+                   + int(trace.service_iters.sum()) + 1)
+        iters = 20 if tile == 1 else 5
+        seen: dict = {}
+        dev_ms, ev_ms = _device_ms(
+            lambda i: fleet_sim.fleet_stamps(*args, FLEET_SLOTS_TIMED,
+                                             n_iters),
+            iters, windows=3, seen=seen)
+        kern = [ms for key, ms in seen.get("top", ())
+                if "fleet_sim_kernel" in key]
+        row = {"n": n, "n_iters": n_iters,
+               "kernel_ms": kern[0] if kern else None,
+               "device_ms": dev_ms, "event_ms": ev_ms,
+               "top": seen.get("top"), "grid": fleet_sim.last_grid}
+        want = fleet_sim.fleet_stamps(*args, FLEET_SLOTS_TIMED, n_iters)
+        plain_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            plain = fleet_sim.fleet_stamps_ref(*args, FLEET_SLOTS_TIMED,
+                                               n_iters)
+            torch.cuda.synchronize(device)
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
+        check(all(torch.equal(a, b) for a, b in zip(want, plain)),
+              f"fleet timing N = {n}: kernel differs from the plain version")
+        d2h_ms = []
+        for _ in range(3):
+            stamps = fleet_sim.fleet_stamps(*args, FLEET_SLOTS_TIMED, n_iters)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            host = [t.cpu() for t in stamps]
+            d2h_ms.append(1e3 * (time.perf_counter() - t0))
+        cpu_args = [a.cpu() for a in args]
+        t0 = time.perf_counter()
+        on_cpu = fleet_sim.fleet_stamps(*cpu_args, FLEET_SLOTS_TIMED,
+                                        n_iters)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        check(all(torch.equal(a, b) for a, b in zip(host, on_cpu)),
+              f"fleet timing N = {n}: CPU route differs from the kernel")
+        # the least the card could take: the stamps written once (two
+        # int64 a request and candidate), active and step_s once each, the
+        # trace once; or the slot arg-mins' compare-selects at the CUDA
+        # cores' 32-bit issue rate
+        nbytes = 16 * n * r + 16 * n + 16 * r
+        ops = n * r * FLEET_SLOTS_TIMED
+        bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+        ops_ms = 1e3 * ops / PEAK_F32_OPS_UNFUSED
+        row.update(
+            plain_ms=min(plain_ms), cpu_route_ms=cpu_ms,
+            d2h_ms=min(d2h_ms), d2h_bytes=int(sum(t.numel() * 8
+                                                 for t in host)),
+            bytes=nbytes, compare_selects=ops, bytes_bound_ms=bytes_ms,
+            issue_bound_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[str(n)] = row
+        del args, want, plain, stamps, host
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_coexplore_serving(device) -> dict:
+    """The serving-default search (nsga2, 2048 evaluations, population
+    64, the steady trace, 8 slots) through run() on the card and the CPU:
+    one sweep-kernel and one fleet-kernel launch per evaluation chunk."""
+    from repro_torch.core.dse import ExploreSpec
+    c = COEXPLORE_SERVING
+    return _search_phase("coexplore_serving", ExploreSpec.mixed(
+        c["workload"], preset=c["preset"], seed=c["seed"]),
+        (c["workload"],), device)
+
+
+def _ceil_flips(res, workload, exact_rows, device) -> dict:
+    """A serving search's front rows on the card against the exact path,
+    request by request.  The card's latency aggregates are float32 (within
+    ~1e-6 of the exact path), and ``ceil(arrival_s / step_s)`` moves by
+    one iteration wherever the quotient lies that close to an integer: a
+    flip.  Every arrival iteration where the two paths differ must be one
+    (the exact quotient within ``(|d step| / step) * arrival / step + 1
+    ulp`` of an integer, ``step`` the smaller of the two); rows without a
+    flip are held to the aggregates' own distance + 1e-6.  The fleet
+    kernel fed the card's own steps equals its CPU route bit for bit."""
+    import numpy as np
+    from repro_torch.core.dse_batch import _sweep_mixed
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.explore.objectives import (SERVING_OBJECTIVES,
+                                                objective_matrix)
+    from repro_torch.serving.fleet_sim import _arrival_iters, simulate_fleet
+
+    wl = get_workload(workload)
+    soa, assign = res.space.decode(res.genomes)
+    macs = np.array([l.macs for l in wl.layers], dtype=np.float64)
+    skw = _serving_kw(res, device)
+    card = _sweep_mixed(wl, soa, assign, device=device)
+    exact = _sweep_mixed(wl, soa, assign, device="cpu")
+    replay = objective_matrix(card, assign, macs, res.objectives, **skw)
+    check(replay.tobytes() == res.front_objectives.tobytes(),
+          "serving front: re-scoring the card's rows on the card moved them")
+    trace, n_slots = skw["traffic"], skw["n_slots"]
+    step_c = np.asarray(card["latency_s"], np.float64)
+    step_e = np.asarray(exact["latency_s"], np.float64)
+    etok_c = np.asarray(card["energy_j"], np.float64)
+    etok_e = np.asarray(exact["energy_j"], np.float64)
+    on_card = simulate_fleet(step_c, etok_c, trace, n_slots=n_slots,
+                             device=device)
+    on_cpu = simulate_fleet(step_c, etok_c, trace, n_slots=n_slots,
+                            device="cpu")
+    for f in ("submit_iter", "comp_iter", "active_iters"):
+        check(np.array_equal(getattr(on_card, f), getattr(on_cpu, f)),
+              f"serving front: fleet kernel {f} differs from the CPU route")
+    a_c = _arrival_iters(step_c, trace.arrival_s)
+    a_e = _arrival_iters(step_e, trace.arrival_s)
+    rows, reqs = np.nonzero(a_c != a_e)
+    x = trace.arrival_s[reqs] / step_e[rows]
+    rel_step = (np.abs(step_c - step_e) / np.minimum(step_c, step_e))[rows]
+    tol = rel_step * x + np.spacing(x)
+    margin = np.abs(x - np.round(x)) / tol
+    explained = (np.abs(a_c - a_e)[rows, reqs] == 1) & (margin <= 1.0)
+    check(bool(explained.all()),
+          f"serving front: {int((~explained).sum())} arrival iterations "
+          f"differ from the exact path without a ceil flip to explain them")
+    flipped = np.zeros(len(step_c), dtype=bool)
+    flipped[rows] = True
+    keep = ~flipped
+    agg_rel = (max(rel_err(step_c[keep], step_e[keep]),
+                   rel_err(etok_c[keep], etok_e[keep]))
+               if keep.any() else None)
+    cols = {}
+    for j, obj in enumerate(res.objectives):
+        if obj not in SERVING_OBJECTIVES:
+            continue
+        got, want = res.front_objectives[:, j], exact_rows[:, j]
+        unflipped = rel_err(got[keep], want[keep]) if keep.any() else None
+        cols[obj] = {"rel_vs_exact_all_rows": rel_err(got, want),
+                     "rel_vs_exact_unflipped_rows": unflipped,
+                     "bound_unflipped": None if agg_rel is None
+                     else max(RTOL, agg_rel + RTOL)}
+        if keep.any():
+            check(unflipped <= max(RTOL, agg_rel + RTOL),
+                  f"serving front: {obj} {unflipped:.3g} from the exact path "
+                  f"on rows without a ceil flip (aggregates {agg_rel:.3g})")
+    return {"front_rows": len(step_c), "requests": trace.n_requests,
+            "flips": int(len(rows)), "flipped_rows": int(flipped.sum()),
+            "unexplained": int((~explained).sum()),
+            "worst_margin": float(margin.max()) if len(rows) else None,
+            "aggregates_rel_vs_exact_unflipped": agg_rel,
+            "stamps_card_eq_cpu": True, "columns": cols}
+
+
+def phase_serving_front_shift(device) -> dict:
+    """The reference bench's claim (benchmarks/serving_dse_bench.py) on the
+    card: for each trace, the serving objectives' front genome set differs
+    from the per-inference EDP front's on at least one trace.  Budget
+    1024, population 48, seed 0, VGG-16, on the card and the CPU."""
+    from repro_torch.core.dse import ExploreSpec, run
+    from repro_torch.kernels import fleet_sim
+
+    c = FRONT_SHIFT
+
+    def campaign(dev, traffic, objectives):
+        spec = ExploreSpec.mixed(
+            "vgg16", preset="quick", budget=c["budget"], seed=c["seed"],
+            objectives=objectives, traffic=traffic, pop_size=c["pop_size"])
+        t0 = time.perf_counter()
+        res = run(spec, device=dev)
+        return res, time.perf_counter() - t0
+
+    def genomes(res):
+        return {g.tobytes() for g in res.genomes}
+
+    out = {"phase": "serving_front_shift", **c, "traces": {}}
+    for dev in (device, "cpu"):
+        base, base_s = campaign(dev, None, EDP_OBJS)
+        out[f"edp_{'card' if dev != 'cpu' else 'cpu'}"] = {
+            "front_size": base.front_size,
+            "evals_per_s": base.n_evals / base_s}
+        for trace in FLEET_TRACES:
+            fleet_sim.launches = 0
+            res, wall = campaign(dev, trace, SERVING_OBJS)
+            if dev != "cpu":
+                check(fleet_sim.launches == res.stats["chunks"] >= 1,
+                      f"front shift {trace}: {fleet_sim.launches} fleet "
+                      f"launches for {res.stats['chunks']} chunks")
+            row = out["traces"].setdefault(trace, {})
+            key = "card" if dev != "cpu" else "cpu"
+            row[key] = {"front_size": res.front_size,
+                        "evals_per_s": res.n_evals / wall,
+                        "shifted_vs_edp": genomes(res) != genomes(base)}
+            KEEP[f"shift_{key}_{trace}"] = res
+        KEEP[f"shift_{'card' if dev != 'cpu' else 'cpu'}_edp"] = base
+    for trace in (*out["traces"], "edp"):
+        a, b = KEEP[f"shift_card_{trace}"], KEEP[f"shift_cpu_{trace}"]
+        same = (a.genomes.shape == b.genomes.shape
+                and bool((a.genomes == b.genomes).all()))
+        row = out["traces"][trace] if trace != "edp" else out["edp_card"]
+        row["fronts_identical"] = same
+        row["first_divergence"] = (None if same
+                                   else _first_divergence(a, b))
+    shifted = [t for t, row in out["traces"].items()
+               if row["card"]["shifted_vs_edp"]]
+    check(bool(shifted), "serving front shift: the serving front equals "
+          "the EDP front on every trace")
+    out["shifted_on_card"] = shifted
+    return out
+
+
+def phase_scalar_oracle() -> dict:
+    """The reference's per-config scalar model on the paper's 720-point
+    space (VGG-16) on the host, against the exact batched path (bit for
+    bit) and the main path's card points (<= 1e-6 relative)."""
+    from repro_torch.core.dse import ExploreSpec, run
+    t0 = time.perf_counter()
+    scalar = run(ExploreSpec.single("vgg16", engine="scalar"), device="cpu")
+    scalar_s = time.perf_counter() - t0
+    exact = run(ExploreSpec.single("vgg16"), device="cpu")
+    card = KEEP["points"]
+    props = ("perf_per_area", "energy_j", "latency_s", "total_cycles")
+    check(len(scalar.points) == len(exact.points) == len(card.points) == 720,
+          "scalar oracle: point counts")
+    worst = 0.0
+    for s, e, c in zip(scalar.points, exact.points, card.points):
+        check(s.config.name() == e.config.name() == c.config.name(),
+              "scalar oracle: config order")
+        for prop in props:
+            check(getattr(s.result, prop) == getattr(e.result, prop),
+                  f"scalar oracle: {prop} differs from the exact path")
+        check(all(a == b for a, b in zip(s.result.layers, e.result.layers)),
+              "scalar oracle: layers differ from the exact path")
+        worst = max(worst, max(abs(getattr(c.result, p)
+                                   / getattr(s.result, p) - 1.0)
+                               for p in props))
+    check(worst <= RTOL, f"scalar oracle: card points {worst:.3g} from it")
+    ratios = scalar.headline_ratios()
+    check(ratios == exact.headline_ratios(),
+          "scalar oracle: headline ratios differ from the exact path")
+    return {"phase": "scalar_oracle", "points": len(scalar.points),
+            "scalar_s": scalar_s, "card_max_rel_vs_scalar": worst,
+            "headline_identical_to_exact": True, "headline": ratios}
 
 
 # ------------------------------------------------- PPA models and RTL
@@ -2517,6 +2951,14 @@ def main() -> int:
     coexplore_many = phase_coexplore_many(device)
     emit(coexplore_many)
     emit(phase_coexplore_golden(device))
+    fleet_parity = phase_fleet_parity(device)
+    emit(fleet_parity)
+    fleet_timing = phase_fleet_timing(device)
+    emit(fleet_timing)
+    coexplore_serving = phase_coexplore_serving(device)
+    emit(coexplore_serving)
+    emit(phase_serving_front_shift(device))
+    emit(phase_scalar_oracle())
     emit(phase_ppa(device))
     emit(phase_rtl())
     emit(phase_resume(device))
@@ -2572,7 +3014,9 @@ def main() -> int:
         "issue_bound_ms": sweep["issue_bound_ms"],
         "grid": sweep["grid"],
         "launches_coexplore": {"coexplore": coexplore["launches"],
-                               "coexplore_many": coexplore_many["launches"]},
+                               "coexplore_many": coexplore_many["launches"],
+                               "coexplore_serving":
+                               coexplore_serving["launches"]},
         "other_shapes": {
             shape: {key: timing[shape][key] for key in (
                 "n", "l", "w", "grid", "profiled_kernel_ms", "bound_ms",
@@ -2709,6 +3153,34 @@ def main() -> int:
                "(bound_cuda_core_ms: at the 67 TFLOP/s float32 rate); "
                f"launches per 1 x 4096 FP32 forward of {FP32_LAYERS} "
                "layers",
+    })
+    ft = fleet_timing[str(len(KEEP["fleet_chunk"][0]))]
+    kernels.append({
+        "name": "fleet_sim",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fleet_sim.cu",
+        "replaces": "src/repro/serving/fleet_sim.py:214 (_jax_sim, a "
+                    "jitted fori_loop; not a Pallas kernel)",
+        "launches": coexplore_serving["fleet_launches"],
+        "max_abs_err": fleet_parity["max_abs_vs_plain"],
+        "ms": ft["kernel_ms"],
+        "plain_ms": ft["plain_ms"],
+        "bound_ms": ft["bound_ms"],
+        "bound_by": ft["bound_by"],
+        "library_ms": None,
+        "event_ms": ft["event_ms"],
+        "call_device_ms": ft["device_ms"],
+        "d2h_ms": ft["d2h_ms"],
+        "cpu_route_ms": ft["cpu_route_ms"],
+        "grid": ft["grid"],
+        "per": f"one launch at N = {ft['n']} candidates (the main path's "
+               f"chunk), {fleet_timing['requests']} requests of the "
+               f"{fleet_timing['trace']} trace, {fleet_timing['n_slots']} "
+               "slots (profiler device time of the kernel, the largest of "
+               "three windows; call_device_ms with the transposes; "
+               "event_ms: CUDA events over back-to-back calls; d2h_ms: the "
+               "stamps to the host); launches: the serving-default search, "
+               "one an evaluation chunk",
     })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -5,12 +5,14 @@ A preset bundles the knobs of one search campaign — engine, evaluation
 budget, population sizing, objective set — so runs are named and
 reproducible.  ``quick`` is the CI smoke setting, ``default`` the
 benchmark's, ``thorough`` the 5-objective set; the ``many-*`` presets
-target a workload suite with the multi-workload objectives.
+target a workload suite with the multi-workload objectives; the
+``serving-*`` presets score every genome on a serving fleet: ``traffic``
+names a :data:`repro_torch.serving.traffic.TRAFFIC_PRESETS` trace that
+the fleet simulator replays per candidate over ``n_slots`` slots.
 
-Every preset of the reference is registered.  Two kinds cannot run in
-the port yet: ``calibrated-quick`` (a tier-1 accuracy table, ROADMAP A.7)
-and the ``serving-*`` presets (the fleet simulator, ROADMAP A.5); the
-search entry points refuse them.
+Every preset of the reference is registered.  One cannot run in the port
+yet: ``calibrated-quick`` (a tier-1 accuracy table, ROADMAP A.7), which
+the search entry points refuse.
 """
 
 from __future__ import annotations

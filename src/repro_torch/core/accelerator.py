@@ -190,6 +190,17 @@ def design_space(
             glb_kb=glb, dram_bw_gbps=bw)
 
 
+def design_space_size(
+    pe_types: tuple[PEType, ...] = tuple(PEType),
+    array_dims: tuple[tuple[int, int], ...] = DEFAULT_ARRAY_DIMS,
+    spad_scales: tuple[float, ...] = DEFAULT_SPAD_SCALES,
+    glb_kbs: tuple[int, ...] = DEFAULT_GLB_KBS,
+    bws: tuple[float, ...] = DEFAULT_BWS,
+) -> int:
+    return (len(pe_types) * len(array_dims) * len(spad_scales)
+            * len(glb_kbs) * len(bws))
+
+
 def design_space_soa(
     pe_types: tuple[PEType, ...] = tuple(PEType),
     array_dims: tuple[tuple[int, int], ...] = DEFAULT_ARRAY_DIMS,

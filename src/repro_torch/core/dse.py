@@ -7,13 +7,17 @@ caller passes ``device="cpu"``.  Specs are built with
 * :meth:`ExploreSpec.single` — a uniform-precision sweep of one workload
   (optionally chunk-streamed);
 * :meth:`ExploreSpec.mixed` — guided mixed-precision co-exploration of one
-  workload (:mod:`repro_torch.explore`);
+  workload (:mod:`repro_torch.explore`), optionally under a serving
+  ``traffic`` trace scored by the fleet simulator;
 * :meth:`ExploreSpec.many` — a workload suite: uniform precision sweeps
   the batch per workload, ``precision="mixed"`` searches one shared
   hardware config with a per-workload precision assignment.
 
 Sweep results normalize performance-per-area and energy against the best
 INT16 configuration, as the paper's Figs. 3-5 do.
+``ExploreSpec.single(..., engine="scalar")`` runs the reference's
+per-config scalar model (:mod:`repro_torch.core.dataflow`), the host
+oracle of the batched engine, on ``device="cpu"`` only.
 :class:`IncrementalSweep` extends a sweep without re-evaluating known
 configs.  ``checkpoint_dir`` makes a chunked sweep or an nsga2 search
 preemption-safe (:mod:`repro_torch.runtime.dse_checkpoint`), and
@@ -32,6 +36,7 @@ import torch
 from repro_torch.core.accelerator import (AcceleratorConfig, configs_to_soa,
                                           design_space)
 from repro_torch.core.confighash import config_digests, digest_keys
+from repro_torch.core.dataflow import WorkloadResult, run_workload
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dse_batch import (BatchedWorkloadResult, _synthesize,
                                         _sweep_chunked, _sweep_workload,
@@ -43,7 +48,7 @@ from repro_torch.core.workloads import Workload, get_workload
 @dataclasses.dataclass(frozen=True)
 class DSEPoint:
     config: AcceleratorConfig
-    result: BatchedWorkloadResult
+    result: BatchedWorkloadResult | WorkloadResult
 
     @property
     def perf_per_area(self) -> float:
@@ -99,9 +104,24 @@ class DSEResult:
         }
 
 
+def pareto_front_scalar(points: Sequence[DSEPoint]) -> list[DSEPoint]:
+    """O(n^2) reference: non-dominated set for (max perf/area, min
+    energy), sorted by energy."""
+    front: list[DSEPoint] = []
+    for p in points:
+        dominated = any(
+            (q.perf_per_area >= p.perf_per_area and q.energy_j <= p.energy_j
+             and (q.perf_per_area > p.perf_per_area
+                  or q.energy_j < p.energy_j))
+            for q in points)
+        if not dominated:
+            front.append(p)
+    return sorted(front, key=lambda p: p.energy_j)
+
+
 def pareto_front(points: Sequence[DSEPoint]) -> list[DSEPoint]:
     """Non-dominated set for (maximize perf/area, minimize energy),
-    sorted by energy."""
+    sorted by energy; the same as :func:`pareto_front_scalar`."""
     if not points:
         return []
     perf = np.array([p.perf_per_area for p in points], dtype=np.float64)
@@ -111,13 +131,30 @@ def pareto_front(points: Sequence[DSEPoint]) -> list[DSEPoint]:
     return sorted(front, key=lambda p: p.energy_j)
 
 
-
-
 _OUTPUT_MODES = ("points", "sweep", "aggregates")
 
 
 def _resolve(workload: Workload | str) -> Workload:
     return get_workload(workload) if isinstance(workload, str) else workload
+
+
+def _explore_scalar(workload: Workload | str,
+                    configs: Iterable[AcceleratorConfig] | None = None,
+                    *, use_cache: bool = False) -> DSEResult:
+    """The reference's serial sweep on the host: one
+    :func:`~repro_torch.core.dataflow.run_workload` per config — the
+    oracle of the batched engine, which equals it bit for bit on the
+    CPU's exact path."""
+    from repro_torch.core.synthesis import synthesize_cached
+    workload = _resolve(workload)
+    if configs is None:
+        configs = design_space()
+    points = []
+    for cfg in configs:
+        rep = synthesize_cached(cfg) if use_cache else None
+        points.append(DSEPoint(config=cfg,
+                               result=run_workload(workload, cfg, rep)))
+    return DSEResult(workload=workload.name, points=points)
 
 
 def _explore_many(workloads: Sequence[Workload | str],
@@ -251,6 +288,8 @@ def _coexplore(workload: Workload | str,
                space_overrides: dict | None = None,
                accuracy=None,
                chunk_size: int | None = None,
+               traffic=None,
+               n_slots: int | None = None,
                checkpoint_dir: str | None = None,
                checkpoint_every: int | None = None,
                **method_kwargs):
@@ -259,9 +298,18 @@ def _coexplore(workload: Workload | str,
     (:mod:`repro_torch.configs.coexplore_presets`), applies explicit
     overrides, sizes the genome space to the workload and runs the chosen
     engine of :mod:`repro_torch.explore.search`.  Returns a
-    :class:`~repro_torch.explore.search.SearchResult`."""
+    :class:`~repro_torch.explore.search.SearchResult`.
+
+    A ``traffic`` trace (name, preset or trace; else the preset's)
+    switches the search to serving-fleet objectives: each genome's
+    latency and energy feed the fleet simulator over ``n_slots`` slots,
+    and the objective set becomes
+    :data:`~repro_torch.explore.objectives.DEFAULT_SERVING_OBJECTIVES`
+    unless the preset or ``objectives=`` already names serving ones."""
     from repro_torch.configs.coexplore_presets import get_preset
     from repro_torch.explore.accuracy import resolve_accuracy
+    from repro_torch.explore.objectives import (DEFAULT_SERVING_OBJECTIVES,
+                                                SERVING_OBJECTIVES)
     from repro_torch.explore.space import space_for_workload
 
     p = get_preset(preset)
@@ -270,12 +318,22 @@ def _coexplore(workload: Workload | str,
     wl = _resolve(workload)
     space = space_for_workload(wl, **(space_overrides or {}))
     method, fn = _method(p, method)
+    if objectives is not None:
+        objs = tuple(objectives)
+    elif (traffic is not None
+          and not set(p.objectives) & set(SERVING_OBJECTIVES)):
+        # explicit traffic over a non-serving preset: the serving
+        # objectives, else the Evaluator refuses the unused trace
+        objs = DEFAULT_SERVING_OBJECTIVES
+    else:
+        objs = p.objectives
     kwargs = _search_kwargs(
-        p, method,
-        objectives=p.objectives if objectives is None else tuple(objectives),
+        p, method, objectives=objs,
         seed=p.seed if seed is None else seed, device=device,
         chunk_size=p.chunk_size if chunk_size is None else chunk_size,
-        ref_point=ref_point, accuracy=acc_model)
+        ref_point=ref_point, accuracy=acc_model,
+        traffic=traffic if traffic is not None else p.traffic,
+        n_slots=p.n_slots if n_slots is None else n_slots)
     _apply_checkpointing(kwargs, method, checkpoint_dir, checkpoint_every)
     kwargs.update(method_kwargs)
     return fn(space, wl, p.budget if budget is None else budget, **kwargs)
@@ -328,16 +386,24 @@ def _coexplore_many(workloads: Sequence[Workload | str],
     return fn(space, wls, p.budget if budget is None else budget, **kwargs)
 
 
-# reference knobs the port does not run yet: the queue item of ROADMAP.md
-# that brings each
+# reference knobs the port does not run: why each is refused
 _NOT_PORTED = {
-    "traffic": "serving-fleet objectives need the fleet simulator "
-               "(ROADMAP A.5)",
-    "n_slots": "serving-fleet objectives need the fleet simulator "
-               "(ROADMAP A.5)",
     "mesh": "the port runs on one card; multi-device sharding is not "
             "queued (ROADMAP A.8 ports only what one card exercises)",
 }
+# reference knobs the port replaces by design
+_REPLACED = ("backend", "use_pallas")
+
+
+def _refuse_replaced(kwargs: dict) -> None:
+    """Refuse the reference's route knobs, which ``run(..., device=)``
+    replaces, before they reach the dataclass or an engine."""
+    for name in _REPLACED:
+        if name in kwargs:
+            raise ValueError(
+                f"{name}= is replaced by run(..., device=): the port runs "
+                f"on the card (device='cuda') or the exact CPU path "
+                f"(device='cpu')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,6 +417,9 @@ class ExploreSpec:
     precision: str = "uniform"          # "uniform" | "mixed"
     # uniform-precision knobs
     configs: tuple | None = None
+    # "batched" (the sweep kernel) | "scalar" (the per-config host
+    # oracle, device="cpu" only)
+    engine: str = "batched"
     outputs: str = "points"             # "points" | "sweep" | "aggregates"
     cache: object = None                # persisted synthesis cache (chunked)
     save_cache: bool = True
@@ -362,6 +431,10 @@ class ExploreSpec:
     method: str | None = None
     budget: int | None = None
     objectives: tuple | None = None
+    # a serving trace (name, TrafficPreset or TrafficTrace) and the fleet's
+    # slots: serving-fleet objectives (mixed, one workload)
+    traffic: object = None
+    n_slots: int | None = None
     ref_point: tuple | None = None
     weights: tuple | None = None
     # accuracy model of the accuracy_noise objectives: None (the preset's,
@@ -382,9 +455,7 @@ class ExploreSpec:
     # repro_torch.obs.configure() (e.g. {"jsonl_path": ...,
     # "torch_annotations": True}).  The metrics registry is always on.
     telemetry: object = None
-    # knobs of the reference not ported yet (_NOT_PORTED): must stay None
-    traffic: object = None
-    n_slots: int | None = None
+    # the reference's sharding knob, not ported (_NOT_PORTED): stays None
     mesh: object = None
 
     def __post_init__(self):
@@ -402,6 +473,8 @@ class ExploreSpec:
             raise ValueError(
                 f"unknown outputs mode {self.outputs!r} "
                 f"(choose from {_OUTPUT_MODES})")
+        if self.engine not in ("batched", "scalar"):
+            raise ValueError(f"unknown DSE engine: {self.engine!r}")
         if self.configs is not None and self.chunk_size is None:
             # chunk-streamed feeds stay lazy; a one-batch sweep
             # materializes its configs once
@@ -448,6 +521,7 @@ class ExploreSpec:
         bad = [n for n, v in (
             ("preset", self.preset), ("method", self.method),
             ("budget", self.budget), ("objectives", self.objectives),
+            ("traffic", self.traffic), ("n_slots", self.n_slots),
             ("ref_point", self.ref_point), ("weights", self.weights),
             ("accuracy", self.accuracy),
             ("space_overrides", self.space_overrides),
@@ -456,6 +530,11 @@ class ExploreSpec:
             raise ValueError(
                 f"search knob(s) {bad} only apply to "
                 f'precision="mixed" specs')
+        if self.engine == "scalar" and (self.outputs != "points"
+                                        or self.chunk_size is not None):
+            raise ValueError(
+                'engine="scalar" only supports outputs="points" '
+                'without chunking')
         if self.chunk_size is None:
             return
         if len(self.workloads) > 1:
@@ -474,6 +553,8 @@ class ExploreSpec:
     def _check_mixed(self):
         bad = [n for n, v in (("configs", self.configs),
                               ("cache", self.cache)) if v is not None]
+        if self.engine != "batched":
+            bad.append("engine")
         if self.outputs != "points":
             bad.append("outputs")
         if bad:
@@ -488,7 +569,8 @@ class ExploreSpec:
     # -- constructors ------------------------------------------------------
 
     @classmethod
-    def single(cls, workload, configs=None, *, outputs: str = "points",
+    def single(cls, workload, configs=None, *, engine: str = "batched",
+               outputs: str = "points",
                chunk_size: int | None = None, use_cache: bool = True,
                cache=None, save_cache: bool = True, overlap: bool = True,
                prefetch_depth: int = 2, checkpoint_dir: str | None = None,
@@ -500,8 +582,11 @@ class ExploreSpec:
         and returns a :class:`~repro_torch.core.dse_batch.ChunkedSweep`;
         a ``checkpoint_dir`` makes the stream preemption-safe (periodic
         snapshots, resumed automatically — ``configs`` should then be a
-        re-iterable feed or a zero-arg factory)."""
-        return cls(workloads=(workload,), configs=configs, outputs=outputs,
+        re-iterable feed or a zero-arg factory).  ``engine="scalar"``
+        runs the per-config host oracle (``device="cpu"`` only)."""
+        _refuse_replaced(not_ported)
+        return cls(workloads=(workload,), configs=configs, engine=engine,
+                   outputs=outputs,
                    chunk_size=chunk_size, use_cache=use_cache, cache=cache,
                    save_cache=save_cache, overlap=overlap,
                    prefetch_depth=prefetch_depth,
@@ -521,8 +606,12 @@ class ExploreSpec:
               **search_kwargs) -> "ExploreSpec":
         """Guided mixed-precision co-exploration of one workload (preset
         ``"default"`` unless named); extra keywords go to the engine.  A
-        ``checkpoint_dir`` snapshots the search each ``checkpoint_every``
-        generations and resumes from the newest snapshot (nsga2 only)."""
+        ``traffic`` trace switches the objectives to the serving-fleet set
+        (tail latency, SLO attainment, throughput, energy per served
+        token) over ``n_slots`` slots.  A ``checkpoint_dir`` snapshots the
+        search each ``checkpoint_every`` generations and resumes from the
+        newest snapshot (nsga2 only)."""
+        _refuse_replaced(search_kwargs)
         return cls(workloads=(workload,), precision="mixed",
                    preset=preset, method=method, budget=budget,
                    objectives=objectives, accuracy=accuracy, seed=seed,
@@ -548,6 +637,7 @@ class ExploreSpec:
         ``precision="mixed"`` searches one shared hardware config with a
         per-workload precision assignment (preset ``"many-default"``
         unless named)."""
+        _refuse_replaced(search_kwargs)
         if precision == "uniform" and search_kwargs:
             raise ValueError(
                 f"search kwarg(s) {sorted(search_kwargs)} only apply to "
@@ -579,13 +669,19 @@ def run(spec: ExploreSpec, *, device: str | torch.device = "cuda"):
 
     ``device="cuda"`` raises ``RuntimeError`` on a host without CUDA; the
     sweeps' aggregates and every search evaluation then run on the card
-    through the CUDA sweep kernel.  ``spec.telemetry`` configures span
-    tracing for the duration of the call.
+    through the CUDA sweep kernel (a serving search's fleets through the
+    fleet kernel).  ``engine="scalar"`` is a host loop with no array
+    engine and raises unless ``device="cpu"``.  ``spec.telemetry``
+    configures span tracing for the duration of the call.
     """
     if not isinstance(spec, ExploreSpec):
         raise TypeError(
             f"run() takes an ExploreSpec, got {type(spec).__name__}; "
             f"build one with ExploreSpec.single/.mixed/.many")
+    if spec.engine == "scalar" and torch.device(device).type != "cpu":
+        raise ValueError(
+            f'engine="scalar" is the per-config host oracle and runs on '
+            f'the CPU only; pass device="cpu" (got device={device!r})')
     from repro_torch.obs import trace as obs_trace
     device = resolve_device(device)
     with obs_trace.configured(spec.telemetry):
@@ -606,7 +702,7 @@ def _run_dispatch(spec: ExploreSpec, device: torch.device):
             return _coexplore(
                 spec.workloads[0],
                 preset="default" if spec.preset is None else spec.preset,
-                **common)
+                traffic=spec.traffic, n_slots=spec.n_slots, **common)
         return _coexplore_many(
             spec.workloads,
             preset="many-default" if spec.preset is None else spec.preset,
@@ -628,6 +724,8 @@ def _run_dispatch(spec: ExploreSpec, device: torch.device):
             return resume_sweep(wl, spec.configs,
                                 checkpoint_dir=spec.checkpoint_dir, **kwargs)
         return _sweep_chunked(wl, spec.configs, **kwargs)
+    if spec.engine == "scalar":
+        return _explore_scalar(wl, spec.configs, use_cache=spec.use_cache)
     cfgs = tuple(design_space() if spec.configs is None else spec.configs)
     sweep = _sweep_workload(
         wl, cfgs, device=device, use_cache=spec.use_cache,

@@ -396,8 +396,9 @@ class BatchedSweep:
 
 
 class BatchedWorkloadResult:
-    """Per-point view over one row of a :class:`BatchedSweep` — O(1)
-    until ``.layers`` is asked for (``"full"`` outputs only)."""
+    """Duck-typed :class:`repro_torch.core.dataflow.WorkloadResult` view
+    over one row of a :class:`BatchedSweep` — O(1) until ``.layers`` is
+    asked for (``"full"`` outputs only)."""
 
     __slots__ = ("_sweep", "_i", "_layers")
 
@@ -405,6 +406,14 @@ class BatchedWorkloadResult:
         self._sweep = sweep
         self._i = i
         self._layers: tuple[LayerResult, ...] | None = None
+
+    @property
+    def workload(self) -> str:
+        return self._sweep.workload
+
+    @property
+    def config_name(self) -> str:
+        return self._sweep.configs[self._i].name()
 
     @property
     def area_mm2(self) -> float:
@@ -455,6 +464,10 @@ class BatchedWorkloadResult:
     @property
     def perf_per_area(self) -> float:
         return float(self._sweep.arrays["perf_per_area"][self._i])
+
+    @property
+    def edp(self) -> float:
+        return self.energy_j * self.latency_s
 
 
 def _synthesize(soa: dict, use_cache: bool) -> dict[str, np.ndarray]:
@@ -693,6 +706,16 @@ class ChunkedSweep:
         """The frontier as configs, sorted by energy."""
         order = np.argsort(self.front_metrics["energy_j"], kind="stable")
         return soa_to_configs(self.front_soa, order)
+
+    def front_points(self) -> list[dict]:
+        """The frontier as ``{metric: value, config: cfg}`` rows, sorted
+        by energy."""
+        order = np.argsort(self.front_metrics["energy_j"], kind="stable")
+        cfgs = soa_to_configs(self.front_soa, order)
+        return [
+            dict({m: float(self.front_metrics[m][i])
+                  for m in _FRONT_METRICS}, config=cfg)
+            for i, cfg in zip(order, cfgs)]
 
 
 def _as_soa_chunks(chunks, chunk_size: int) -> Iterator[dict]:

@@ -76,6 +76,13 @@ class PESpec:
     def max_clock_ghz(self) -> float:
         return 1.0 / self.mac_delay_ns
 
+    def scratchpad_bits(self, ifmap_entries: int, filter_entries: int,
+                        psum_entries: int) -> int:
+        """Total per-PE scratchpad storage in bits (quantization-aware)."""
+        return (ifmap_entries * self.act_bits
+                + filter_entries * self.weight_bits
+                + psum_entries * self.psum_bits)
+
 
 _SPECS = {
     PEType.FP32: PESpec(
@@ -151,3 +158,11 @@ def sram_access_energy_pj(size_bits, dtype: torch.dtype = torch.float64):
 def sram_area_um2(size_bits):
     """Area of an SRAM macro (host numpy only)."""
     return np.where(np.asarray(size_bits) > 0, 0.55 * size_bits + 300.0, 0.0)
+
+
+def dram_energy_pj_per_byte() -> float:
+    """LPDDR at 45 nm, ~80 pJ a byte: system-level context only.  The
+    paper's energy is post-synthesis accelerator energy and the DRAM is
+    not in the netlist, so :mod:`repro_torch.core.dataflow` excludes
+    it."""
+    return 80.0

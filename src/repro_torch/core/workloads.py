@@ -45,6 +45,10 @@ class Workload:
     name: str
     layers: tuple[ConvLayer, ...]
 
+    @property
+    def total_macs(self) -> int:
+        return sum(l.macs for l in self.layers)
+
 
 def vgg16() -> Workload:
     ls: list[ConvLayer] = []

@@ -17,7 +17,7 @@ from repro_torch.explore.objectives import (DEFAULT_MULTI_OBJECTIVES,
                                             OBJECTIVE_REGISTRY, OBJECTIVES,
                                             ObjectiveSpec,
                                             accuracy_floor_violation,
-                                            mode_noise_table,
+                                            mode_noise_table, mode_sqnr_db,
                                             multi_objective_matrix,
                                             objective_matrix, quant_noise,
                                             reset_sqnr_table,
@@ -39,7 +39,7 @@ __all__ = [
     "MULTI_OBJECTIVES", "DEFAULT_MULTI_OBJECTIVES",
     "multi_objective_matrix", "accuracy_floor_violation", "ObjectiveSpec",
     "OBJECTIVE_REGISTRY", "resolve_objectives", "reset_sqnr_table",
-    "mode_noise_table",
+    "mode_noise_table", "mode_sqnr_db",
     "AccuracyModel", "AccuracySpec", "ProxyAccuracy", "resolve_accuracy",
     "pareto_mask_k", "nondominated_sort", "crowding_distance",
     "hypervolume", "reference_point",

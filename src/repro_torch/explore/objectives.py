@@ -13,8 +13,13 @@ on the card and one on the CPU score genomes with one table — as the
 reference's numpy and jax backends share theirs.  It equals the
 reference's table bit for bit (tested).
 
-Serving-fleet objectives are registered but need the fleet simulator,
-which is not ported yet (ROADMAP A.5): :func:`serving_metrics` raises.
+Serving-fleet objectives (:data:`SERVING_OBJECTIVES`) replay a traffic
+trace on every candidate's continuous batcher with the fleet simulator
+(:func:`repro_torch.serving.fleet_sim.simulate_fleet`): on the card its
+CUDA kernel, on the CPU its plain version; the stamps are integers and
+bit-identical either way.  The reference scores serving on host numpy
+even under jax; the port simulates on the Evaluator's own device, so a
+search on the card has no host loop.
 """
 
 from __future__ import annotations
@@ -186,38 +191,61 @@ def quant_noise(assign: np.ndarray, layer_macs: np.ndarray) -> np.ndarray:
     return (table[np.asarray(assign, dtype=np.int64)] * wts).sum(axis=1)
 
 
+def mode_sqnr_db() -> dict[str, float]:
+    """Human-readable SQNR (dB) per PE type, for reports."""
+    table = mode_noise_table()
+    out = {}
+    for t, n in zip(_TYPES, table):
+        out[t.value] = float("inf") if n <= 0 else float(-10 * np.log10(n))
+    return out
+
+
 def serving_metrics(agg: dict[str, np.ndarray], traffic, *,
-                    n_slots: int = 8) -> dict[str, np.ndarray]:
-    """Fleet-simulator metrics of every candidate: not ported yet."""
-    raise NotImplementedError(
-        "serving-fleet objectives need the fleet simulator, which the "
-        "port does not have yet (ROADMAP A.5)")
+                    n_slots: int = 8,
+                    device="cuda") -> dict[str, np.ndarray]:
+    """Fleet-simulator metrics of every candidate of a sweep aggregate:
+    each candidate's ``latency_s`` is one batcher iteration and its
+    ``energy_j`` one token-slot of energy; the shared ``traffic`` trace
+    is replayed on an ``n_slots`` fleet per candidate, on ``device``."""
+    from repro_torch.serving.fleet_sim import simulate_fleet
+    res = simulate_fleet(np.asarray(agg["latency_s"], dtype=np.float64),
+                         np.asarray(agg["energy_j"], dtype=np.float64),
+                         traffic, n_slots=n_slots, device=device)
+    return res.metrics()
 
 
 def objective_matrix(agg: dict[str, np.ndarray],
                      assign: np.ndarray,
                      layer_macs: np.ndarray,
                      objectives=DEFAULT_OBJECTIVES, *,
-                     traffic=None, n_slots: int = 8,
+                     traffic=None, n_slots: int = 8, device="cuda",
                      accuracy=None) -> np.ndarray:
     """The ``(N, K)`` minimization matrix from sweep aggregates.
 
     ``agg`` is the mixed-precision sweep output (the aggregate columns
-    plus ``area_mm2``).  ``accuracy`` is an accuracy model scoring the
+    plus ``area_mm2``).  Serving objectives need ``traffic`` (a trace,
+    preset or preset name) and run the fleet simulator on ``device``; an
+    overloaded candidate's infinite tail latency or energy per token is
+    clamped to :data:`FLOOR_PENALTY`, so it stays comparable yet always
+    dominated.  ``accuracy`` is an accuracy model scoring the
     ``accuracy_noise`` column (``None`` = the tier-0 proxy); one carrying
     a ``floor_db`` adds a static penalty to every objective of a genome
-    that breaks the floor.  Serving objectives need the fleet simulator
-    (:func:`serving_metrics`, not ported yet).
+    that breaks the floor.
     """
     objectives = resolve_objectives(objectives, scope="single")
     score = quant_noise if accuracy is None else accuracy.score
     need_serving = [n for n in objectives if n in SERVING_OBJECTIVES]
+    fleet = None
     if need_serving:
         if traffic is None:
             raise ValueError(
                 f"objectives {need_serving} need traffic= (a TrafficTrace,"
                 f" TrafficPreset, or preset name)")
-        serving_metrics(agg, traffic, n_slots=n_slots)
+        fleet = serving_metrics(agg, traffic, n_slots=n_slots,
+                                device=device)
+
+    def clamp(col):
+        return np.minimum(np.asarray(col, dtype=np.float64), FLOOR_PENALTY)
 
     cols = []
     for name in objectives:
@@ -232,6 +260,16 @@ def objective_matrix(agg: dict[str, np.ndarray],
             cols.append(np.asarray(agg["area_mm2"], dtype=np.float64))
         elif name == "accuracy_noise":
             cols.append(score(assign, layer_macs))
+        elif name in ("p50_latency_s", "p99_latency_s"):
+            cols.append(clamp(fleet[name]))
+        elif name == "neg_slo_attainment":
+            cols.append(-np.asarray(fleet["slo_attainment"],
+                                    dtype=np.float64))
+        elif name == "neg_throughput_tps":
+            cols.append(-np.asarray(fleet["throughput_tps"],
+                                    dtype=np.float64))
+        elif name == "energy_per_token_j":
+            cols.append(clamp(fleet["energy_per_token_j"]))
         else:                     # registry-validated: unreachable
             raise AssertionError(name)
     F = np.stack(cols, axis=-1)

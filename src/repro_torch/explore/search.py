@@ -21,8 +21,15 @@ index, so a seed names one trajectory; on the CPU it is the reference's.
 engines record ``explore.evaluate`` / ``random_search.batch`` /
 ``nsga2.generation`` / ``successive_halving.rung`` spans while
 :mod:`repro_torch.obs` tracing is on, and the Evaluator's counters always
-land in its metrics registry.  The serving-fleet objectives (ROADMAP A.5)
-are not ported yet.
+land in its metrics registry.
+
+``traffic=`` scores genomes on a serving fleet
+(:data:`~repro_torch.explore.objectives.SERVING_OBJECTIVES`): each
+chunk's latency and energy aggregates feed the fleet simulator on the
+Evaluator's own device, so on the card a chunk is one sweep-kernel launch
+and one fleet-kernel launch.  The reference scores serving on host numpy
+even under jax; the stamps are integers, bit-identical on every route, so
+no result moves.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from repro_torch.core.workloads import Workload, get_workload
 from repro_torch.explore.accuracy import resolve_accuracy
 from repro_torch.explore.objectives import (DEFAULT_MULTI_OBJECTIVES,
                                             DEFAULT_OBJECTIVES,
+                                            DEFAULT_SERVING_OBJECTIVES,
                                             SERVING_OBJECTIVES,
                                             multi_objective_matrix,
                                             objective_matrix,
@@ -120,12 +128,15 @@ class SearchResult:
         } for i in order]
 
 
-def _refuse_serving(objectives) -> None:
-    serving = [o for o in objectives if o in SERVING_OBJECTIVES]
-    if serving:
-        raise NotImplementedError(
-            f"serving objectives {serving} need the fleet simulator, "
-            f"which the port does not have yet (ROADMAP A.5)")
+def traffic_digest(trace) -> str:
+    """sha256 of a traffic trace's content (name, arrivals, phase lengths,
+    SLO): what a resumed serving search is checked against."""
+    import hashlib
+    h = hashlib.sha256(trace.name.encode())
+    for a in (trace.arrival_s, trace.prompt_tokens, trace.decode_tokens):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(np.float64(trace.slo_s).tobytes())
+    return h.hexdigest()
 
 
 class Evaluator:
@@ -143,7 +154,10 @@ class Evaluator:
     mode segment per workload in one pass and scores the suite with
     :func:`~repro_torch.explore.objectives.multi_objective_matrix`.
     ``accuracy`` selects the accuracy model of the ``accuracy_noise``
-    columns (``None`` = the tier-0 proxy).
+    columns (``None`` = the tier-0 proxy).  ``traffic`` (a trace, preset
+    or preset name) scores serving objectives on an ``n_slots`` fleet and,
+    without explicit ``objectives``, makes the serving set the default;
+    serving objectives are single-workload only.
     """
 
     def __init__(self, space: CoExploreSpace,
@@ -151,7 +165,8 @@ class Evaluator:
                  objectives: Sequence[str] | None = None,
                  *, device: str | torch.device = "cuda",
                  chunk_size: int = 4096, use_cache: bool = True,
-                 weights=None, accuracy=None):
+                 weights=None, accuracy=None, traffic=None,
+                 n_slots: int = 8):
         self.device = resolve_device(device)
         self.accuracy = (None if accuracy is None
                          else resolve_accuracy(accuracy))
@@ -180,12 +195,38 @@ class Evaluator:
                     f"{wl.name!r} has {len(wl.layers)} layers")
             self.workloads = (wl,)
             self.workload = wl
+        # traffic= makes the serving triple the default objective set;
+        # serving objectives need a trace and one workload (one trace
+        # drives one fleet), and a trace needs a serving objective
         if objectives is None:
-            objectives = (DEFAULT_MULTI_OBJECTIVES if self.multi
-                          else DEFAULT_OBJECTIVES)
+            if traffic is not None and not self.multi:
+                objectives = DEFAULT_SERVING_OBJECTIVES
+            else:
+                objectives = (DEFAULT_MULTI_OBJECTIVES if self.multi
+                              else DEFAULT_OBJECTIVES)
         self.objectives = resolve_objectives(
             objectives, scope="multi" if self.multi else "single")
-        _refuse_serving(self.objectives)
+        serving = [o for o in self.objectives if o in SERVING_OBJECTIVES]
+        if serving and self.multi:
+            raise ValueError(
+                f"serving objectives {serving} are single-workload only "
+                f"(one traffic trace drives one fleet)")
+        if serving and traffic is None:
+            raise ValueError(
+                f"objectives {serving} need traffic= (a TrafficTrace, "
+                f"TrafficPreset, or preset name)")
+        if traffic is not None and not serving:
+            raise ValueError(
+                f"traffic= given but no serving objective in "
+                f"{self.objectives}; add one of {SERVING_OBJECTIVES} or "
+                f"drop traffic=")
+        if traffic is not None:
+            from repro_torch.serving.traffic import resolve_traffic
+            traffic = resolve_traffic(traffic)
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.traffic = traffic
+        self.n_slots = int(n_slots)
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.chunk_size = int(chunk_size)
@@ -242,7 +283,8 @@ class Evaluator:
         agg = _sweep_mixed(wl, soa, a, use_cache=self.use_cache,
                            device=self.device, outputs="aggregates")
         return objective_matrix(agg, a, macs[0], self.objectives,
-                                accuracy=self.accuracy)
+                                traffic=self.traffic, n_slots=self.n_slots,
+                                device=self.device, accuracy=self.accuracy)
 
     def evaluate(self, genomes: np.ndarray,
                  subset: int | None = None) -> np.ndarray:
@@ -307,6 +349,9 @@ class Evaluator:
             "eval_seconds": self.eval_seconds,
             "device": str(self.device),
             "n_workloads": len(self.workloads),
+            "traffic": (None if self.traffic is None
+                        else self.traffic.name),
+            "n_slots": (None if self.traffic is None else self.n_slots),
         }
 
 
@@ -334,14 +379,17 @@ def random_search(space: CoExploreSpace, workload, budget: int, *,
                   seed: int = 0, device: str | torch.device = "cuda",
                   chunk_size: int = 4096, batch_size: int | None = None,
                   ref_point: np.ndarray | None = None,
-                  weights=None, accuracy=None) -> SearchResult:
+                  weights=None, accuracy=None, traffic=None,
+                  n_slots: int = 8) -> SearchResult:
     """Uniform-random baseline: ``budget`` independent genomes, a running
     non-dominated reduction, hypervolume recorded per batch.  A workload
-    sequence needs a :class:`CoExploreManySpace` (as for every engine)."""
+    sequence needs a :class:`CoExploreManySpace` (as for every engine);
+    ``traffic=`` switches to serving-fleet objectives over an ``n_slots``
+    fleet (:class:`Evaluator`), for every engine."""
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
-                   accuracy=accuracy)
+                   accuracy=accuracy, traffic=traffic, n_slots=n_slots)
     if budget < 1:
         raise ValueError("budget must be >= 1")
     if batch_size is not None and batch_size < 1:
@@ -398,6 +446,7 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
           chunk_size: int = 4096, mutation_rate: float = 0.08,
           ref_point: np.ndarray | None = None,
           weights=None, accuracy=None, archive_epsilon=None,
+          traffic=None, n_slots: int = 8,
           checkpoint_dir: str | None = None,
           checkpoint_every: int = 5,
           fail_at_generation: dict[int, int] | None = None
@@ -422,7 +471,9 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
     threaded RNG stream — every ``checkpoint_every`` generations
     (:class:`repro_torch.runtime.dse_checkpoint.SearchCheckpointer`); on
     entry the newest valid snapshot is restored and the run continues as
-    the uninterrupted one would.  ``fail_at_generation`` injects
+    the uninterrupted one would; a serving search's snapshot carries its
+    trace's digest and ``n_slots``, and resuming under another trace
+    raises.  ``fail_at_generation`` injects
     :class:`~repro_torch.runtime.fault_tolerance.InjectedFailure`\\ s at
     generation boundaries (decremented in place, so a dict shared across
     restarts fails each boundary ``n`` times in all).
@@ -448,7 +499,7 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
-                   accuracy=accuracy)
+                   accuracy=accuracy, traffic=traffic, n_slots=n_slots)
 
     def eps_vector(ref, F0) -> np.ndarray | None:
         if archive_epsilon is None:
@@ -458,11 +509,15 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
                                           float(archive_epsilon))
         return np.asarray(archive_epsilon, dtype=np.float64)
 
-    def acc_payload() -> dict:
-        if ev.accuracy is None:
-            return {}
-        return {"accuracy_state": ev.accuracy.state(),
-                "accuracy_digest": ev.accuracy.digest()}
+    def scored_under() -> dict:
+        out = {}
+        if ev.accuracy is not None:
+            out.update(accuracy_state=ev.accuracy.state(),
+                       accuracy_digest=ev.accuracy.digest())
+        if ev.traffic is not None:
+            out.update(traffic_digest=traffic_digest(ev.traffic),
+                       n_slots=ev.n_slots)
+        return out
 
     eps_archive = None
     snap = ckpt.restore() if ckpt is not None else None
@@ -479,6 +534,14 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
                     f"checkpoint was scored under accuracy digest "
                     f"{want}; this run's accuracy spec yields {got} — "
                     f"refusing to resume against a different calibration")
+        want = (snap.get("traffic_digest"), snap.get("n_slots"))
+        got = ((traffic_digest(ev.traffic), ev.n_slots)
+               if ev.traffic is not None else (None, None))
+        if want[0] is not None and want != got:
+            raise ValueError(
+                f"checkpoint was scored under traffic digest {want[0]} on "
+                f"{want[1]} slots; this run's serving setting is {got} — "
+                f"refusing to resume against a different trace")
         gen = snap["gen"]
         evals = snap["evals"]
         pop, F = snap["pop"], snap["F"]
@@ -513,7 +576,7 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
             ckpt.save(gen=0, evals=evals, pop=pop, F=F, arch_g=arch_g,
                       arch_F=arch_F, ref=ref, history=history,
                       all_F=all_F, rng_state=rng.bit_generator.state,
-                      eps_vec=eps_vec, **acc_payload())
+                      eps_vec=eps_vec, **scored_under())
     reg = obs_metrics.get_registry()
     while evals < budget:
         maybe_fail(gen + 1)
@@ -556,7 +619,7 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
             ckpt.save(gen=gen, evals=evals, pop=pop, F=F, arch_g=arch_g,
                       arch_F=arch_F, ref=ref, history=history,
                       all_F=all_F, rng_state=rng.bit_generator.state,
-                      eps_vec=eps_vec, **acc_payload())
+                      eps_vec=eps_vec, **scored_under())
     res = _result("nsga2", ev, seed, arch_g, arch_F, ref, history, all_F,
                   evals, population=pop, population_objectives=F)
     res.stats["archive_size"] = int(len(arch_F))
@@ -571,7 +634,8 @@ def successive_halving(space: CoExploreSpace, workload, budget: int, *,
                        seed: int = 0, device: str | torch.device = "cuda",
                        chunk_size: int = 4096, min_layers: int = 2,
                        ref_point: np.ndarray | None = None,
-                       weights=None, accuracy=None) -> SearchResult:
+                       weights=None, accuracy=None, traffic=None,
+                       n_slots: int = 8) -> SearchResult:
     """Successive halving over workload layer-prefix subsets.
 
     Rung ``r`` evaluates its population on the first ``m_r`` layers only
@@ -587,7 +651,7 @@ def successive_halving(space: CoExploreSpace, workload, budget: int, *,
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
-                   accuracy=accuracy)
+                   accuracy=accuracy, traffic=traffic, n_slots=n_slots)
     L = ev.full_subset
     sizes = [L]
     while sizes[-1] > min(min_layers, L) and len(sizes) < 4:

@@ -63,6 +63,11 @@ SIGNATURES = {
                                      + [ctypes.c_float, _P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
+    "fleet_sim": {
+        "qappa_fleet_sim": (_I, [_P] * 7 + [_I] * 3
+                            + [ctypes.c_longlong, _P, _P]),
+        "qappa_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

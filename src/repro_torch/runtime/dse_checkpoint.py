@@ -121,7 +121,9 @@ class SearchCheckpointer:
              history: list, all_F: list, rng_state: dict,
              eps_vec: np.ndarray | None,
              accuracy_state: dict | None = None,
-             accuracy_digest: str | None = None) -> str:
+             accuracy_digest: str | None = None,
+             traffic_digest: str | None = None,
+             n_slots: int | None = None) -> str:
         state = {
             "kind": "search",
             "gen": int(gen),
@@ -154,6 +156,11 @@ class SearchCheckpointer:
                                        for k, v in accuracy_state.items()}
         if accuracy_digest is not None:
             state["accuracy_digest"] = str(accuracy_digest)
+        # a serving search's trace and fleet (explore.search.traffic_
+        # digest): resume refuses another trace
+        if traffic_digest is not None:
+            state["traffic_digest"] = str(traffic_digest)
+            state["n_slots"] = int(n_slots)
         with obs_trace.span("checkpoint.save", kind="search",
                             gen=int(gen)):
             path = save_state(self.ckpt_dir, gen, state, keep=self.keep)
@@ -188,6 +195,9 @@ class SearchCheckpointer:
             "eps_vec": state.get("eps_vec"),
             "accuracy_state": state.get("accuracy_state"),
             "accuracy_digest": state.get("accuracy_digest"),
+            "traffic_digest": state.get("traffic_digest"),
+            "n_slots": (None if state.get("n_slots") is None
+                        else int(state["n_slots"])),
         }
 
 

@@ -1,9 +1,8 @@
 """Seeded request-arrival traces for serving-fleet DSE.
 
 Copy of :mod:`repro.serving.traffic` (jax-free numpy): the serving
-presets of the co-exploration name these traces.  The fleet simulator
-that replays them (the reference's ``repro.serving.fleet_sim``) is not
-ported yet.
+presets of the co-exploration name these traces, and
+:mod:`repro_torch.serving.fleet_sim` replays them.
 
 A :class:`TrafficTrace` is the workload the fleet simulator replays
 against every accelerator candidate: per-request arrival times plus the

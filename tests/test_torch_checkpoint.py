@@ -579,6 +579,43 @@ def test_search_resume_refuses_a_changed_accuracy_table(tmp_path):
                 checkpoint_dir=str(tmp_path), **SEARCH)
 
 
+@pytest.mark.parametrize("fail_at", [{1: 1}, {3: 1, 6: 2}])
+def test_serving_search_resume_equals_uninterrupted(tmp_path, fail_at):
+    """A serving search (fleet objectives on the quick trace) resumed
+    through injected failures equals the uninterrupted run and the
+    reference's numpy run."""
+    ref = r_nsga2(R_SPACE, R_TINY, 120, backend="numpy", traffic="quick",
+                  n_slots=3, **SEARCH)
+    whole = t_nsga2(T_SPACE, T_TINY, 120, device=CPU, traffic="quick",
+                    n_slots=3, **SEARCH)
+    res = T_DC.resume_search(T_SPACE, T_TINY, 120,
+                             checkpoint_dir=str(tmp_path),
+                             checkpoint_every=1, fail_at_generation=fail_at,
+                             device=CPU, traffic="quick", n_slots=3,
+                             **SEARCH)
+    assert res.stats["restarts"] == sum(fail_at.values())
+    assert (res.stats["traffic"], res.stats["n_slots"]) == ("quick", 3)
+    _same_search(res, whole)
+    _same_search(res, ref)
+
+
+def test_serving_search_resume_refuses_another_trace(tmp_path):
+    with pytest.raises(T_FT.InjectedFailure):
+        t_nsga2(T_SPACE, T_TINY, 64, device=CPU, traffic="quick",
+                checkpoint_dir=str(tmp_path), checkpoint_every=1,
+                fail_at_generation={2: 1}, **SEARCH)
+    _, st = T_CK.restore_latest_state(str(tmp_path))
+    assert st["n_slots"] == 8 and len(str(st["traffic_digest"])) == 64
+    for kw in (dict(traffic="steady"), dict(traffic="quick", n_slots=4)):
+        with pytest.raises(ValueError, match="different trace"):
+            t_nsga2(T_SPACE, T_TINY, 64, device=CPU,
+                    checkpoint_dir=str(tmp_path), **kw, **SEARCH)
+    res = t_nsga2(T_SPACE, T_TINY, 64, device=CPU, traffic="quick",
+                  checkpoint_dir=str(tmp_path), **SEARCH)
+    _same_search(res, t_nsga2(T_SPACE, T_TINY, 64, device=CPU,
+                              traffic="quick", **SEARCH))
+
+
 def test_resume_search_rejects_non_nsga2(tmp_path):
     with pytest.raises(ValueError, match="nsga2"):
         T_DC.resume_search(T_SPACE, T_TINY, 64,

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: the sweep kernel (and the
-mixed-precision sweeps and searches that launch it), the two
-quantized matmuls of the serving path, the int8-KV decode attention and
-flash attention.
+mixed-precision sweeps and searches that launch it), the serving-fleet
+simulator's kernel, the two quantized matmuls of the serving path, the
+int8-KV decode attention and flash attention.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -11,7 +11,8 @@ where the JAX package is not installed:
 
 The sweep kernel is held against its plain PyTorch version on the card
 and against the port's exact float64 CPU path, whose bit-identity to the
-JAX package's numpy kernel the CPU tests pin.  The matmul kernels sum
+JAX package's numpy kernel the CPU tests pin.  The fleet kernel's stamps
+are integers: it must equal its plain version bit for bit.  The matmul kernels sum
 exactly in int32, so they must equal their plain versions bit for bit,
 in every regime and at every split of k.
 The decode-attention kernel is held to its plain version at 1e-5 x
@@ -344,6 +345,104 @@ def test_search_on_card_launches_once_a_chunk(cuda_device, method):
     F = exact.evaluate(res.genomes)
     assert _rel(res.front_objectives[:, :2], F[:, :2]) <= RTOL
     assert np.array_equal(res.front_objectives[:, 2], F[:, 2])
+
+
+# ---------------------------------------------------------------------------
+# the serving-fleet simulator's kernel
+# ---------------------------------------------------------------------------
+
+def _fleet_case(n, preset, seed, device):
+    from repro_torch.serving.traffic import resolve_traffic
+    trace = resolve_traffic(preset)
+    step = np.random.default_rng(seed).uniform(0.005, 0.9, n)
+    drain = (int(np.ceil(trace.arrival_s.max() / step.min()))
+             + int(trace.service_iters.sum()) + 1)
+    args = tuple(torch.from_numpy(a).to(device) for a in
+                 (step, trace.arrival_s, trace.service_iters))
+    return args, drain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 32768])
+@pytest.mark.parametrize("n_slots", [1, 3, 8, 16, 17, 40])
+def test_fleet_kernel_equals_plain_bit_for_bit(cuda_device, n, n_slots):
+    """The fleet kernel's stamps equal its plain version's on the card,
+    at slot counts in registers and past them (the workspace path), with
+    the drain horizon and a window that cuts."""
+    from repro_torch.kernels import fleet_sim as FK
+    for preset, seed in (("steady", n), ("bursty", n + 1),
+                         ("interactive", n + 2)):
+        args, drain = _fleet_case(n, preset, seed, cuda_device)
+        for n_iters in (drain, max(1, drain // 7)):
+            before = FK.launches
+            got = FK.fleet_stamps(*args, n_slots, n_iters)
+            assert FK.launches == before + 1
+            want = FK.fleet_stamps_ref(*args, n_slots, n_iters)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and g.dtype == torch.int64
+                assert torch.equal(g, w)
+            blocks, threads, slots = FK.last_grid
+            assert (blocks, threads) == (-(-n // FK.THREADS), FK.THREADS)
+            assert slots == (0 if n_slots > FK.MAX_REGISTER_SLOTS
+                             else max(1, 1 << (n_slots - 1).bit_length()))
+
+
+@pytest.mark.cuda
+def test_simulate_fleet_on_card_equals_cpu(cuda_device):
+    """simulate_fleet on the card (the kernel) and on the CPU (the plain
+    version): identical stamps and metrics, and the scalar oracle's."""
+    from repro_torch.serving.fleet_sim import (simulate_fleet,
+                                               simulate_fleet_scalar)
+    step = np.random.default_rng(4).uniform(0.01, 0.9, 500)
+    etok = np.random.default_rng(5).uniform(0.1, 3.0, 500)
+    for preset in ("steady", "bursty", "interactive", "quick"):
+        for max_iters in (None, 50):
+            a = simulate_fleet(step, etok, preset, n_slots=8,
+                               max_iters=max_iters, device=cuda_device)
+            b = simulate_fleet(step, etok, preset, n_slots=8,
+                               max_iters=max_iters, device="cpu")
+            assert (a.backend, b.backend) == ("cuda", "cpu")
+            for f in ("submit_iter", "comp_iter", "active_iters"):
+                assert np.array_equal(getattr(a, f), getattr(b, f))
+            ma, mb = a.metrics(), b.metrics()
+            for k in ma:
+                assert ma[k].tobytes() == mb[k].tobytes(), k
+            for i in (0, 137, 499):
+                one = simulate_fleet_scalar(step[i], etok[i], preset,
+                                            n_slots=8, max_iters=max_iters)
+                assert np.array_equal(one.comp_iter[0], a.comp_iter[i])
+                assert one.active_iters[0] == a.active_iters[i]
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_refuses_cpu_tensors_and_mixed_devices(cuda_device):
+    from repro_torch.kernels import fleet_sim as FK
+    args, drain = _fleet_case(64, "steady", 0, cuda_device)
+    with pytest.raises(ValueError, match="share one device"):
+        FK.fleet_stamps(args[0], args[1].cpu(), args[2], 8, drain)
+    before = FK.launches
+    cpu = FK.fleet_stamps(*(a.cpu() for a in args), 8, drain)
+    assert FK.launches == before                # the plain version
+    got = FK.fleet_stamps(*args, 8, drain)
+    assert all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu))
+
+
+@pytest.mark.cuda
+def test_serving_search_on_card_launches_both_kernels(cuda_device):
+    """A serving search on the card: one sweep-kernel and one fleet-kernel
+    launch per evaluation chunk, finite front objectives."""
+    from repro_torch.explore.search import nsga2
+    from repro_torch.explore.space import space_for_workload
+    from repro_torch.kernels import fleet_sim as FK
+    space = space_for_workload("vgg16")
+    k0, f0 = K.launches, FK.launches
+    res = nsga2(space, "vgg16", 192, seed=5, pop_size=32, chunk_size=40,
+                device=cuda_device, traffic="quick", n_slots=4)
+    chunks = res.stats["chunks"]
+    assert K.launches - k0 == FK.launches - f0 == chunks >= 5
+    assert res.stats["traffic"] == "quick" and res.stats["n_slots"] == 4
+    assert np.isfinite(res.front_objectives).all()
 
 
 # ---------------------------------------------------------------------------

@@ -222,9 +222,15 @@ def test_objective_matrix_equals_reference():
         TO.objective_matrix(agg, a, macs, ("total_energy_j",))
     with pytest.raises(ValueError, match="unknown objective"):
         TO.objective_matrix(agg, a, macs, ("speed",))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        TO.objective_matrix(agg, a, macs, ("p99_latency_s",),
-                            traffic="quick")
+    # the serving objectives: the fleet simulator's metrics, clamped to
+    # the floor penalty, as the reference's numpy route gives them
+    objs = TO.SERVING_OBJECTIVES + ("accuracy_noise",)
+    for traffic, n_slots in (("quick", 8), ("interactive", 1)):
+        want = RO.objective_matrix(agg, a, macs, objs, traffic=traffic,
+                                   n_slots=n_slots)
+        got = TO.objective_matrix(agg, a, macs, objs, traffic=traffic,
+                                  n_slots=n_slots, device="cpu")
+        assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("weights", [None, (1.0, 2.0, 0.5)])
@@ -256,6 +262,41 @@ def test_objective_registry_equals_reference():
               "DEFAULT_OBJECTIVES", "DEFAULT_MULTI_OBJECTIVES",
               "DEFAULT_SERVING_OBJECTIVES", "FLOOR_PENALTY"):
         assert getattr(TO, k) == getattr(RO, k), k
+
+
+def test_mode_sqnr_db_equals_reference():
+    assert TO.mode_sqnr_db() == RO.mode_sqnr_db()
+    from repro_torch import explore
+    assert explore.mode_sqnr_db is TO.mode_sqnr_db
+    assert "mode_sqnr_db" in explore.__all__
+
+
+def test_serving_metrics_equal_reference():
+    agg = _agg(None, 64, 21)
+    for traffic in ("steady", "bursty"):
+        want = RO.serving_metrics(agg, traffic, n_slots=4)
+        got = TO.serving_metrics(agg, traffic, n_slots=4, device="cpu")
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].tobytes() == want[k].tobytes(), k
+
+
+def test_objective_matrix_serving_floor_penalty():
+    """Overloaded candidates land on the finite floor penalty, keeping
+    hypervolume and nsga2's arithmetic finite (the reference's case)."""
+    agg = {"latency_s": np.array([0.5]), "energy_j": np.array([1.0]),
+           "perf_per_area": np.array([1.0]), "area_mm2": np.array([1.0])}
+    from repro_torch.serving.traffic import resolve_traffic
+    f = TO.objective_matrix(
+        agg, None, None, objectives=("p99_latency_s", "energy_per_token_j"),
+        traffic=resolve_traffic("interactive"), n_slots=1, device="cpu")
+    assert np.isfinite(f).all()
+    assert (f <= TO.FLOOR_PENALTY).all()
+    assert f.tobytes() == RO.objective_matrix(
+        agg, None, None, objectives=("p99_latency_s", "energy_per_token_j"),
+        traffic="interactive", n_slots=1).tobytes()
+    with pytest.raises(ValueError, match="traffic"):
+        TO.objective_matrix(agg, None, None, objectives=("p99_latency_s",))
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +349,110 @@ def test_search_engines_equal_reference(engine, multi):
             for p in want.front_points()]
     assert [p["config"].name() for p in got.front_points()] \
         == [p["config"].name() for p in want.front_points()]
+
+
+SERVING_ENGINES = [("random", dict(batch_size=40)),
+                   ("nsga2", dict(pop_size=16)),
+                   ("successive_halving", dict(eta=3))]
+
+
+@pytest.mark.parametrize("traffic", ["quick", "bursty"])
+@pytest.mark.parametrize("engine", range(len(SERVING_ENGINES)))
+def test_serving_search_engines_equal_reference(engine, traffic):
+    """Every engine under serving objectives (the fleet simulator's
+    plain version on the CPU) reproduces the reference's numpy run."""
+    method, kw = SERVING_ENGINES[engine]
+    rw, tw = R_TINY[2], T_TINY[2]
+    rs, ts = RSp.space_for_workload(rw), TSp.space_for_workload(tw)
+    want = RS.SEARCH_METHODS[method](rs, rw, 96, seed=21, backend="numpy",
+                                     traffic=traffic, n_slots=3, **kw)
+    got = TS.SEARCH_METHODS[method](ts, tw, 96, seed=21, device="cpu",
+                                    traffic=traffic, n_slots=3, **kw)
+    _assert_same_search(got, want)
+    assert got.objectives == TO.DEFAULT_SERVING_OBJECTIVES
+    for k in ("traffic", "n_slots"):
+        assert got.stats[k] == want.stats[k], k
+
+
+@pytest.mark.parametrize("kw", [
+    dict(preset="serving-quick"),
+    dict(preset="quick", traffic="quick"),
+    dict(preset="serving-default", budget=96, pop_size=16),
+    dict(preset="serving-thorough", budget=96, pop_size=16),
+    dict(preset="quick", budget=96, traffic="interactive", n_slots=2,
+         objectives=("p50_latency_s", "neg_slo_attainment",
+                     "neg_throughput_tps", "area_mm2"))])
+def test_run_serving_equals_reference(kw):
+    """The serving presets and an explicit trace over a non-serving
+    preset, through run(), on the CPU: the reference's numpy result."""
+    want = RD.run(RD.ExploreSpec.mixed("vgg16", seed=2, backend="numpy",
+                                       **kw))
+    got = TD.run(TD.ExploreSpec.mixed("vgg16", seed=2, **kw), device="cpu")
+    _assert_same_search(got, want)
+    assert (got.stats["traffic"], got.stats["n_slots"]) \
+        == (want.stats["traffic"], want.stats["n_slots"])
+
+
+def test_serving_objectives_via_facade():
+    res = TD.run(TD.ExploreSpec.mixed("vgg16", preset="quick", seed=7,
+                                      budget=64, traffic="quick"),
+                 device="cpu")
+    assert res.objectives == TO.DEFAULT_SERVING_OBJECTIVES
+    assert res.stats["traffic"] == "quick"
+    assert res.stats["n_slots"] == 8
+    assert np.isfinite(res.front_objectives).all()
+
+
+def test_serving_preset_equals_explicit_traffic():
+    a = TD.run(TD.ExploreSpec.mixed("vgg16", preset="serving-quick", seed=2,
+                                    budget=64), device="cpu")
+    b = TD.run(TD.ExploreSpec.mixed("vgg16", preset="quick", seed=2,
+                                    budget=64, traffic="quick"),
+               device="cpu")
+    assert a.objectives == b.objectives
+    assert np.array_equal(a.front_objectives, b.front_objectives)
+
+
+def test_serving_front_differs_from_edp_front():
+    """The reference bench's claim in miniature: traffic-aware objectives
+    select a different front than per-inference EDP."""
+    base = TD.run(TD.ExploreSpec.mixed("vgg16", preset="quick", seed=7,
+                                       budget=96), device="cpu")
+    serv = TD.run(TD.ExploreSpec.mixed("vgg16", preset="quick", seed=7,
+                                       budget=96, traffic="steady"),
+                  device="cpu")
+    assert {g.tobytes() for g in base.genomes} \
+        != {g.tobytes() for g in serv.genomes}
+
+
+def test_evaluator_serving_validation():
+    space = TSp.space_for_workload(T_TINY[0])
+    for kw, match in ((dict(objectives=("p99_latency_s",)), "need traffic="),
+                      (dict(objectives=("edp",), traffic="quick"),
+                       "no serving objective"),
+                      (dict(traffic="quick", n_slots=0), "n_slots")):
+        with pytest.raises(ValueError, match=match):
+            TS.Evaluator(space, T_TINY[0], device="cpu", **kw)
+        with pytest.raises(ValueError, match=match):
+            RS.Evaluator(RSp.space_for_workload(R_TINY[0]), R_TINY[0],
+                         backend="numpy", **kw)
+    mspace = TSp.space_for_workloads(T_TINY[:2])
+    with pytest.raises(ValueError, match="single-workload only"):
+        TS.Evaluator(mspace, list(T_TINY[:2]), device="cpu",
+                     objectives=("p99_latency_s",), traffic="quick")
+    # one trace drives one fleet: a suite search refuses serving
+    with pytest.raises(ValueError, match="single-workload only"):
+        TD.run(TD.ExploreSpec.many(SUITE, precision="mixed",
+                                   objectives=("p99_latency_s",)),
+               device="cpu")
+    with pytest.raises(ValueError, match="no serving objective"):
+        TD.run(TD.ExploreSpec.many(SUITE, precision="mixed",
+                                   traffic="quick"), device="cpu")
+    ev = TS.Evaluator(space, T_TINY[0], device="cpu", traffic="bursty")
+    assert ev.objectives == TO.DEFAULT_SERVING_OBJECTIVES
+    assert ev.stats()["traffic"] == "bursty" and ev.stats()["n_slots"] == 8
+    plain = TS.Evaluator(space, T_TINY[0], device="cpu").stats()
+    assert plain["traffic"] is None and plain["n_slots"] is None
 
 
 def test_evaluator_memo_chunks_and_subsets():
@@ -380,17 +525,33 @@ def test_golden_many_workload_front_reproduced():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(traffic="quick"), "ROADMAP A.5"),
-    (dict(n_slots=4), "ROADMAP A.5"),
     (dict(mesh=4), "one card")])
 def test_spec_refuses_knobs_not_ported(kwargs, match):
     with pytest.raises(ValueError, match=match):
         TD.ExploreSpec.mixed("vgg16", **kwargs)
-    if "n_slots" not in kwargs and "traffic" not in kwargs:
-        with pytest.raises(ValueError, match=match):
-            TD.ExploreSpec.many(SUITE, **kwargs)
-        with pytest.raises(ValueError, match=match):
-            TD.ExploreSpec.single("vgg16", **kwargs)
+    with pytest.raises(ValueError, match=match):
+        TD.ExploreSpec.many(SUITE, **kwargs)
+    with pytest.raises(ValueError, match=match):
+        TD.ExploreSpec.single("vgg16", **kwargs)
+
+
+@pytest.mark.parametrize("knob,value", [("backend", "numpy"),
+                                        ("backend", "jax"),
+                                        ("use_pallas", True),
+                                        ("use_pallas", False)])
+def test_spec_refuses_knobs_replaced_by_device(knob, value):
+    """The reference's route knobs raise a ValueError that names
+    ``device=`` in every constructor, never a TypeError from the
+    dataclass or an engine."""
+    for ctor in (lambda **k: TD.ExploreSpec.single("vgg16", **k),
+                 lambda **k: TD.ExploreSpec.mixed("vgg16", **k),
+                 lambda **k: TD.ExploreSpec.many(SUITE, **k),
+                 lambda **k: TD.ExploreSpec.many(SUITE, precision="mixed",
+                                                 **k)):
+        with pytest.raises(ValueError, match=r"run\(\.\.\., device=\)"):
+            ctor(**{knob: value})
+    spec = TD.ExploreSpec.single("vgg16", engine="scalar")
+    assert spec.engine == "scalar"
 
 
 @pytest.mark.parametrize("knob", ["checkpoint_dir", "telemetry"])
@@ -478,10 +639,7 @@ def test_search_refusals():
         TD.run(TD.ExploreSpec.many(SUITE, precision="mixed",
                                    accuracy="measured:mamba2-130m"),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        TD.run(TD.ExploreSpec.mixed("vgg16", preset="serving-quick"),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    with pytest.raises(ValueError, match="need traffic="):
         TD.run(TD.ExploreSpec.mixed("vgg16", objectives=("p99_latency_s",)),
                device="cpu")
     space = TSp.space_for_workload(T_TINY[0])

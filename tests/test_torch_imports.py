@@ -57,7 +57,10 @@ def test_every_module_is_listed():
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.runtime",
                  "repro_torch.runtime.fault_tolerance",
-                 "repro_torch.runtime.dse_checkpoint"):
+                 "repro_torch.runtime.dse_checkpoint",
+                 "repro_torch.serving.fleet_sim",
+                 "repro_torch.kernels.fleet_sim",
+                 "repro_torch.core.dataflow"):
         assert name in mods
 
 
@@ -164,11 +167,12 @@ def test_matmul_libraries_hash_their_shared_header(name, monkeypatch,
 @pytest.mark.parametrize("name,fn,n_args", [
     ("w8a8_decode", "qappa_w8a8_decode", 22),
     ("flash_attention", "qappa_flash_attention", 12),
-    ("flash_attention_tc", "qappa_flash_attention_tc", 12)])
+    ("flash_attention_tc", "qappa_flash_attention_tc", 12),
+    ("fleet_sim", "qappa_fleet_sim", 13)])
 def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
                                                   monkeypatch, tmp_path):
-    """Each attention source has a bound C entry point, and its library
-    name changes when its source changes."""
+    """Each attention source, and the fleet simulator's, has a bound C
+    entry point, and its library name changes when its source changes."""
     import shutil
     from repro_torch.kernels import _build
     assert len(_build.SIGNATURES[name][fn][1]) == n_args
@@ -185,10 +189,12 @@ def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
 
 
 @pytest.mark.parametrize("entry", ["fit_ppa_suite", "predict", "resume_sweep",
-                                   "resume_search", "run_checkpointed"])
+                                   "resume_search", "run_checkpointed",
+                                   "simulate_fleet", "serving_search"])
 def test_slice_entry_points_default_to_the_card(entry, tmp_path):
-    """The PPA fit, its predictions and the resumable sweep and search
-    run on the card unless asked for the CPU, and raise without one."""
+    """The PPA fit, its predictions, the resumable sweep and search, the
+    fleet simulator and a serving search run on the card unless asked for
+    the CPU, and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     import numpy as np
@@ -199,6 +205,7 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
     from repro_torch.core.workloads import get_workload
     from repro_torch.explore.space import space_for_workload
     from repro_torch.runtime.dse_checkpoint import resume_search, resume_sweep
+    from repro_torch.serving.fleet_sim import simulate_fleet
     cfgs = [AcceleratorConfig(pe_rows=r, pe_cols=c) for r in (8, 12, 16)
             for c in (8, 14)]
     calls = {
@@ -213,6 +220,10 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
             checkpoint_dir=str(tmp_path)),
         "run_checkpointed": lambda: run(ExploreSpec.single(
             "vgg16", [cfgs], chunk_size=4, checkpoint_dir=str(tmp_path))),
+        "simulate_fleet": lambda: simulate_fleet(
+            np.array([0.1, 0.2]), np.ones(2), "quick"),
+        "serving_search": lambda: run(ExploreSpec.mixed(
+            "vgg16", preset="serving-quick")),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
