@@ -143,7 +143,8 @@ Phases (any failure exits non-zero):
     the bf16 tensor-core route, and the W8A8 projections on the tensor
     cores (the replayed decode steps on split-k), finite
     logits; at 1 x 4096 the flash kernel within 2e-2 of the plain route's
-    attention on every layer's own q, k, v, and the kernel route with
+    attention on every layer's own q, k, v, and each output row within
+    2^-6 of its own max|value| (the median |value| printed beside), and the kernel route with
     that attention swapped in equal to the plain route bit for bit (the
     routes' logits differ beyond 2e-2: the W8A8 network amplifies one-ulp
     attention differences, reported per layer); the forward's wall time
@@ -151,6 +152,30 @@ Phases (any failure exits non-zero):
 11b. ``prefill_fp32``: the FP32 mode's forward (phi4-mini at full width,
     depth cut to 2 layers, 1 x 4096): every flash launch on the float32
     route, within 1e-5 of the plain attention on each layer;
+11c. ``ssm_serve`` / ``hybrid_serve``: mamba2-130m (24 Mamba-2 layers, d
+    768) and zamba2-1.2b (38 layers, d 2048, the shared attention + MLP
+    block after every 6th) at full width in W8A8 through
+    ``launch.serve.generate`` (random weights from seed 0), batch 4, 16 + 16 tokens: 48 and 118
+    W8A8 launches a step (2 a layer, 7 an application of the shared
+    block), all on the split-k regime, no other kernel; ms a step,
+    tok/s, peak memory; the served 32 tokens teacher-forced through the
+    kernel and plain routes: logits within 1e-6 x max|logit| (0
+    expected) and ``state``, ``conv``, ``shared_k``, ``shared_v``
+    identical after every step; one profiled step's busy share;
+11d. ``ssm_prefill``: each model's 1 x 4096 forward: every projection on
+    the tensor cores, 6 bf16 flash launches for zamba2; wall time, peak
+    memory above the params, the device time split (W8A8 ``tc``, flash,
+    the rest: the SSD and the other eager ops) and one layer's SSD alone;
+    mamba2's kernel route equal to the plain route bit for bit, zamba2's
+    flash within 2e-2 of the plain attention on each application's own
+    q, k, v (and each row within 2^-6 of its own max) and, with that
+    attention swapped in, equal to the plain route bit for bit;
+    ``ssm_tc_shapes``: W8A8 ``tc`` at their projection
+    shapes (mamba2's in_proj at the unaligned n = 3352 beside n = 3360),
+    kernel equal to plain, beside ``torch._int_mm`` and the bound;
+11e. ``loss``: ``Model.loss`` of mamba2-130m at full width under fp32 on
+    ``SyntheticLM`` batch 0 (4 x 512), the same params on the card and
+    the CPU, within 1e-5 relative;
 12. ``attention_parity``: both attention kernels against their plain
     versions (decode: bit for bit, at positions on the boundaries of its
     splits of S, within the 1e-5 x max|out| bound; flash: 1e-5 f32,
@@ -295,6 +320,10 @@ PREFILL = dict(batch=4, prompt_len=16, long_len=4096)
 LOGIT_TOL = 2e-2                      # bf16 routes (tests/test_torch_serve)
 DECODE_TOL = 1e-5                     # x max|out| (tests/test_kernels_decode)
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+# bf16 flash on a model's own q, k, v: besides FLASH_TOL, each output row
+# (a query position and head) within 2^-6 of that row's own max|value|
+# (an output element's bf16 ulp is at most 2^-7 of it)
+FLASH_ROW_RTOL = 2.0 ** -6
 # decode attention at phi4-mini's serving shape: (b, kvh, rep, hd)
 DECODE_SHAPE = (4, 8, 3, 128)
 DECODE_S = (4096, 32768)
@@ -308,6 +337,17 @@ PREFILL_M = 4096
 REGIME_M = (16, 24, 32, 40, 48, 64)
 # the FP32 PE mode's forward: phi4-mini at full width, depth cut to this
 FP32_LAYERS = 2
+# the SSM and hybrid families at full width and depth, served as phi4 is
+# (SERVE) and forwarded at 1 x PREFILL["long_len"]; W8A8's tensor-core
+# regime at their projection shapes (mamba2's in_proj 768 x 3352 beside
+# an aligned 768 x 3360, its out_proj, zamba2's in_proj and out_proj)
+SSM_ARCHS = {"ssm": "mamba2-130m", "hybrid": "zamba2-1.2b"}
+SSM_TC_SHAPES = ((768, 3352), (768, 3360), (1536, 768), (2048, 8384),
+                 (4096, 2048))
+# the evaluation loss: mamba2-130m under fp32 on SyntheticLM batch 0,
+# card vs CPU
+LOSS = dict(arch="mamba2-130m", quant="fp32", batch=4, seq_len=512, step=0,
+            rtol=1e-5)
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
 # float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
@@ -347,6 +387,18 @@ def rel_err(got, want) -> float:
     g = np.asarray(got, dtype=np.float64)
     w = np.asarray(want, dtype=np.float64)
     return float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+
+
+def flash_row_err(got, want) -> dict:
+    """bf16 flash ``got`` against the plain attention ``want`` (any
+    layout with head_dim last): the largest absolute error, the largest
+    error of a row over that row's own max|want|, and the median |want|
+    that the absolute error compares with."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    row = err.amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
+    return {"max_abs": float(err.max()), "row_rel": float(row.max()),
+            "median_abs_want": float(w.abs().median())}
 
 
 def nvidia_smi() -> str:
@@ -2496,7 +2548,6 @@ def phase_prefill(device, params) -> dict:
     """``Model.prefill`` at 4 x 16 and the forward at 1 x 4096, kernel
     route vs plain route."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import attention
     from repro_torch.models.model import Model
@@ -2579,8 +2630,7 @@ def phase_prefill(device, params) -> dict:
         got = real_attend(q, k, v, causal=causal, window=window, impl=impl)
         want = attention.dense_attention(q, k, v, causal=causal,
                                          window=window)
-        layers.append([float((got.float() - want.float()).abs().max()),
-                       int((got != want).sum())])
+        layers.append([flash_row_err(got, want), int((got != want).sum())])
         return want
     real_attend = attention.attend
     attention.attend = swapped
@@ -2589,32 +2639,23 @@ def phase_prefill(device, params) -> dict:
     finally:
         attention.attend = real_attend
     check(len(layers) == cfg.n_layers, "swapped attention calls")
-    worst_layer = max(e for e, _ in layers)
-    check(worst_layer <= FLASH_TOL["bfloat16"],
-          f"flash vs plain attention {worst_layer:.3g} on a layer of the "
+    worst_layer = max(e["max_abs"] for e, _ in layers)
+    worst_row = max(e["row_rel"] for e, _ in layers)
+    check(worst_layer <= FLASH_TOL["bfloat16"]
+          and worst_row <= FLASH_ROW_RTOL,
+          f"flash vs plain attention {worst_layer:.3g} absolute, "
+          f"{worst_row:.3g} of a row's max on a layer of the "
           f"1 x {PREFILL['long_len']} forward")
     check(bool(torch.equal(mixed, lp)),
           "kernel route with plain attention differs from the plain route")
     n_out = tokens.shape[1] * cfg.n_heads * cfg.head_dim
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        kern.forward(params, tokens, last_only=True)
-        torch.cuda.synchronize(device)
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    flash_us = w8a8_us = total_us = 0.0
-    kernel_names = set()
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        total_us += us or 0.0
-        if "flash_tc_kernel" in ev.key or "w8a8_" in ev.key:
-            kernel_names.add(ev.key[:80])
-        if "flash_tc_kernel" in ev.key:
-            flash_us += us or 0.0
-        if "w8a8_tc_kernel" in ev.key or "w8a8_dp4a_kernel" in ev.key:
-            w8a8_us += us or 0.0
+    prof = _profile_split(
+        lambda: kern.forward(params, tokens, last_only=True),
+        {"flash": ("flash_tc_kernel",),
+         "w8a8": ("w8a8_tc_kernel", "w8a8_dp4a_kernel")})
+    total_ms, flash_ms = prof["profiled_device_ms"], prof["flash_device_ms"]
+    w8a8_ms = prof["w8a8_device_ms"]
     return {"phase": "prefill", "prefill_batch": PREFILL["batch"],
             "prefill_len": PREFILL["prompt_len"], "prefill_s": prefill_s,
             "forward_len": PREFILL["long_len"],
@@ -2626,23 +2667,28 @@ def phase_prefill(device, params) -> dict:
             "logits_max_abs_vs_plain": diff,
             "logits_max_abs": float(lp.float().abs().max()),
             "hidden_drift_per_layer": drift,
-            "flash_vs_plain_per_layer_max_abs": [e for e, _ in layers],
+            "flash_vs_plain_per_layer_max_abs": [e["max_abs"]
+                                                 for e, _ in layers],
+            "flash_vs_plain_per_layer_row_rel": [e["row_rel"]
+                                                 for e, _ in layers],
+            "attention_out_per_layer_median_abs": [e["median_abs_want"]
+                                                   for e, _ in layers],
             "flash_vs_plain_ulp_flip_share": max(n for _, n in layers)
             / n_out,
             "kernel_matmuls_plain_attention_equal_plain_route": True,
             "greedy_token_same": bool(torch.equal(lk.argmax(-1),
                                                   lp.argmax(-1))),
-            "profiled_wall_ms": prof_wall_ms,
-            "profiled_device_ms": total_us / 1e3 or None,
-            "flash_device_ms": flash_us / 1e3 or None,
-            "flash_share_of_device": (flash_us / total_us
-                                      if total_us else None),
-            "w8a8_device_ms": w8a8_us / 1e3 or None,
-            "w8a8_share_of_device": (w8a8_us / total_us
-                                     if total_us else None),
-            "profiled_kernel_names": sorted(kernel_names),
-            "flash_share_of_wall": (flash_us / 1e3 / prof_wall_ms
-                                    if flash_us else None)}
+            "profiled_wall_ms": prof["profiled_wall_ms"],
+            "profiled_device_ms": total_ms or None,
+            "flash_device_ms": flash_ms or None,
+            "flash_share_of_device": flash_ms / total_ms if total_ms
+            else None,
+            "w8a8_device_ms": w8a8_ms or None,
+            "w8a8_share_of_device": w8a8_ms / total_ms if total_ms
+            else None,
+            "profiled_kernel_names": prof["kernel_names"],
+            "flash_share_of_wall": (flash_ms / prof["profiled_wall_ms"]
+                                    if flash_ms else None)}
 
 
 def phase_prefill_fp32(device) -> dict:
@@ -2699,6 +2745,381 @@ def phase_prefill_fp32(device) -> dict:
             "forward_len": PREFILL["long_len"], "forward_wall_s": wall_s,
             "launches": launches,
             "flash_vs_plain_per_layer_max_abs": layers}
+
+
+# ------------------------------------------ SSM and hybrid (mamba2, zamba2)
+
+def _ssm_model(arch: str, device, impl: str = "auto", quant=None,
+               quantize: bool = True):
+    """``arch`` at full width and depth with random weights from
+    ``SERVE["seed"]`` drawn as ``serve`` draws them (quantized unless
+    ``quantize`` is false; ``quant`` overrides the config's mode)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch)
+    if quant is not None:
+        cfg = dataclasses.replace(cfg, quant=quant)
+    model = Model(cfg, device=device, impl=impl)
+    params = model.init(torch.Generator(device).manual_seed(SERVE["seed"]),
+                        quantize=quantize)
+    return model, params
+
+
+def _ssm_matmuls_per_pass(cfg) -> int:
+    """W8A8 products a decode step or forward makes: in_proj and out_proj
+    a layer, and the shared block's 7 projections an application."""
+    apps = sum(1 for l in range(cfg.n_layers) if cfg.shared_attn_every
+               and l % cfg.shared_attn_every == cfg.shared_attn_every - 1)
+    return 2 * cfg.n_layers + 7 * apps, apps
+
+
+def phase_ssm_serve(device, family: str) -> dict:
+    """``launch.serve.generate`` at full width in W8A8 for the SSM
+    (mamba2-130m) or hybrid (zamba2-1.2b) family, every W8A8 product on
+    the split-k regime; then the served 32 tokens teacher-forced through
+    the kernel and plain routes on the same params (logits and every
+    cache bit for bit after each step) and one profiled decode step."""
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    arch = SSM_ARCHS[family]
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    kern, params = _ssm_model(arch, device, impl="kernel")
+    cfg = kern.cfg
+    prompts = torch.randint(
+        0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]), device=device,
+        generator=torch.Generator(device).manual_seed(SERVE["seed"] + 1))
+    _reset_matmul_counts()
+    _reset_attention_counts()
+    res = generate(kern, params, prompts, gen=SERVE["gen"])
+    wall_s = time.perf_counter() - t0
+    launches = {**_matmul_counts(), **_attention_counts()}
+    peak = torch.cuda.max_memory_allocated(device)
+    steps = SERVE["prompt_len"] + SERVE["gen"]
+    per_pass, apps = _ssm_matmuls_per_pass(cfg)
+    want = steps * per_pass
+    check(launches["w8a8_matmul"] == want
+          and launches["w8a8_matmul_dp4a"] == want
+          and launches["w8a8_matmul_tc"] == 0,
+          f"{arch} serve: W8A8 launches {launches}, expected {want} on "
+          f"the split-k regime")
+    check(launches["w4a8_matmul"] == 0 and launches["flash_attention"] == 0
+          and launches["w8a8_decode_attention"] == 0,
+          f"{arch} serve launched another kernel: {launches}")
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (SERVE["batch"], SERVE["gen"])
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"{arch} tokens {tuple(toks.shape)} outside [0, vocab)")
+
+    # the served stream (the prompts, then the greedy tokens) through both
+    # routes on the same params
+    stream = torch.cat([prompts, toks.to(prompts.dtype)], dim=1)
+    plain = Model(cfg, device=device, impl="ref")
+    ck = kern.init_cache(SERVE["batch"], steps + 1)
+    cp = plain.init_cache(SERVE["batch"], steps + 1)
+    worst_abs = worst_scaled = 0.0
+    caches_same = True
+    _reset_matmul_counts()
+    for i in range(steps):
+        tok = stream[:, i:i + 1]
+        lk, ck = kern.decode_step(params, ck, tok, i)
+        lp, cp = plain.decode_step(params, cp, tok, i)
+        check(bool(torch.isfinite(lk).all()), f"{arch}: non-finite logits")
+        diff = float((lk.float() - lp.float()).abs().max())
+        worst_abs = max(worst_abs, diff)
+        worst_scaled = max(worst_scaled,
+                           diff / max(float(lp.float().abs().max()), 1e-30))
+        caches_same &= all(torch.equal(ck[k], cp[k]) for k in ck)
+    parity_launches = _matmul_counts()
+    check(parity_launches["w8a8_matmul"] == want,
+          f"{arch} parity run: kernel route launched {parity_launches}")
+    check(worst_scaled <= RTOL,
+          f"{arch} logits kernel vs plain {worst_scaled:.3g} x max|logit|")
+    check(caches_same, f"{arch} caches differ between the routes")
+    tok = stream[:, -1:]
+
+    def step(_):
+        kern.decode_step(params, ck, tok, steps)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    step(0)
+    torch.cuda.synchronize(device)
+    step_wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top, ops, _ = _profile_device_ms(step, 3)
+    # bytes a step must read: the quantized projections and their scales,
+    # and the float32 embedding the logits product reads
+    proj = sum(v.data.numel() + 4 * v.scale.numel()
+               for lp in params["layers"] + [params.get("shared", {})]
+               for v in lp.values() if hasattr(v, "scale"))
+    step_bytes = proj + params["embed"].numel() * 4
+    del kern, plain, params, ck, cp
+    return {"phase": f"{family}_serve", "arch": arch,
+            "n_layers": cfg.n_layers, "shared_applications": apps,
+            "launches": launches,
+            "w8a8_per_step": per_pass,
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "decode_step_ms": res["decode_s"] / SERVE["gen"] * 1e3,
+            "tok_per_s": res["tok_per_s"], "wall_s_with_init": wall_s,
+            "peak_mem_bytes": peak,
+            "tokens_head": toks[0, :8].tolist(),
+            "parity_steps": steps, "logits_max_abs": worst_abs,
+            "logits_rel_to_max": worst_scaled,
+            "caches_identical": caches_same,
+            "step_wall_ms": step_wall_ms, "step_device_ms": busy_ms,
+            "device_busy_share": (busy_ms / step_wall_ms
+                                  if busy_ms else None),
+            "step_device_ops": ops, "step_top_kernels_ms": top,
+            "step_bytes": step_bytes,
+            "step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3}
+
+
+def _profile_split(fn, names: dict) -> dict:
+    """One profiled call of ``fn``: device time in ms of the kernels
+    whose names hold each of ``names``' substrings (and those names), the
+    rest, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = {k: 0.0 for k in names}
+    rows, total, matched = [], 0.0, set()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        total += us
+        rows.append((us, ev.key[:60], ev.count))
+        for k, subs in names.items():
+            if any(s in ev.key for s in subs):
+                split[k] += us
+                matched.add(ev.key[:80])
+                break
+    out = {f"{k}_device_ms": v / 1e3 for k, v in split.items()}
+    out.update(profiled_wall_ms=wall_ms, profiled_device_ms=total / 1e3,
+               eager_device_ms=(total - sum(split.values())) / 1e3,
+               kernel_names=sorted(matched),
+               top_kernels_ms=[[key, us / 1e3, n] for us, key, n in
+                               sorted(rows, reverse=True)[:8]])
+    return out
+
+
+def phase_ssm_prefill(device) -> dict:
+    """The 1 x 4096 forward of mamba2-130m and zamba2-1.2b at full width
+    in W8A8: wall time, peak memory, launches (every projection on the
+    tensor cores, flash once per application of zamba2's shared block),
+    the device time split (W8A8 ``tc``, flash, the rest: the SSD's and
+    the other eager ops), the SSD's own time; kernel route vs plain
+    route (mamba2: bit for bit; zamba2: flash within 2e-2 of the plain
+    attention on each application's own q, k, v and each output row
+    within 2^-6 of its own max|value|, and the kernel route
+    with that attention swapped in equal to the plain route bit for
+    bit)."""
+    import torch
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.model import Model
+    out = {"phase": "ssm_prefill", "forward_len": PREFILL["long_len"]}
+    for family, arch in SSM_ARCHS.items():
+        kern, params = _ssm_model(arch, device)
+        cfg = kern.cfg
+        plain = Model(cfg, device=device, impl="ref")
+        tokens = torch.randint(
+            0, cfg.vocab, (1, PREFILL["long_len"]), device=device,
+            generator=torch.Generator(device).manual_seed(3))
+        per_pass, apps = _ssm_matmuls_per_pass(cfg)
+        fwd = {}
+        for name, model in (("kernel", kern), ("plain", plain)):
+            model.forward(params, tokens, last_only=True)       # warm-up
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            _reset_matmul_counts()
+            _reset_attention_counts()
+            t0 = time.perf_counter()
+            logits, _ = model.forward(params, tokens, last_only=True)
+            torch.cuda.synchronize(device)
+            fwd[name] = {"logits": logits,
+                         "wall_s": time.perf_counter() - t0,
+                         "peak_over_params_bytes":
+                             torch.cuda.max_memory_allocated(device) - base,
+                         "launches": {**_matmul_counts(),
+                                      **_attention_counts()}}
+        n = fwd["kernel"]["launches"]
+        check(n["w8a8_matmul_tc"] == per_pass and n["w8a8_matmul_dp4a"] == 0
+              and n["flash_attention_tc"] == apps
+              and n["flash_attention"] == apps,
+              f"{arch} forward's launches {n}: {per_pass} W8A8 on the "
+              f"tensor cores and {apps} bf16 flash expected")
+        check(fwd["plain"]["launches"]["w8a8_matmul"] == 0
+              and fwd["plain"]["launches"]["flash_attention"] == 0,
+              f"{arch}: the plain route launched a kernel")
+        lk, lp = fwd["kernel"]["logits"], fwd["plain"]["logits"]
+        check(tuple(lk.shape) == (1, 1, cfg.vocab)
+              and bool(torch.isfinite(lk).all()),
+              f"{arch} forward logits {tuple(lk.shape)}")
+        row = {"arch": arch, "n_layers": cfg.n_layers,
+               "shared_applications": apps,
+               "forward_wall_s": fwd["kernel"]["wall_s"],
+               "forward_plain_wall_s": fwd["plain"]["wall_s"],
+               "peak_mem_over_params_bytes":
+                   fwd["kernel"]["peak_over_params_bytes"],
+               "launches": n,
+               "logits_max_abs_vs_plain": float(
+                   (lk.float() - lp.float()).abs().max()),
+               "logits_max_abs": float(lp.float().abs().max())}
+        if apps == 0:
+            check(bool(torch.equal(lk, lp)),
+                  f"{arch}: kernel route differs from the plain route")
+            row["kernel_route_equals_plain"] = True
+        else:
+            apps_err = []
+
+            def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
+                got = real_attend(q, k, v, causal=causal, window=window,
+                                  impl=impl)
+                want = attention.dense_attention(q, k, v, causal=causal,
+                                                 window=window)
+                apps_err.append(flash_row_err(got, want))
+                return want
+            real_attend = attention.attend
+            attention.attend = swapped
+            try:
+                mixed, _ = kern.forward(params, tokens, last_only=True)
+            finally:
+                attention.attend = real_attend
+            check(len(apps_err) == apps, f"{arch}: swapped attention calls")
+            worst = max(e["max_abs"] for e in apps_err)
+            worst_row = max(e["row_rel"] for e in apps_err)
+            check(worst <= FLASH_TOL["bfloat16"]
+                  and worst_row <= FLASH_ROW_RTOL,
+                  f"{arch}: flash vs plain attention {worst:.3g} absolute, "
+                  f"{worst_row:.3g} of a row's max on an application of "
+                  f"the shared block")
+            check(bool(torch.equal(mixed, lp)),
+                  f"{arch}: kernel route with plain attention differs from "
+                  f"the plain route")
+            row.update(flash_vs_plain_per_application_max_abs=[
+                           e["max_abs"] for e in apps_err],
+                       flash_vs_plain_per_application_row_rel=[
+                           e["row_rel"] for e in apps_err],
+                       attention_out_per_application_median_abs=[
+                           e["median_abs_want"] for e in apps_err],
+                       kernel_matmuls_plain_attention_equal_plain_route=True)
+        # the SSD alone at this forward's shapes (one layer's inputs)
+        seen = []
+        real_ssd = ssm.ssd_chunked
+
+        def record(*args, **kwargs):
+            if not seen:
+                seen.append((args, kwargs))
+            return real_ssd(*args, **kwargs)
+        ssm.ssd_chunked = record
+        try:
+            kern.forward(params, tokens, last_only=True)
+        finally:
+            ssm.ssd_chunked = real_ssd
+        args, kwargs = seen[0]
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        ssd_ms, ssd_event_ms = _device_ms(
+            lambda i: real_ssd(*args, **kwargs), 5, windows=3)
+        row.update(ssd_chunk=kwargs["chunk"],
+                   ssd_layer_device_ms=ssd_ms,
+                   ssd_layer_event_ms=ssd_event_ms,
+                   ssd_peak_over_inputs_bytes=
+                       torch.cuda.max_memory_allocated(device) - base)
+        del seen, args, kwargs
+        row.update(_profile_split(
+            lambda: kern.forward(params, tokens, last_only=True),
+            {"w8a8_tc": ("w8a8_tc_kernel",),
+             "flash": ("flash_tc_kernel",)}))
+        out[family] = row
+        del kern, plain, params, fwd, lk, lp
+    return out
+
+
+def phase_ssm_tc_shapes(device) -> dict:
+    """W8A8's tensor-core regime at the 1 x 4096 forward's SSM projection
+    shapes, mamba2's unaligned in_proj (n = 3352, 8 mod 16: the kernel's
+    template without 16-byte copies) beside the aligned n = 3360: kernel
+    (twice), plain version and ``torch._int_mm``, kernel equal to plain
+    bit for bit, beside the bound of the int8 operations."""
+    import torch
+    from repro_torch.kernels import w8a8_matmul as W8
+    m = PREFILL_M
+    out = {"phase": "ssm_tc_shapes", "m": m}
+    for k, n in SSM_TC_SHAPES:
+        check(W8.plan(m, k, n).regime == "tc", f"{(m, k, n)} not on tc")
+        x, w, xs, ws = _qmm_operands(m, k, n, False, k + n, device)
+        got = W8.w8a8_matmul(x, w, xs, ws)
+        check(bool(torch.equal(got, W8.w8a8_matmul_ref(x, w, xs, ws))),
+              f"W8A8 tc at {(m, k, n)} differs from its plain version")
+        wcol = w.t().contiguous().t()
+        row = {"aligned": k % 16 == 0 and n % 16 == 0}
+        for name, fn, iters in (
+                ("plain", lambda i: W8.w8a8_matmul_ref(x, w, xs, ws), 3),
+                ("kernel", lambda i: W8.w8a8_matmul(x, w, xs, ws), 20),
+                ("kernel_again", lambda i: W8.w8a8_matmul(x, w, xs, ws), 20),
+                ("library", lambda i: torch._int_mm(x, wcol), 20)):
+            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
+                                                                    iters)
+        bytes_ms = (m * k + k * n + 4 + 4 * n + 4 * m * n) \
+            / PEAK_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+        row.update(bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[f"{k}x{n}"] = row
+        del x, w, wcol, got
+    return out
+
+
+def phase_loss(device) -> dict:
+    """``Model.loss`` of mamba2-130m at full width under the fp32 policy
+    on ``SyntheticLM`` batch 0 (4 x 512), the same params on the card and
+    on the CPU: the two within 1e-5 relative."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    card, params = _ssm_model(LOSS["arch"], device, quant=LOSS["quant"],
+                              quantize=False)
+    cfg = card.cfg
+    t0 = time.perf_counter()
+    data = SyntheticLM(DataConfig(cfg.vocab, LOSS["seq_len"],
+                                  LOSS["batch"]))
+    batch = data.batch(LOSS["step"], device=device)
+    data_s = time.perf_counter() - t0
+    card.loss(params, batch, train=False)                   # warm-up
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    got = card.loss(params, batch, train=False)
+    torch.cuda.synchronize(device)
+    card_s = time.perf_counter() - t0
+    cpu = Model(cfg, device="cpu")
+    cpu_params = {"embed": params["embed"].cpu(),
+                  "final_norm": params["final_norm"].cpu(),
+                  "layers": [{k: v.cpu() for k, v in lp.items()}
+                             for lp in params["layers"]]}
+    del params
+    t0 = time.perf_counter()
+    want = cpu.loss(cpu_params, {k: v.cpu() for k, v in batch.items()},
+                    train=False)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(got) - float(want)) / abs(float(want))
+    check(math.isfinite(float(got)) and rel <= LOSS["rtol"],
+          f"loss on the card {float(got)!r} vs the CPU {float(want)!r}: "
+          f"{rel:.3g} relative")
+    return {"phase": "loss", "arch": LOSS["arch"], "quant": LOSS["quant"],
+            "batch": LOSS["batch"], "seq_len": LOSS["seq_len"],
+            "card_loss": float(got), "cpu_loss": float(want),
+            "rel_diff": rel, "card_s": card_s, "cpu_s": cpu_s,
+            "synthetic_batch_s": data_s}
 
 
 def _decode_operands(b, kvh, rep, hd, S, seed, device):
@@ -2785,13 +3206,15 @@ def phase_attention_parity(device) -> dict:
             check(err <= tol, f"flash kernel vs plain {err:.3g} > {tol} at "
                               f"{(bb, h, sq, sk, d, causal, window, dtype)}")
             rel = err / max(float(want.float().abs().max()), 1e-30)
+            row_err = flash_row_err(got, want)
             for key in ("flash", f"flash_{str(dtype).split('.')[1]}"):
                 worst[key] = [max(worst[key][0], err),
                               max(worst[key][1], rel)]
             rows.append({"kernel": "flash", "case": [bb, h, sq, sk, d,
                                                      causal, window],
                          "dtype": str(dtype), "max_abs": err,
-                         "rel_to_max": rel,
+                         "rel_to_max": rel, "row_rel": row_err["row_rel"],
+                         "median_abs_out": row_err["median_abs_want"],
                          "sdpa_max_abs": float((lib.float()
                                                 - got.float()).abs().max())})
     return {"phase": "attention_parity", "rows": rows, "worst": worst}
@@ -2989,6 +3412,15 @@ def main() -> int:
     del model, params
     fp32 = phase_prefill_fp32(device)
     emit(fp32)
+    ssm_serve = {family: phase_ssm_serve(device, family)
+                 for family in SSM_ARCHS}
+    for family in SSM_ARCHS:
+        emit(ssm_serve[family])
+    ssm_prefill = phase_ssm_prefill(device)
+    emit(ssm_prefill)
+    ssm_tc = phase_ssm_tc_shapes(device)
+    emit(ssm_tc)
+    emit(phase_loss(device))
     aparity = phase_attention_parity(device)
     emit(aparity)
     atiming = phase_attention_timing(device)
@@ -3046,6 +3478,12 @@ def main() -> int:
         "bound_by": lay["bound_by"],
         "library_ms": lay["library_ms"],
         "per": per + " (split-k dp4a regime, m < TC_MIN_M)",
+        "launches_by_path": {
+            f"serve_w8a8 ({SERVE_ARCH})":
+                serve["w8a8"]["launches"]["w8a8_matmul_dp4a"],
+            **{f"{f}_serve ({SSM_ARCHS[f]})":
+               ssm_serve[f]["launches"]["w8a8_matmul_dp4a"]
+               for f in SSM_ARCHS}},
     })
     lay = qprefill["layer"]
     kernels.append({
@@ -3064,6 +3502,16 @@ def main() -> int:
         "per": f"one {SERVE_ARCH} layer's 7 projections at m = "
                f"{PREFILL_M} (int8 wgmma regime, {qprefill['timer']} "
                f"time); launches per 1 x {PREFILL_M} forward",
+        "launches_by_path": {
+            f"prefill ({SERVE_ARCH})":
+                prefill["forward_launches"]["w8a8_matmul_tc"],
+            **{f"ssm_prefill ({SSM_ARCHS[f]})":
+               ssm_prefill[f]["launches"]["w8a8_matmul_tc"]
+               for f in SSM_ARCHS}},
+        "ssm_shapes": {key: {k: ssm_tc[key][k] for k in (
+            "aligned", "kernel_ms", "kernel_again_ms", "plain_ms",
+            "library_ms", "bound_ms")}
+            for key in (f"{k}x{n}" for k, n in SSM_TC_SHAPES)},
     })
     lay = qtiming["w4a8"]["layer"]
     kernels.append({
@@ -3129,6 +3577,10 @@ def main() -> int:
         "per": "one layer's causal attention at (b 1, h 24, s 4096, d 128) "
                f"bf16 ({fl['timer']} time), the bf16 tensor-core route; "
                "launches per 1 x 4096 W8A8 forward",
+        "launches_by_path": {
+            f"prefill ({SERVE_ARCH})": prefill["flash_launches_per_forward"],
+            f"ssm_prefill ({SSM_ARCHS['hybrid']})":
+                ssm_prefill["hybrid"]["launches"]["flash_attention_tc"]},
     })
     fl = atiming["flash_f32"]
     kernels.append({

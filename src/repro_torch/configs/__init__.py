@@ -1,17 +1,22 @@
 """Configurations of the port: the paper's CNN workloads
-(``qappa_workloads``) and the language models the port runs so far, the
-dense non-windowed ones of the reference's pool."""
+(``qappa_workloads``) and the language models the port runs so far, of
+the reference's pool: the dense non-windowed ones, the SSM (mamba2) and
+the hybrid (zamba2)."""
 
 ALL_ARCHS = (
     "starcoder2-7b",
     "phi4-mini-3.8b",
     "deepseek-67b",
+    "mamba2-130m",
+    "zamba2-1.2b",
 )
 
 _MODULES = {
     "starcoder2-7b": "starcoder2_7b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "deepseek-67b": "deepseek_67b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 

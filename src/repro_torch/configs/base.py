@@ -2,7 +2,7 @@
 
 A copy of ``repro.configs.base`` without its imports of JAX: the config
 dataclasses, the registry and :func:`reduced`.  Parameter counts cover
-the dense family, the only one the port's model runs so far.
+the families the port's model runs: dense, ssm and hybrid.
 """
 
 from __future__ import annotations
@@ -70,17 +70,27 @@ class ArchConfig:
 
     def n_params(self) -> int:
         """Total parameter count (embedding + stacked blocks)."""
-        if self.family != "dense":
+        if self.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"n_params of the {self.family!r} family is not ported yet "
-                f"(the port carries the dense family)")
+                f"(the port carries the dense, ssm and hybrid families)")
         d, ff, hd = self.d_model, self.d_ff, self.head_dim
         h, kvh, L = self.n_heads, self.n_kv_heads, self.n_layers
         attn = d * h * hd + 2 * d * kvh * hd + h * hd * d + 2 * d
-        return int(self.vocab * d + L * (attn + 3 * d * ff + 2 * d))
+        if self.family == "dense":
+            per_layer = attn + 3 * d * ff + 2 * d
+        else:
+            from repro_torch.models import ssm as _ssm
+            per_layer = d * _ssm.in_proj_dim(self) \
+                + _ssm.D_CONV * _ssm.conv_dim(self) + 2 * d * d + 2 * d
+        total = self.vocab * d + L * per_layer
+        if self.family == "hybrid" and self.shared_attn_every:
+            total += attn + 3 * d * ff + 2 * d          # one shared block
+        return int(total)
 
     def n_active_params(self) -> int:
-        """Active params per token (all of them for a dense model)."""
+        """Active params per token (all of them: no ported family routes
+        tokens to experts)."""
         return self.n_params()
 
 
@@ -105,5 +115,18 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         n_heads=4, n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
         d_ff=128, vocab=256, head_dim=16,
     )
+    if cfg.family == "moe":
+        small.update(n_experts=4, top_k=2)
+    if cfg.family in ("ssm", "hybrid"):
+        small.update(ssm_state=16, d_model=64, n_heads=2, n_kv_heads=2,
+                     head_dim=32)
+    if cfg.shared_attn_every:
+        small.update(shared_attn_every=2)
+    if cfg.global_every:
+        small.update(window=8, global_every=2)
+    if cfg.cross_attn_every:
+        small.update(cross_attn_every=2, n_ctx_tokens=8)
+    if cfg.encoder_layers:
+        small.update(encoder_layers=2, n_ctx_tokens=8)
     small.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)

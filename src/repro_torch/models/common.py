@@ -1,4 +1,4 @@
-"""Shared model components: norms, RoPE, MLPs, init."""
+"""Shared model components: norms, RoPE, the loss, MLPs, init."""
 
 from __future__ import annotations
 
@@ -33,6 +33,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     xf2 = x[..., half:].to(torch.float32)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy in float32 with the z-loss regularizer
+    ``z_loss * mean(lse**2)``.  logits: (b, s, V) any float dtype;
+    labels: (b, s) integer."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse ** 2)
+    return loss
 
 
 def gelu_mlp(x, w_in, w_out, policy, train, *, impl: str = "auto"):

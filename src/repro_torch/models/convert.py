@@ -5,7 +5,8 @@ a leading axis; the port keeps a list of per-layer dicts.  The caller
 hands the reference's params over as nested dicts of numpy arrays (the
 port never sees a JAX type), with each quantized leaf as a dict
 ``{"data", "scale", "mode", "orig_shape"}`` whose arrays keep the stacked
-``(L, ...)`` axis.
+``(L, ...)`` axis.  The hybrid's ``shared`` block is not stacked: its
+leaves (quantized ones 2-D) are carried over as they are.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.quant.qlinear import QuantizedTensor
 
 QUANTIZED_KEYS = {"data", "scale", "mode", "orig_shape"}
+MAMBA_KEYS = {"ln1", "in_proj", "conv_w", "dt_bias", "a_log", "d_skip",
+              "out_proj"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -25,33 +28,64 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def _leaf(leaf, l: int, device):
+def _leaf(leaf, l: int | None, device):
+    """A leaf, sliced at layer ``l`` (unsliced when ``l`` is None)."""
+    def part(a):
+        return a if l is None else a[l]
     if isinstance(leaf, dict):
         if set(leaf) != QUANTIZED_KEYS:
             raise ValueError(
                 f"a quantized leaf has keys {sorted(QUANTIZED_KEYS)}, got "
                 f"{sorted(leaf)}")
-        return QuantizedTensor(_tensor(leaf["data"][l], device),
-                               _tensor(leaf["scale"][l], device),
+        return QuantizedTensor(_tensor(part(leaf["data"]), device),
+                               _tensor(part(leaf["scale"]), device),
                                str(leaf["mode"]), tuple(leaf["orig_shape"]))
-    return _tensor(leaf[l], device)
+    return _tensor(part(leaf), device)
+
+
+def _block_keys(cfg: ArchConfig) -> set:
+    """The keys of a dense layer or of the hybrid's shared block."""
+    keys = {"ln1", "ln2", "wq", "wk", "wv", "wo", "w_up", "w_down"}
+    return keys | {"w_gate"} if cfg.mlp_kind == "swiglu" else keys
+
+
+def _check_keys(what: str, got, want: set) -> None:
+    if set(got) != want:
+        raise ValueError(f"{what}: keys {sorted(got)}, expected "
+                         f"{sorted(want)}")
 
 
 def from_reference_params(cfg: ArchConfig, tree: dict, *,
                           device="cuda") -> dict:
-    """The reference's dense-model params -> the port's params on
-    ``device``: ``embed`` and ``final_norm`` as tensors, ``layers`` sliced
-    into one dict per layer."""
+    """The reference's params of a dense, ssm or hybrid model -> the
+    port's params on ``device``: ``embed`` and ``final_norm`` as tensors,
+    ``layers`` sliced into one dict per layer, the hybrid's ``shared``
+    unsliced.  Raises on a tree whose keys are not the family's."""
     dev = resolve_device(device)
+    layer_keys = {"dense": _block_keys(cfg), "ssm": MAMBA_KEYS,
+                  "hybrid": MAMBA_KEYS}.get(cfg.family)
+    if layer_keys is None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet")
+    top = {"embed", "final_norm", "layers"}
+    _check_keys(f"{cfg.name} params", tree,
+                top | {"shared"} if cfg.family == "hybrid" else top)
     layers = tree["layers"]
+    _check_keys(f"{cfg.name} layers", layers, layer_keys)
     n = {len(v["data"] if isinstance(v, dict) else v)
          for v in layers.values()}
     if n != {cfg.n_layers}:
         raise ValueError(
             f"{cfg.name}: stacked layer axes of lengths {sorted(n)}, "
             f"expected {cfg.n_layers}")
-    return {"embed": _tensor(tree["embed"], dev),
-            "final_norm": _tensor(tree["final_norm"], dev),
-            "layers": [{name: _leaf(leaf, l, dev)
-                        for name, leaf in layers.items()}
-                       for l in range(cfg.n_layers)]}
+    out = {"embed": _tensor(tree["embed"], dev),
+           "final_norm": _tensor(tree["final_norm"], dev),
+           "layers": [{name: _leaf(leaf, l, dev)
+                       for name, leaf in layers.items()}
+                      for l in range(cfg.n_layers)]}
+    if cfg.family == "hybrid":
+        _check_keys(f"{cfg.name} shared block", tree["shared"],
+                    _block_keys(cfg))
+        out["shared"] = {name: _leaf(leaf, None, dev)
+                         for name, leaf in tree["shared"].items()}
+    return out

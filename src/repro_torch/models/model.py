@@ -1,25 +1,34 @@
-"""The quantization-aware LM of the port: the dense family's serving path.
+"""The quantization-aware LM of the port: the dense, SSM and hybrid
+families' serving path and the evaluation loss.
 
 :class:`Model` is the counterpart of ``repro.models.model.Model`` for
 dense models without local:global windows (phi4-mini, starcoder2,
-deepseek):
+deepseek), the SSM family (mamba2: a stack of Mamba-2 layers,
+``models/ssm.py``) and the hybrid (zamba2: Mamba-2 layers with one shared
+attention + MLP block applied after every ``shared_attn_every``-th
+layer):
 
 * ``init(generator, quantize=...)`` -> params;
 * ``quantize_params(params)`` -> params with every projection quantized;
-* ``forward(params, tokens, last_only=)`` -> (logits, aux);
-* ``init_cache(batch, max_seq, kv_quant=)`` -> KV caches (bf16, or int8
-  with per-(position, head) scales);
+* ``forward(params, tokens, train=, last_only=)`` -> (logits, aux);
+* ``loss(params, batch, train=)`` -> the scalar cross-entropy (+ z-loss);
+* ``init_cache(batch, max_seq, kv_quant=)`` -> decode caches: KV (bf16,
+  or int8 with per-(position, head) scales, dense only), the SSM
+  ``state`` and ``conv`` caches, and the hybrid's ``shared_k`` /
+  ``shared_v`` (one entry per application of the shared block);
 * ``decode_step(params, caches, tokens, pos)`` -> (logits, caches), at
-  one position or one per slot;
+  one position or (dense) one per slot;
 * ``prefill(params, tokens, max_seq=)`` -> (logits, caches).
 
 Params are plain dictionaries: ``embed`` (vocab, d) float32,
-``final_norm`` (d,), and ``layers``, a list with one dict per layer
-(the reference stacks them on a leading axis for ``lax.scan``; here the
-layers run in a Python loop).  A projection is a float (d_in, d_out)
-tensor or a :class:`~repro_torch.quant.qlinear.QuantizedTensor`.
-Other families raise ``NotImplementedError``; the training loss waits
-for the training slice.
+``final_norm`` (d,), ``layers``, a list with one dict per layer (the
+reference stacks them on a leading axis for ``lax.scan``; here the layers
+run in a Python loop), and for the hybrid ``shared``, the shared block's
+dict.  A projection is a float (d_in, d_out) tensor or a
+:class:`~repro_torch.quant.qlinear.QuantizedTensor`.  The moe, vlm and
+audio families and windowed dense models raise ``NotImplementedError``
+(ROADMAP A.6); training under a quantized policy raises in ``qdot``
+(ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -31,45 +40,60 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (gelu_mlp, normal_init, rms_norm,
-                                       swiglu_mlp)
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (cross_entropy, gelu_mlp, normal_init,
+                                       rms_norm, swiglu_mlp)
 from repro_torch.quant.policy import QuantPolicy, policy_for
 from repro_torch.quant.qlinear import qdot, quantize_weight
 
 # the projections that serving stores quantized (the reference's names)
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "wq_x", "wk_img", "wv_img", "wo_x", "in_proj", "out_proj")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def _mlp(xn, lp, cfg, policy, impl):
+def _mlp(xn, lp, cfg, policy, train, impl):
     if cfg.mlp_kind == "swiglu":
         return swiglu_mlp(xn, lp["w_gate"], lp["w_up"], lp["w_down"],
-                          policy, False, impl=impl)
-    return gelu_mlp(xn, lp["w_up"], lp["w_down"], policy, False, impl=impl)
+                          policy, train, impl=impl)
+    return gelu_mlp(xn, lp["w_up"], lp["w_down"], policy, train, impl=impl)
 
 
-def _dense_block(x, lp, cfg, policy, impl):
+def _dense_block(x, lp, cfg, policy, train, impl):
     h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
-                               policy=policy, impl=impl)
+                               policy=policy, train=train, impl=impl)
     x = x + h
-    return x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, impl)
+    return x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train, impl)
+
+
+def _mamba_layer(x, lp, cfg, policy, train, impl):
+    return x + ssm_mod.mamba2_block(rms_norm(x, lp["ln1"]), lp, cfg,
+                                    policy=policy, train=train, impl=impl)
+
+
+def _is_shared_layer(cfg, l: int) -> bool:
+    """Whether the hybrid's shared block runs after layer ``l``."""
+    every = cfg.shared_attn_every
+    return bool(every) and l % every == every - 1
 
 
 class Model(nn.Module):
-    """Dense decoder-only LM.  ``impl`` picks the route of the quantized
-    matmuls and of attention (:mod:`repro_torch.kernels.ops`): ``"auto"``
-    runs the CUDA kernels on the card and their plain versions on the
-    CPU."""
+    """Decoder-only LM of the dense, ssm or hybrid family.  ``impl``
+    picks the route of the quantized matmuls and of attention
+    (:mod:`repro_torch.kernels.ops`): ``"auto"`` runs the CUDA kernels on
+    the card and their plain versions on the CPU."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  impl: str = "auto"):
         super().__init__()
-        if cfg.family != "dense" or cfg.global_every:
-            what = "windowed dense (local:global)" if cfg.global_every \
-                else repr(cfg.family)
+        if cfg.family == "dense" and cfg.global_every:
             raise NotImplementedError(
-                f"{cfg.name}: the {what} family is not ported yet; the "
-                f"port's model runs dense models without windows")
+                f"{cfg.name}: the windowed dense (local:global) family is "
+                f"not ported yet (ROADMAP A.6, the next slice)")
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+                f"(ROADMAP A.6); the port's model runs {FAMILIES}")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.cfg = cfg
@@ -78,21 +102,53 @@ class Model(nn.Module):
         self.impl = impl
 
     # ------------------------------------------------------------ params
-    def _layer(self, generator: torch.Generator) -> dict:
+    def _ones(self) -> torch.Tensor:
+        return torch.ones((self.cfg.d_model,), dtype=torch.float32,
+                          device=self.device)
+
+    def _attn_mlp(self, generator: torch.Generator,
+                  scale_attn_out: float) -> dict:
+        """ln1, ln2, the attention projections (``wo`` drawn at
+        ``scale_attn_out``) and the MLP of a dense or shared block."""
         cfg, d = self.cfg, self.cfg.d_model
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         so = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
-        ones = torch.ones((d,), dtype=torch.float32, device=self.device)
-        lp = {"ln1": ones, "ln2": ones.clone(),
+        lp = {"ln1": self._ones(), "ln2": self._ones(),
               "wq": normal_init(generator, (d, h * hd)),
               "wk": normal_init(generator, (d, kvh * hd)),
               "wv": normal_init(generator, (d, kvh * hd)),
-              "wo": normal_init(generator, (h * hd, d), scale=so)}
+              "wo": normal_init(generator, (h * hd, d),
+                                scale=scale_attn_out)}
         if cfg.mlp_kind == "swiglu":
             lp["w_gate"] = normal_init(generator, (d, cfg.d_ff))
         lp["w_up"] = normal_init(generator, (d, cfg.d_ff))
         lp["w_down"] = normal_init(generator, (cfg.d_ff, d), scale=so)
         return lp
+
+    def _mamba(self, generator: torch.Generator) -> dict:
+        """The reference's ``_mamba_params`` and ``ln1``: ``conv_w`` at
+        scale 0.2, ``dt_bias`` 0, ``a_log`` 0 (A = -1), ``d_skip`` 1."""
+        cfg, d = self.cfg, self.cfg.d_model
+        d_inner, h, _, _ = ssm_mod.dims(cfg)
+        so = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+
+        def vec(value):
+            return torch.full((h,), value, dtype=torch.float32,
+                              device=self.device)
+        return {"ln1": self._ones(),
+                "in_proj": normal_init(generator,
+                                       (d, ssm_mod.in_proj_dim(cfg))),
+                "conv_w": normal_init(generator, (ssm_mod.D_CONV,
+                                                  ssm_mod.conv_dim(cfg)),
+                                      scale=0.2),
+                "dt_bias": vec(0.0), "a_log": vec(0.0), "d_skip": vec(1.0),
+                "out_proj": normal_init(generator, (d_inner, d), scale=so)}
+
+    def _layer(self, generator: torch.Generator) -> dict:
+        if self.cfg.family == "dense":
+            so = 0.02 / max(1.0, (2 * self.cfg.n_layers) ** 0.5)
+            return self._attn_mlp(generator, so)
+        return self._mamba(generator)
 
     def init(self, generator: torch.Generator, *,
              quantize: bool = False) -> dict:
@@ -104,14 +160,14 @@ class Model(nn.Module):
                 f"generator on {generator.device}, model on {self.device}")
         cfg = self.cfg
         params = {"embed": normal_init(generator, (cfg.vocab, cfg.d_model)),
-                  "final_norm": torch.ones((cfg.d_model,),
-                                           dtype=torch.float32,
-                                           device=self.device),
-                  "layers": []}
+                  "final_norm": self._ones(), "layers": []}
+
+        def keep(lp):
+            return self._quantize_layer(lp) if quantize else lp
         for _ in range(cfg.n_layers):
-            lp = self._layer(generator)
-            params["layers"].append(
-                self._quantize_layer(lp) if quantize else lp)
+            params["layers"].append(keep(self._layer(generator)))
+        if cfg.family == "hybrid":      # the shared attention + MLP block
+            params["shared"] = keep(self._attn_mlp(generator, 0.01))
         return params
 
     def _quantize_layer(self, lp: dict) -> dict:
@@ -120,59 +176,114 @@ class Model(nn.Module):
 
     def quantize_params(self, params: dict) -> dict:
         """Serving-time weight quantization per the config's mode: every
-        projection becomes a QuantizedTensor (int8 W8A8 or packed
-        pow2-int4 W4A8); embeddings and norms stay as they are."""
+        projection (the hybrid's shared ones too) becomes a
+        QuantizedTensor (int8 W8A8 or packed pow2-int4 W4A8); embeddings,
+        norms, ``conv_w`` and the SSM vectors stay as they are."""
         if not self.policy.quantized:
             return params
-        return dict(params, layers=[self._quantize_layer(lp)
-                                    for lp in params["layers"]])
+        out = dict(params, layers=[self._quantize_layer(lp)
+                                   for lp in params["layers"]])
+        if "shared" in params:
+            out["shared"] = self._quantize_layer(params["shared"])
+        return out
 
     # ----------------------------------------------------------- forward
     def forward(self, params: dict, tokens: torch.Tensor, *,
-                last_only: bool = False):
+                train: bool = False, last_only: bool = False):
         """tokens: (b, s) integer -> (logits (b, s, V), aux).  With
         ``last_only`` the logits of the final position only (serving
-        prefill).  ``aux`` is 0: the dense family has no auxiliary
-        loss."""
+        prefill).  ``train`` goes to every ``qdot`` (a quantized policy on
+        float weights raises there: QAT is ROADMAP A.8).  ``aux`` is 0:
+        no ported family has an auxiliary loss."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         x = params["embed"][tokens].to(policy.compute_dtype)
-        for lp in params["layers"]:
-            x = _dense_block(x, lp, cfg, policy, impl)
+        for l, lp in enumerate(params["layers"]):
+            if cfg.family == "dense":
+                x = _dense_block(x, lp, cfg, policy, train, impl)
+                continue
+            x = _mamba_layer(x, lp, cfg, policy, train, impl)
+            if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
+                x = _dense_block(x, params["shared"], cfg, policy, train,
+                                 impl)
         if last_only:
             x = x[:, -1:]
         x = rms_norm(x, params["final_norm"])
-        logits = qdot(x, params["embed"].T, policy, train=False)
+        logits = qdot(x, params["embed"].T, policy, train=train)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=self.device)
 
+    def loss(self, params: dict, batch: dict, *,
+             train: bool = True) -> torch.Tensor:
+        """Mean token cross-entropy (+ z-loss) of ``batch["tokens"]``
+        against ``batch["labels"]``, plus 0.01 x the auxiliary loss."""
+        logits, aux = self.forward(params, batch["tokens"], train=train)
+        return cross_entropy(logits, batch["labels"]) + 0.01 * aux
+
     # ----------------------------------------------------------- serving
+    def _n_shared_apps(self) -> int:
+        return sum(_is_shared_layer(self.cfg, l)
+                   for l in range(self.cfg.n_layers))
+
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    kv_quant: bool = False) -> dict:
-        """KV caches ``k``, ``v`` of shape (L, batch, max_seq, kvh, hd);
-        with ``kv_quant``, int8 with float32 scales ``k_scale``,
-        ``v_scale`` of shape (L, batch, max_seq, kvh) (LightPE-2 / W8A8
-        arithmetic on the KV path)."""
+        """Decode caches.  Dense: KV caches ``k``, ``v`` of shape (L,
+        batch, max_seq, kvh, hd); with ``kv_quant``, int8 with float32
+        scales ``k_scale``, ``v_scale`` of shape (L, batch, max_seq, kvh)
+        (LightPE-2 / W8A8 arithmetic on the KV path).  SSM and hybrid:
+        ``state`` (L, batch, h, 64, n) float32 and ``conv`` (L, batch, 3,
+        conv_dim); the hybrid also ``shared_k`` / ``shared_v`` (one entry
+        per application of the shared block, batch, max_seq, kvh, hd).
+        The reference has no int8 KV for these families: ``kv_quant``
+        raises for them."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        if kv_quant:
-            dtype = torch.int8
-        c = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-             "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-        if kv_quant:
-            for name in ("k_scale", "v_scale"):
-                c[name] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                      device=self.device)
+        L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        if kv_quant and cfg.family != "dense":
+            raise NotImplementedError(
+                f"int8 KV is implemented for dense decode (the reference's "
+                f"dense/moe), not for the {cfg.family!r} family")
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+        c = {}
+        if cfg.family == "dense":
+            shape = (L, batch, max_seq, kvh, hd)
+            if kv_quant:
+                dtype = torch.int8
+                c["k_scale"] = zeros(shape[:-1], torch.float32)
+                c["v_scale"] = zeros(shape[:-1], torch.float32)
+            c["k"], c["v"] = zeros(shape, dtype), zeros(shape, dtype)
+            return c
+        _, h, _, n = ssm_mod.dims(cfg)
+        c["state"] = zeros((L, batch, h, ssm_mod.P_HEADDIM, n),
+                           torch.float32)
+        c["conv"] = zeros((L, batch, ssm_mod.D_CONV - 1,
+                           ssm_mod.conv_dim(cfg)), dtype)
+        if cfg.family == "hybrid" and cfg.shared_attn_every:
+            shape = (self._n_shared_apps(), batch, max_seq, kvh, hd)
+            c["shared_k"], c["shared_v"] = zeros(shape, dtype), \
+                zeros(shape, dtype)
         return c
 
     def decode_step(self, params: dict, caches: dict, tokens: torch.Tensor,
                     pos):
         """One serving step.  tokens: (b, 1) integer; pos: the current
         write position (past = [0, pos]), an int or a ``(b,)`` tensor of
-        per-slot positions.  Updates ``caches`` in place and returns
-        (logits (b, 1, V), caches)."""
+        per-slot positions (dense only: the SSM state has no positions).
+        Updates ``caches`` in place and returns (logits (b, 1, V),
+        caches)."""
+        cfg = self.cfg
+        x = params["embed"][tokens].to(self.policy.compute_dtype)
+        if cfg.family == "dense":
+            x = self._dense_decode(params, caches, x, pos)
+        else:
+            x = self._ssm_decode(params, caches, x, pos)
+        x = rms_norm(x, params["final_norm"])
+        logits = qdot(x, params["embed"].T, self.policy, train=False)
+        return logits, caches
+
+    def _dense_decode(self, params, caches, x, pos):
         cfg, policy, impl = self.cfg, self.policy, self.impl
         kv_quant = "k_scale" in caches
-        x = params["embed"][tokens].to(policy.compute_dtype)
         for l, lp in enumerate(params["layers"]):
             scales = (caches["k_scale"][l], caches["v_scale"][l]) \
                 if kv_quant else None
@@ -181,10 +292,39 @@ class Model(nn.Module):
                 caches["v"][l], pos, policy=policy, kv_scales=scales,
                 impl=impl)[0]
             x = x + h
-            x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, impl)
-        x = rms_norm(x, params["final_norm"])
-        logits = qdot(x, params["embed"].T, policy, train=False)
-        return logits, caches
+            x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, False,
+                         impl)
+        return x
+
+    def _ssm_decode(self, params, caches, x, pos):
+        """The SSM family's layer scan and the hybrid's unrolled layers
+        with the shared block's decode attention after every
+        ``shared_attn_every``-th."""
+        cfg, policy, impl = self.cfg, self.policy, self.impl
+        app = 0
+        for l, lp in enumerate(params["layers"]):
+            y, st, cv = ssm_mod.mamba2_decode(
+                rms_norm(x, lp["ln1"]), lp, cfg, caches["state"][l],
+                caches["conv"][l], policy=policy, impl=impl)
+            x = x + y
+            if cfg.family == "ssm" and cv.dtype != caches["conv"].dtype:
+                # the reference's layer scan stacks the promoted window:
+                # a float32 step on a bf16 cache leaves it float32 (its
+                # hybrid writes into the cache's dtype instead)
+                caches["conv"] = caches["conv"].to(cv.dtype)
+            caches["state"][l] = st
+            caches["conv"][l] = cv
+            if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
+                sp = params["shared"]
+                h = attn.decode_self_attention(
+                    rms_norm(x, sp["ln1"]), sp, cfg, caches["shared_k"][app],
+                    caches["shared_v"][app], pos, policy=policy,
+                    impl=impl)[0]
+                x = x + h
+                x = x + _mlp(rms_norm(x, sp["ln2"]), sp, cfg, policy, False,
+                             impl)
+                app += 1
+        return x
 
     def prefill(self, params: dict, tokens: torch.Tensor, *,
                 max_seq: int | None = None):

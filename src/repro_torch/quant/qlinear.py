@@ -103,6 +103,7 @@ def qdot(x: torch.Tensor, w, policy: QuantPolicy, *, train: bool,
     if train and policy.quantized:
         raise NotImplementedError(
             "quantization-aware training (the fake-quant branch of qdot) "
-            "is not ported yet; the port serves quantized weights")
+            "is not ported yet (ROADMAP A.8); the port serves quantized "
+            "weights and evaluates with train=False")
     return torch.matmul(x.to(policy.compute_dtype),
                         w.to(policy.compute_dtype))

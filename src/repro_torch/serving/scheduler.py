@@ -8,6 +8,10 @@ generating, with no batch drain and no padding waste.  Slot reuse is safe
 because cache reads mask ``ki <= pos`` and a new request overwrites
 positions from 0 upward.
 
+The SSM and hybrid families are refused (ROADMAP C.8): their state
+and conv caches are not position-masked, and the reference resets no
+cache when it reuses a slot.
+
 The batcher works the same over bf16 and int8 KV caches (``kv_quant``,
 the int8 decode-attention kernel) and over quantized weights.  Where the
 reference jits ``decode_step``, the port calls it as it is: positions and
@@ -46,6 +50,14 @@ class ContinuousBatcher:
 
     def __init__(self, model, params, *, n_slots: int, max_seq: int,
                  kv_quant: bool = False):
+        family = model.cfg.family
+        if family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{model.cfg.name}: continuous batching of the {family!r} "
+                f"family is refused (ROADMAP C.8): the reference's batcher "
+                f"reuses a slot without resetting its SSM state and conv "
+                f"caches, so a request's tokens would depend on what the "
+                f"slot served before")
         self.model = model
         self.params = params
         self.n = n_slots

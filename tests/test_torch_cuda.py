@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: the sweep kernel (and the
 mixed-precision sweeps and searches that launch it), the serving-fleet
-simulator's kernel, the two quantized matmuls of the serving path, the
-int8-KV decode attention and flash attention.
+simulator's kernel, the two quantized matmuls of the serving path (also
+on depth-cut mamba2 and zamba2 at full width), the int8-KV decode
+attention and flash attention.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -680,6 +681,76 @@ def test_serve_reduced_on_the_card(cuda_device):
     toks = res["tokens"]
     assert toks.device.type == "cuda" and tuple(toks.shape) == (2, 4)
     assert 0 <= int(toks.min()) and int(toks.max()) < 256
+
+
+# ------------------------------------- SSM and hybrid (mamba2, zamba2)
+
+def _ssm_models(arch, device, **cut):
+    """Full-width ``arch`` with its depth cut, W8A8 quantized params from
+    a seed, a kernel-route and a plain-route model."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    kern = Model(cfg, device=device, impl="kernel")
+    plain = Model(cfg, device=device, impl="ref")
+    params = kern.init(torch.Generator(device).manual_seed(0),
+                       quantize=True)
+    return cfg, kern, plain, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,cut,per_step", [
+    ("mamba2-130m", dict(n_layers=2), 4),
+    ("zamba2-1.2b", dict(n_layers=2, shared_attn_every=2), 2 * 2 + 7)])
+def test_ssm_decode_kernel_equals_plain(cuda_device, arch, cut, per_step):
+    """Teacher-forced decode of a depth-cut mamba2 / zamba2 through the
+    W8A8 kernels and through their plain versions: logits and every cache
+    identical, ``per_step`` W8A8 launches a step."""
+    cfg, kern, plain, params = _ssm_models(arch, cuda_device, **cut)
+    ck, cp = kern.init_cache(2, 5), plain.init_cache(2, 5)
+    tokens = torch.randint(0, cfg.vocab, (2, 5), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(1))
+    for i in range(5):
+        before = W8.launches_dp4a
+        lk, ck = kern.decode_step(params, ck, tokens[:, i:i + 1], i)
+        assert W8.launches_dp4a - before == per_step
+        lp, cp = plain.decode_step(params, cp, tokens[:, i:i + 1], i)
+        assert torch.equal(lk, lp)
+    assert ck.keys() == cp.keys()
+    for name in ck:
+        assert torch.equal(ck[name], cp[name]), name
+
+
+@pytest.mark.cuda
+def test_mamba2_forward_kernel_equals_plain(cuda_device):
+    """The chunked forward at 2 x 1024 (two SSD chunks; projections on the
+    tensor-core regime, in_proj at the unaligned n = 3352) equals the
+    plain route bit for bit."""
+    cfg, kern, plain, params = _ssm_models("mamba2-130m", cuda_device,
+                                           n_layers=2)
+    tokens = torch.randint(0, cfg.vocab, (2, 1024), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(2))
+    before = W8.launches_tc
+    lk, _ = kern.forward(params, tokens)
+    assert W8.launches_tc - before == 2 * 2
+    lp, _ = plain.forward(params, tokens)
+    assert torch.isfinite(lk).all() and torch.equal(lk, lp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(768, 3352), (1536, 768), (2048, 8384),
+                                 (4096, 2048)])
+def test_w8a8_at_the_ssm_projection_shapes(cuda_device, k, n):
+    """mamba2's and zamba2's in/out projections in both regimes."""
+    for m in (4, 4096):
+        ops = _qmm_operands(m, k, n, 1, k + n + m, cuda_device)
+        assert W8.plan(m, k, n).regime == ("tc" if m >= W8.TC_MIN_M
+                                           else "dp4a")
+        got = OPS.w8a8_matmul(*ops, impl="kernel")
+        assert torch.equal(got, OPS.w8a8_matmul(*ops, impl="ref")), (m, k, n)
 
 
 # ------------------------------------------- W8A8 regimes (redesign)

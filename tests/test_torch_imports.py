@@ -60,7 +60,11 @@ def test_every_module_is_listed():
                  "repro_torch.runtime.dse_checkpoint",
                  "repro_torch.serving.fleet_sim",
                  "repro_torch.kernels.fleet_sim",
-                 "repro_torch.core.dataflow"):
+                 "repro_torch.core.dataflow",
+                 "repro_torch.configs.mamba2_130m",
+                 "repro_torch.configs.zamba2_1_2b",
+                 "repro_torch.models.ssm", "repro_torch.data",
+                 "repro_torch.data.pipeline"):
         assert name in mods
 
 

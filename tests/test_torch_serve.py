@@ -171,7 +171,7 @@ def test_decode_attention_refuses_unported_paths():
                                          **kw)
 
 
-@pytest.mark.parametrize("family,extra", [("moe", {}), ("ssm", {}),
+@pytest.mark.parametrize("family,extra", [("moe", {}), ("vlm", {}),
                                           ("dense", {"global_every": 6})])
 def test_model_refuses_unported_families(family, extra):
     cfg = dataclasses.replace(reduced(get_config("phi4-mini-3.8b")),
