@@ -3,8 +3,9 @@
 design-space sweep, the mixed-precision co-exploration search, the
 serving-fleet simulator and the serving-objective searches, the scalar
 dataflow oracle, the PPA models and RTL generator, the preemption-safe
-runtime, quantized LM serving, continuous batching over an int8 KV
-cache, and the full-sequence forward / prefill.
+runtime, quantized LM serving (dense, windowed dense, SSM and hybrid),
+continuous batching over an int8 KV cache, and the full-sequence
+forward / prefill.
 
     python3 chip_smoke.py
 
@@ -159,9 +160,9 @@ Phases (any failure exits non-zero):
     W8A8 launches a step (2 a layer, 7 an application of the shared
     block), all on the split-k regime, no other kernel; ms a step,
     tok/s, peak memory; the served 32 tokens teacher-forced through the
-    kernel and plain routes: logits within 1e-6 x max|logit| (0
-    expected) and ``state``, ``conv``, ``shared_k``, ``shared_v``
-    identical after every step; one profiled step's busy share;
+    kernel and plain routes: logits and ``state``, ``conv``,
+    ``shared_k``, ``shared_v`` identical after every step; one profiled
+    step's busy share;
 11d. ``ssm_prefill``: each model's 1 x 4096 forward: every projection on
     the tensor cores, 6 bf16 flash launches for zamba2; wall time, peak
     memory above the params, the device time split (W8A8 ``tc``, flash,
@@ -176,6 +177,29 @@ Phases (any failure exits non-zero):
 11e. ``loss``: ``Model.loss`` of mamba2-130m at full width under fp32 on
     ``SyntheticLM`` batch 0 (4 x 512), the same params on the card and
     the CPU, within 1e-5 relative;
+11f. the windowed dense family, gemma3-4b at full width (34 layers, d
+    2560, 8 heads x hd 256, 4 kv heads, vocab 262144, window 1024 on 29
+    local layers, a global layer every 6th), W8A8, random weights from
+    seed 0: ``window_serve`` (as ``ssm_serve``, bf16 KV: 238 W8A8
+    launches a step, all split-k; logits and ``k``, ``v``, ``k_local``,
+    ``v_local`` bit for bit between the routes over the served 32
+    tokens);
+    ``window_batcher`` (phase 9's batcher on gemma3: the decode kernel on
+    rings of 1024 and global caches of 4096 at per-slot positions);
+    ``window_ring`` (one local layer, b 4, int8 rings of 1024, per-slot
+    starts 0, 5, 11, 23, stepped until every slot is at position 1100:
+    the kernel route within 1e-5 x max|out| of the plain route, the ring
+    within the same bound of a full cache of 2048 read through the slice
+    branch, the bf16 ring within 2e-2 and 2^-6 a row of its slice, equal
+    before the first wrap; the decode kernel's time at (4, 4, 2, 256) for
+    S 1024 and 4096); ``window_prefill`` (the 1 x 4096 forward: 34 flash
+    launches, 29 with window 1024, 238 W8A8 ``tc``; flash held per
+    layer as ``prefill`` holds phi4's, against the plain route's chunked
+    attention; flash timed on a local and a global layer's own q, k, v
+    beside SDPA); ``window_wrap`` (the depth cut to 6 layers, one period
+    of the pattern, int8 KV, batch 2, decoded through position 1100 on
+    the kernel route, then 8 steps on each route from copies of the
+    caches: logits within 2e-2, caches bit for bit);
 12. ``attention_parity``: both attention kernels against their plain
     versions (decode: bit for bit, at positions on the boundaries of its
     splits of S, within the 1e-5 x max|out| bound; flash: 1e-5 f32,
@@ -344,6 +368,19 @@ FP32_LAYERS = 2
 SSM_ARCHS = {"ssm": "mamba2-130m", "hybrid": "zamba2-1.2b"}
 SSM_TC_SHAPES = ((768, 3352), (768, 3360), (1536, 768), (2048, 8384),
                  (4096, 2048))
+# the windowed dense family: gemma3-4b at full width (34 layers, 8 heads x
+# hd 256, 4 kv heads, window 1024, a global layer every 6th), W8A8 as
+# configured, served as phi4 is (SERVE, BATCHER) and forwarded at
+# 1 x PREFILL["long_len"]
+WINDOW_ARCH = "gemma3-4b"
+# window_ring: one local layer, a slot per PARITY_OFFSETS, stepped until
+# every slot's position reaches RING["until"] (past the 1024 of its
+# ring), against a full cache of RING["full_s"] through the slice branch
+RING = dict(until=1100, full_s=2048)
+# window_wrap: the depth cut to one period of the pattern (5 local, 1
+# global), int8 KV, decoded on the kernel route through position "until",
+# then "steps" more on both routes
+WRAP = dict(n_layers=6, batch=2, until=1100, steps=8, max_seq=2048)
 # the evaluation loss: mamba2-130m under fp32 on SyntheticLM batch 0,
 # card vs CPU
 LOSS = dict(arch="mamba2-130m", quant="fp32", batch=4, seq_len=512, step=0,
@@ -2381,6 +2418,7 @@ def _reset_attention_counts() -> None:
     from repro_torch.kernels import flash_attention, w8a8_decode
     flash_attention.launches = w8a8_decode.launches = 0
     flash_attention.launches_tc = flash_attention.launches_f32 = 0
+    flash_attention.launches_windowed = 0
     w8a8_decode.kernel_launches = 0
 
 
@@ -2390,7 +2428,8 @@ def _attention_counts() -> dict:
             "w8a8_decode_attention_kernels": w8a8_decode.kernel_launches,
             "flash_attention": flash_attention.launches,
             "flash_attention_tc": flash_attention.launches_tc,
-            "flash_attention_f32": flash_attention.launches_f32}
+            "flash_attention_f32": flash_attention.launches_f32,
+            "flash_attention_windowed": flash_attention.launches_windowed}
 
 
 def _requests(vocab: int):
@@ -2407,7 +2446,8 @@ def _requests(vocab: int):
     return reqs
 
 
-def phase_batcher(device, model, params) -> dict:
+def phase_batcher(device, model, params,
+                  name: str = "serve_batcher_int8kv") -> dict:
     """Continuous batching over the int8 KV cache at full width."""
     import torch
     from repro_torch.serving.scheduler import ContinuousBatcher
@@ -2468,7 +2508,7 @@ def phase_batcher(device, model, params) -> dict:
     torch.cuda.synchronize(device)
     step_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top, ops, _ = _profile_device_ms(step, 3)
-    return {"phase": "serve_batcher_int8kv", "launches": launches,
+    return {"phase": name, "launches": launches,
             "iterations": steps,
             "requests": [[r.rid, len(r.prompt), r.max_new, r.submit_iter,
                           r.complete_iter] for r in reqs],
@@ -2628,8 +2668,8 @@ def phase_prefill(device, params) -> dict:
 
     def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
         got = real_attend(q, k, v, causal=causal, window=window, impl=impl)
-        want = attention.dense_attention(q, k, v, causal=causal,
-                                         window=window)
+        want = real_attend(q, k, v, causal=causal, window=window,
+                           impl="ref")
         layers.append([flash_row_err(got, want), int((got != want).sum())])
         return want
     real_attend = attention.attend
@@ -2729,8 +2769,8 @@ def phase_prefill_fp32(device) -> dict:
 
     def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
         got = real_attend(q, k, v, causal=causal, window=window, impl=impl)
-        want = attention.dense_attention(q, k, v, causal=causal,
-                                         window=window)
+        want = real_attend(q, k, v, causal=causal, window=window,
+                           impl="ref")
         layers.append(float((got - want).abs().max()))
         return got
     attention.attend = swapped
@@ -2749,11 +2789,12 @@ def phase_prefill_fp32(device) -> dict:
 
 # ------------------------------------------ SSM and hybrid (mamba2, zamba2)
 
-def _ssm_model(arch: str, device, impl: str = "auto", quant=None,
-               quantize: bool = True):
-    """``arch`` at full width and depth with random weights from
-    ``SERVE["seed"]`` drawn as ``serve`` draws them (quantized unless
-    ``quantize`` is false; ``quant`` overrides the config's mode)."""
+def _arch_model(arch: str, device, impl: str = "auto", quant=None,
+                quantize: bool = True, n_layers=None):
+    """``arch`` at full width and depth (or ``n_layers``) with random
+    weights from ``SERVE["seed"]`` drawn as ``serve`` draws them
+    (quantized unless ``quantize`` is false; ``quant`` overrides the
+    config's mode)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -2761,33 +2802,39 @@ def _ssm_model(arch: str, device, impl: str = "auto", quant=None,
     cfg = get_config(arch)
     if quant is not None:
         cfg = dataclasses.replace(cfg, quant=quant)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = Model(cfg, device=device, impl=impl)
     params = model.init(torch.Generator(device).manual_seed(SERVE["seed"]),
                         quantize=quantize)
     return model, params
 
 
-def _ssm_matmuls_per_pass(cfg) -> int:
-    """W8A8 products a decode step or forward makes: in_proj and out_proj
-    a layer, and the shared block's 7 projections an application."""
+def _matmuls_per_pass(cfg) -> tuple[int, int]:
+    """W8A8 products a decode step or forward makes (7 a dense layer; in
+    an SSM or hybrid, in_proj and out_proj a layer and 7 an application
+    of the shared block), and the shared block's applications."""
+    if cfg.family == "dense":
+        return 7 * cfg.n_layers, 0
     apps = sum(1 for l in range(cfg.n_layers) if cfg.shared_attn_every
                and l % cfg.shared_attn_every == cfg.shared_attn_every - 1)
     return 2 * cfg.n_layers + 7 * apps, apps
 
 
-def phase_ssm_serve(device, family: str) -> dict:
+def phase_arch_serve(device, arch: str, name: str) -> dict:
     """``launch.serve.generate`` at full width in W8A8 for the SSM
-    (mamba2-130m) or hybrid (zamba2-1.2b) family, every W8A8 product on
-    the split-k regime; then the served 32 tokens teacher-forced through
-    the kernel and plain routes on the same params (logits and every
-    cache bit for bit after each step) and one profiled decode step."""
+    (mamba2-130m), hybrid (zamba2-1.2b) or windowed dense (gemma3-4b, bf16
+    KV: ring buffers on its local layers) family, every W8A8 product on
+    the split-k regime and no other kernel; then the served 32 tokens
+    teacher-forced through the kernel and plain routes on the same params
+    (logits and every cache bit for bit after each step) and one profiled
+    decode step."""
     import torch
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import Model
-    arch = SSM_ARCHS[family]
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    kern, params = _ssm_model(arch, device, impl="kernel")
+    kern, params = _arch_model(arch, device, impl="kernel")
     cfg = kern.cfg
     prompts = torch.randint(
         0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]), device=device,
@@ -2799,7 +2846,7 @@ def phase_ssm_serve(device, family: str) -> dict:
     launches = {**_matmul_counts(), **_attention_counts()}
     peak = torch.cuda.max_memory_allocated(device)
     steps = SERVE["prompt_len"] + SERVE["gen"]
-    per_pass, apps = _ssm_matmuls_per_pass(cfg)
+    per_pass, apps = _matmuls_per_pass(cfg)
     want = steps * per_pass
     check(launches["w8a8_matmul"] == want
           and launches["w8a8_matmul_dp4a"] == want
@@ -2821,7 +2868,7 @@ def phase_ssm_serve(device, family: str) -> dict:
     ck = kern.init_cache(SERVE["batch"], steps + 1)
     cp = plain.init_cache(SERVE["batch"], steps + 1)
     worst_abs = worst_scaled = 0.0
-    caches_same = True
+    logits_same = caches_same = True
     _reset_matmul_counts()
     for i in range(steps):
         tok = stream[:, i:i + 1]
@@ -2832,13 +2879,15 @@ def phase_ssm_serve(device, family: str) -> dict:
         worst_abs = max(worst_abs, diff)
         worst_scaled = max(worst_scaled,
                            diff / max(float(lp.float().abs().max()), 1e-30))
+        logits_same &= bool(torch.equal(lk, lp))
         caches_same &= all(torch.equal(ck[k], cp[k]) for k in ck)
     parity_launches = _matmul_counts()
     check(parity_launches["w8a8_matmul"] == want,
           f"{arch} parity run: kernel route launched {parity_launches}")
-    check(worst_scaled <= RTOL,
-          f"{arch} logits kernel vs plain {worst_scaled:.3g} x max|logit|")
-    check(caches_same, f"{arch} caches differ between the routes")
+    check(logits_same, f"{arch} logits kernel vs plain "
+                       f"{worst_scaled:.3g} x max|logit|, not bit for bit")
+    check(caches_same, f"{arch} caches {sorted(ck)} differ between the "
+                       f"routes")
     tok = stream[:, -1:]
 
     def step(_):
@@ -2855,8 +2904,9 @@ def phase_ssm_serve(device, family: str) -> dict:
                for lp in params["layers"] + [params.get("shared", {})]
                for v in lp.values() if hasattr(v, "scale"))
     step_bytes = proj + params["embed"].numel() * 4
+    cache_keys = sorted(ck)
     del kern, plain, params, ck, cp
-    return {"phase": f"{family}_serve", "arch": arch,
+    return {"phase": name, "arch": arch,
             "n_layers": cfg.n_layers, "shared_applications": apps,
             "launches": launches,
             "w8a8_per_step": per_pass,
@@ -2867,7 +2917,8 @@ def phase_ssm_serve(device, family: str) -> dict:
             "tokens_head": toks[0, :8].tolist(),
             "parity_steps": steps, "logits_max_abs": worst_abs,
             "logits_rel_to_max": worst_scaled,
-            "caches_identical": caches_same,
+            "logits_identical": logits_same,
+            "caches_identical": caches_same, "cache_keys": cache_keys,
             "step_wall_ms": step_wall_ms, "step_device_ms": busy_ms,
             "device_busy_share": (busy_ms / step_wall_ms
                                   if busy_ms else None),
@@ -2927,13 +2978,13 @@ def phase_ssm_prefill(device) -> dict:
     from repro_torch.models.model import Model
     out = {"phase": "ssm_prefill", "forward_len": PREFILL["long_len"]}
     for family, arch in SSM_ARCHS.items():
-        kern, params = _ssm_model(arch, device)
+        kern, params = _arch_model(arch, device)
         cfg = kern.cfg
         plain = Model(cfg, device=device, impl="ref")
         tokens = torch.randint(
             0, cfg.vocab, (1, PREFILL["long_len"]), device=device,
             generator=torch.Generator(device).manual_seed(3))
-        per_pass, apps = _ssm_matmuls_per_pass(cfg)
+        per_pass, apps = _matmuls_per_pass(cfg)
         fwd = {}
         for name, model in (("kernel", kern), ("plain", plain)):
             model.forward(params, tokens, last_only=True)       # warm-up
@@ -2984,8 +3035,8 @@ def phase_ssm_prefill(device) -> dict:
             def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
                 got = real_attend(q, k, v, causal=causal, window=window,
                                   impl=impl)
-                want = attention.dense_attention(q, k, v, causal=causal,
-                                                 window=window)
+                want = real_attend(q, k, v, causal=causal,
+                                   window=window, impl="ref")
                 apps_err.append(flash_row_err(got, want))
                 return want
             real_attend = attention.attend
@@ -3087,7 +3138,7 @@ def phase_loss(device) -> dict:
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import Model
-    card, params = _ssm_model(LOSS["arch"], device, quant=LOSS["quant"],
+    card, params = _arch_model(LOSS["arch"], device, quant=LOSS["quant"],
                               quantize=False)
     cfg = card.cfg
     t0 = time.perf_counter()
@@ -3120,6 +3171,334 @@ def phase_loss(device) -> dict:
             "card_loss": float(got), "cpu_loss": float(want),
             "rel_diff": rel, "card_s": card_s, "cpu_s": cpu_s,
             "synthetic_batch_s": data_s}
+
+
+# ------------------------------------- the windowed dense family (gemma3)
+
+def phase_window_ring(device, model, params) -> dict:
+    """One local layer of gemma3 at full width on int8 ring buffers of
+    1024 (b = 4, per-slot starts ``PARITY_OFFSETS``) stepped until every
+    slot has passed ``RING["until"]``: at each step the attention output
+    (the input of ``wo``) of the kernel route within ``DECODE_TOL`` x
+    max|out| of the plain route's, and equal within the same bound to a
+    full cache of ``RING["full_s"]`` read through the slice branch; the
+    same with bf16 caches (within the bf16 bound of 2e-2 and each row
+    within 2^-6 of its max); ring and slice equal before the first wrap;
+    the kernel's and the plain route's rings bit for bit at the end.
+    Then the decode kernel's time at this ring's shape and at the global
+    layers' S = 4096."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models.model import layer_windows
+    cfg = model.cfg
+    check(layer_windows(cfg)[0] == cfg.window, "layer 0 is not local")
+    lp = params["layers"][0]
+    W, b = cfg.window, len(PARITY_OFFSETS)
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def caches(n, int8):
+        dt = torch.int8 if int8 else torch.bfloat16
+        kv = [torch.zeros((b, n, kvh, hd), dtype=dt, device=device)
+              for _ in "kv"]
+        sc = [torch.zeros((b, n, kvh), device=device) for _ in "kv"] \
+            if int8 else None
+        return kv, sc
+    routes = {"ring_kernel": (caches(W, True), "kernel"),
+              "ring_plain": (caches(W, True), "ref"),
+              "slice_kernel": (caches(RING["full_s"], True), "kernel"),
+              "ring_bf16": (caches(W, False), "kernel"),
+              "slice_bf16": (caches(RING["full_s"], False), "kernel")}
+    offs = torch.tensor(PARITY_OFFSETS, device=device)
+    steps = RING["until"] + 1 - min(PARITY_OFFSETS)
+    g = torch.Generator(device).manual_seed(5)
+    cores = []
+    real_qdot = attention.qdot
+
+    def recording(t, w, *a, **k):
+        if w is lp["wo"]:
+            cores.append(t.float().reshape(b, cfg.n_heads, hd))
+        return real_qdot(t, w, *a, **k)
+    worst = {"kernel_vs_plain": 0.0, "ring_vs_slice_int8": 0.0,
+             "ring_vs_slice_bf16": 0.0, "ring_vs_slice_bf16_row_rel": 0.0}
+    equal_before_wrap = True
+    _reset_attention_counts()
+    attention.qdot = recording
+    t0 = time.perf_counter()
+    try:
+        for i in range(steps):
+            x = torch.randn((b, 1, cfg.d_model), generator=g,
+                            device=device).to(torch.bfloat16)
+            out = {}
+            for name, ((kv, sc), impl) in routes.items():
+                cores.clear()
+                attention.decode_self_attention(
+                    x, lp, cfg, *kv, offs + i, policy=model.policy,
+                    static_window=W, kv_scales=sc, impl=impl)
+                out[name] = cores[0]
+            for key, a, ref in (("kernel_vs_plain", "ring_kernel",
+                                 "ring_plain"),
+                                ("ring_vs_slice_int8", "ring_kernel",
+                                 "slice_kernel")):
+                err = float((out[a] - out[ref]).abs().max())
+                worst[key] = max(worst[key], err)
+                check(err <= DECODE_TOL * float(out[ref].abs().max()),
+                      f"window_ring {key} {err:.3g} at step {i}")
+            e = flash_row_err(out["ring_bf16"], out["slice_bf16"])
+            worst["ring_vs_slice_bf16"] = max(worst["ring_vs_slice_bf16"],
+                                              e["max_abs"])
+            worst["ring_vs_slice_bf16_row_rel"] = max(
+                worst["ring_vs_slice_bf16_row_rel"], e["row_rel"])
+            check(e["max_abs"] <= FLASH_TOL["bfloat16"]
+                  and e["row_rel"] <= FLASH_ROW_RTOL,
+                  f"window_ring bf16 ring vs slice {e} at step {i}")
+            if i + max(PARITY_OFFSETS) < W:     # no ring has wrapped yet
+                equal_before_wrap &= all(
+                    torch.equal(out[f"ring_{k}"], out[f"slice_{k}"])
+                    for k in ("kernel", "bf16"))
+    finally:
+        attention.qdot = real_qdot
+    torch.cuda.synchronize(device)
+    wall_s = time.perf_counter() - t0
+    launches = _attention_counts()
+    check(equal_before_wrap, "window_ring: ring and slice differ before "
+                             "the wrap")
+    check(launches["w8a8_decode_attention"] == 2 * steps,
+          f"window_ring decode launches {launches}, expected {2 * steps}")
+    (rk, rv), (rks, rvs) = routes["ring_kernel"][0]
+    (pk, pv), (pks, pvs) = routes["ring_plain"][0]
+    check(all(torch.equal(a, c) for a, c in ((rk, pk), (rv, pv),
+                                              (rks, pks), (rvs, pvs))),
+          "window_ring: the routes' int8 rings differ")
+    del routes, cores
+    shape = (b, kvh, cfg.n_heads // kvh, hd)
+    timing = {str(S): _decode_timing(device, shape, S)
+              for S in (W, BATCHER["max_seq"])}
+    return {"phase": "window_ring", "steps": steps,
+            "offsets": list(PARITY_OFFSETS),
+            "last_positions": [o + steps - 1 for o in PARITY_OFFSETS],
+            "ring": W, "full_s": RING["full_s"], "launches": launches,
+            "worst": worst, "equal_before_wrap": equal_before_wrap,
+            "routes_rings_identical": True, "wall_s": wall_s,
+            "decode_timing": timing}
+
+
+def phase_window_wrap(device) -> dict:
+    """gemma3 at full width, depth cut to ``WRAP["n_layers"]`` (one period
+    of its pattern: 5 local layers, 1 global), int8 KV, batch 2: decoded
+    on the kernel route through position ``WRAP["until"]`` (every ring
+    has wrapped), then from copies of those caches ``WRAP["steps"]`` more
+    steps on each route: logits within ``LOGIT_TOL``, every cache bit for
+    bit."""
+    import torch
+    from repro_torch.models.model import Model, layer_windows
+    kern, params = _arch_model(WINDOW_ARCH, device, impl="kernel",
+                               n_layers=WRAP["n_layers"])
+    cfg = kern.cfg
+    plain = Model(cfg, device=device, impl="ref")
+    wins = layer_windows(cfg)
+    check(wins.count(None) == 1 and wins.count(cfg.window) == 5,
+          f"window_wrap layers {wins}")
+    b, until = WRAP["batch"], WRAP["until"]
+    caches = kern.init_cache(b, WRAP["max_seq"], kv_quant=True)
+    check(caches["k_local"].shape[2] == cfg.window
+          and caches["k"].shape[2] == WRAP["max_seq"],
+          "window_wrap cache shapes")
+    tokens = torch.randint(0, cfg.vocab, (b, until + 1 + WRAP["steps"]),
+                           device=device,
+                           generator=torch.Generator(device).manual_seed(6))
+    _reset_attention_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for i in range(until + 1):
+        logits, caches = kern.decode_step(params, caches,
+                                          tokens[:, i:i + 1], i)
+    torch.cuda.synchronize(device)
+    wrap_s = time.perf_counter() - t0
+    launches = _attention_counts()
+    check(bool(torch.isfinite(logits).all()), "window_wrap logits")
+    check(launches["w8a8_decode_attention"] == (until + 1) * cfg.n_layers,
+          f"window_wrap decode launches {launches}")
+    ck = {k: v.clone() for k, v in caches.items()}
+    cp = {k: v.clone() for k, v in caches.items()}
+    del caches
+    worst_abs, agree = 0.0, []
+    for j in range(WRAP["steps"]):
+        i = until + 1 + j
+        tok = tokens[:, i:i + 1]
+        lk, ck = kern.decode_step(params, ck, tok, i)
+        lp, cp = plain.decode_step(params, cp, tok, i)
+        check(bool(torch.isfinite(lk).all()), "non-finite logits")
+        worst_abs = max(worst_abs, float((lk.float() - lp.float()).abs()
+                                         .max()))
+        agree.append(float((lk.argmax(-1) == lp.argmax(-1)).float().mean()))
+    check(worst_abs <= LOGIT_TOL,
+          f"window_wrap logits kernel vs plain {worst_abs:.3g} > "
+          f"{LOGIT_TOL}")
+    same = {k: bool(torch.equal(ck[k], cp[k])) for k in ck}
+    check(all(same.values()), f"window_wrap caches differ: {same}")
+    del kern, plain, params, ck, cp
+    return {"phase": "window_wrap", "arch": WINDOW_ARCH,
+            "depth_cut": f"{WRAP['n_layers']} of 34 layers (5 local, 1 "
+                         "global: one period of the pattern)",
+            "batch": b, "decoded_through": until, "wrap_s": wrap_s,
+            "ms_per_step": wrap_s / (until + 1) * 1e3,
+            "launches": launches, "parity_steps": WRAP["steps"],
+            "logits_max_abs": worst_abs,
+            "greedy_agreement_per_step": agree, "caches_identical": same}
+
+
+def _flash_pairs(s: int, window) -> int:
+    """(query, key) pairs a causal attention over s tokens computes, with
+    a sliding window where given."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def phase_window_prefill(device, model, params) -> dict:
+    """gemma3's 1 x 4096 forward at full depth: 34 bf16 flash launches,
+    29 with the window of 1024 and 5 without, and 7 W8A8 ``tc`` launches a
+    layer; flash within 2e-2 of the plain route's attention (chunked above
+    2048 tokens) on each layer's own q, k, v and each row within 2^-6 of
+    its own max, the kernel route with that attention swapped in equal to
+    the plain route bit for bit; wall time, peak memory, the kernels'
+    shares of device time, and flash on a local and a global layer's q,
+    k, v beside its plain version, SDPA and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model, layer_windows
+    cfg = model.cfg
+    plain = Model(cfg, device=device, impl="ref")
+    wins = layer_windows(cfg)
+    n_win = sum(w is not None for w in wins)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL["long_len"]),
+                           device=device,
+                           generator=torch.Generator(device).manual_seed(3))
+    fwd = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        m.forward(params, tokens, last_only=True)           # warm-up
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        _reset_matmul_counts()
+        _reset_attention_counts()
+        t0 = time.perf_counter()
+        logits, _ = m.forward(params, tokens, last_only=True)
+        torch.cuda.synchronize(device)
+        fwd[name] = {"logits": logits, "wall_s": time.perf_counter() - t0,
+                     "peak_over_params_bytes":
+                         torch.cuda.max_memory_allocated(device) - base,
+                     "launches": {**_matmul_counts(),
+                                  **_attention_counts()}}
+    n = fwd["kernel"]["launches"]
+    check(n["flash_attention_tc"] == cfg.n_layers
+          and n["flash_attention"] == cfg.n_layers
+          and n["flash_attention_windowed"] == n_win == 29,
+          f"{WINDOW_ARCH} forward's flash launches {n}: {cfg.n_layers} on "
+          f"the bf16 route, 29 windowed")
+    check(n["w8a8_matmul_tc"] == 7 * cfg.n_layers
+          and n["w8a8_matmul_dp4a"] == 0,
+          f"{WINDOW_ARCH} forward's W8A8 launches {n}")
+    check(fwd["plain"]["launches"]["flash_attention"] == 0
+          and fwd["plain"]["launches"]["w8a8_matmul"] == 0,
+          "plain route launched a kernel")
+    lk, lp = fwd["kernel"]["logits"], fwd["plain"]["logits"]
+    check(tuple(lk.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(lk).all()),
+          f"{WINDOW_ARCH} forward logits {tuple(lk.shape)}")
+
+    layers, kept = [], {}
+    real_attend = attention.attend
+
+    def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
+        got = real_attend(q, k, v, causal=causal, window=window, impl=impl)
+        want = real_attend(q, k, v, causal=causal, window=window,
+                           impl="ref")
+        layers.append((window, flash_row_err(got, want)))
+        key = "local" if window is not None else "global"
+        if key not in kept:
+            kept[key] = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+        return want
+    attention.attend = swapped
+    try:
+        mixed, _ = model.forward(params, tokens, last_only=True)
+    finally:
+        attention.attend = real_attend
+    check([w for w, _ in layers] == wins, "swapped attention windows")
+    worst = max(e["max_abs"] for _, e in layers)
+    worst_row = max(e["row_rel"] for _, e in layers)
+    check(worst <= FLASH_TOL["bfloat16"] and worst_row <= FLASH_ROW_RTOL,
+          f"{WINDOW_ARCH}: flash vs plain attention {worst:.3g} absolute, "
+          f"{worst_row:.3g} of a row's max on a layer")
+    check(bool(torch.equal(mixed, lp)),
+          f"{WINDOW_ARCH}: kernel route with plain attention differs from "
+          f"the plain route")
+    prof = _profile_split(
+        lambda: model.forward(params, tokens, last_only=True),
+        {"flash": ("flash_tc_kernel",), "w8a8": ("w8a8_tc_kernel",)})
+
+    # flash on a local and a global layer's own q, k, v (b, h, s, d)
+    flash = {}
+    for key, window in (("local", cfg.window), ("global", None)):
+        q, k, v = kept[key]
+        b, h, s, d = q.shape
+        qi = torch.arange(s, device=device)[:, None]
+        ki = torch.arange(s, device=device)[None, :]
+        mask = (ki <= qi) & (ki > qi - window) if window else None
+        row = {"shape": [b, h, s, d], "window": window}
+        for name, fn, iters in (
+                ("plain", lambda i: FA.flash_attention_ref(
+                    q, k, v, window=window), 3),
+                ("kernel", lambda i: FA.flash_attention(
+                    q, k, v, window=window), 10),
+                ("kernel_again", lambda i: FA.flash_attention(
+                    q, k, v, window=window), 10),
+                ("plain_again", lambda i: FA.flash_attention_ref(
+                    q, k, v, window=window), 3),
+                ("library", lambda i: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=mask is None), 10)):
+            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
+                fn, iters)
+        _best_times(row)
+        flops = 4 * d * h * b * _flash_pairs(s, window)
+        bytes_moved = 4 * b * h * s * d * q.element_size()
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        row.update(flops=flops, bytes=bytes_moved, ops_ms=ops_ms,
+                   bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   kernel_max_abs_vs_plain=float(
+                       (FA.flash_attention(q, k, v, window=window).float()
+                        - FA.flash_attention_ref(q, k, v, window=window)
+                        .float()).abs().max()))
+        flash[key] = row
+    total_ms, flash_ms = prof["profiled_device_ms"], prof["flash_device_ms"]
+    walls = {k: fwd[k]["wall_s"] for k in fwd}
+    peak = fwd["kernel"]["peak_over_params_bytes"]
+    del kept, plain, fwd, mixed
+    return {"phase": "window_prefill", "arch": WINDOW_ARCH,
+            "forward_len": PREFILL["long_len"],
+            "forward_wall_s": walls["kernel"],
+            "forward_plain_wall_s": walls["plain"],
+            "peak_mem_over_params_bytes": peak, "launches": n,
+            "logits_max_abs_vs_plain": float(
+                (lk.float() - lp.float()).abs().max()),
+            "logits_max_abs": float(lp.float().abs().max()),
+            "flash_vs_plain_per_layer_max_abs": [e["max_abs"]
+                                                 for _, e in layers],
+            "flash_vs_plain_per_layer_row_rel": [e["row_rel"]
+                                                 for _, e in layers],
+            "attention_out_per_layer_median_abs": [e["median_abs_want"]
+                                                   for _, e in layers],
+            "kernel_matmuls_plain_attention_equal_plain_route": True,
+            **prof,
+            "flash_share_of_device": flash_ms / total_ms if total_ms
+            else None,
+            "w8a8_share_of_device": prof["w8a8_device_ms"] / total_ms
+            if total_ms else None,
+            "flash_timing": flash}
 
 
 def _decode_operands(b, kvh, rep, hd, S, seed, device):
@@ -3220,6 +3599,90 @@ def phase_attention_parity(device) -> dict:
     return {"phase": "attention_parity", "rows": rows, "worst": worst}
 
 
+def _decode_timing(device, shape, S: int) -> dict:
+    """The decode-attention kernel and its plain version at ``shape`` =
+    (b, kvh, rep, hd) and S keys, bs = S: first held to each other on the
+    first operand set with per-row positions inside the first split, on
+    either side of a split boundary and at S - 1 (bit for bit, and within
+    ``DECODE_TOL`` x max|out|); then timed with every key live, inputs
+    rotated past L2, in turns (plain, kernel, kernel, plain); the grid and
+    the launches per call its C entry reports, and the call's bound."""
+    import torch
+    from repro_torch.kernels import w8a8_decode as D
+    b, kvh, rep, hd = shape
+    kv_bytes = 2 * b * S * kvh * (hd + 4)
+    copies = -(-2 * L2_BYTES // kv_bytes) + 1
+    sets = [_decode_operands(b, kvh, rep, hd, S, 50 + c, device)
+            for c in range(copies)]
+    pos = torch.full((b,), S - 1, dtype=torch.int32, device=device)
+    coded = [D.quantize_q(s[0]) + s[1:] for s in sets]
+    split = D.plan(b, kvh, rep, hd, S, S)
+    row = {"shape": [b, kvh, rep, hd, S], "copies": copies,
+           "planned_splits": split.splits, "split_keys": split.split_keys}
+    marks = (7, split.split_keys - 1, split.split_keys, S - 1)
+    at = torch.tensor([min(marks[i % 4], S - 1) for i in range(b)],
+                      dtype=torch.int32, device=device)
+    got = D.w8a8_decode_attention_body(*coded[0], at, bs=S)
+    want = D.w8a8_decode_attention_body_ref(*coded[0], at, bs=S)
+    torch.cuda.synchronize(device)
+    check(bool(torch.isfinite(got).all()),
+          f"non-finite decode output at {row['shape']}")
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    check(rel <= DECODE_TOL, f"decode kernel vs plain {rel:.3g} x max|out| "
+                             f"at {row['shape']}")
+    check(bool(torch.equal(got, want)),
+          f"decode kernel not bit-identical to plain at {row['shape']}")
+    row.update(positions=at.tolist(), max_abs_err=err, rel_to_max=rel)
+    calls, kernels, D.last_grid = D.launches, D.kernel_launches, None
+    seen = {}
+    for name, fn, iters in (
+            ("plain", D.w8a8_decode_attention_body_ref, 3),
+            ("kernel", D.w8a8_decode_attention_body, 50),
+            ("kernel_again", D.w8a8_decode_attention_body, 50),
+            ("plain_again", D.w8a8_decode_attention_body_ref, 3)):
+        row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
+            lambda i, fn=fn: fn(*coded[i % copies], pos, bs=S), iters,
+            windows=3, seen=seen if name == "kernel" else None)
+    calls, kernels = D.launches - calls, D.kernel_launches - kernels
+    row.update(grid=list(D.last_grid), splits=D.last_grid[1],
+               blocks=D.last_grid[0] * D.last_grid[1],
+               launches_per_call=kernels / calls,
+               profiler_ops_per_call=seen.get("ops"))
+    check(tuple(D.last_grid) == (b * kvh, split.splits),
+          f"decode grid {D.last_grid}, planned ({b * kvh}, "
+          f"{split.splits})")
+    check(row["blocks"] >= H100_SMS,
+          f"decode grid of {row['blocks']} blocks at S {S}")
+    bytes_moved = (b * kvh * rep * (hd + 4) + kv_bytes + 4 * b
+                   + 4 * b * kvh * rep * hd)
+    ops_ = 4 * b * kvh * rep * S * hd
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops_ / PEAK_INT8_OPS * 1e3
+    row.update(bytes=bytes_moved, int8_ops=ops_, bytes_ms=bytes_ms,
+               ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    _best_times(row)
+    return row
+
+
+def _best_times(row: dict) -> None:
+    """``timer`` (profiler where every turn has device time, else CUDA
+    events) and the best of the kernel's and the plain version's turns
+    (and the library call's, where timed) by that timer."""
+    keys = ["kernel", "kernel_again", "plain", "plain_again"] + (
+        ["library"] if "library_ms" in row else [])
+    row["timer"] = "profiler" if all(row[f"{k}_ms"] is not None
+                                     for k in keys) else "event"
+    suffix = "_ms" if row["timer"] == "profiler" else "_event_ms"
+    row["best_kernel_ms"] = min(row["kernel" + suffix],
+                                row["kernel_again" + suffix])
+    row["best_plain_ms"] = min(row["plain" + suffix],
+                               row["plain_again" + suffix])
+    if "library_ms" in row:
+        row["best_library_ms"] = row["library" + suffix]
+
+
 def phase_attention_timing(device) -> dict:
     """Device time per call, in turns (plain, kernel, kernel, plain).
     Decode attention's grid and launches per call are what its C entry
@@ -3230,49 +3693,8 @@ def phase_attention_timing(device) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import w8a8_decode as D
-    out = {"decode": {}, "flash": {}}
-    b, kvh, rep, hd = DECODE_SHAPE
-    for S in DECODE_S:
-        kv_bytes = 2 * b * S * kvh * (hd + 4)
-        copies = -(-2 * L2_BYTES // kv_bytes) + 1
-        sets = [_decode_operands(b, kvh, rep, hd, S, 50 + c, device)
-                for c in range(copies)]
-        pos = torch.full((b,), S - 1, dtype=torch.int32, device=device)
-        coded = [D.quantize_q(s[0]) + s[1:] for s in sets]
-        split = D.plan(b, kvh, rep, hd, S, S)
-        row = {"copies": copies, "planned_splits": split.splits,
-               "split_keys": split.split_keys}
-        calls, kernels, D.last_grid = D.launches, D.kernel_launches, None
-        seen = {}
-        for name, fn, iters in (
-                ("plain", D.w8a8_decode_attention_body_ref, 3),
-                ("kernel", D.w8a8_decode_attention_body, 50),
-                ("kernel_again", D.w8a8_decode_attention_body, 50),
-                ("plain_again", D.w8a8_decode_attention_body_ref, 3)):
-            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
-                lambda i, fn=fn: fn(*coded[i % copies], pos, bs=S), iters,
-                windows=3, seen=seen if name == "kernel" else None)
-        calls, kernels = D.launches - calls, D.kernel_launches - kernels
-        row.update(grid=list(D.last_grid), splits=D.last_grid[1],
-                   blocks=D.last_grid[0] * D.last_grid[1],
-                   launches_per_call=kernels / calls,
-                   profiler_ops_per_call=seen.get("ops"))
-        check(tuple(D.last_grid) == (b * kvh, split.splits),
-              f"decode grid {D.last_grid}, planned ({b * kvh}, "
-              f"{split.splits})")
-        check(row["blocks"] >= H100_SMS,
-              f"decode grid of {row['blocks']} blocks at S {S}")
-        bytes_moved = (b * kvh * rep * (hd + 4) + kv_bytes + 4 * b
-                       + 4 * b * kvh * rep * hd)
-        ops_ = 4 * b * kvh * rep * S * hd
-        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        ops_ms = ops_ / PEAK_INT8_OPS * 1e3
-        row.update(bytes=bytes_moved, int8_ops=ops_, bytes_ms=bytes_ms,
-                   ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        out["decode"][str(S)] = row
-        del sets, coded
+    out = {"decode": {str(S): _decode_timing(device, DECODE_SHAPE, S)
+                      for S in DECODE_S}, "flash": {}}
 
     bb, h, s, d = FLASH_SHAPE
     flops = 4 * d * h * bb * s * (s + 1) // 2
@@ -3331,19 +3753,8 @@ def phase_attention_timing(device) -> dict:
         del q, k, v
 
     # device time from the profiler; CUDA events where it gave none
-    for r in list(out["decode"].values()) + [out["flash"], out["flash_f32"]]:
-        keys = ["kernel", "kernel_again", "plain", "plain_again"] + (
-            ["library"] if "library_ms" in r else [])
-        r["timer"] = "profiler" if all(r[f"{k}_ms"] is not None
-                                       for k in keys) else "event"
-        suffix = "_ms" if r["timer"] == "profiler" else "_event_ms"
-        r["best_kernel_ms"] = min(r["kernel" + suffix],
-                                  r["kernel_again" + suffix])
-        r["best_plain_ms"] = min(r["plain" + suffix],
-                                 r["plain_again" + suffix])
     for r in (out["flash"], out["flash_f32"]):
-        r["best_library_ms"] = r["library" + ("_ms" if r["timer"] == "profiler"
-                                              else "_event_ms")]
+        _best_times(r)
     for key in ("flash", "flash_f32"):
         out[key]["tflops"] = flops / (out[key]["best_kernel_ms"]
                                       * 1e-3) / 1e12
@@ -3412,8 +3823,8 @@ def main() -> int:
     del model, params
     fp32 = phase_prefill_fp32(device)
     emit(fp32)
-    ssm_serve = {family: phase_ssm_serve(device, family)
-                 for family in SSM_ARCHS}
+    ssm_serve = {family: phase_arch_serve(device, arch, f"{family}_serve")
+                 for family, arch in SSM_ARCHS.items()}
     for family in SSM_ARCHS:
         emit(ssm_serve[family])
     ssm_prefill = phase_ssm_prefill(device)
@@ -3421,6 +3832,19 @@ def main() -> int:
     ssm_tc = phase_ssm_tc_shapes(device)
     emit(ssm_tc)
     emit(phase_loss(device))
+    window_serve = phase_arch_serve(device, WINDOW_ARCH, "window_serve")
+    emit(window_serve)
+    model, params = _arch_model(WINDOW_ARCH, device)
+    window_batcher = phase_batcher(device, model, params,
+                                   name="window_batcher")
+    emit(window_batcher)
+    window_ring = phase_window_ring(device, model, params)
+    emit(window_ring)
+    window_prefill = phase_window_prefill(device, model, params)
+    emit(window_prefill)
+    del model, params
+    window_wrap = phase_window_wrap(device)
+    emit(window_wrap)
     aparity = phase_attention_parity(device)
     emit(aparity)
     atiming = phase_attention_timing(device)
@@ -3483,7 +3907,9 @@ def main() -> int:
                 serve["w8a8"]["launches"]["w8a8_matmul_dp4a"],
             **{f"{f}_serve ({SSM_ARCHS[f]})":
                ssm_serve[f]["launches"]["w8a8_matmul_dp4a"]
-               for f in SSM_ARCHS}},
+               for f in SSM_ARCHS},
+            f"window_serve ({WINDOW_ARCH})":
+                window_serve["launches"]["w8a8_matmul_dp4a"]},
     })
     lay = qprefill["layer"]
     kernels.append({
@@ -3507,7 +3933,9 @@ def main() -> int:
                 prefill["forward_launches"]["w8a8_matmul_tc"],
             **{f"ssm_prefill ({SSM_ARCHS[f]})":
                ssm_prefill[f]["launches"]["w8a8_matmul_tc"]
-               for f in SSM_ARCHS}},
+               for f in SSM_ARCHS},
+            f"window_prefill ({WINDOW_ARCH})":
+                window_prefill["launches"]["w8a8_matmul_tc"]},
         "ssm_shapes": {key: {k: ssm_tc[key][k] for k in (
             "aligned", "kernel_ms", "kernel_again_ms", "plain_ms",
             "library_ms", "bound_ms")}
@@ -3534,6 +3962,8 @@ def main() -> int:
                      "reported its launch; launches: W4A8 serve run)",
     })
     dec = atiming["decode"][str(DECODE_S[0])]
+    dec_rows = list(atiming["decode"].values()) \
+        + list(window_ring["decode_timing"].values())
     b, kvh, rep, hd = DECODE_SHAPE
     kernels.append({
         "name": "w8a8_decode_attention",
@@ -3541,8 +3971,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/w8a8_decode.cu",
         "replaces": "src/repro/kernels/w8a8_decode.py:100",
         "launches": batcher["launches"]["w8a8_decode_attention"],
-        "max_abs_err": aparity["worst"]["decode"][0],
-        "max_rel_err": aparity["worst"]["decode"][1],
+        "max_abs_err": max([aparity["worst"]["decode"][0]]
+                           + [r["max_abs_err"] for r in dec_rows]),
+        "max_rel_err": max([aparity["worst"]["decode"][1]]
+                           + [r["rel_to_max"] for r in dec_rows]),
         "ms": dec["best_kernel_ms"],
         "plain_ms": dec["best_plain_ms"],
         "bound_ms": dec["bound_ms"],
@@ -3559,6 +3991,22 @@ def main() -> int:
                f"{dec['launches_per_call']:g} launches a call; launches: "
                "calls in the batcher run, kernel_launches: the kernels "
                "they launched",
+        "launches_by_path": {
+            f"serve_batcher_int8kv ({SERVE_ARCH})":
+                batcher["launches"]["w8a8_decode_attention"],
+            f"window_batcher ({WINDOW_ARCH})":
+                window_batcher["launches"]["w8a8_decode_attention"],
+            f"window_ring ({WINDOW_ARCH}, one local layer)":
+                window_ring["launches"]["w8a8_decode_attention"],
+            f"window_wrap ({WINDOW_ARCH}, 6 layers)":
+                window_wrap["launches"]["w8a8_decode_attention"]},
+        "wrapped_ring_max_abs_vs_plain":
+            window_ring["worst"]["kernel_vs_plain"],
+        "gemma3_shapes": {S: {k: r[k] for k in (
+            "shape", "splits", "positions", "max_abs_err", "rel_to_max",
+            "best_kernel_ms", "best_plain_ms", "timer", "bound_ms",
+            "bound_by")}
+            for S, r in window_ring["decode_timing"].items()},
     })
     fl = atiming["flash"]
     kernels.append({
@@ -3580,7 +4028,16 @@ def main() -> int:
         "launches_by_path": {
             f"prefill ({SERVE_ARCH})": prefill["flash_launches_per_forward"],
             f"ssm_prefill ({SSM_ARCHS['hybrid']})":
-                ssm_prefill["hybrid"]["launches"]["flash_attention_tc"]},
+                ssm_prefill["hybrid"]["launches"]["flash_attention_tc"],
+            f"window_prefill ({WINDOW_ARCH})":
+                window_prefill["launches"]["flash_attention_tc"],
+            f"window_prefill ({WINDOW_ARCH}), window 1024":
+                window_prefill["launches"]["flash_attention_windowed"]},
+        "gemma3_layers": {key: {k: r[k] for k in (
+            "shape", "window", "best_kernel_ms", "best_plain_ms",
+            "best_library_ms", "timer", "bound_ms", "bound_by",
+            "kernel_max_abs_vs_plain")}
+            for key, r in window_prefill["flash_timing"].items()},
     })
     fl = atiming["flash_f32"]
     kernels.append({

@@ -1,12 +1,13 @@
 """Configurations of the port: the paper's CNN workloads
 (``qappa_workloads``) and the language models the port runs so far, of
-the reference's pool: the dense non-windowed ones, the SSM (mamba2) and
-the hybrid (zamba2)."""
+the reference's pool: the dense ones (gemma3 with its local:global
+windows among them), the SSM (mamba2) and the hybrid (zamba2)."""
 
 ALL_ARCHS = (
     "starcoder2-7b",
     "phi4-mini-3.8b",
     "deepseek-67b",
+    "gemma3-4b",
     "mamba2-130m",
     "zamba2-1.2b",
 )
@@ -15,6 +16,7 @@ _MODULES = {
     "starcoder2-7b": "starcoder2_7b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "deepseek-67b": "deepseek_67b",
+    "gemma3-4b": "gemma3_4b",
     "mamba2-130m": "mamba2_130m",
     "zamba2-1.2b": "zamba2_1_2b",
 }

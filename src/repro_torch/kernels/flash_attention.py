@@ -45,10 +45,12 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _INT_MAX = 2 ** 31 - 1
 
 #: kernel launches since the counters were last set to 0: all of them,
-#: the bf16 route's and the float32 (3xTF32) route's
+#: the bf16 route's, the float32 (3xTF32) route's, and those with a
+#: sliding window (either route)
 launches = 0
 launches_tc = 0
 launches_f32 = 0
+launches_windowed = 0
 
 
 def _scale(d: int, scale) -> float:
@@ -120,7 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``csrc/flash_attention_tc.cu``), float32 to the 3xTF32 kernel
     (``csrc/flash_attention.cu``); the dispatch is on dtype alone.  Raises
     on a CPU tensor, a failed build or a failed launch."""
-    global launches, launches_tc, launches_f32
+    global launches, launches_tc, launches_f32, launches_windowed
     b, h, sq, sk, d = check_operands(q, k, v, window)
     device = q.device
     if device.type != "cuda":
@@ -160,6 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention kernel launch failed: CUDA error {err} "
             f"({lib.qappa_error_string(err).decode()})")
     launches += 1
+    launches_windowed += window is not None
     if tc:
         launches_tc += 1
     else:

@@ -188,8 +188,12 @@ def check_operands(q_q, factor, k_q, v_q, k_scale, v_scale, pos, bs: int):
 
 def w8a8_decode_attention_body_ref(q_q, factor, k_q, v_q, k_scale, v_scale,
                                    pos, *, bs: int,
-                                   out_dtype=torch.float32) -> torch.Tensor:
-    """The plain version of the body (see the module docstring)."""
+                                   out_dtype=torch.float32,
+                                   keep=None) -> torch.Tensor:
+    """The plain version of the body (see the module docstring).
+    ``keep``: an optional (b, S) bool mask of the keys kept besides
+    ``s <= pos`` (the model's dynamic decode window); the kernel has
+    none."""
     b, kvh, rep, hd, S = check_operands(q_q, factor, k_q, v_q, k_scale,
                                         v_scale, pos, bs)
     li = torch.einsum("bgrd,bsgd->bgrs", q_q.to(torch.float64),
@@ -197,7 +201,10 @@ def w8a8_decode_attention_body_ref(q_q, factor, k_q, v_q, k_scale, v_scale,
     logits = li.to(torch.float32) * factor[..., None] \
         * k_scale.transpose(1, 2)[:, :, None, :]
     ki = torch.arange(S, device=q_q.device)
-    valid = (ki[None, :] <= pos.to(torch.int64)[:, None])[:, None, None, :]
+    valid = ki[None, :] <= pos.to(torch.int64)[:, None]
+    if keep is not None:
+        valid = valid & keep
+    valid = valid[:, None, None, :]
     logits = torch.where(valid, logits, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)

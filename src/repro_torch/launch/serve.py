@@ -2,7 +2,7 @@
 quantized) weights, the LightPE deployment path.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
       --batch 4 --prompt-len 16 --gen 16 --quant [--full] [--device cpu]
 """
 
@@ -85,7 +85,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--arch", default="gemma3-4b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)

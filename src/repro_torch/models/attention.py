@@ -2,11 +2,12 @@
 cache, the reference's ``repro.models.attention`` for the dense family.
 
 * :func:`self_attention` (forward / prefill): projections, RoPE, then
-  :func:`attend`.  On the card ``attend`` routes every length through the
+  :func:`attend`, with an optional sliding ``window`` (gemma3's local
+  layers).  On the card ``attend`` routes every length through the
   flash-attention kernel (``kernels/ops.flash_attention``), the
-  reference's TPU path; the plain route is :func:`dense_attention`, the
-  reference's own CPU path (its ``chunked_attention`` for long sequences
-  is not ported).
+  reference's TPU path; the plain route is the reference's own CPU path:
+  :func:`dense_attention` up to ``DENSE_SEQ_LIMIT`` tokens and
+  :func:`chunked_attention` (online softmax over key blocks) above.
 * :func:`decode_self_attention`: one token against a bf16 (or float)
   cache or an int8 cache with per-(position, head) scales, at one position
   for the whole batch (an int) or one per slot (a ``(b,)`` tensor, for
@@ -17,10 +18,12 @@ cache, the reference's ``repro.models.attention`` for the dense family.
   float32 on operands in the cache's dtype.  With the int8 cache, q is
   quantized in the reference's model branch's dtype (bf16 under the bf16
   and quantized policies) and the int8 decode-attention kernel's body
-  computes the rest with the whole cache as one block, so its probability
-  scale spans the whole row, as the model branch's does.
-
-Decode's sliding windows and ring-buffer caches (gemma3) raise here.
+  computes the rest with the whole cache (or window) as one block, so its
+  probability scale spans the whole row, as the model branch's does.
+  gemma3's local layers decode on a ring buffer of ``W`` positions
+  (``static_window == S``) or on a ``W``-wide slice of a longer cache
+  (``static_window < S``); ``window`` masks keys older than
+  ``pos - window + 1``.
 """
 
 from __future__ import annotations
@@ -33,12 +36,27 @@ from repro_torch.quant.quantizers import const_like
 from repro_torch.quant.qlinear import qdot
 
 NEG_INF = -1e30
+#: the plain route's longest dense attention; above, chunked
+DENSE_SEQ_LIMIT = 2048
+#: q blocks per group of chunked attention's causal skip
+_SKIP_GROUP = 4
 
 
 def _broadcast_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(b, s, kvh, hd) -> (b, s, H, hd) by repeating each kv head."""
     rep = n_heads // k.shape[2]
     return k if rep == 1 else torch.repeat_interleave(k, rep, dim=2)
+
+
+def _mask(qi, ki, causal, window):
+    """Which keys ``ki`` each query ``qi`` attends to (broadcast)."""
+    mask = torch.ones(torch.broadcast_shapes(qi.shape, ki.shape),
+                      dtype=torch.bool, device=qi.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    return mask
 
 
 def dense_attention(q, k, v, *, causal=True, window=None):
@@ -50,22 +68,88 @@ def dense_attention(q, k, v, *, causal=True, window=None):
                           k.to(torch.float32)) * hd ** -0.5
     qi = (torch.arange(sq, device=q.device) + (sk - sq))[:, None]
     ki = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window is not None:
-        mask &= ki > qi - window
-    p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    p = torch.softmax(torch.where(_mask(qi, ki, causal, window), logits,
+                                  NEG_INF), dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def _block_size(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target; if only degenerate divisors
+    exist (e.g. prime n), one block of n."""
+    if n <= target:
+        return n
+    for b in range(target, max(15, target // 8), -1):
+        if n % b == 0:
+            return b
+    return n
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None,
+                      bq: int = 512, bk: int = 512):
+    """The reference's memory-efficient attention: q blocks, each an
+    online softmax over kv blocks, O(bq * bk) live logits.  q: (b, sq, H,
+    hd); k, v: (b, sk, H, hd).
+
+    Causal: q blocks go in groups of ``_SKIP_GROUP``, and a group's kv
+    walk stops at its static causal bound, so strictly-future kv blocks
+    are never computed (the reference's ``causal_skip``).  Otherwise every
+    q block walks every kv block (the reference's ``lax.map``)."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    bq = _block_size(sq, bq)
+    bk = _block_size(sk, bk)
+    scale = hd ** -0.5
+    nq, nk = sq // bq, sk // bk
+    qb = q.reshape(b, nq, bq, h, hd).to(torch.float32)
+    kb = k.reshape(b, nk, bk, h, hd).to(torch.float32)
+    vb = v.reshape(b, nk, bk, h, hd).to(torch.float32)
+    dev = q.device
+
+    def q_block(i, qtile, n_kv):      # qtile: (b, tile_q, h, hd)
+        tile_q = qtile.shape[1]
+        qi = (i * bq + (sk - sq) + torch.arange(tile_q, device=dev))[:, None]
+        acc = torch.zeros((b, h, tile_q, hd), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, h, tile_q), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, tile_q), dtype=torch.float32, device=dev)
+        for j in range(n_kv):
+            s = torch.einsum("bqhd,bkhd->bhqk", qtile, kb[:, j]) * scale
+            ki = (j * bk + torch.arange(bk, device=dev))[None, :]
+            s = torch.where(_mask(qi, ki, causal, window), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] \
+                + torch.einsum("bhqk,bkhd->bhqd", p, vb[:, j])
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        return out.transpose(1, 2)    # (b, tile_q, h, hd)
+
+    if causal and nq > 1:
+        outs = []
+        for g0 in range(0, nq, _SKIP_GROUP):
+            g1 = min(nq, g0 + _SKIP_GROUP)
+            # the group's static causal bound (its last row's)
+            hi = min(nk, ((g1 - 1) * bq + (sk - sq) + bq - 1) // bk + 1)
+            tile = qb[:, g0:g1].reshape(b, (g1 - g0) * bq, h, hd)
+            outs.append(q_block(g0, tile, max(1, hi)))
+        return torch.cat(outs, dim=1).to(q.dtype)
+    out = torch.cat([q_block(i, qb[:, i], nk) for i in range(nq)], dim=1)
     return out.to(q.dtype)
 
 
 def attend(q, k, v, *, causal=True, window=None, impl: str = "auto"):
     """q: (b, sq, H, hd); k, v: (b, sk, H, hd) -> (b, sq, H, hd): the
-    flash-attention kernel where ``impl`` routes to kernels, else
-    :func:`dense_attention`."""
+    flash-attention kernel where ``impl`` routes to kernels, else the
+    reference's route: :func:`dense_attention` up to
+    :data:`DENSE_SEQ_LIMIT` tokens, :func:`chunked_attention` above."""
     if not ops.use_kernel(q, impl):
-        return dense_attention(q, k, v, causal=causal, window=window)
+        if max(q.shape[1], k.shape[1]) <= DENSE_SEQ_LIMIT:
+            return dense_attention(q, k, v, causal=causal, window=window)
+        return chunked_attention(q, k, v, causal=causal, window=window)
     out = ops.flash_attention(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), causal=causal, window=window,
@@ -73,8 +157,10 @@ def attend(q, k, v, *, causal=True, window=None, impl: str = "auto"):
     return out.transpose(1, 2)
 
 
-def self_attention(x, p, cfg, *, policy, train=False, impl: str = "auto"):
-    """Full-sequence self-attention.  x: (b, s, d).  Returns
+def self_attention(x, p, cfg, *, policy, train=False, window=None,
+                   impl: str = "auto"):
+    """Full-sequence self-attention.  x: (b, s, d); ``window``: the local
+    layers' sliding window (None: full causal).  Returns
     ``(out, (k, v))``."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -86,7 +172,8 @@ def self_attention(x, p, cfg, *, policy, train=False, impl: str = "auto"):
     positions = torch.arange(s, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = attend(q, _broadcast_kv(k, h), _broadcast_kv(v, h), impl=impl)
+    out = attend(q, _broadcast_kv(k, h), _broadcast_kv(v, h), window=window,
+                 impl=impl)
     out = out.reshape(b, s, h * hd)
     return qdot(out, p["wo"], policy, train=train, impl=impl), (k, v)
 
@@ -109,37 +196,84 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
     pos: the current position (an int; past = [0, pos]) or a ``(b,)``
     tensor of per-slot positions.  Writes this token's k and v (and
     scales) into the caches in place (the reference returns updated
-    copies) and returns ``(out, cache_k, cache_v[, (k_scale, v_scale)])``."""
-    if window is not None or static_window is not None:
+    copies) and returns ``(out, cache_k, cache_v[, (k_scale, v_scale)])``.
+
+    ``static_window = W``: with ``W == S`` the cache is a ring buffer (the
+    token goes to slot ``pos mod W``); with ``W < S`` only the ``W``
+    positions from ``clip(pos - W + 1, 0, S - W)`` are read.  ``window``
+    also masks keys at or before ``pos - window``; the int8 kernel has no
+    such mask (ROADMAP A.6), so on the int8 kernel route it raises."""
+    if window is not None and kv_scales is not None \
+            and ops.use_kernel(x, impl):
         raise NotImplementedError(
-            "sliding-window attention (window, static_window) is not "
-            "ported yet")
+            "a dynamic decode window on the int8 KV cache runs on the plain "
+            "route only: the int8 decode-attention kernel masks s <= pos "
+            "alone (ROADMAP A.6)")
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = h // kvh
     S = cache_k.shape[1]
+    ring = static_window is not None and static_window == S
+    sliced = static_window is not None and static_window < S
     per_slot = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    dev = x.device
     q = qdot(x, p["wq"], policy, train=train, impl=impl).reshape(b, 1, h, hd)
     k = qdot(x, p["wk"], policy, train=train, impl=impl) \
         .reshape(b, 1, kvh, hd)
     v = qdot(x, p["wv"], policy, train=train, impl=impl) \
         .reshape(b, 1, kvh, hd)
     if per_slot:
-        pos_b = pos.to(device=x.device, dtype=torch.int64)
+        pos_b = pos.to(device=dev, dtype=torch.int64)
         posv = pos_b[:, None]
-        rows = torch.arange(b, device=x.device)
+        rows = torch.arange(b, device=dev)
     else:
         pos = int(pos)
-        posv = torch.full((1,), pos, dtype=torch.float32, device=x.device)
+        posv = torch.full((1,), pos, dtype=torch.float32, device=dev)
     q = rope(q, posv, cfg.rope_theta)[:, 0]           # (b, h, hd)
     k = rope(k, posv, cfg.rope_theta)
 
     def write(cache, val):
         if per_slot:   # per-slot scatter write (iteration-level batching)
-            cache[rows, pos_b] = val[:, 0].to(cache.dtype)
+            cache[rows, pos_b % S if ring else pos_b] = val[:, 0].to(
+                cache.dtype)
         else:
-            cache[:, pos:pos + 1] = val.to(cache.dtype)
+            w = pos % S if ring else pos
+            cache[:, w:w + 1] = val.to(cache.dtype)
 
+    # the absolute position ki of each key read, (b, W), where something
+    # reads it: the slice, a window's mask or the float cache's mask (the
+    # int8 body masks s <= pos itself)
+    if sliced or window is not None or kv_scales is None:
+        if not per_slot:
+            pos_b = torch.full((b,), pos, dtype=torch.int64, device=dev)
+        col = torch.arange(static_window if sliced else S, device=dev)
+        if ring:
+            # slot r holds position pos - ((pos - r) mod S); stale slots
+            # have ki < 0
+            ki = pos_b[:, None] - torch.remainder(pos_b[:, None] - col, S)
+        elif sliced:
+            W = static_window
+            if per_slot:
+                start_b = (pos_b - W + 1).clamp(0, S - W)
+            else:
+                start = min(max(pos - W + 1, 0), S - W)
+                start_b = torch.full((b,), start, dtype=torch.int64,
+                                     device=dev)
+            ki = start_b[:, None] + col
+        else:
+            ki = col.expand(b, S)
+
+    def read(cache):
+        """The keys' rows of ``cache``: all S, or the W of the slice."""
+        if not sliced:
+            return cache
+        if not per_slot:
+            return cache[:, start:start + W]
+        idx = ki.view(b, W, *(1,) * (cache.dim() - 2)) \
+            .expand(b, W, *cache.shape[2:])
+        return torch.gather(cache, 1, idx)
+
+    keep = None if window is None else ki > pos_b[:, None] - window
     qg = q.reshape(b, kvh, rep, hd)
     if kv_scales is not None:   # int8 KV cache
         k_scale, v_scale = kv_scales
@@ -155,22 +289,36 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
         factor = (q_s * hd ** -0.5)[..., 0].to(torch.float32)
         out_dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) \
             else torch.float32
-        out = ops.w8a8_decode_attention_body(
-            q_q, factor, cache_k, cache_v, k_scale, v_scale,
-            w8a8_decode.positions(pos, b, x.device), bs=S,
-            out_dtype=out_dtype, impl=impl)
+        # The body masks key s to s <= its row's position.  On the ring
+        # that is the reference's mask at the absolute position: ki =
+        # pos - ((pos - r) mod S) <= pos always, and ki >= 0 exactly when
+        # r <= pos.  Both sum the slots in slot order r.  On the slice the
+        # position is relative to its start.
+        body_pos = pos_b - start_b if sliced else pos
+        kk, vv, ks, vs = (read(t).contiguous() for t in (
+            cache_k, cache_v, k_scale, v_scale))
+        body_args = (q_q, factor, kk, vv, ks, vs,
+                     w8a8_decode.positions(body_pos, b, dev))
+        if keep is None:
+            out = ops.w8a8_decode_attention_body(
+                *body_args, bs=kk.shape[1], out_dtype=out_dtype, impl=impl)
+        else:   # the plain route (the kernel route refused it above)
+            out = w8a8_decode.w8a8_decode_attention_body_ref(
+                *body_args, bs=kk.shape[1], out_dtype=out_dtype, keep=keep)
     else:
         write(cache_k, k)
         write(cache_v, v)
+        kk, vv = read(cache_k), read(cache_v)
         logits = torch.einsum("bgrd,bsgd->bgrs", qg.to(torch.float32),
-                              cache_k.to(torch.float32)) * hd ** -0.5
-        ki = torch.arange(S, device=x.device)
-        valid = ki[None, :] <= (pos_b[:, None] if per_slot else pos)
+                              kk.to(torch.float32)) * hd ** -0.5
+        valid = (ki <= pos_b[:, None]) & (ki >= 0)
+        if keep is not None:
+            valid &= keep
         logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
         pr = torch.softmax(logits, dim=-1)            # (b, g, r, s) f32
         out = torch.einsum("bgrs,bsgd->bgrd",
-                           pr.to(cache_v.dtype).to(torch.float32),
-                           cache_v.to(torch.float32))
+                           pr.to(vv.dtype).to(torch.float32),
+                           vv.to(torch.float32))
     out = out.reshape(b, 1, h * hd).to(x.dtype)
     out = qdot(out, p["wo"], policy, train=train, impl=impl)
     if kv_scales is not None:

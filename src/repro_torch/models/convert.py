@@ -7,6 +7,12 @@ port never sees a JAX type), with each quantized leaf as a dict
 ``{"data", "scale", "mode", "orig_shape"}`` whose arrays keep the stacked
 ``(L, ...)`` axis.  The hybrid's ``shared`` block is not stacked: its
 leaves (quantized ones 2-D) are carried over as they are.
+
+:func:`from_reference_cache` carries a reference decode-cache dict over
+the same way: the port's caches have the reference's keys, shapes and
+dtypes, so that a test can start both models from one cache state and
+compare every cache after each step.  A bfloat16 array (numpy's
+extension type from JAX) is carried bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +31,11 @@ MAMBA_KEYS = {"ln1", "in_proj", "conv_w", "dt_bias", "a_log", "d_skip",
 
 def _tensor(a, device) -> torch.Tensor:
     # a copy: arrays handed over from JAX are read-only
-    return torch.from_numpy(np.array(a, order="C")).to(device)
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":      # no numpy type: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _leaf(leaf, l: int | None, device):
@@ -88,4 +98,29 @@ def from_reference_params(cfg: ArchConfig, tree: dict, *,
                     _block_keys(cfg))
         out["shared"] = {name: _leaf(leaf, None, dev)
                          for name, leaf in tree["shared"].items()}
+    return out
+
+
+def from_reference_cache(model, tree: dict, *, device="cuda") -> dict:
+    """A dense model's reference decode-cache dict (numpy arrays, bfloat16
+    ones too) -> the port's caches on ``device``.  Raises unless the keys,
+    shapes and dtypes are those of ``model.init_cache`` for the batch,
+    length and ``kv_quant`` of its ``k``."""
+    if model.cfg.family != "dense" or "k" not in tree:
+        raise ValueError(f"{model.cfg.name}: a dense model's cache with "
+                         f"k and v, got keys {sorted(tree)}")
+    dev = resolve_device(device)
+    out = {name: _tensor(a, dev) for name, a in tree.items()}
+    k = out["k"]
+    int8 = k.dtype == torch.int8
+    want = model.init_cache(k.shape[1], k.shape[2],
+                            dtype=torch.bfloat16 if int8 else k.dtype,
+                            kv_quant=int8)
+    _check_keys(f"{model.cfg.name} cache", out, set(want))
+    for name, t in out.items():
+        if t.shape != want[name].shape or t.dtype != want[name].dtype:
+            raise ValueError(
+                f"{model.cfg.name} cache {name}: {tuple(t.shape)} "
+                f"{t.dtype}, expected {tuple(want[name].shape)} "
+                f"{want[name].dtype}")
     return out

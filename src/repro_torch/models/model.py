@@ -2,18 +2,19 @@
 families' serving path and the evaluation loss.
 
 :class:`Model` is the counterpart of ``repro.models.model.Model`` for
-dense models without local:global windows (phi4-mini, starcoder2,
-deepseek), the SSM family (mamba2: a stack of Mamba-2 layers,
-``models/ssm.py``) and the hybrid (zamba2: Mamba-2 layers with one shared
-attention + MLP block applied after every ``shared_attn_every``-th
-layer):
+the dense family (phi4-mini, starcoder2, deepseek, and gemma3 with its
+sliding-window local layers and a global layer every ``global_every``-th),
+the SSM family (mamba2: a stack of Mamba-2 layers, ``models/ssm.py``) and
+the hybrid (zamba2: Mamba-2 layers with one shared attention + MLP block
+applied after every ``shared_attn_every``-th layer):
 
 * ``init(generator, quantize=...)`` -> params;
 * ``quantize_params(params)`` -> params with every projection quantized;
 * ``forward(params, tokens, train=, last_only=)`` -> (logits, aux);
 * ``loss(params, batch, train=)`` -> the scalar cross-entropy (+ z-loss);
 * ``init_cache(batch, max_seq, kv_quant=)`` -> decode caches: KV (bf16,
-  or int8 with per-(position, head) scales, dense only), the SSM
+  or int8 with per-(position, head) scales, dense only; gemma3's local
+  layers keep ring buffers of ``window`` positions), the SSM
   ``state`` and ``conv`` caches, and the hybrid's ``shared_k`` /
   ``shared_v`` (one entry per application of the shared block);
 * ``decode_step(params, caches, tokens, pos)`` -> (logits, caches), at
@@ -26,9 +27,8 @@ reference stacks them on a leading axis for ``lax.scan``; here the layers
 run in a Python loop), and for the hybrid ``shared``, the shared block's
 dict.  A projection is a float (d_in, d_out) tensor or a
 :class:`~repro_torch.quant.qlinear.QuantizedTensor`.  The moe, vlm and
-audio families and windowed dense models raise ``NotImplementedError``
-(ROADMAP A.6); training under a quantized policy raises in ``qdot``
-(ROADMAP A.8).
+audio families raise ``NotImplementedError`` (ROADMAP A.6); training
+under a quantized policy raises in ``qdot`` (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -59,9 +59,10 @@ def _mlp(xn, lp, cfg, policy, train, impl):
     return gelu_mlp(xn, lp["w_up"], lp["w_down"], policy, train, impl=impl)
 
 
-def _dense_block(x, lp, cfg, policy, train, impl):
+def _dense_block(x, lp, cfg, policy, train, impl, window=None):
     h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
-                               policy=policy, train=train, impl=impl)
+                               policy=policy, train=train, window=window,
+                               impl=impl)
     x = x + h
     return x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train, impl)
 
@@ -69,6 +70,23 @@ def _dense_block(x, lp, cfg, policy, train, impl):
 def _mamba_layer(x, lp, cfg, policy, train, impl):
     return x + ssm_mod.mamba2_block(rms_norm(x, lp["ln1"]), lp, cfg,
                                     policy=policy, train=train, impl=impl)
+
+
+def _is_global_layer(cfg, l: int) -> bool:
+    """Whether layer ``l`` of a windowed dense model attends globally."""
+    return l % cfg.global_every == cfg.global_every - 1
+
+
+def layer_windows(cfg) -> list:
+    """Each layer's attention window: ``cfg.window`` on the local layers
+    of a windowed dense model, None (full causal) on its global layers and
+    on every layer of the others.  The reference passes ``GLOBAL_WINDOW =
+    2^30`` for full; its mask ``ki > qi - 2^30`` keeps every key, as None
+    does."""
+    if not cfg.global_every:
+        return [None] * cfg.n_layers
+    return [None if _is_global_layer(cfg, l) else cfg.window
+            for l in range(cfg.n_layers)]
 
 
 def _is_shared_layer(cfg, l: int) -> bool:
@@ -86,10 +104,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  impl: str = "auto"):
         super().__init__()
-        if cfg.family == "dense" and cfg.global_every:
-            raise NotImplementedError(
-                f"{cfg.name}: the windowed dense (local:global) family is "
-                f"not ported yet (ROADMAP A.6, the next slice)")
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
@@ -197,9 +211,11 @@ class Model(nn.Module):
         no ported family has an auxiliary loss."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         x = params["embed"][tokens].to(policy.compute_dtype)
+        windows = layer_windows(cfg)
         for l, lp in enumerate(params["layers"]):
             if cfg.family == "dense":
-                x = _dense_block(x, lp, cfg, policy, train, impl)
+                x = _dense_block(x, lp, cfg, policy, train, impl,
+                                 window=windows[l])
                 continue
             x = _mamba_layer(x, lp, cfg, policy, train, impl)
             if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
@@ -229,7 +245,11 @@ class Model(nn.Module):
         """Decode caches.  Dense: KV caches ``k``, ``v`` of shape (L,
         batch, max_seq, kvh, hd); with ``kv_quant``, int8 with float32
         scales ``k_scale``, ``v_scale`` of shape (L, batch, max_seq, kvh)
-        (LightPE-2 / W8A8 arithmetic on the KV path).  SSM and hybrid:
+        (LightPE-2 / W8A8 arithmetic on the KV path).  Windowed dense
+        (gemma3): ``k``, ``v`` hold the global layers only, and the local
+        layers keep ring buffers ``k_local``, ``v_local`` of (n_local,
+        batch, min(window, max_seq), kvh, hd), with ``k_local_scale``,
+        ``v_local_scale`` under ``kv_quant``.  SSM and hybrid:
         ``state`` (L, batch, h, 64, n) float32 and ``conv`` (L, batch, 3,
         conv_dim); the hybrid also ``shared_k`` / ``shared_v`` (one entry
         per application of the shared block, batch, max_seq, kvh, hd).
@@ -246,12 +266,20 @@ class Model(nn.Module):
             return torch.zeros(shape, dtype=dt, device=self.device)
         c = {}
         if cfg.family == "dense":
-            shape = (L, batch, max_seq, kvh, hd)
             if kv_quant:
                 dtype = torch.int8
-                c["k_scale"] = zeros(shape[:-1], torch.float32)
-                c["v_scale"] = zeros(shape[:-1], torch.float32)
-            c["k"], c["v"] = zeros(shape, dtype), zeros(shape, dtype)
+            groups = {"": (L, max_seq)}
+            if cfg.global_every:
+                n_glob = cfg.n_layers // cfg.global_every
+                groups = {"": (n_glob, max_seq),
+                          "_local": (L - n_glob, min(cfg.window, max_seq))}
+            for pre, (n, seq) in groups.items():
+                shape = (n, batch, seq, kvh, hd)
+                c["k" + pre], c["v" + pre] = zeros(shape, dtype), \
+                    zeros(shape, dtype)
+                if kv_quant:
+                    c[f"k{pre}_scale"] = zeros(shape[:-1], torch.float32)
+                    c[f"v{pre}_scale"] = zeros(shape[:-1], torch.float32)
             return c
         _, h, _, n = ssm_mod.dims(cfg)
         c["state"] = zeros((L, batch, h, ssm_mod.P_HEADDIM, n),
@@ -282,14 +310,25 @@ class Model(nn.Module):
         return logits, caches
 
     def _dense_decode(self, params, caches, x, pos):
+        """The dense layers, the reference's scan body and its
+        ``_windowed_decode`` in one loop: a windowed model's (gemma3)
+        global layers decode on ``k`` / ``v`` and its local layers on
+        their ring buffers ``k_local`` / ``v_local`` (``static_window`` =
+        the ring's length)."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         kv_quant = "k_scale" in caches
-        for l, lp in enumerate(params["layers"]):
-            scales = (caches["k_scale"][l], caches["v_scale"][l]) \
+        ring = caches["k_local"].shape[2] if "k_local" in caches else None
+        index = {"": 0, "_local": 0}
+        for lp, window in zip(params["layers"], layer_windows(cfg)):
+            pre = "" if window is None else "_local"
+            i = index[pre]
+            index[pre] += 1
+            scales = (caches[f"k{pre}_scale"][i], caches[f"v{pre}_scale"][i]) \
                 if kv_quant else None
             h = attn.decode_self_attention(
-                rms_norm(x, lp["ln1"]), lp, cfg, caches["k"][l],
-                caches["v"][l], pos, policy=policy, kv_scales=scales,
+                rms_norm(x, lp["ln1"]), lp, cfg, caches["k" + pre][i],
+                caches["v" + pre][i], pos, policy=policy,
+                static_window=ring if pre else None, kv_scales=scales,
                 impl=impl)[0]
             x = x + h
             x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, False,

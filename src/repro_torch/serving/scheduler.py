@@ -10,7 +10,9 @@ positions from 0 upward.
 
 The SSM and hybrid families are refused (ROADMAP C.8): their state
 and conv caches are not position-masked, and the reference resets no
-cache when it reuses a slot.
+cache when it reuses a slot.  gemma3's ring buffers are served: each
+slot writes its ring at ``pos mod W``, and a reused slot starts clean as
+the full caches do (see the constructor).
 
 The batcher works the same over bf16 and int8 KV caches (``kv_quant``,
 the int8 decode-attention kernel) and over quantized weights.  Where the
@@ -51,6 +53,9 @@ class ContinuousBatcher:
     def __init__(self, model, params, *, n_slots: int, max_seq: int,
                  kv_quant: bool = False):
         family = model.cfg.family
+        # A windowed model's ring buffers do not leak what a slot served
+        # before: ring slot r is read only when r <= pos, and the new
+        # request has rewritten slots 0..pos (all of them once pos >= W).
         if family in ("ssm", "hybrid"):
             raise NotImplementedError(
                 f"{model.cfg.name}: continuous batching of the {family!r} "

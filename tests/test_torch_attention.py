@@ -186,7 +186,8 @@ def test_int8_kv_attention_core_matches_reference(monkeypatch):
 
 
 def test_decode_attention_refuses_windows_only():
-    """Per-slot positions and the int8 cache are ported; windows are not."""
+    """Per-slot positions, the int8 cache and a dynamic window on its plain
+    route are ported; only the int8 kernel route refuses a window."""
     _, _, tmodel, tparams = _models("phi4-mini-3.8b", "bf16", False)
     cfg = tmodel.cfg
     x = torch.zeros((2, 1, cfg.d_model), dtype=torch.bfloat16)
@@ -196,10 +197,14 @@ def test_decode_attention_refuses_windows_only():
         x, tparams["layers"][0], cfg, c8, c8.clone(), torch.tensor([0, 3]),
         policy=policy_for("bf16"), kv_scales=(sc, sc.clone()))
     assert len(out) == 4 and tuple(out[0].shape) == (2, 1, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
+    out = T_attn.decode_self_attention(
+        x, tparams["layers"][0], cfg, c8, c8.clone(), 0,
+        policy=policy_for("bf16"), window=2, kv_scales=(sc, sc.clone()))
+    assert len(out) == 4 and tuple(out[0].shape) == (2, 1, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         T_attn.decode_self_attention(x, tparams["layers"][0], cfg, c8, c8, 0,
                                      policy=policy_for("bf16"), window=2,
-                                     kv_scales=(sc, sc))
+                                     kv_scales=(sc, sc), impl="kernel")
 
 
 # ------------------------------------------------------- flash attention

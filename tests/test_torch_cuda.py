@@ -1339,3 +1339,100 @@ def test_reduced_forward_and_batcher_on_the_card(cuda_device):
     assert D.launches - before == bat.it * kern.cfg.n_layers
     for r in done:
         assert r.complete_iter == r.submit_iter + 3 + 3 - 1
+
+
+def _gemma3(device, impl, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(reduced(get_config("gemma3-4b")), **over)
+    return Model(cfg, device=device, impl=impl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_reduced_gemma3_kernel_route_equals_plain(cuda_device, kv_quant):
+    """Reduced gemma3 (window 8, a global layer every 2nd, 4 layers):
+    per-slot positions past the ring's wrap through both routes, identical
+    logits and caches (ring and global); the forward's flash launches, one
+    a layer, windowed on the local layers, within 2e-2 of the plain
+    route (dense below 2048 tokens)."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import w8a8_decode as D
+    kern = _gemma3(cuda_device, "kernel", n_layers=4)
+    plain = _gemma3(cuda_device, "ref", n_layers=4)
+    params = kern.init(torch.Generator(cuda_device).manual_seed(0),
+                       quantize=True)
+    ck = kern.init_cache(3, 32, kv_quant=kv_quant)
+    cp = plain.init_cache(3, 32, kv_quant=kv_quant)
+    assert ck["k_local"].shape[2] == 8
+    offs = torch.tensor([0, 4, 9], dtype=torch.int32, device=cuda_device)
+    tokens = torch.randint(0, kern.cfg.vocab, (3, 20), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(1))
+    before = D.launches
+    for i in range(20):
+        lk, ck = kern.decode_step(params, ck, tokens[:, i:i + 1], offs + i)
+        lp, cp = plain.decode_step(params, cp, tokens[:, i:i + 1], offs + i)
+        assert torch.equal(lk, lp), i
+    assert D.launches - before == (20 * 4 if kv_quant else 0)
+    for name in ck:
+        assert torch.equal(ck[name], cp[name]), name
+    before = (F.launches, F.launches_windowed)
+    got, _ = kern.forward(params, tokens)
+    assert (F.launches - before[0], F.launches_windowed - before[1]) == (4, 2)
+    want, _ = plain.forward(params, tokens)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+def test_ring_decode_equals_slice_branch_on_the_card(cuda_device,
+                                                     monkeypatch, kv):
+    """One local layer at gemma3's head shape (kvh 4, rep 2, hd 256), a
+    ring of 64 against a cache of 160 read through the slice branch, on
+    the kernel route, per-slot positions past the wrap: the attention
+    outputs (the input of ``wo``) within 1e-5 x max|out| (int8) or the
+    bf16 bound of 2e-2, and equal before the wrap."""
+    from repro_torch.models import attention as A
+    from repro_torch.quant.qlinear import qdot
+    model = _gemma3(cuda_device, "kernel", d_model=512, n_heads=8,
+                    n_kv_heads=4, head_dim=256)
+    lp = model.init(torch.Generator(cuda_device).manual_seed(0),
+                    quantize=True)["layers"][0]
+    cores = []
+
+    def recording(t, w, *a, **k):
+        if w is lp["wo"]:
+            cores.append(t.float())
+        return qdot(t, w, *a, **k)
+    monkeypatch.setattr(A, "qdot", recording)
+    b, W, S = 4, 64, 160
+    cfg = model.cfg
+
+    def caches(n):
+        dt = torch.int8 if kv == "int8" else torch.bfloat16
+        kvc = [torch.zeros((b, n, 4, 256), dtype=dt, device=cuda_device)
+               for _ in "kv"]
+        sc = [torch.zeros((b, n, 4), device=cuda_device) for _ in "kv"] \
+            if kv == "int8" else None
+        return kvc, sc
+    (rk, rv), rs = caches(W)
+    (fk, fv), fs = caches(S)
+    offs = torch.tensor([0, 5, 11, 23], device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(2)
+    for i in range(S - 23):
+        x = torch.randn((b, 1, cfg.d_model), generator=g,
+                        device=cuda_device).to(torch.bfloat16)
+        cores.clear()
+        for c, sc in (((rk, rv), rs), ((fk, fv), fs)):
+            A.decode_self_attention(x, lp, cfg, *c, offs + i,
+                                    policy=model.policy, static_window=W,
+                                    kv_scales=sc, impl="kernel")
+        ring, full = cores
+        err = float((ring - full).abs().max())
+        if i + 23 < W:
+            assert torch.equal(ring, full), i
+        bound = 1e-5 * float(full.abs().max()) if kv == "int8" else 2e-2
+        assert err <= bound, (i, err)

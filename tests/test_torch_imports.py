@@ -38,6 +38,7 @@ def test_every_module_is_listed():
                  "repro_torch.configs.phi4_mini_3_8b",
                  "repro_torch.configs.starcoder2_7b",
                  "repro_torch.configs.deepseek_67b",
+                 "repro_torch.configs.gemma3_4b",
                  "repro_torch.models.common",
                  "repro_torch.models.attention",
                  "repro_torch.models.model", "repro_torch.models.convert",

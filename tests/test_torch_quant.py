@@ -251,7 +251,7 @@ def test_configs_match_reference(arch):
 
 def test_config_registry_refuses_unported_archs():
     with pytest.raises(KeyError, match="not yet ported"):
-        T_configs.get_config("gemma3-4b")
+        T_configs.get_config("moonshot-v1-16b-a3b")
     moe = dataclasses.replace(T_configs.get_config("phi4-mini-3.8b"),
                               family="moe")
     with pytest.raises(NotImplementedError, match="moe"):

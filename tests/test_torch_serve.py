@@ -157,22 +157,34 @@ def test_decode_attention_matches_reference():
 
 
 def test_decode_attention_refuses_unported_paths():
-    """Windows (gemma3) still raise; the int8 cache and per-slot positions
-    are ported (``tests/test_torch_attention.py``)."""
+    """A dynamic decode ``window`` on the int8 cache is refused on the
+    kernel route (the kernel masks ``s <= pos`` alone, ROADMAP A.6), before
+    any cache is written; the plain route and the bf16 cache take it, and
+    ring and slice windows run everywhere (``tests/test_torch_window.py``)."""
     _, _, tmodel, tparams = _models("phi4-mini-3.8b", "bf16", False)
     cfg = tmodel.cfg
-    x = torch.zeros((1, 1, cfg.d_model), dtype=torch.bfloat16)
-    c = torch.zeros((1, 4, cfg.n_kv_heads, cfg.head_dim),
-                    dtype=torch.bfloat16)
+    x = torch.ones((1, 1, cfg.d_model), dtype=torch.bfloat16)
+    c8 = torch.zeros((1, 4, cfg.n_kv_heads, cfg.head_dim), dtype=torch.int8)
+    sc = torch.zeros((1, 4, cfg.n_kv_heads))
     lp, pol = tparams["layers"][0], policy_for("bf16")
-    for kw in (dict(window=4), dict(static_window=4)):
-        with pytest.raises(NotImplementedError, match="sliding-window"):
-            T_attn.decode_self_attention(x, lp, cfg, c, c, 0, policy=pol,
-                                         **kw)
+    for pos in (0, torch.tensor([2])):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+            T_attn.decode_self_attention(x, lp, cfg, c8, c8, pos, policy=pol,
+                                         window=2, kv_scales=(sc, sc),
+                                         impl="kernel")
+    assert not c8.any() and not sc.any()
+    out = T_attn.decode_self_attention(x, lp, cfg, c8, c8.clone(), 0,
+                                       policy=pol, window=2,
+                                       kv_scales=(sc, sc.clone()))
+    assert tuple(out[0].shape) == (1, 1, cfg.d_model)
+    cb = torch.zeros((1, 4, cfg.n_kv_heads, cfg.head_dim),
+                     dtype=torch.bfloat16)
+    out = T_attn.decode_self_attention(x, lp, cfg, cb, cb.clone(), 0,
+                                       policy=pol, window=2, impl="kernel")
+    assert tuple(out[0].shape) == (1, 1, cfg.d_model)
 
 
-@pytest.mark.parametrize("family,extra", [("moe", {}), ("vlm", {}),
-                                          ("dense", {"global_every": 6})])
+@pytest.mark.parametrize("family,extra", [("moe", {}), ("vlm", {})])
 def test_model_refuses_unported_families(family, extra):
     cfg = dataclasses.replace(reduced(get_config("phi4-mini-3.8b")),
                               family=family, **extra)
