@@ -3,8 +3,8 @@
 design-space sweep, the mixed-precision co-exploration search, the
 serving-fleet simulator and the serving-objective searches, the scalar
 dataflow oracle, the PPA models and RTL generator, the preemption-safe
-runtime, quantized LM serving (dense, windowed dense, SSM and hybrid),
-continuous batching over an int8 KV cache, and the full-sequence
+runtime, quantized LM serving (dense, windowed dense, MoE, SSM and
+hybrid), continuous batching over an int8 KV cache, and the full-sequence
 forward / prefill.
 
     python3 chip_smoke.py
@@ -200,6 +200,30 @@ Phases (any failure exits non-zero):
     of the pattern, int8 KV, batch 2, decoded through position 1100 on
     the kernel route, then 8 steps on each route from copies of the
     caches: logits within 2e-2, caches bit for bit);
+11g. the MoE family, moonshot-v1-16b-a3b at full width and depth (48
+    layers, d 2048, 16 heads x hd 128, MHA, 64 experts, top-6, vocab
+    163840), W8A8 with bf16 experts, random weights from seed 0, drawn
+    once for three phases: ``moe_serve`` (as ``ssm_serve``, bf16 KV: 192
+    W8A8 launches a step, all split-k, nothing else; logits and ``k``,
+    ``v`` bit for bit between the routes over the served 32 tokens; the
+    assignments dropped past an expert's capacity C = 1 a step, of b x 6
+    x 48; the step's bytes, every expert's among them);
+    ``moe_int8kv`` (the served stream teacher-forced on int8 KV through
+    both routes: 48 decode-kernel calls a step at rep 1, logits within
+    2e-2, caches identical; the decode kernel at (4, 16, 1, 128), S
+    4096, held to its plain version and timed); ``moe_prefill`` (the 1 x
+    4096 forward: 192 W8A8 ``tc`` and 48 flash launches; flash held per
+    layer as ``prefill`` holds phi4's, the kernel route with the plain
+    attention swapped in equal to the plain route bit for bit, logits
+    and aux; the routing choices that differ between the unswapped
+    routes; the device-time split: W8A8 ``tc``, flash, the MoE layers
+    (one layer's ``moe_ffn`` alone times 48; of it the expert products
+    alone, by CUDA events), the rest; flash
+    at (1, 16, 4096, 128) beside SDPA; W8A8 on a moonshot layer's four
+    projections at m = 4); ``moe_phi35`` (phi3.5-moe-42b-a6.6b at full
+    width, depth cut to 8 layers: served and teacher-forced on int8 KV
+    as moonshot, the decode kernel at rep 4 timed at (4, 8, 4, 128), S
+    4096, and flash at (1, 32, 4096, 128));
 12. ``attention_parity``: both attention kernels against their plain
     versions (decode: bit for bit, at positions on the boundaries of its
     splits of S, within the 1e-5 x max|out| bound; flash: 1e-5 f32,
@@ -381,6 +405,17 @@ RING = dict(until=1100, full_s=2048)
 # global), int8 KV, decoded on the kernel route through position "until",
 # then "steps" more on both routes
 WRAP = dict(n_layers=6, batch=2, until=1100, steps=8, max_seq=2048)
+# the MoE family: moonshot-v1-16b-a3b at full width and depth (48 layers,
+# d 2048, 16 heads x hd 128, MHA, 64 experts, top-6, vocab 163840), W8A8
+# (its experts bf16), served as phi4 is (SERVE), teacher-forced on int8
+# KV, forwarded at 1 x PREFILL["long_len"]; phi3.5-moe-42b-a6.6b at full
+# width (d 4096, 32 heads, 8 kv heads, 16 experts, top-2, ff 6400) with
+# its depth cut to MOE_PHI["n_layers"] (21 GB; 32 layers of bf16 experts
+# are 80.5 GB, past the 80 GB card with the rest)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_PHI = dict(arch="phi3.5-moe-42b-a6.6b", n_layers=8)
+# the W8A8 products of a moonshot layer at decode: wq, wk, wv, wo
+MOE_LAYER_PROJ = {(2048, 2048): 4}
 # the evaluation loss: mamba2-130m under fp32 on SyntheticLM batch 0,
 # card vs CPU
 LOSS = dict(arch="mamba2-130m", quant="fp32", batch=4, seq_len=512, step=0,
@@ -2811,30 +2846,38 @@ def _arch_model(arch: str, device, impl: str = "auto", quant=None,
 
 
 def _matmuls_per_pass(cfg) -> tuple[int, int]:
-    """W8A8 products a decode step or forward makes (7 a dense layer; in
-    an SSM or hybrid, in_proj and out_proj a layer and 7 an application
-    of the shared block), and the shared block's applications."""
+    """W8A8 products a decode step or forward makes (7 a dense layer; 4
+    an MoE layer, its attention's: the experts are bf16 products; in an
+    SSM or hybrid, in_proj and out_proj a layer and 7 an application of
+    the shared block), and the shared block's applications."""
     if cfg.family == "dense":
         return 7 * cfg.n_layers, 0
+    if cfg.family == "moe":
+        return 4 * cfg.n_layers, 0
     apps = sum(1 for l in range(cfg.n_layers) if cfg.shared_attn_every
                and l % cfg.shared_attn_every == cfg.shared_attn_every - 1)
     return 2 * cfg.n_layers + 7 * apps, apps
 
 
-def phase_arch_serve(device, arch: str, name: str) -> dict:
+def phase_arch_serve(device, arch: str, name: str, built=None) -> dict:
     """``launch.serve.generate`` at full width in W8A8 for the SSM
-    (mamba2-130m), hybrid (zamba2-1.2b) or windowed dense (gemma3-4b, bf16
-    KV: ring buffers on its local layers) family, every W8A8 product on
-    the split-k regime and no other kernel; then the served 32 tokens
-    teacher-forced through the kernel and plain routes on the same params
-    (logits and every cache bit for bit after each step) and one profiled
-    decode step."""
+    (mamba2-130m), hybrid (zamba2-1.2b), windowed dense (gemma3-4b, bf16
+    KV: ring buffers on its local layers) or MoE (moonshot, phi3.5-moe)
+    family, every W8A8 product on the split-k regime and no other kernel;
+    then the served 32 tokens teacher-forced through the kernel and plain
+    routes on the same params (logits and every cache bit for bit after
+    each step; for MoE also the assignments dropped past an expert's
+    capacity, counted on the kernel route) and one profiled decode step.
+    ``built``: a kernel-route model and its params, drawn by the caller
+    (else drawn here by ``_arch_model``).  The served stream is returned
+    under ``stream`` (a tensor: pop it before printing)."""
     import torch
     from repro_torch.launch.serve import generate
-    from repro_torch.models.model import Model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import EXPERT_NAMES, Model
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    kern, params = _arch_model(arch, device, impl="kernel")
+    kern, params = built or _arch_model(arch, device, impl="kernel")
     cfg = kern.cfg
     prompts = torch.randint(
         0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]), device=device,
@@ -2869,10 +2912,22 @@ def phase_arch_serve(device, arch: str, name: str) -> dict:
     cp = plain.init_cache(SERVE["batch"], steps + 1)
     worst_abs = worst_scaled = 0.0
     logits_same = caches_same = True
+    dropped = []            # per kernel-route step: (~keep).sum() a layer
+    real_dispatch = moe_mod.dispatch
+
+    def counting(experts, n_experts, cap):
+        out = real_dispatch(experts, n_experts, cap)
+        dropped[-1].append((~out[2]).sum())
+        return out
     _reset_matmul_counts()
     for i in range(steps):
         tok = stream[:, i:i + 1]
-        lk, ck = kern.decode_step(params, ck, tok, i)
+        dropped.append([])
+        moe_mod.dispatch = counting
+        try:
+            lk, ck = kern.decode_step(params, ck, tok, i)
+        finally:
+            moe_mod.dispatch = real_dispatch
         lp, cp = plain.decode_step(params, cp, tok, i)
         check(bool(torch.isfinite(lk).all()), f"{arch}: non-finite logits")
         diff = float((lk.float() - lp.float()).abs().max())
@@ -2899,14 +2954,33 @@ def phase_arch_serve(device, arch: str, name: str) -> dict:
     step_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top, ops, _ = _profile_device_ms(step, 3)
     # bytes a step must read: the quantized projections and their scales,
-    # and the float32 embedding the logits product reads
+    # and the float32 embedding the logits product reads; an MoE layer's
+    # router and every expert (the (E, C, d) buffer's products read all E)
     proj = sum(v.data.numel() + 4 * v.scale.numel()
                for lp in params["layers"] + [params.get("shared", {})]
                for v in lp.values() if hasattr(v, "scale"))
-    step_bytes = proj + params["embed"].numel() * 4
+    moe_bytes = sum(lp[k].numel() * lp[k].element_size()
+                    for lp in params["layers"]
+                    for k in ("router",) + EXPERT_NAMES if k in lp)
+    step_bytes = proj + moe_bytes + params["embed"].numel() * 4
     cache_keys = sorted(ck)
+    moe = {}
+    if cfg.family == "moe":
+        per_step = [int(torch.stack(d).sum()) for d in dropped]
+        entries = SERVE["batch"] * cfg.top_k * cfg.n_layers
+        moe = {"capacity": moe_mod.capacity(SERVE["batch"], cfg.n_experts,
+                                            cfg.top_k, 1.25),
+               "dropped_per_step": per_step,
+               "assignments_per_step": entries,
+               "dropped_share": sum(per_step) / (entries * steps),
+               "expert_and_router_bytes": moe_bytes,
+               "tf32_matmul_allowed":
+                   torch.backends.cuda.matmul.allow_tf32}
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              f"{arch}: TF32 matmuls are enabled; the router must stay "
+              f"float32")
     del kern, plain, params, ck, cp
-    return {"phase": name, "arch": arch,
+    return {"phase": name, "arch": arch, **moe, "stream": stream,
             "n_layers": cfg.n_layers, "shared_applications": apps,
             "launches": launches,
             "w8a8_per_step": per_pass,
@@ -3365,8 +3439,6 @@ def phase_window_prefill(device, model, params) -> dict:
     shares of device time, and flash on a local and a global layer's q,
     k, v beside its plain version, SDPA and its bound."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import attention
     from repro_torch.models.model import Model, layer_windows
     cfg = model.cfg
@@ -3440,40 +3512,8 @@ def phase_window_prefill(device, model, params) -> dict:
         {"flash": ("flash_tc_kernel",), "w8a8": ("w8a8_tc_kernel",)})
 
     # flash on a local and a global layer's own q, k, v (b, h, s, d)
-    flash = {}
-    for key, window in (("local", cfg.window), ("global", None)):
-        q, k, v = kept[key]
-        b, h, s, d = q.shape
-        qi = torch.arange(s, device=device)[:, None]
-        ki = torch.arange(s, device=device)[None, :]
-        mask = (ki <= qi) & (ki > qi - window) if window else None
-        row = {"shape": [b, h, s, d], "window": window}
-        for name, fn, iters in (
-                ("plain", lambda i: FA.flash_attention_ref(
-                    q, k, v, window=window), 3),
-                ("kernel", lambda i: FA.flash_attention(
-                    q, k, v, window=window), 10),
-                ("kernel_again", lambda i: FA.flash_attention(
-                    q, k, v, window=window), 10),
-                ("plain_again", lambda i: FA.flash_attention_ref(
-                    q, k, v, window=window), 3),
-                ("library", lambda i: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, is_causal=mask is None), 10)):
-            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
-                fn, iters)
-        _best_times(row)
-        flops = 4 * d * h * b * _flash_pairs(s, window)
-        bytes_moved = 4 * b * h * s * d * q.element_size()
-        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        row.update(flops=flops, bytes=bytes_moved, ops_ms=ops_ms,
-                   bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   kernel_max_abs_vs_plain=float(
-                       (FA.flash_attention(q, k, v, window=window).float()
-                        - FA.flash_attention_ref(q, k, v, window=window)
-                        .float()).abs().max()))
-        flash[key] = row
+    flash = {key: _flash_timing(device, *kept[key], window=window)
+             for key, window in (("local", cfg.window), ("global", None))}
     total_ms, flash_ms = prof["profiled_device_ms"], prof["flash_device_ms"]
     walls = {k: fwd[k]["wall_s"] for k in fwd}
     peak = fwd["kernel"]["peak_over_params_bytes"]
@@ -3499,6 +3539,375 @@ def phase_window_prefill(device, model, params) -> dict:
             "w8a8_share_of_device": prof["w8a8_device_ms"] / total_ms
             if total_ms else None,
             "flash_timing": flash}
+
+
+# ------------------------------------------------ the MoE family (moonshot)
+
+def phase_moe_int8kv(device, name: str, model, params, stream) -> dict:
+    """The served ``stream`` teacher-forced through ``decode_step`` on int8
+    KV caches on the kernel and plain routes: the decode kernel called once
+    a layer and step (MHA moonshot: rep 1; phi3.5-moe: rep 4), logits
+    within ``LOGIT_TOL``, int8 caches and scales identical after every
+    step; ms a kernel-route step.  Then the decode kernel at this model's
+    shape (b 4, S ``DECODE_S[0]``), held to its plain version and timed."""
+    import torch
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    plain = Model(cfg, device=device, impl="ref")
+    b, steps = stream.shape[0], stream.shape[1]
+    ck = model.init_cache(b, steps + 1, kv_quant=True)
+    cp = plain.init_cache(b, steps + 1, kv_quant=True)
+    worst_abs, agree, kern_s = 0.0, [], 0.0
+    caches_same = True
+    _reset_attention_counts()
+    _reset_matmul_counts()
+    for i in range(steps):
+        tok = stream[:, i:i + 1]
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        lk, ck = model.decode_step(params, ck, tok, i)
+        torch.cuda.synchronize(device)
+        kern_s += time.perf_counter() - t0
+        lp, cp = plain.decode_step(params, cp, tok, i)
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        worst_abs = max(worst_abs, float((lk.float() - lp.float()).abs()
+                                         .max()))
+        agree.append(float((lk.argmax(-1) == lp.argmax(-1)).float().mean()))
+        caches_same &= all(torch.equal(ck[k], cp[k]) for k in ck)
+    launches = {**_attention_counts(), **_matmul_counts()}
+    check(launches["w8a8_decode_attention"] == steps * cfg.n_layers
+          and launches["flash_attention"] == 0,
+          f"{name}: decode launches {launches}, expected "
+          f"{steps * cfg.n_layers}")
+    check(launches["w8a8_matmul_dp4a"] == steps * 4 * cfg.n_layers,
+          f"{name}: W8A8 launches {launches}")
+    check(worst_abs <= LOGIT_TOL,
+          f"{name}: int8-KV logits kernel vs plain {worst_abs:.3g} > "
+          f"{LOGIT_TOL}")
+    check(caches_same, f"{name}: int8 caches differ between the routes")
+    shape = (b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+             cfg.head_dim)
+    del plain, ck, cp
+    return {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "decode_shape": list(shape), "steps": steps,
+            "launches": launches, "logits_max_abs": worst_abs,
+            "greedy_agreement_per_step": agree,
+            "caches_identical": caches_same,
+            "kernel_step_ms": kern_s / steps * 1e3,
+            "decode_timing": {str(DECODE_S[0]): _decode_timing(
+                device, shape, DECODE_S[0])}}
+
+
+def _flash_timing(device, q, k, v, window=None) -> dict:
+    """bf16 flash on (b, h, s, d) ``q``, ``k``, ``v``, causal (with a
+    sliding ``window`` where given): the kernel (twice), its plain version
+    (twice) and SDPA (``is_causal``, or the window as a bool mask), in
+    turns, beside its bound; the kernel's distance to the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    b, h, s, d = q.shape
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(s, device=device)[None, :]
+    mask = (ki <= qi) & (ki > qi - window) if window else None
+    row = {"shape": [b, h, s, d], "window": window}
+    for name, fn, iters in (
+            ("plain", lambda i: FA.flash_attention_ref(
+                q, k, v, window=window), 3),
+            ("kernel", lambda i: FA.flash_attention(
+                q, k, v, window=window), 10),
+            ("kernel_again", lambda i: FA.flash_attention(
+                q, k, v, window=window), 10),
+            ("plain_again", lambda i: FA.flash_attention_ref(
+                q, k, v, window=window), 3),
+            ("library", lambda i: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None), 10)):
+        row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn, iters)
+    _best_times(row)
+    flops = 4 * d * h * b * _flash_pairs(s, window)
+    bytes_moved = 4 * b * h * s * d * q.element_size()
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    row.update(flops=flops, bytes=bytes_moved, ops_ms=ops_ms,
+               bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               kernel_max_abs_vs_plain=float(
+                   (FA.flash_attention(q, k, v, window=window).float()
+                    - FA.flash_attention_ref(q, k, v, window=window)
+                    .float()).abs().max()))
+    return row
+
+
+def _qmm_layer_timing(device, proj: dict, m: int) -> dict:
+    """W8A8 over one layer's projections ``proj`` ({(k, n): count}) at m
+    rows: the kernel (twice), its plain version (twice) and
+    ``torch._int_mm`` (m padded to 32), weights rotated past L2, each
+    shape's kernel equal to its plain version; summed over the layer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import w8a8_matmul as W8
+    rows = {}
+    for (k, n), _ in proj.items():
+        copies = -(-2 * L2_BYTES // (k * n)) + 1
+        x, _, xs, ws = _qmm_operands(m, k, n, False, 7, device)
+        wl = [_qmm_operands(m, k, n, False, 100 + c, device)[1]
+              for c in range(copies)]
+        check(bool(torch.equal(W8.w8a8_matmul(x, wl[0], xs, ws),
+                               W8.w8a8_matmul_ref(x, wl[0], xs, ws))),
+              f"W8A8 at {(m, k, n)} differs from its plain version")
+        xp = F.pad(x, (0, 0, 0, 32 - m))
+        wcol = [w.t().contiguous().t() for w in wl]
+        row = {"copies": copies, "regime": W8.plan(m, k, n).regime}
+        for name, fn, iters in (
+                ("plain", lambda i: W8.w8a8_matmul_ref(
+                    x, wl[i % copies], xs, ws), 10),
+                ("kernel", lambda i: W8.w8a8_matmul(
+                    x, wl[i % copies], xs, ws), 200),
+                ("kernel_again", lambda i: W8.w8a8_matmul(
+                    x, wl[i % copies], xs, ws), 200),
+                ("plain_again", lambda i: W8.w8a8_matmul_ref(
+                    x, wl[i % copies], xs, ws), 10),
+                ("library", lambda i: torch._int_mm(xp, wcol[i % copies]),
+                 200)):
+            row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
+                                                                    iters)
+        _best_times(row)
+        bytes_moved = m * k + k * n + 4 + 4 * n + 4 * m * n
+        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+        row.update(bytes=bytes_moved, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        rows[f"{k}x{n}"] = row
+        del x, wl, wcol, xp
+    layer = {key: sum(c * rows[f"{k}x{n}"][key]
+                      for (k, n), c in proj.items())
+             for key in ("best_kernel_ms", "best_plain_ms",
+                         "best_library_ms", "bound_ms", "bytes")}
+    bounds = {r["bound_by"] for r in rows.values()}
+    layer.update(bound_by="bytes" if bounds == {"bytes"} else "operations",
+                 timer="profiler" if all(r["timer"] == "profiler"
+                                         for r in rows.values())
+                 else "mixed", m=m,
+                 projections={f"{k}x{n}": c for (k, n), c in proj.items()})
+    return {"layer": layer, "shapes": rows}
+
+
+def phase_moe_prefill(device, model, params) -> dict:
+    """moonshot's 1 x 4096 forward at full depth on the kernel and plain
+    routes: 4 W8A8 ``tc`` launches and one bf16 flash launch a layer;
+    flash within 2e-2 of the plain route's attention (chunked above 2048
+    tokens) on each layer's own q, k, v and each row within 2^-6 of its
+    own max; the kernel route with that attention swapped in equal to the
+    plain route bit for bit (logits and aux); the routing choices that
+    differ between the unswapped routes and their logits' distance; aux;
+    wall time, peak memory, the device-time split (W8A8 ``tc`` and flash
+    by kernel name; the MoE layers as one layer's ``moe_ffn`` alone times
+    the depth, of it the expert products alone by CUDA events; the rest)
+    beside the expert products' bound; flash
+    on layer 0's own q, k, v beside SDPA; W8A8 on a moonshot layer's
+    projections at decode (m = 4)."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import EXPERT_NAMES, Model
+    cfg = model.cfg
+    plain = Model(cfg, device=device, impl="ref")
+    L, s = cfg.n_layers, PREFILL["long_len"]
+    tokens = torch.randint(0, cfg.vocab, (1, s), device=device,
+                           generator=torch.Generator(device).manual_seed(3))
+    real_route = moe_mod.topk_route
+    fwd = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        m.forward(params, tokens, last_only=True)           # warm-up
+        routes = []
+
+        def recording(x, w, E, K):
+            out = real_route(x, w, E, K)
+            routes.append(out[1])
+            return out
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        _reset_matmul_counts()
+        _reset_attention_counts()
+        moe_mod.topk_route = recording
+        try:
+            t0 = time.perf_counter()
+            logits, aux = m.forward(params, tokens, last_only=True)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+        finally:
+            moe_mod.topk_route = real_route
+        fwd[name] = {"logits": logits, "aux": aux, "wall_s": wall,
+                     "routes": routes,
+                     "peak_over_params_bytes":
+                         torch.cuda.max_memory_allocated(device) - base,
+                     "launches": {**_matmul_counts(),
+                                  **_attention_counts()}}
+    n = fwd["kernel"]["launches"]
+    check(n["w8a8_matmul_tc"] == 4 * L and n["w8a8_matmul_dp4a"] == 0
+          and n["flash_attention_tc"] == L and n["flash_attention"] == L
+          and n["flash_attention_windowed"] == 0,
+          f"{cfg.name} forward's launches {n}: {4 * L} W8A8 on the tensor "
+          f"cores and {L} bf16 flash expected")
+    check(fwd["plain"]["launches"]["flash_attention"] == 0
+          and fwd["plain"]["launches"]["w8a8_matmul"] == 0,
+          "plain route launched a kernel")
+    lk, lp = fwd["kernel"]["logits"], fwd["plain"]["logits"]
+    ak, ap = fwd["kernel"]["aux"], fwd["plain"]["aux"]
+    check(tuple(lk.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(lk).all()),
+          f"{cfg.name} forward logits {tuple(lk.shape)}")
+    check(math.isfinite(float(ak)) and float(ak) > 0
+          and math.isfinite(float(ap)) and float(ap) > 0,
+          f"{cfg.name} aux {float(ak)!r} / {float(ap)!r}")
+    routes_k, routes_p = fwd["kernel"]["routes"], fwd["plain"]["routes"]
+    check(len(routes_k) == len(routes_p) == L, "routes recorded")
+    differ = [int((a != c).sum()) for a, c in zip(routes_k, routes_p)]
+    tokens_differ = [int((a.sort(-1).values != c.sort(-1).values)
+                         .any(-1).sum()) for a, c in zip(routes_k, routes_p)]
+
+    layers, kept = [], {}
+    real_attend = attention.attend
+
+    def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
+        got = real_attend(q, k, v, causal=causal, window=window, impl=impl)
+        want = real_attend(q, k, v, causal=causal, window=window,
+                           impl="ref")
+        layers.append(flash_row_err(got, want))
+        if not kept:
+            kept["qkv"] = [t.transpose(1, 2).contiguous()
+                           for t in (q, k, v)]
+        return want
+    attention.attend = swapped
+    try:
+        mixed, mixed_aux = model.forward(params, tokens, last_only=True)
+    finally:
+        attention.attend = real_attend
+    check(len(layers) == L, "swapped attention calls")
+    worst = max(e["max_abs"] for e in layers)
+    worst_row = max(e["row_rel"] for e in layers)
+    check(worst <= FLASH_TOL["bfloat16"] and worst_row <= FLASH_ROW_RTOL,
+          f"{cfg.name}: flash vs plain attention {worst:.3g} absolute, "
+          f"{worst_row:.3g} of a row's max on a layer")
+    check(bool(torch.equal(mixed, lp)) and bool(torch.equal(mixed_aux, ap)),
+          f"{cfg.name}: kernel route with plain attention differs from "
+          f"the plain route")
+    # one layer's moe_ffn and its expert products alone, at this
+    # forward's shapes (layer 0's input)
+    seen = {}
+    real_ffn, real_experts = moe_mod.moe_ffn, moe_mod.expert_ffn
+
+    def keep_ffn(x, p, cfg_, **kw):
+        seen.setdefault("ffn", (x, p, kw))
+        return real_ffn(x, p, cfg_, **kw)
+
+    def keep_experts(buf, p, policy, train):
+        seen.setdefault("experts", (buf, p, policy, train))
+        return real_experts(buf, p, policy, train)
+    moe_mod.moe_ffn, moe_mod.expert_ffn = keep_ffn, keep_experts
+    try:
+        model.forward(params, tokens, last_only=True)
+    finally:
+        moe_mod.moe_ffn, moe_mod.expert_ffn = real_ffn, real_experts
+    x0, p0, kw0 = seen["ffn"]
+    buf0 = seen["experts"][0]
+    ffn_ms, ffn_event_ms = _device_ms(
+        lambda i: real_ffn(x0, p0, cfg, **kw0), 5, windows=3)
+    # the products with their silu * u
+    exp_ms, exp_event_ms = _device_ms(
+        lambda i: real_experts(*seen["experts"]), 5, windows=3)
+    # the three expert products alone at layer 0's buffer and weights,
+    # by CUDA events over back-to-back calls (device-bound: ~0.8 ms a
+    # call against a few µs of launches); every layer's are the same
+    # shapes.  (Their kernels cannot be picked out of the forward's
+    # profile by name: a window can drop every record of one of them.)
+    bufe, pe = seen["experts"][0], seen["experts"][1]
+    wg, wi, wo = (pe[k] for k in EXPERT_NAMES)
+
+    def products():
+        g = torch.bmm(bufe, wg)
+        torch.bmm(bufe, wi)
+        torch.bmm(g, wo)
+    products_ms = _event_ms(products, 10)
+    prof = _profile_split(
+        lambda: model.forward(params, tokens, last_only=True),
+        {"flash": ("flash_tc_kernel",), "w8a8": ("w8a8_tc_kernel",)})
+    E, C = buf0.shape[0], buf0.shape[1]
+    expert_flops = 3 * 2 * E * C * cfg.d_model * cfg.d_ff * L
+    total_ms = prof["profiled_device_ms"]
+    split = {"w8a8_tc_device_ms": prof["w8a8_device_ms"],
+             "flash_device_ms": prof["flash_device_ms"],
+             "expert_products_layer_event_ms": products_ms,
+             "expert_products_ms": products_ms * L}
+    if ffn_ms is not None:
+        # routing, dispatch, silu * u and the combine: the layer's
+        # moe_ffn alone less its products, times the depth
+        moe_ms = ffn_ms * L
+        split.update(moe_other_ms=moe_ms - products_ms * L,
+                     rest_device_ms=total_ms - prof["w8a8_device_ms"]
+                     - prof["flash_device_ms"] - moe_ms)
+    q, k, v = kept["qkv"]
+    flash = _flash_timing(device, q, k, v)
+    qmm = _qmm_layer_timing(device, MOE_LAYER_PROJ, SERVE["batch"])
+    walls = {key: fwd[key]["wall_s"] for key in fwd}
+    peak = fwd["kernel"]["peak_over_params_bytes"]
+    out = {"phase": "moe_prefill", "arch": cfg.name, "forward_len": s,
+           "capacity": C, "experts": E, "top_k": cfg.top_k,
+           "forward_wall_s": walls["kernel"],
+           "forward_plain_wall_s": walls["plain"],
+           "peak_mem_over_params_bytes": peak, "launches": n,
+           "aux": float(ak), "aux_plain": float(ap),
+           "routing_entries_differing_per_layer": differ,
+           "routing_tokens_differing_per_layer": tokens_differ,
+           "routing_entries": s * cfg.top_k,
+           "logits_max_abs_vs_plain": float(
+               (lk.float() - lp.float()).abs().max()),
+           "logits_max_abs": float(lp.float().abs().max()),
+           "flash_vs_plain_per_layer_max_abs": [e["max_abs"]
+                                                for e in layers],
+           "flash_vs_plain_per_layer_row_rel": [e["row_rel"]
+                                                for e in layers],
+           "attention_out_per_layer_median_abs": [e["median_abs_want"]
+                                                  for e in layers],
+           "kernel_matmuls_plain_attention_equal_plain_route": True,
+           "moe_ffn_layer_device_ms": ffn_ms,
+           "moe_ffn_layer_event_ms": ffn_event_ms,
+           "expert_ffn_layer_device_ms": exp_ms,
+           "expert_ffn_layer_event_ms": exp_event_ms,
+           "expert_products_flops": expert_flops,
+           "expert_products_bound_ms":
+               expert_flops / PEAK_BF16_FLOPS * 1e3,
+           **prof, **split, "flash_timing": flash,
+           "w8a8_decode_layer": qmm}
+    del plain, fwd, mixed, kept, seen, x0, p0, buf0, q, k, v
+    return out
+
+
+def phase_moe_phi35(device) -> dict:
+    """phi3.5-moe-42b-a6.6b at full width, depth cut to
+    ``MOE_PHI["n_layers"]``: served as moonshot (``moe_serve``'s checks,
+    the decode kernel never), the served stream teacher-forced on int8 KV
+    (the decode kernel at rep 4), and bf16 flash at its prefill head
+    count (1, 32, 4096, 128) on random q, k, v."""
+    import torch
+    arch, cut = MOE_PHI["arch"], MOE_PHI["n_layers"]
+    built = _arch_model(arch, device, impl="kernel", n_layers=cut)
+    serve_row = phase_arch_serve(device, arch, "moe_phi35_serve",
+                                 built=built)
+    stream = serve_row.pop("stream")
+    int8kv = phase_moe_int8kv(device, "moe_phi35_int8kv", *built, stream)
+    cfg = built[0].cfg
+    del built
+    g = torch.Generator(device).manual_seed(61)
+    q, k, v = (torch.randn((1, cfg.n_heads, PREFILL["long_len"],
+                            cfg.head_dim), generator=g, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    flash = _flash_timing(device, q, k, v)
+    return {"phase": "moe_phi35", "arch": arch,
+            "depth_cut": f"{cut} of 32 layers (32 layers of bf16 experts "
+                         "are 80.5 GB)",
+            "serve": serve_row, "int8kv": int8kv, "flash_timing": flash}
 
 
 def _decode_operands(b, kvh, rep, hd, S, seed, device):
@@ -3826,6 +4235,7 @@ def main() -> int:
     ssm_serve = {family: phase_arch_serve(device, arch, f"{family}_serve")
                  for family, arch in SSM_ARCHS.items()}
     for family in SSM_ARCHS:
+        ssm_serve[family].pop("stream")
         emit(ssm_serve[family])
     ssm_prefill = phase_ssm_prefill(device)
     emit(ssm_prefill)
@@ -3833,6 +4243,7 @@ def main() -> int:
     emit(ssm_tc)
     emit(phase_loss(device))
     window_serve = phase_arch_serve(device, WINDOW_ARCH, "window_serve")
+    window_serve.pop("stream")
     emit(window_serve)
     model, params = _arch_model(WINDOW_ARCH, device)
     window_batcher = phase_batcher(device, model, params,
@@ -3845,6 +4256,21 @@ def main() -> int:
     del model, params
     window_wrap = phase_window_wrap(device)
     emit(window_wrap)
+    torch.cuda.empty_cache()
+    model, params = _arch_model(MOE_ARCH, device, impl="kernel")
+    moe_serve = phase_arch_serve(device, MOE_ARCH, "moe_serve",
+                                 built=(model, params))
+    stream = moe_serve.pop("stream")
+    emit(moe_serve)
+    moe_int8kv = phase_moe_int8kv(device, "moe_int8kv", model, params,
+                                  stream)
+    emit(moe_int8kv)
+    moe_prefill = phase_moe_prefill(device, model, params)
+    emit(moe_prefill)
+    del model, params, stream
+    torch.cuda.empty_cache()
+    moe_phi35 = phase_moe_phi35(device)
+    emit(moe_phi35)
     aparity = phase_attention_parity(device)
     emit(aparity)
     atiming = phase_attention_timing(device)
@@ -3909,7 +4335,15 @@ def main() -> int:
                ssm_serve[f]["launches"]["w8a8_matmul_dp4a"]
                for f in SSM_ARCHS},
             f"window_serve ({WINDOW_ARCH})":
-                window_serve["launches"]["w8a8_matmul_dp4a"]},
+                window_serve["launches"]["w8a8_matmul_dp4a"],
+            f"moe_serve ({MOE_ARCH})":
+                moe_serve["launches"]["w8a8_matmul_dp4a"],
+            f"moe_int8kv ({MOE_ARCH})":
+                moe_int8kv["launches"]["w8a8_matmul_dp4a"],
+            f"moe_phi35_serve ({MOE_PHI['arch']}, "
+            f"{MOE_PHI['n_layers']} layers)":
+                moe_phi35["serve"]["launches"]["w8a8_matmul_dp4a"]},
+        "moonshot_layer": moe_prefill["w8a8_decode_layer"]["layer"],
     })
     lay = qprefill["layer"]
     kernels.append({
@@ -3935,7 +4369,9 @@ def main() -> int:
                ssm_prefill[f]["launches"]["w8a8_matmul_tc"]
                for f in SSM_ARCHS},
             f"window_prefill ({WINDOW_ARCH})":
-                window_prefill["launches"]["w8a8_matmul_tc"]},
+                window_prefill["launches"]["w8a8_matmul_tc"],
+            f"moe_prefill ({MOE_ARCH})":
+                moe_prefill["launches"]["w8a8_matmul_tc"]},
         "ssm_shapes": {key: {k: ssm_tc[key][k] for k in (
             "aligned", "kernel_ms", "kernel_again_ms", "plain_ms",
             "library_ms", "bound_ms")}
@@ -3962,8 +4398,10 @@ def main() -> int:
                      "reported its launch; launches: W4A8 serve run)",
     })
     dec = atiming["decode"][str(DECODE_S[0])]
+    moe_dec_rows = list(moe_int8kv["decode_timing"].values()) \
+        + list(moe_phi35["int8kv"]["decode_timing"].values())
     dec_rows = list(atiming["decode"].values()) \
-        + list(window_ring["decode_timing"].values())
+        + list(window_ring["decode_timing"].values()) + moe_dec_rows
     b, kvh, rep, hd = DECODE_SHAPE
     kernels.append({
         "name": "w8a8_decode_attention",
@@ -3999,7 +4437,18 @@ def main() -> int:
             f"window_ring ({WINDOW_ARCH}, one local layer)":
                 window_ring["launches"]["w8a8_decode_attention"],
             f"window_wrap ({WINDOW_ARCH}, 6 layers)":
-                window_wrap["launches"]["w8a8_decode_attention"]},
+                window_wrap["launches"]["w8a8_decode_attention"],
+            f"moe_int8kv ({MOE_ARCH}, rep 1)":
+                moe_int8kv["launches"]["w8a8_decode_attention"],
+            f"moe_phi35_int8kv ({MOE_PHI['arch']}, "
+            f"{MOE_PHI['n_layers']} layers, rep 4)":
+                moe_phi35["int8kv"]["launches"]["w8a8_decode_attention"]},
+        "moe_shapes": {f"rep {r['shape'][2]}": {
+            k: r[k] for k in (
+                "shape", "splits", "positions", "max_abs_err", "rel_to_max",
+                "best_kernel_ms", "best_plain_ms", "timer", "bound_ms",
+                "bound_by")}
+            for r in moe_dec_rows},
         "wrapped_ring_max_abs_vs_plain":
             window_ring["worst"]["kernel_vs_plain"],
         "gemma3_shapes": {S: {k: r[k] for k in (
@@ -4032,7 +4481,14 @@ def main() -> int:
             f"window_prefill ({WINDOW_ARCH})":
                 window_prefill["launches"]["flash_attention_tc"],
             f"window_prefill ({WINDOW_ARCH}), window 1024":
-                window_prefill["launches"]["flash_attention_windowed"]},
+                window_prefill["launches"]["flash_attention_windowed"],
+            f"moe_prefill ({MOE_ARCH})":
+                moe_prefill["launches"]["flash_attention_tc"]},
+        "moe_shapes": {f"h {r['shape'][1]}": {k: r[k] for k in (
+            "shape", "best_kernel_ms", "best_plain_ms", "best_library_ms",
+            "timer", "bound_ms", "bound_by", "kernel_max_abs_vs_plain")}
+            for r in (moe_prefill["flash_timing"],
+                      moe_phi35["flash_timing"])},
         "gemma3_layers": {key: {k: r[k] for k in (
             "shape", "window", "best_kernel_ms", "best_plain_ms",
             "best_library_ms", "timer", "bound_ms", "bound_by",

@@ -1,9 +1,12 @@
 """Configurations of the port: the paper's CNN workloads
 (``qappa_workloads``) and the language models the port runs so far, of
 the reference's pool: the dense ones (gemma3 with its local:global
-windows among them), the SSM (mamba2) and the hybrid (zamba2)."""
+windows among them), the mixtures of experts (moonshot, phi3.5-moe), the
+SSM (mamba2) and the hybrid (zamba2)."""
 
 ALL_ARCHS = (
+    "moonshot-v1-16b-a3b",
+    "phi3.5-moe-42b-a6.6b",
     "starcoder2-7b",
     "phi4-mini-3.8b",
     "deepseek-67b",
@@ -13,6 +16,8 @@ ALL_ARCHS = (
 )
 
 _MODULES = {
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "starcoder2-7b": "starcoder2_7b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "deepseek-67b": "deepseek_67b",

@@ -2,7 +2,7 @@
 
 A copy of ``repro.configs.base`` without its imports of JAX: the config
 dataclasses, the registry and :func:`reduced`.  Parameter counts cover
-the families the port's model runs: dense, ssm and hybrid.
+the families the port's model runs: dense, moe, ssm and hybrid.
 """
 
 from __future__ import annotations
@@ -70,15 +70,19 @@ class ArchConfig:
 
     def n_params(self) -> int:
         """Total parameter count (embedding + stacked blocks)."""
-        if self.family not in ("dense", "ssm", "hybrid"):
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"n_params of the {self.family!r} family is not ported yet "
-                f"(the port carries the dense, ssm and hybrid families)")
+                f"(the port carries the dense, moe, ssm and hybrid "
+                f"families)")
         d, ff, hd = self.d_model, self.d_ff, self.head_dim
         h, kvh, L = self.n_heads, self.n_kv_heads, self.n_layers
         attn = d * h * hd + 2 * d * kvh * hd + h * hd * d + 2 * d
         if self.family == "dense":
             per_layer = attn + 3 * d * ff + 2 * d
+        elif self.family == "moe":
+            per_layer = attn + self.n_experts * 3 * d * ff \
+                + d * self.n_experts + 2 * d
         else:
             from repro_torch.models import ssm as _ssm
             per_layer = d * _ssm.in_proj_dim(self) \
@@ -89,9 +93,15 @@ class ArchConfig:
         return int(total)
 
     def n_active_params(self) -> int:
-        """Active params per token (all of them: no ported family routes
-        tokens to experts)."""
-        return self.n_params()
+        """Active params per token (MoE: top_k of n_experts, and the
+        router; no norms, as the reference counts them)."""
+        if self.family != "moe":
+            return self.n_params()
+        d, ff, hd = self.d_model, self.d_ff, self.head_dim
+        h, kvh, L = self.n_heads, self.n_kv_heads, self.n_layers
+        attn = d * h * hd + 2 * d * kvh * hd + h * hd * d
+        return int(self.vocab * d + L * (attn + self.top_k * 3 * d * ff
+                                         + d * self.n_experts))
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

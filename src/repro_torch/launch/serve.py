@@ -4,6 +4,10 @@ quantized) weights, the LightPE deployment path.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
       --batch 4 --prompt-len 16 --gen 16 --quant [--full] [--device cpu]
+
+An MoE model at full width needs ``--quant``: unquantized, its stacked
+experts stay float32 (moonshot-v1-16b-a3b: 106.3 GB, past an 80 GB card);
+quantized, they are stored in bf16 (53.2 GB).
 """
 
 from __future__ import annotations
@@ -59,13 +63,22 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, *,
     }
 
 
+def expert_bytes(cfg, quantize: bool) -> int:
+    """Bytes of an MoE model's stacked experts: float32 as drawn, 2 a
+    weight once quantized (bf16, the compute dtype of its mode)."""
+    n = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+    return n * (2 if quantize else 4)
+
+
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
           gen: int = 16, quantize: bool = False, smoke: bool = True,
           seed: int = 0, greedy: bool = True, device="cuda") -> dict:
     """Serve ``batch`` random prompts of ``arch`` (reduced to smoke size
     unless ``smoke=False``) with random weights from ``seed`` and prompts
     from ``seed + 1``.  Returns ``tokens`` (batch, gen) int32,
-    ``prefill_s``, ``decode_s`` and ``tok_per_s``."""
+    ``prefill_s``, ``decode_s`` and ``tok_per_s``.  An MoE model at full
+    width without ``quantize`` is refused: its float32 experts would be
+    drawn whole (see :func:`expert_bytes`)."""
     if not greedy:
         raise NotImplementedError(
             "sampling is not implemented: decoding is greedy, as in the "
@@ -74,6 +87,12 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
     cfg = get_config(arch)
     if smoke:
         cfg = reduced(cfg)
+    elif cfg.family == "moe" and not quantize:
+        raise ValueError(
+            f"{arch} at full width without quantize keeps its experts "
+            f"float32: {expert_bytes(cfg, False) / 1e9:.1f} GB "
+            f"({expert_bytes(cfg, True) / 1e9:.1f} GB once quantized, "
+            f"stored in the compute dtype); pass quantize=True (--quant)")
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(dev).manual_seed(seed),
                         quantize=quantize)
@@ -89,9 +108,13 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--quant", action="store_true")
+    ap.add_argument("--quant", action="store_true",
+                    help="quantize the projections for serving (and store "
+                         "an MoE model's experts in bf16)")
     ap.add_argument("--full", action="store_true",
-                    help="the config's full width (default: reduced)")
+                    help="the config's full width (default: reduced); an "
+                         "MoE model needs --quant there (moonshot-v1-16b-a3b"
+                         "'s float32 experts are 106.3 GB)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,

@@ -27,6 +27,8 @@ from repro_torch.quant.qlinear import QuantizedTensor
 QUANTIZED_KEYS = {"data", "scale", "mode", "orig_shape"}
 MAMBA_KEYS = {"ln1", "in_proj", "conv_w", "dt_bias", "a_log", "d_skip",
               "out_proj"}
+MOE_KEYS = {"ln1", "ln2", "wq", "wk", "wv", "wo", "router",
+            "w_experts_gate", "w_experts_in", "w_experts_out"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -67,13 +69,13 @@ def _check_keys(what: str, got, want: set) -> None:
 
 def from_reference_params(cfg: ArchConfig, tree: dict, *,
                           device="cuda") -> dict:
-    """The reference's params of a dense, ssm or hybrid model -> the
+    """The reference's params of a dense, moe, ssm or hybrid model -> the
     port's params on ``device``: ``embed`` and ``final_norm`` as tensors,
     ``layers`` sliced into one dict per layer, the hybrid's ``shared``
     unsliced.  Raises on a tree whose keys are not the family's."""
     dev = resolve_device(device)
-    layer_keys = {"dense": _block_keys(cfg), "ssm": MAMBA_KEYS,
-                  "hybrid": MAMBA_KEYS}.get(cfg.family)
+    layer_keys = {"dense": _block_keys(cfg), "moe": MOE_KEYS,
+                  "ssm": MAMBA_KEYS, "hybrid": MAMBA_KEYS}.get(cfg.family)
     if layer_keys is None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet")
@@ -102,13 +104,13 @@ def from_reference_params(cfg: ArchConfig, tree: dict, *,
 
 
 def from_reference_cache(model, tree: dict, *, device="cuda") -> dict:
-    """A dense model's reference decode-cache dict (numpy arrays, bfloat16
-    ones too) -> the port's caches on ``device``.  Raises unless the keys,
-    shapes and dtypes are those of ``model.init_cache`` for the batch,
-    length and ``kv_quant`` of its ``k``."""
-    if model.cfg.family != "dense" or "k" not in tree:
-        raise ValueError(f"{model.cfg.name}: a dense model's cache with "
-                         f"k and v, got keys {sorted(tree)}")
+    """A dense or moe model's reference decode-cache dict (numpy arrays,
+    bfloat16 ones too) -> the port's caches on ``device``.  Raises unless
+    the keys, shapes and dtypes are those of ``model.init_cache`` for the
+    batch, length and ``kv_quant`` of its ``k``."""
+    if model.cfg.family not in ("dense", "moe") or "k" not in tree:
+        raise ValueError(f"{model.cfg.name}: a dense or moe model's cache "
+                         f"with k and v, got keys {sorted(tree)}")
     dev = resolve_device(device)
     out = {name: _tensor(a, dev) for name, a in tree.items()}
     k = out["k"]

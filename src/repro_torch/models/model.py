@@ -1,24 +1,28 @@
-"""The quantization-aware LM of the port: the dense, SSM and hybrid
+"""The quantization-aware LM of the port: the dense, MoE, SSM and hybrid
 families' serving path and the evaluation loss.
 
 :class:`Model` is the counterpart of ``repro.models.model.Model`` for
 the dense family (phi4-mini, starcoder2, deepseek, and gemma3 with its
 sliding-window local layers and a global layer every ``global_every``-th),
-the SSM family (mamba2: a stack of Mamba-2 layers, ``models/ssm.py``) and
+the MoE family (moonshot, phi3.5-moe: the dense family's attention with a
+top-k mixture of experts, ``models/moe.py``, in place of the MLP), the SSM
+family (mamba2: a stack of Mamba-2 layers, ``models/ssm.py``) and
 the hybrid (zamba2: Mamba-2 layers with one shared attention + MLP block
 applied after every ``shared_attn_every``-th layer):
 
 * ``init(generator, quantize=...)`` -> params;
 * ``quantize_params(params)`` -> params with every projection quantized;
-* ``forward(params, tokens, train=, last_only=)`` -> (logits, aux);
+* ``forward(params, tokens, train=, last_only=)`` -> (logits, aux), aux
+  the MoE layers' load-balance losses summed in layer order (0 for the
+  other families);
 * ``loss(params, batch, train=)`` -> the scalar cross-entropy (+ z-loss);
 * ``init_cache(batch, max_seq, kv_quant=)`` -> decode caches: KV (bf16,
-  or int8 with per-(position, head) scales, dense only; gemma3's local
+  or int8 with per-(position, head) scales, dense and MoE only; gemma3's local
   layers keep ring buffers of ``window`` positions), the SSM
   ``state`` and ``conv`` caches, and the hybrid's ``shared_k`` /
   ``shared_v`` (one entry per application of the shared block);
 * ``decode_step(params, caches, tokens, pos)`` -> (logits, caches), at
-  one position or (dense) one per slot;
+  one position or (dense, MoE) one per slot;
 * ``prefill(params, tokens, max_seq=)`` -> (logits, caches).
 
 Params are plain dictionaries: ``embed`` (vocab, d) float32,
@@ -26,9 +30,14 @@ Params are plain dictionaries: ``embed`` (vocab, d) float32,
 reference stacks them on a leading axis for ``lax.scan``; here the layers
 run in a Python loop), and for the hybrid ``shared``, the shared block's
 dict.  A projection is a float (d_in, d_out) tensor or a
-:class:`~repro_torch.quant.qlinear.QuantizedTensor`.  The moe, vlm and
+:class:`~repro_torch.quant.qlinear.QuantizedTensor`.  An MoE layer also
+holds ``router`` (d, E) float32 and the stacked experts
+``w_experts_gate`` / ``w_experts_in`` (E, d, ff) and ``w_experts_out``
+(E, ff, d): float32 as drawn, in the compute dtype once quantized for
+serving (the products cast them to it at every use anyway).  The vlm and
 audio families raise ``NotImplementedError`` (ROADMAP A.6); training
-under a quantized policy raises in ``qdot`` (ROADMAP A.8).
+under a quantized policy raises in ``qdot`` and ``moe.expert_ffn``
+(ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (cross_entropy, gelu_mlp, normal_init,
                                        rms_norm, swiglu_mlp)
@@ -49,7 +59,8 @@ from repro_torch.quant.qlinear import qdot, quantize_weight
 # the projections that serving stores quantized (the reference's names)
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "wq_x", "wk_img", "wv_img", "wo_x", "in_proj", "out_proj")
-FAMILIES = ("dense", "ssm", "hybrid")
+EXPERT_NAMES = ("w_experts_gate", "w_experts_in", "w_experts_out")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _mlp(xn, lp, cfg, policy, train, impl):
@@ -65,6 +76,15 @@ def _dense_block(x, lp, cfg, policy, train, impl, window=None):
                                impl=impl)
     x = x + h
     return x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train, impl)
+
+
+def _moe_block(x, lp, cfg, policy, train, impl):
+    h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
+                               policy=policy, train=train, impl=impl)
+    x = x + h
+    m, aux = moe_mod.moe_ffn(rms_norm(x, lp["ln2"]), lp, cfg, policy=policy,
+                             train=train)
+    return x + m, aux
 
 
 def _mamba_layer(x, lp, cfg, policy, train, impl):
@@ -96,7 +116,7 @@ def _is_shared_layer(cfg, l: int) -> bool:
 
 
 class Model(nn.Module):
-    """Decoder-only LM of the dense, ssm or hybrid family.  ``impl``
+    """Decoder-only LM of the dense, moe, ssm or hybrid family.  ``impl``
     picks the route of the quantized matmuls and of attention
     (:mod:`repro_torch.kernels.ops`): ``"auto"`` runs the CUDA kernels on
     the card and their plain versions on the CPU."""
@@ -120,19 +140,25 @@ class Model(nn.Module):
         return torch.ones((self.cfg.d_model,), dtype=torch.float32,
                           device=self.device)
 
-    def _attn_mlp(self, generator: torch.Generator,
-                  scale_attn_out: float) -> dict:
-        """ln1, ln2, the attention projections (``wo`` drawn at
-        ``scale_attn_out``) and the MLP of a dense or shared block."""
+    def _attn(self, generator: torch.Generator,
+              scale_attn_out: float) -> dict:
+        """ln1, ln2 and the attention projections (``wo`` drawn at
+        ``scale_attn_out``)."""
         cfg, d = self.cfg, self.cfg.d_model
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        return {"ln1": self._ones(), "ln2": self._ones(),
+                "wq": normal_init(generator, (d, h * hd)),
+                "wk": normal_init(generator, (d, kvh * hd)),
+                "wv": normal_init(generator, (d, kvh * hd)),
+                "wo": normal_init(generator, (h * hd, d),
+                                  scale=scale_attn_out)}
+
+    def _attn_mlp(self, generator: torch.Generator,
+                  scale_attn_out: float) -> dict:
+        """:meth:`_attn` and the MLP of a dense or shared block."""
+        cfg, d = self.cfg, self.cfg.d_model
         so = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
-        lp = {"ln1": self._ones(), "ln2": self._ones(),
-              "wq": normal_init(generator, (d, h * hd)),
-              "wk": normal_init(generator, (d, kvh * hd)),
-              "wv": normal_init(generator, (d, kvh * hd)),
-              "wo": normal_init(generator, (h * hd, d),
-                                scale=scale_attn_out)}
+        lp = self._attn(generator, scale_attn_out)
         if cfg.mlp_kind == "swiglu":
             lp["w_gate"] = normal_init(generator, (d, cfg.d_ff))
         lp["w_up"] = normal_init(generator, (d, cfg.d_ff))
@@ -158,17 +184,34 @@ class Model(nn.Module):
                 "dt_bias": vec(0.0), "a_log": vec(0.0), "d_skip": vec(1.0),
                 "out_proj": normal_init(generator, (d_inner, d), scale=so)}
 
+    def _moe(self, generator: torch.Generator, so: float) -> dict:
+        """:meth:`_attn` and the reference's ``_moe_params``: ``router``
+        and the gate / in experts at scale 0.02, the out experts at
+        ``so``."""
+        cfg, d = self.cfg, self.cfg.d_model
+        E, ff = cfg.n_experts, cfg.d_ff
+        lp = self._attn(generator, so)
+        lp.update(router=normal_init(generator, (d, E)),
+                  w_experts_gate=normal_init(generator, (E, d, ff)),
+                  w_experts_in=normal_init(generator, (E, d, ff)),
+                  w_experts_out=normal_init(generator, (E, ff, d),
+                                            scale=so))
+        return lp
+
     def _layer(self, generator: torch.Generator) -> dict:
+        so = 0.02 / max(1.0, (2 * self.cfg.n_layers) ** 0.5)
         if self.cfg.family == "dense":
-            so = 0.02 / max(1.0, (2 * self.cfg.n_layers) ** 0.5)
             return self._attn_mlp(generator, so)
+        if self.cfg.family == "moe":
+            return self._moe(generator, so)
         return self._mamba(generator)
 
     def init(self, generator: torch.Generator, *,
              quantize: bool = False) -> dict:
         """Random params from ``generator`` (on the model's device).  With
-        ``quantize``, each layer is quantized as soon as it is drawn, so
-        the float32 copy of only one layer is held at a time."""
+        ``quantize``, each layer is quantized (its experts cast to the
+        compute dtype) as soon as it is drawn, so the float32 copy of only
+        one layer is held at a time."""
         if torch.device(generator.device) != self.device:
             raise ValueError(
                 f"generator on {generator.device}, model on {self.device}")
@@ -185,14 +228,22 @@ class Model(nn.Module):
         return params
 
     def _quantize_layer(self, lp: dict) -> dict:
-        return {name: quantize_weight(w, self.policy)
-                if name in PROJ_NAMES else w for name, w in lp.items()}
+        def convert(name, w):
+            if name in PROJ_NAMES:
+                return quantize_weight(w, self.policy)
+            if name in EXPERT_NAMES:
+                return w.to(self.policy.compute_dtype)
+            return w
+        return {name: convert(name, w) for name, w in lp.items()}
 
     def quantize_params(self, params: dict) -> dict:
         """Serving-time weight quantization per the config's mode: every
         projection (the hybrid's shared ones too) becomes a
-        QuantizedTensor (int8 W8A8 or packed pow2-int4 W4A8); embeddings,
-        norms, ``conv_w`` and the SSM vectors stay as they are."""
+        QuantizedTensor (int8 W8A8 or packed pow2-int4 W4A8); the stacked
+        experts are stored in the compute dtype (the reference keeps them
+        float32 and casts them to it at every use: the same products);
+        embeddings, norms, the router, ``conv_w`` and the SSM vectors stay
+        as they are."""
         if not self.policy.quantized:
             return params
         out = dict(params, layers=[self._quantize_layer(lp)
@@ -207,15 +258,21 @@ class Model(nn.Module):
         """tokens: (b, s) integer -> (logits (b, s, V), aux).  With
         ``last_only`` the logits of the final position only (serving
         prefill).  ``train`` goes to every ``qdot`` (a quantized policy on
-        float weights raises there: QAT is ROADMAP A.8).  ``aux`` is 0:
-        no ported family has an auxiliary loss."""
+        float weights raises there: QAT is ROADMAP A.8).  ``aux``: the MoE
+        layers' load-balance losses summed in float32 in layer order (the
+        reference's scan carry), 0 for the other families."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         x = params["embed"][tokens].to(policy.compute_dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         windows = layer_windows(cfg)
         for l, lp in enumerate(params["layers"]):
             if cfg.family == "dense":
                 x = _dense_block(x, lp, cfg, policy, train, impl,
                                  window=windows[l])
+                continue
+            if cfg.family == "moe":
+                x, a = _moe_block(x, lp, cfg, policy, train, impl)
+                aux = aux + a
                 continue
             x = _mamba_layer(x, lp, cfg, policy, train, impl)
             if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
@@ -225,8 +282,7 @@ class Model(nn.Module):
             x = x[:, -1:]
         x = rms_norm(x, params["final_norm"])
         logits = qdot(x, params["embed"].T, policy, train=train)
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=self.device)
+        return logits, aux
 
     def loss(self, params: dict, batch: dict, *,
              train: bool = True) -> torch.Tensor:
@@ -242,7 +298,7 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    kv_quant: bool = False) -> dict:
-        """Decode caches.  Dense: KV caches ``k``, ``v`` of shape (L,
+        """Decode caches.  Dense and MoE: KV caches ``k``, ``v`` of shape (L,
         batch, max_seq, kvh, hd); with ``kv_quant``, int8 with float32
         scales ``k_scale``, ``v_scale`` of shape (L, batch, max_seq, kvh)
         (LightPE-2 / W8A8 arithmetic on the KV path).  Windowed dense
@@ -257,15 +313,15 @@ class Model(nn.Module):
         raises for them."""
         cfg = self.cfg
         L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        if kv_quant and cfg.family != "dense":
+        if kv_quant and cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"int8 KV is implemented for dense decode (the reference's "
-                f"dense/moe), not for the {cfg.family!r} family")
+                f"int8 KV is implemented for dense and moe decode (the "
+                f"reference's), not for the {cfg.family!r} family")
 
         def zeros(shape, dt):
             return torch.zeros(shape, dtype=dt, device=self.device)
         c = {}
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             if kv_quant:
                 dtype = torch.int8
             groups = {"": (L, max_seq)}
@@ -296,12 +352,12 @@ class Model(nn.Module):
                     pos):
         """One serving step.  tokens: (b, 1) integer; pos: the current
         write position (past = [0, pos]), an int or a ``(b,)`` tensor of
-        per-slot positions (dense only: the SSM state has no positions).
+        per-slot positions (dense and MoE: the SSM state has no positions).
         Updates ``caches`` in place and returns (logits (b, 1, V),
         caches)."""
         cfg = self.cfg
         x = params["embed"][tokens].to(self.policy.compute_dtype)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             x = self._dense_decode(params, caches, x, pos)
         else:
             x = self._ssm_decode(params, caches, x, pos)
@@ -310,11 +366,12 @@ class Model(nn.Module):
         return logits, caches
 
     def _dense_decode(self, params, caches, x, pos):
-        """The dense layers, the reference's scan body and its
+        """The dense and MoE layers, the reference's scan body and its
         ``_windowed_decode`` in one loop: a windowed model's (gemma3)
         global layers decode on ``k`` / ``v`` and its local layers on
         their ring buffers ``k_local`` / ``v_local`` (``static_window`` =
-        the ring's length)."""
+        the ring's length).  An MoE layer runs ``moe_ffn`` over the b
+        tokens of the step in place of the MLP."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         kv_quant = "k_scale" in caches
         ring = caches["k_local"].shape[2] if "k_local" in caches else None
@@ -331,8 +388,12 @@ class Model(nn.Module):
                 static_window=ring if pre else None, kv_scales=scales,
                 impl=impl)[0]
             x = x + h
-            x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, False,
-                         impl)
+            xn = rms_norm(x, lp["ln2"])
+            if cfg.family == "moe":
+                x = x + moe_mod.moe_ffn(xn, lp, cfg, policy=policy,
+                                        train=False)[0]
+            else:
+                x = x + _mlp(xn, lp, cfg, policy, False, impl)
         return x
 
     def _ssm_decode(self, params, caches, x, pos):

@@ -10,7 +10,10 @@ positions from 0 upward.
 
 The SSM and hybrid families are refused (ROADMAP C.8): their state
 and conv caches are not position-masked, and the reference resets no
-cache when it reuses a slot.  gemma3's ring buffers are served: each
+cache when it reuses a slot.  The MoE family is refused (ROADMAP C.9):
+the reference's step feeds every slot's token to ``decode_step``, free
+slots' stale ones too, and a row's expert capacity depends on the other
+rows of the batch.  gemma3's ring buffers are served: each
 slot writes its ring at ``pos mod W``, and a reused slot starts clean as
 the full caches do (see the constructor).
 
@@ -63,6 +66,13 @@ class ContinuousBatcher:
                 f"reuses a slot without resetting its SSM state and conv "
                 f"caches, so a request's tokens would depend on what the "
                 f"slot served before")
+        if family == "moe":
+            raise NotImplementedError(
+                f"{model.cfg.name}: continuous batching of the 'moe' family "
+                f"is refused (ROADMAP C.9): the reference's step feeds free "
+                f"slots' stale tokens to decode_step, and they take expert "
+                f"capacity from live requests, so a request's tokens would "
+                f"depend on the requests that ran before it")
         self.model = model
         self.params = params
         self.n = n_slots

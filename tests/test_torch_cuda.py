@@ -2,7 +2,8 @@
 mixed-precision sweeps and searches that launch it), the serving-fleet
 simulator's kernel, the two quantized matmuls of the serving path (also
 on depth-cut mamba2 and zamba2 at full width), the int8-KV decode
-attention and flash attention.
+attention and flash attention; and the MoE family's routes and
+combine on reduced moonshot.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -1113,6 +1114,8 @@ def test_decode_kernel_errors_raise(cuda_device, monkeypatch, tmp_path):
     (4, 8, 3, 128, 4096, 512),       # bs < S: splits of whole blocks
     (1, 1, 16, 256, 8192, 8192),     # 128 splits
     (2, 3, 8, 20, 1536, 96),         # hd not a multiple of 16
+    (4, 16, 1, 128, 4096, 4096),     # moonshot serving: MHA, rep 1
+    (4, 8, 4, 128, 4096, 4096),      # phi3.5-moe serving: rep 4
 ])
 def test_decode_split_across_s_equals_plain_bit_for_bit(cuda_device, shape):
     """Split counts 1, 2 and many, with per-slot positions inside the
@@ -1436,3 +1439,100 @@ def test_ring_decode_equals_slice_branch_on_the_card(cuda_device,
             assert torch.equal(ring, full), i
         bound = 1e-5 * float(full.abs().max()) if kv == "int8" else 2e-2
         assert err <= bound, (i, err)
+
+
+# ------------------------------------------- the MoE family (moonshot)
+
+def _moonshot(device, impl, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(reduced(get_config("moonshot-v1-16b-a3b")),
+                              **over)
+    return Model(cfg, device=device, impl=impl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_reduced_moonshot_kernel_route_equals_plain(cuda_device, monkeypatch,
+                                                    kv_quant):
+    """Reduced moonshot (64 experts, top-6, MHA: the decode kernel at rep
+    1), W8A8: per-slot decode through both routes gives identical logits
+    and caches (the router, dispatch, expert products and combine are the
+    same torch ops on both); the forward launches 4 W8A8 products and one
+    flash call a layer, and with the plain attention swapped in equals
+    the plain route bit for bit."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import w8a8_decode as D
+    from repro_torch.models import attention as A
+    over = dict(n_experts=64, top_k=6, n_layers=3)
+    kern = _moonshot(cuda_device, "kernel", **over)
+    plain = _moonshot(cuda_device, "ref", **over)
+    assert kern.cfg.n_heads == kern.cfg.n_kv_heads
+    params = kern.init(torch.Generator(cuda_device).manual_seed(0),
+                       quantize=True)
+    ck = kern.init_cache(4, 24, kv_quant=kv_quant)
+    cp = plain.init_cache(4, 24, kv_quant=kv_quant)
+    offs = torch.tensor([0, 3, 5, 9], dtype=torch.int32, device=cuda_device)
+    tokens = torch.randint(0, kern.cfg.vocab, (4, 12), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(1))
+    before = (W8.launches, D.launches)
+    for i in range(12):
+        lk, ck = kern.decode_step(params, ck, tokens[:, i:i + 1], offs + i)
+        lp, cp = plain.decode_step(params, cp, tokens[:, i:i + 1], offs + i)
+        assert torch.equal(lk, lp), i
+    assert W8.launches - before[0] == 12 * 3 * 4
+    assert D.launches - before[1] == (12 * 3 if kv_quant else 0)
+    for name in ck:
+        assert torch.equal(ck[name], cp[name]), name
+    before = (W8.launches_tc, F.launches_tc)
+    got, aux = kern.forward(params, tokens)
+    assert (W8.launches_tc - before[0], F.launches_tc - before[1]) == (12, 3)
+    want, want_aux = plain.forward(params, tokens)
+    assert bool(torch.isfinite(got).all()) and float(aux) > 0
+    real = A.attend
+    monkeypatch.setattr(A, "attend", lambda q, k, v, **kw: real(
+        q, k, v, **dict(kw, impl="ref")))
+    mixed, mixed_aux = kern.forward(params, tokens)
+    assert torch.equal(mixed, want) and torch.equal(mixed_aux, want_aux)
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_the_card_is_deterministic(cuda_device):
+    """``moe_ffn`` at a prefill's shapes (T = 4096, 64 experts, top-6, C
+    = 480), twice on the card: identical bytes (the combine sums in a
+    fixed order, no atomics); and the combine alone on the card equals
+    the CPU's bit for bit on the same expert outputs."""
+    from repro_torch.models import moe as M
+    from repro_torch.quant.policy import policy_for
+    cfg = _moonshot(cuda_device, "auto", n_experts=64, top_k=6,
+                    d_model=256, d_ff=128).cfg
+    g = torch.Generator(cuda_device).manual_seed(0)
+    p = {"router": torch.randn((256, 64), generator=g, device=cuda_device)
+         * 0.1,
+         "w_experts_gate": torch.randn((64, 256, 128), generator=g,
+                                       device=cuda_device) / 16,
+         "w_experts_in": torch.randn((64, 256, 128), generator=g,
+                                     device=cuda_device) / 16,
+         "w_experts_out": torch.randn((64, 128, 256), generator=g,
+                                      device=cuda_device) / 11}
+    x = torch.randn((1, 4096, 256), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    pol = policy_for("bf16")
+    a, aux_a = M.moe_ffn(x, p, cfg, policy=pol, train=False)
+    b, aux_b = M.moe_ffn(x, p, cfg, policy=pol, train=False)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(aux_a, aux_b)
+    _, experts, _ = M.topk_route(x[0], p["router"], 64, 6)
+    cap = M.capacity(4096, 64, 6, 1.25)
+    assert cap == 480
+    order, slot, keep = M.dispatch(experts, 64, cap)
+    gates = torch.rand((4096, 6), generator=g, device=cuda_device)
+    out_buf = torch.randn((64, cap, 256), generator=g,
+                          device=cuda_device).to(torch.bfloat16)
+    card = M.combine(out_buf, order, slot, keep, gates)
+    cpu = M.combine(out_buf.cpu(), order.cpu(), slot.cpu(), keep.cpu(),
+                    gates.cpu())
+    assert torch.equal(card.cpu().view(torch.int16), cpu.view(torch.int16))

@@ -65,7 +65,9 @@ def test_every_module_is_listed():
                  "repro_torch.configs.mamba2_130m",
                  "repro_torch.configs.zamba2_1_2b",
                  "repro_torch.models.ssm", "repro_torch.data",
-                 "repro_torch.data.pipeline"):
+                 "repro_torch.data.pipeline", "repro_torch.models.moe",
+                 "repro_torch.configs.moonshot_v1_16b_a3b",
+                 "repro_torch.configs.phi3_5_moe_42b_a6_6b"):
         assert name in mods
 
 
@@ -195,11 +197,13 @@ def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
 
 @pytest.mark.parametrize("entry", ["fit_ppa_suite", "predict", "resume_sweep",
                                    "resume_search", "run_checkpointed",
-                                   "simulate_fleet", "serving_search"])
+                                   "simulate_fleet", "serving_search",
+                                   "serve_moe", "moe_model"])
 def test_slice_entry_points_default_to_the_card(entry, tmp_path):
     """The PPA fit, its predictions, the resumable sweep and search, the
-    fleet simulator and a serving search run on the card unless asked for
-    the CPU, and raise without one."""
+    fleet simulator, a serving search and the MoE family's serving and
+    model run on the card unless asked for the CPU, and raise without
+    one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     import numpy as np
@@ -210,6 +214,10 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
     from repro_torch.core.workloads import get_workload
     from repro_torch.explore.space import space_for_workload
     from repro_torch.runtime.dse_checkpoint import resume_search, resume_sweep
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
     from repro_torch.serving.fleet_sim import simulate_fleet
     cfgs = [AcceleratorConfig(pe_rows=r, pe_cols=c) for r in (8, 12, 16)
             for c in (8, 14)]
@@ -229,6 +237,9 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
             np.array([0.1, 0.2]), np.ones(2), "quick"),
         "serving_search": lambda: run(ExploreSpec.mixed(
             "vgg16", preset="serving-quick")),
+        "serve_moe": lambda: serve("moonshot-v1-16b-a3b", quantize=True),
+        "moe_model": lambda: Model(reduced(get_config(
+            "phi3.5-moe-42b-a6.6b"))),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

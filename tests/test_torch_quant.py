@@ -251,11 +251,11 @@ def test_configs_match_reference(arch):
 
 def test_config_registry_refuses_unported_archs():
     with pytest.raises(KeyError, match="not yet ported"):
-        T_configs.get_config("moonshot-v1-16b-a3b")
-    moe = dataclasses.replace(T_configs.get_config("phi4-mini-3.8b"),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        moe.n_params()
+        T_configs.get_config("llama-3.2-vision-90b")
+    vlm = dataclasses.replace(T_configs.get_config("phi4-mini-3.8b"),
+                              family="vlm")
+    with pytest.raises(NotImplementedError, match="vlm"):
+        vlm.n_params()
     assert {k: (v.seq_len, v.global_batch, v.kind)
             for k, v in T_base.SHAPES.items()} == \
         {k: (v.seq_len, v.global_batch, v.kind)

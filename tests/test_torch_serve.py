@@ -184,7 +184,7 @@ def test_decode_attention_refuses_unported_paths():
     assert tuple(out[0].shape) == (1, 1, cfg.d_model)
 
 
-@pytest.mark.parametrize("family,extra", [("moe", {}), ("vlm", {})])
+@pytest.mark.parametrize("family,extra", [("audio", {}), ("vlm", {})])
 def test_model_refuses_unported_families(family, extra):
     cfg = dataclasses.replace(reduced(get_config("phi4-mini-3.8b")),
                               family=family, **extra)
