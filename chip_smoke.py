@@ -3,9 +3,9 @@
 design-space sweep, the mixed-precision co-exploration search, the
 serving-fleet simulator and the serving-objective searches, the scalar
 dataflow oracle, the PPA models and RTL generator, the preemption-safe
-runtime, quantized LM serving (dense, windowed dense, MoE, SSM and
-hybrid), continuous batching over an int8 KV cache, and the full-sequence
-forward / prefill.
+runtime, quantized LM serving (dense, windowed dense, MoE, SSM, hybrid,
+vision-language and audio), continuous batching over an int8 KV cache,
+and the full-sequence forward / prefill.
 
     python3 chip_smoke.py
 
@@ -224,6 +224,37 @@ Phases (any failure exits non-zero):
     width, depth cut to 8 layers: served and teacher-forced on int8 KV
     as moonshot, the decode kernel at rep 4 timed at (4, 8, 4, 128), S
     4096, and flash at (1, 32, 4096, 128));
+11h. the vlm and audio families, W8A8, random weights from seed 0:
+    llama-3.2-vision-90b at full width (d 8192, 64 heads x hd 128, 8 kv
+    heads, a cross layer after every 5th of its dense layers, 1601 image
+    tokens) with **its depth cut to 60 of 100 layers** (57.35 GB in int8;
+    100 layers are 92.8 GB, past the card), then whisper-medium at full
+    width and depth (24 encoder, 24 decoder, 24 cross layers, d 1024, 1500
+    frames), each drawn once for two phases: ``vlm_serve`` /
+    ``audio_serve`` (a context drawn as ``serve`` draws it,
+    ``fill_ctx_caches`` timed with its launches (W8A8 ``tc`` at m = 4 x
+    n_ctx, whisper's encoder with its flash), then ``generate`` on the
+    filled caches: every W8A8 product of a step on the split-k regime and
+    one bf16 flash launch a cross layer at sq = 1, nothing else; the
+    served 32 tokens teacher-forced through the kernel route, the kernel
+    route with the plain attention swapped in and the plain route:
+    swapped = plain bit for bit (context caches, logits, every cache),
+    flash within 2e-2 x (1 + |out|) of the plain attention on every
+    element of every application (the CPU tests' bf16 bound: the
+    attention outputs pass 4, where a bf16 ulp is 2^-5) and 2^-6 a row,
+    the unswapped
+    logits' distance reported (C.3); ms a step, tok/s, busy share, device
+    ops, weight and cache bytes; flash at the decode's cross shape and
+    W8A8 at ``context_kv``'s shape timed beside their bounds, SDPA and
+    ``torch._int_mm``); ``vlm_prefill`` / ``audio_prefill`` (the 1 x 4096
+    and 4 x 448 forwards with a context: every projection on the tensor
+    cores, flash for each self, encoder and cross application, the vlm's
+    cross layers on the float32 route (its forward's context goes to
+    ``context_kv`` uncast, as the reference's does); flash per
+    application and the swapped route bit for bit as in the serve
+    phases; wall times and the device time split: W8A8 ``tc`` and flash
+    by kernel name, each kind of flash application timed alone times
+    its count, the rest);
 12. ``attention_parity``: both attention kernels against their plain
     versions (decode: bit for bit, at positions on the boundaries of its
     splits of S, within the 1e-5 x max|out| bound; flash: 1e-5 f32,
@@ -416,6 +447,22 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_PHI = dict(arch="phi3.5-moe-42b-a6.6b", n_layers=8)
 # the W8A8 products of a moonshot layer at decode: wq, wk, wv, wo
 MOE_LAYER_PROJ = {(2048, 2048): 4}
+# the vlm and audio families, W8A8: llama-3.2-vision-90b at full width
+# (d 8192, 64 heads x hd 128, 8 kv heads, ff 28672, vocab 128256, 1601
+# image tokens) with its depth cut to 60 of 100 layers (12 groups of 5
+# and 12 cross layers: 57.35 GB in int8; all 100 are 92.8 GB, past the
+# 80 GB card), and whisper-medium at full width and depth (24 encoder,
+# 24 decoder and 24 cross layers, d 1024, 16 heads x hd 64, 1500
+# frames); served as phi4 is (SERVE) and forwarded at 1 x 4096 (the vlm)
+# and 4 x 448 (Whisper's 30 s window and 448-token decoder limit)
+# what a decode step of theirs reads: every decoder projection and a cross
+# layer's wq_x and wo_x (wk_img, wv_img made the context caches)
+PROJ_NAMES_DECODE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                     "wq_x", "wo_x")
+CROSS_ARCHS = {"vlm": dict(arch="llama-3.2-vision-90b", n_layers=60,
+                           full_layers=100, forward=(1, 4096)),
+               "audio": dict(arch="whisper-medium", n_layers=None,
+                             full_layers=24, forward=(4, 448))}
 # the evaluation loss: mamba2-130m under fp32 on SyntheticLM batch 0,
 # card vs CPU
 LOSS = dict(arch="mamba2-130m", quant="fp32", batch=4, seq_len=512, step=0,
@@ -465,11 +512,15 @@ def flash_row_err(got, want) -> dict:
     """bf16 flash ``got`` against the plain attention ``want`` (any
     layout with head_dim last): the largest absolute error, the largest
     error of a row over that row's own max|want|, and the median |want|
-    that the absolute error compares with."""
+    that the absolute error compares with; ``scaled``, the largest error
+    of an element over 1 + its own |want| (the CPU tests' bf16 bound
+    ``rtol = atol = 2e-2`` holds where ``scaled`` <= 2e-2)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     row = err.amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
     return {"max_abs": float(err.max()), "row_rel": float(row.max()),
+            "scaled": float((err / (1 + w.abs())).max()),
+            "max_abs_want": float(w.abs().max()),
             "median_abs_want": float(w.abs().median())}
 
 
@@ -3598,42 +3649,49 @@ def phase_moe_int8kv(device, name: str, model, params, stream) -> dict:
                 device, shape, DECODE_S[0])}}
 
 
-def _flash_timing(device, q, k, v, window=None) -> dict:
-    """bf16 flash on (b, h, s, d) ``q``, ``k``, ``v``, causal (with a
-    sliding ``window`` where given): the kernel (twice), its plain version
-    (twice) and SDPA (``is_causal``, or the window as a bool mask), in
-    turns, beside its bound; the kernel's distance to the plain version."""
+def _flash_timing(device, q, k, v, window=None, causal=True) -> dict:
+    """Flash on (b, h, s, d) ``q``, ``k``, ``v`` (bf16, or float32: the
+    3xTF32 route), causal (with a sliding ``window`` where given) or not:
+    the kernel (twice), its plain version (twice) and SDPA (``is_causal``,
+    or the window as a bool mask), in turns, beside its bound; the
+    kernel's distance to the plain version."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    b, h, s, d = q.shape
-    qi = torch.arange(s, device=device)[:, None]
-    ki = torch.arange(s, device=device)[None, :]
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
     mask = (ki <= qi) & (ki > qi - window) if window else None
-    row = {"shape": [b, h, s, d], "window": window}
+    kw = dict(window=window, causal=causal)
+    row = {"shape": [b, h, sq, d], "keys": sk, "window": window,
+           "causal": causal, "dtype": str(q.dtype)}
     for name, fn, iters in (
-            ("plain", lambda i: FA.flash_attention_ref(
-                q, k, v, window=window), 3),
-            ("kernel", lambda i: FA.flash_attention(
-                q, k, v, window=window), 10),
-            ("kernel_again", lambda i: FA.flash_attention(
-                q, k, v, window=window), 10),
-            ("plain_again", lambda i: FA.flash_attention_ref(
-                q, k, v, window=window), 3),
+            ("plain", lambda i: FA.flash_attention_ref(q, k, v, **kw), 3),
+            ("kernel", lambda i: FA.flash_attention(q, k, v, **kw), 10),
+            ("kernel_again", lambda i: FA.flash_attention(q, k, v, **kw),
+             10),
+            ("plain_again", lambda i: FA.flash_attention_ref(q, k, v, **kw),
+             3),
             ("library", lambda i: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None), 10)):
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None),
+             10)):
         row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn, iters)
     _best_times(row)
-    flops = 4 * d * h * b * _flash_pairs(s, window)
-    bytes_moved = 4 * b * h * s * d * q.element_size()
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    pairs = _flash_pairs(sq, window) if causal else sq * sk
+    flops = 4 * d * h * b * pairs
+    bytes_moved = 2 * (sq + sk) * b * h * d * q.element_size()
+    if q.dtype == torch.float32:    # 3xTF32 on the tensor cores
+        ops_ms = TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
+    else:
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     row.update(flops=flops, bytes=bytes_moved, ops_ms=ops_ms,
                bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                kernel_max_abs_vs_plain=float(
-                   (FA.flash_attention(q, k, v, window=window).float()
-                    - FA.flash_attention_ref(q, k, v, window=window)
+                   (FA.flash_attention(q, k, v, **kw).float()
+                    - FA.flash_attention_ref(q, k, v, **kw)
                     .float()).abs().max()))
     return row
 
@@ -3641,7 +3699,8 @@ def _flash_timing(device, q, k, v, window=None) -> dict:
 def _qmm_layer_timing(device, proj: dict, m: int) -> dict:
     """W8A8 over one layer's projections ``proj`` ({(k, n): count}) at m
     rows: the kernel (twice), its plain version (twice) and
-    ``torch._int_mm`` (m padded to 32), weights rotated past L2, each
+    ``torch._int_mm`` (m padded to 32 below it), weights rotated past
+    L2, each
     shape's kernel equal to its plain version; summed over the layer."""
     import torch
     import torch.nn.functional as F
@@ -3655,7 +3714,7 @@ def _qmm_layer_timing(device, proj: dict, m: int) -> dict:
         check(bool(torch.equal(W8.w8a8_matmul(x, wl[0], xs, ws),
                                W8.w8a8_matmul_ref(x, wl[0], xs, ws))),
               f"W8A8 at {(m, k, n)} differs from its plain version")
-        xp = F.pad(x, (0, 0, 0, 32 - m))
+        xp = F.pad(x, (0, 0, 0, max(0, 32 - m)))
         wcol = [w.t().contiguous().t() for w in wl]
         row = {"copies": copies, "regime": W8.plan(m, k, n).regime}
         for name, fn, iters in (
@@ -3908,6 +3967,375 @@ def phase_moe_phi35(device) -> dict:
             "depth_cut": f"{cut} of 32 layers (32 layers of bf16 experts "
                          "are 80.5 GB)",
             "serve": serve_row, "int8kv": int8kv, "flash_timing": flash}
+
+
+def _cross_counts(cfg) -> dict:
+    """Kernel launches the vlm / audio paths make: W8A8 products and
+    flash calls of a decode step, of ``fill_ctx_caches`` and of a forward
+    (4 attention projections a layer and the MLP's 3 (swiglu) or 2
+    (gelu); a cross layer's wq_x and wo_x at decode, and wk_img and
+    wv_img too in a forward or a fill).  The vlm forward's cross
+    attention takes the float32 flash route: its uncast context makes
+    float32 keys and values under W8A8."""
+    L, E = cfg.n_layers, cfg.encoder_layers
+    vlm = cfg.family == "vlm"
+    n_cross = L // cfg.cross_attn_every if vlm else L
+    per = 4 + (3 if cfg.mlp_kind == "swiglu" else 2)
+    return {"n_cross": n_cross,
+            "decode_w8a8": per * L + 2 * n_cross, "decode_flash": n_cross,
+            "fill_w8a8": per * E + 2 * n_cross, "fill_flash": E,
+            "forward_w8a8": per * (L + E) + 4 * n_cross,
+            "forward_flash_tc": L + E + (0 if vlm else n_cross),
+            "forward_flash_f32": n_cross if vlm else 0}
+
+
+def _cross_ctx(cfg, batch: int, device):
+    """The context ``serve`` draws: (batch, n_ctx, d) x 0.02 from seed +
+    2."""
+    import torch
+    return torch.randn((batch, cfg.n_ctx_tokens, cfg.d_model),
+                       generator=torch.Generator(device).manual_seed(
+                           SERVE["seed"] + 2), device=device) * 0.02
+
+
+class _swapped_attention:
+    """Inside the ``with`` block, ``attention.attend`` computes both
+    routes' attention, records the kernel's distance to the plain one
+    (``flash_row_err``) with the application's kind (``cross``,
+    ``encoder``: causal over the context's length, or ``self``) and
+    returns the plain one; the first application of each kind keeps its
+    q, k, v as (b, h, s, d), in the dtype the kernel takes them in."""
+
+    def __init__(self, n_ctx: int):
+        self.n_ctx, self.apps, self.kept = n_ctx, [], {}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import attention
+        self.real = real = attention.attend
+
+        def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
+            got = real(q, k, v, causal=causal, window=window, impl=impl)
+            want = real(q, k, v, causal=causal, window=window, impl="ref")
+            kind = "cross" if not causal else (
+                "encoder" if q.shape[1] == self.n_ctx else "self")
+            self.apps.append(dict(flash_row_err(got, want), kind=kind))
+            if kind not in self.kept:
+                dt = q.dtype if q.dtype == k.dtype else torch.float32
+                self.kept[kind] = [t.transpose(1, 2).to(dt).contiguous()
+                                   for t in (q, k, v)]
+            return want
+        attention.attend = swapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.attend = self.real
+        return False
+
+    def summary(self, what: str) -> dict:
+        """Per kind: applications, the worst absolute, scaled and row
+        errors, the largest |out| and median |out|; fails past the bf16
+        bound: each element within 2e-2 x (1 + its |out|), the CPU tests'
+        ``rtol = atol = 2e-2`` (these models' attention outputs pass 4,
+        where one bf16 ulp is 2^-5 > 2e-2), and each row within 2^-6 of
+        its own max."""
+        out = {}
+        for kind in sorted({a["kind"] for a in self.apps}):
+            rows = [a for a in self.apps if a["kind"] == kind]
+            worst = max(a["scaled"] for a in rows)
+            worst_row = max(a["row_rel"] for a in rows)
+            check(worst <= FLASH_TOL["bfloat16"]
+                  and worst_row <= FLASH_ROW_RTOL,
+                  f"{what}: {kind} flash vs plain attention {worst:.3g} of "
+                  f"1 + |out|, {worst_row:.3g} of a row's max")
+            out[kind] = {"applications": len(rows),
+                         "max_abs": max(a["max_abs"] for a in rows),
+                         "scaled": worst, "row_rel": worst_row,
+                         "max_abs_out": max(a["max_abs_want"] for a in rows),
+                         "median_abs_out": max(a["median_abs_want"]
+                                               for a in rows)}
+        return out
+
+
+def _nbytes(t) -> int:
+    """Bytes of a tensor, or of a quantized one with its scales."""
+    if hasattr(t, "scale"):
+        return t.data.numel() * t.data.element_size() \
+            + t.scale.numel() * t.scale.element_size()
+    return t.numel() * t.element_size()
+
+
+def _stored_bytes(params: dict, names=None) -> int:
+    """Bytes of every tensor of ``params`` (of the layer entries in
+    ``names`` only, where given)."""
+    total = 0
+    for val in params.values():
+        for lp in val if isinstance(val, list) else [val]:
+            if not isinstance(lp, dict):
+                total += _nbytes(lp)
+                continue
+            total += sum(_nbytes(t) for key, t in lp.items()
+                         if names is None or key in names)
+    return total
+
+
+def phase_cross_serve(device, family: str, model, params) -> dict:
+    """The vlm or audio model served through ``fill_ctx_caches`` and
+    ``launch.serve.generate`` (SERVE: batch 4, 16 + 16 tokens) on a
+    context drawn as ``serve`` draws it: the fill's time (whisper's
+    encoder alone too) and launches (W8A8 ``tc`` at m = 4 x n_ctx, the
+    encoder's flash), a step's W8A8 products all on the split-k regime
+    and one bf16 flash launch a cross layer, nothing else; the served
+    stream teacher-forced through the kernel route, the kernel route with
+    the plain attention swapped in and the plain route: the swapped and
+    plain routes' context caches, logits and every cache bit for bit
+    after each step, flash within 2e-2 x (1 + |out|) (and 2^-6 a row) of
+    the plain attention on every application, the unswapped routes' logits
+    distance reported (C.3); one profiled step; flash at the decode's
+    cross shape, the GQA repeat of a cross layer's context caches and
+    W8A8 at ``context_kv``'s shape, timed."""
+    import torch
+    from repro_torch.launch.serve import fill_ctx_caches, generate
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    spec, cfg = CROSS_ARCHS[family], model.cfg
+    name = f"{family}_serve"
+    counts = _cross_counts(cfg)
+    b, gen = SERVE["batch"], SERVE["gen"]
+    steps = SERVE["prompt_len"] + gen
+    prompts = torch.randint(
+        0, cfg.vocab, (b, SERVE["prompt_len"]), device=device,
+        generator=torch.Generator(device).manual_seed(SERVE["seed"] + 1))
+    ctx = _cross_ctx(cfg, b, device)
+    fill_ctx_caches(model, params, model.init_cache(b, steps), ctx)  # warm
+    caches = model.init_cache(b, steps)
+    _reset_matmul_counts()
+    _reset_attention_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fill_ctx_caches(model, params, caches, ctx)
+    torch.cuda.synchronize(device)
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    fill_launches = {**_matmul_counts(), **_attention_counts()}
+    check(fill_launches["w8a8_matmul_tc"] == counts["fill_w8a8"]
+          and fill_launches["w8a8_matmul_dp4a"] == 0
+          and fill_launches["flash_attention_tc"] == counts["fill_flash"]
+          and fill_launches["flash_attention"] == counts["fill_flash"],
+          f"{name}: fill_ctx_caches launched {fill_launches}, expected "
+          f"{counts['fill_w8a8']} W8A8 tc and {counts['fill_flash']} flash")
+    encoder_ms = None
+    if family == "audio":
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        model._encode(params, ctx)
+        torch.cuda.synchronize(device)
+        encoder_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_matmul_counts()
+    _reset_attention_counts()
+    res = generate(model, params, prompts, gen=gen, caches=caches)
+    launches = {**_matmul_counts(), **_attention_counts()}
+    peak = torch.cuda.max_memory_allocated(device)
+    want_mm, want_fl = steps * counts["decode_w8a8"], \
+        steps * counts["decode_flash"]
+    check(launches["w8a8_matmul"] == want_mm
+          and launches["w8a8_matmul_dp4a"] == want_mm
+          and launches["flash_attention"] == want_fl
+          and launches["flash_attention_tc"] == want_fl
+          and launches["flash_attention_windowed"] == 0
+          and launches["w4a8_matmul"] == 0
+          and launches["w8a8_decode_attention"] == 0,
+          f"{name}: launches {launches}, expected {want_mm} W8A8 split-k "
+          f"and {want_fl} bf16 flash")
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (b, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab,
+          f"{name}: tokens {tuple(toks.shape)} outside [0, vocab)")
+    cache_bytes = sum(t.numel() * t.element_size() for t in caches.values())
+    del caches
+
+    # the served stream through the three routes
+    stream = torch.cat([prompts, toks.to(prompts.dtype)], dim=1)
+    plain = Model(cfg, device=device, impl="ref")
+    swap = _swapped_attention(cfg.n_ctx_tokens)
+    ck = fill_ctx_caches(model, params, model.init_cache(b, steps + 1), ctx)
+    with swap:
+        cs = fill_ctx_caches(model, params, model.init_cache(b, steps + 1),
+                             ctx)
+    cp = fill_ctx_caches(plain, params, plain.init_cache(b, steps + 1), ctx)
+    check(all(torch.equal(cs[k], cp[k]) for k in ("ctx_k", "ctx_v")),
+          f"{name}: swapped and plain context caches differ")
+    worst_abs, agree, same = 0.0, [], True
+    for i in range(steps):
+        tok = stream[:, i:i + 1]
+        lk, ck = model.decode_step(params, ck, tok, i)
+        with swap:
+            ls, cs = model.decode_step(params, cs, tok, i)
+        lp, cp = plain.decode_step(params, cp, tok, i)
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        same &= bool(torch.equal(ls, lp)) \
+            and all(torch.equal(cs[k], cp[k]) for k in cp)
+        worst_abs = max(worst_abs, float((lk.float() - lp.float()).abs()
+                                         .max()))
+        agree.append(float((lk.argmax(-1) == lp.argmax(-1)).float().mean()))
+    check(same, f"{name}: kernel route with plain attention differs from "
+                f"the plain route (logits or caches)")
+    flash_apps = swap.summary(name)
+    check(flash_apps["cross"]["applications"]
+          == steps * counts["decode_flash"], f"{name}: cross applications")
+    tok = stream[:, -1:]
+
+    def step(_):
+        model.decode_step(params, ck, tok, steps)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    step(0)
+    torch.cuda.synchronize(device)
+    step_wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top, ops, _ = _profile_device_ms(step, 3)
+    weight_bytes = _stored_bytes(params)
+    # a step reads the decoder's layers, the cross layers' wq_x and wo_x,
+    # the float32 embedding (the logits product) and the context caches
+    step_bytes = _stored_bytes(
+        {"embed": params["embed"], "layers": params["layers"],
+         "cross_layers": params["cross_layers"]},
+        names=PROJ_NAMES_DECODE) + 2 * _nbytes(ck["ctx_k"])
+    q, k, v = swap.kept["cross"]
+    flash = _flash_timing(device, q, k, v, causal=False)
+    # what a cross layer's GQA repeat of its context caches to n_heads
+    # costs a step (none at rep 1)
+    repeat_ms = None
+    if cfg.n_heads != cfg.n_kv_heads:
+        xk, xv = ck["ctx_k"][0], ck["ctx_v"][0]
+        repeat_ms = _device_ms(lambda i: (
+            attention._broadcast_kv(xk, cfg.n_heads),
+            attention._broadcast_kv(xv, cfg.n_heads)), 10)
+    kvw = cfg.n_kv_heads * cfg.head_dim
+    qmm = _qmm_layer_timing(device, {(cfg.d_model, kvw): 2},
+                            b * cfg.n_ctx_tokens)
+    del plain, ck, cs, cp, swap, q, k, v
+    cut = spec["n_layers"]
+    return {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "depth_cut": (f"n_layers {spec['full_layers']} -> {cut}, "
+                          "nothing else") if cut else None,
+            "encoder_layers": cfg.encoder_layers,
+            "cross_layers": counts["n_cross"], "n_ctx": cfg.n_ctx_tokens,
+            "launches": launches, "fill_launches": fill_launches,
+            "w8a8_per_step": counts["decode_w8a8"],
+            "flash_per_step": counts["decode_flash"],
+            "fill_ctx_caches_ms": fill_ms, "encoder_ms": encoder_ms,
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "decode_step_ms": res["decode_s"] / gen * 1e3,
+            "tok_per_s": res["tok_per_s"], "peak_mem_bytes": peak,
+            "weight_bytes": weight_bytes, "cache_bytes": cache_bytes,
+            "tokens_head": toks[0, :8].tolist(), "parity_steps": steps,
+            "swapped_route_equals_plain": True,
+            "flash_vs_plain": flash_apps,
+            "logits_kernel_vs_plain_max_abs": worst_abs,
+            "greedy_agreement_per_step": agree,
+            "step_wall_ms": step_wall_ms, "step_device_ms": busy_ms,
+            "device_busy_share": (busy_ms / step_wall_ms
+                                  if busy_ms else None),
+            "step_device_ops": ops, "step_top_kernels_ms": top,
+            "step_bytes": step_bytes,
+            "step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
+            "flash_timing": flash, "w8a8_context_kv": qmm,
+            "broadcast_kv_layer_ms": repeat_ms}
+
+
+def phase_cross_prefill(device, family: str, model, params) -> dict:
+    """The vlm's 1 x 4096 or the audio model's 4 x 448 forward with a
+    context, on the kernel and plain routes: wall times, launches (every
+    projection on the tensor cores; flash for every self-attention, the
+    encoder's and every cross layer's, the vlm's cross layers on the
+    float32 route), finite logits; flash within 2e-2 x (1 + |out|) (and
+    2^-6 a row) of the plain attention on each application's own q, k,
+    v, and the kernel route with that attention swapped in equal to the
+    plain route bit for bit; the device time split: W8A8 ``tc`` and flash
+    by kernel name, each kind of flash application timed alone times its
+    count, the rest."""
+    import torch
+    from repro_torch.models.model import Model
+    spec, cfg = CROSS_ARCHS[family], model.cfg
+    name = f"{family}_prefill"
+    counts = _cross_counts(cfg)
+    b, s = spec["forward"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=device,
+                           generator=torch.Generator(device).manual_seed(3))
+    ctx = _cross_ctx(cfg, b, device)
+    plain = Model(cfg, device=device, impl="ref")
+    model.forward(params, tokens, ctx=ctx, last_only=True)     # warm-up
+    fwd = {}
+    for route, m in (("kernel", model), ("plain", plain)):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        _reset_matmul_counts()
+        _reset_attention_counts()
+        t0 = time.perf_counter()
+        logits, _ = m.forward(params, tokens, ctx=ctx, last_only=True)
+        torch.cuda.synchronize(device)
+        fwd[route] = {"logits": logits,
+                      "wall_s": time.perf_counter() - t0,
+                      "peak_over_params_bytes":
+                          torch.cuda.max_memory_allocated(device) - base,
+                      "launches": {**_matmul_counts(),
+                                   **_attention_counts()}}
+    n = fwd["kernel"]["launches"]
+    check(n["w8a8_matmul_tc"] == counts["forward_w8a8"]
+          and n["w8a8_matmul_dp4a"] == 0
+          and n["flash_attention_tc"] == counts["forward_flash_tc"]
+          and n["flash_attention_f32"] == counts["forward_flash_f32"]
+          and n["flash_attention_windowed"] == 0,
+          f"{name}: launches {n}, expected {counts['forward_w8a8']} W8A8 "
+          f"tc, {counts['forward_flash_tc']} bf16 and "
+          f"{counts['forward_flash_f32']} float32 flash")
+    check(fwd["plain"]["launches"]["w8a8_matmul"] == 0
+          and fwd["plain"]["launches"]["flash_attention"] == 0,
+          f"{name}: the plain route launched a kernel")
+    lk, lp = fwd["kernel"]["logits"], fwd["plain"]["logits"]
+    check(tuple(lk.shape) == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(lk).all()),
+          f"{name}: logits {tuple(lk.shape)}")
+    swap = _swapped_attention(cfg.n_ctx_tokens)
+    with swap:
+        mixed, _ = model.forward(params, tokens, ctx=ctx, last_only=True)
+    check(bool(torch.equal(mixed, lp)),
+          f"{name}: kernel route with plain attention differs from the "
+          f"plain route")
+    flash_apps = swap.summary(name)
+    prof = _profile_split(
+        lambda: model.forward(params, tokens, ctx=ctx, last_only=True),
+        {"w8a8_tc": ("w8a8_tc_kernel",), "flash_tc": ("flash_tc_kernel",),
+         "flash_f32": ("flash_kernel",)})
+    alone, split = {}, {}
+    for kind, (q, k, v) in swap.kept.items():
+        alone[kind] = _flash_timing(device, q, k, v,
+                                    causal=kind != "cross")
+        split[f"flash_{kind}_ms"] = alone[kind]["best_kernel_ms"] \
+            * flash_apps[kind]["applications"]
+    flash_by_name = prof["flash_tc_device_ms"] + prof["flash_f32_device_ms"]
+    split["rest_device_ms"] = prof["profiled_device_ms"] \
+        - prof["w8a8_tc_device_ms"] - flash_by_name
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers,
+           "cross_layers": counts["n_cross"], "forward_shape": [b, s],
+           "n_ctx": cfg.n_ctx_tokens,
+           "forward_wall_s": fwd["kernel"]["wall_s"],
+           "forward_plain_wall_s": fwd["plain"]["wall_s"],
+           "peak_mem_over_params_bytes":
+               fwd["kernel"]["peak_over_params_bytes"],
+           "launches": n,
+           "logits_max_abs_vs_plain": float(
+               (lk.float() - lp.float()).abs().max()),
+           "logits_max_abs": float(lp.float().abs().max()),
+           "flash_vs_plain": flash_apps,
+           "kernel_matmuls_plain_attention_equal_plain_route": True,
+           **prof, "flash_device_ms_by_name": flash_by_name, **split,
+           "flash_timing": alone}
+    del plain, fwd, mixed, swap, lk, lp
+    return out
 
 
 def _decode_operands(b, kvh, rep, hd, S, seed, device):
@@ -4271,6 +4699,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_phi35 = phase_moe_phi35(device)
     emit(moe_phi35)
+    cross = {}
+    for family, spec in CROSS_ARCHS.items():
+        torch.cuda.empty_cache()
+        model, params = _arch_model(spec["arch"], device, impl="kernel",
+                                    n_layers=spec["n_layers"])
+        for phase in (phase_cross_serve, phase_cross_prefill):
+            row = phase(device, family, model, params)
+            cross[row["phase"]] = row
+            emit(row)
+        del model, params
+    torch.cuda.empty_cache()
     aparity = phase_attention_parity(device)
     emit(aparity)
     atiming = phase_attention_timing(device)
@@ -4342,7 +4781,11 @@ def main() -> int:
                 moe_int8kv["launches"]["w8a8_matmul_dp4a"],
             f"moe_phi35_serve ({MOE_PHI['arch']}, "
             f"{MOE_PHI['n_layers']} layers)":
-                moe_phi35["serve"]["launches"]["w8a8_matmul_dp4a"]},
+                moe_phi35["serve"]["launches"]["w8a8_matmul_dp4a"],
+            **{f"{f}_serve ({cross[f + '_serve']['arch']}, "
+               f"{cross[f + '_serve']['n_layers']} layers)":
+               cross[f + "_serve"]["launches"]["w8a8_matmul_dp4a"]
+               for f in CROSS_ARCHS}},
         "moonshot_layer": moe_prefill["w8a8_decode_layer"]["layer"],
     })
     lay = qprefill["layer"]
@@ -4371,7 +4814,17 @@ def main() -> int:
             f"window_prefill ({WINDOW_ARCH})":
                 window_prefill["launches"]["w8a8_matmul_tc"],
             f"moe_prefill ({MOE_ARCH})":
-                moe_prefill["launches"]["w8a8_matmul_tc"]},
+                moe_prefill["launches"]["w8a8_matmul_tc"],
+            **{f"{f}_prefill ({cross[f + '_prefill']['arch']}, "
+               f"{cross[f + '_prefill']['n_layers']} layers)":
+               cross[f + "_prefill"]["launches"]["w8a8_matmul_tc"]
+               for f in CROSS_ARCHS},
+            **{f"{f}_serve fill_ctx_caches ({cross[f + '_serve']['arch']})":
+               cross[f + "_serve"]["fill_launches"]["w8a8_matmul_tc"]
+               for f in CROSS_ARCHS}},
+        "context_kv_shapes": {
+            f"{cross[f + '_serve']['arch']}": cross[f + "_serve"][
+                "w8a8_context_kv"]["layer"] for f in CROSS_ARCHS},
         "ssm_shapes": {key: {k: ssm_tc[key][k] for k in (
             "aligned", "kernel_ms", "kernel_again_ms", "plain_ms",
             "library_ms", "bound_ms")}
@@ -4483,7 +4936,19 @@ def main() -> int:
             f"window_prefill ({WINDOW_ARCH}), window 1024":
                 window_prefill["launches"]["flash_attention_windowed"],
             f"moe_prefill ({MOE_ARCH})":
-                moe_prefill["launches"]["flash_attention_tc"]},
+                moe_prefill["launches"]["flash_attention_tc"],
+            **{f"{ph} ({cross[ph]['arch']}, {cross[ph]['n_layers']} "
+               f"layers)": cross[ph]["launches"]["flash_attention_tc"]
+               for ph in cross}},
+        "cross_family_shapes": {
+            f"{ph} {kind}": {k: r[k] for k in (
+                "shape", "keys", "causal", "dtype", "best_kernel_ms",
+                "best_plain_ms", "best_library_ms", "timer", "bound_ms",
+                "bound_by", "kernel_max_abs_vs_plain")}
+            for ph in cross for kind, r in (
+                cross[ph]["flash_timing"].items()
+                if ph.endswith("_prefill")
+                else [("cross", cross[ph]["flash_timing"])])},
         "moe_shapes": {f"h {r['shape'][1]}": {k: r[k] for k in (
             "shape", "best_kernel_ms", "best_plain_ms", "best_library_ms",
             "timer", "bound_ms", "bound_by", "kernel_max_abs_vs_plain")}
@@ -4512,6 +4977,13 @@ def main() -> int:
         "bound_cuda_core_ms": fl["ops_cuda_core_ms"],
         "library_kernel": fl["library_kernel"],
         "library_max_abs_vs_plain": fl["library_max_abs_vs_plain"],
+        "launches_by_path": {
+            f"prefill_fp32 ({SERVE_ARCH}, {FP32_LAYERS} layers)":
+                fp32["launches"]["flash_attention_f32"],
+            f"vlm_prefill ({cross['vlm_prefill']['arch']}, "
+            f"{cross['vlm_prefill']['n_layers']} layers), cross layers on "
+            "a float32 context":
+                cross["vlm_prefill"]["launches"]["flash_attention_f32"]},
         "per": "one layer's causal attention at (b 1, h 24, s 4096, d 128) "
                f"float32 ({fl['timer']} time), 3xTF32 on the tensor cores, "
                "bound at 3 x its FLOP at the 494.7 TFLOP/s TF32 rate "

@@ -1,8 +1,9 @@
 """Configurations of the port: the paper's CNN workloads
-(``qappa_workloads``) and the language models the port runs so far, of
-the reference's pool: the dense ones (gemma3 with its local:global
-windows among them), the mixtures of experts (moonshot, phi3.5-moe), the
-SSM (mamba2) and the hybrid (zamba2)."""
+(``qappa_workloads``) and the reference's pool of ten language models:
+the dense ones (gemma3 with its local:global windows among them), the
+mixtures of experts (moonshot, phi3.5-moe), the SSM (mamba2), the hybrid
+(zamba2), the vision-language model with cross-attention layers
+(llama-3.2-vision) and the encoder-decoder audio model (whisper)."""
 
 ALL_ARCHS = (
     "moonshot-v1-16b-a3b",
@@ -13,6 +14,8 @@ ALL_ARCHS = (
     "gemma3-4b",
     "mamba2-130m",
     "zamba2-1.2b",
+    "llama-3.2-vision-90b",
+    "whisper-medium",
 )
 
 _MODULES = {
@@ -24,6 +27,8 @@ _MODULES = {
     "gemma3-4b": "gemma3_4b",
     "mamba2-130m": "mamba2_130m",
     "zamba2-1.2b": "zamba2_1_2b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
+    "whisper-medium": "whisper_medium",
 }
 
 
@@ -33,7 +38,7 @@ def get_config(name: str):
     from repro_torch.configs.base import _REGISTRY
     if name not in _MODULES:
         raise KeyError(
-            f"unknown or not yet ported arch {name!r}; the port has "
+            f"unknown arch {name!r}; the port has "
             f"{list(ALL_ARCHS)}")
     if name not in _REGISTRY:
         importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -69,27 +69,29 @@ class ArchConfig:
         return self.family == "ssm"
 
     def n_params(self) -> int:
-        """Total parameter count (embedding + stacked blocks)."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"n_params of the {self.family!r} family is not ported yet "
-                f"(the port carries the dense, moe, ssm and hybrid "
-                f"families)")
+        """Total parameter count (embedding + stacked blocks), the
+        reference's formula."""
         d, ff, hd = self.d_model, self.d_ff, self.head_dim
         h, kvh, L = self.n_heads, self.n_kv_heads, self.n_layers
         attn = d * h * hd + 2 * d * kvh * hd + h * hd * d + 2 * d
-        if self.family == "dense":
+        per_layer = 0
+        if self.family in ("dense", "vlm", "audio"):
             per_layer = attn + 3 * d * ff + 2 * d
         elif self.family == "moe":
             per_layer = attn + self.n_experts * 3 * d * ff \
                 + d * self.n_experts + 2 * d
-        else:
+        elif self.family in ("ssm", "hybrid"):
             from repro_torch.models import ssm as _ssm
             per_layer = d * _ssm.in_proj_dim(self) \
                 + _ssm.D_CONV * _ssm.conv_dim(self) + 2 * d * d + 2 * d
         total = self.vocab * d + L * per_layer
         if self.family == "hybrid" and self.shared_attn_every:
             total += attn + 3 * d * ff + 2 * d          # one shared block
+        if self.family == "vlm" and self.cross_attn_every:
+            n_cross = self.n_layers // self.cross_attn_every
+            total += n_cross * (attn + 3 * d * ff)
+        if self.family == "audio" and self.encoder_layers:
+            total += self.encoder_layers * (attn + 2 * d * ff + 2 * d)
         return int(total)
 
     def n_active_params(self) -> int:

@@ -7,7 +7,15 @@ Usage:
 
 An MoE model at full width needs ``--quant``: unquantized, its stacked
 experts stay float32 (moonshot-v1-16b-a3b: 106.3 GB, past an 80 GB card);
-quantized, they are stored in bf16 (53.2 GB).
+quantized, they are stored in bf16 (53.2 GB).  llama-3.2-vision-90b needs
+it too, and even in int8 its 100 layers (92.8 GB) pass an 80 GB card:
+on one card it is served at a cut depth through :func:`generate`.
+
+The vlm and audio families take a context: ``serve`` draws image
+embeddings or audio frames ``(batch, n_ctx_tokens, d) * 0.02`` from
+``seed + 2``, and :func:`fill_ctx_caches` projects them once into the
+context caches (whisper's through its encoder first) before the prompt
+is replayed.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.core.device import resolve_device
+from repro_torch.models.attention import context_kv
 from repro_torch.models.model import Model
 
 
@@ -28,16 +37,49 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def fill_ctx_caches(model: Model, params: dict, caches: dict,
+                    ctx: torch.Tensor) -> dict:
+    """The reference's ``_fill_ctx_caches``: the context ``ctx`` (b,
+    n_ctx_tokens, d) projected once to each cross layer's keys and values,
+    written into ``caches["ctx_k"]`` / ``["ctx_v"]`` in their dtype (in
+    place; the caches are returned).  The audio model's frames go through
+    its encoder first; the vlm's image embeddings are cast to the compute
+    dtype."""
+    cfg, policy = model.cfg, model.policy
+    if cfg.family == "audio":
+        enc = model._encode(params, ctx)
+    else:
+        enc = ctx.to(policy.compute_dtype)
+    for g, cp in enumerate(params["cross_layers"]):
+        k, v = context_kv(enc, cp, cfg, policy=policy, impl=model.impl)
+        caches["ctx_k"][g] = k.to(caches["ctx_k"].dtype)
+        caches["ctx_v"][g] = v.to(caches["ctx_v"].dtype)
+    return caches
+
+
 def generate(model: Model, params: dict, prompts: torch.Tensor, *,
-             gen: int) -> dict:
+             gen: int, ctx: torch.Tensor | None = None,
+             caches: dict | None = None) -> dict:
     """The serving loop on a built model: prefill by replaying the prompt
     through ``decode_step`` (cache build), then ``gen`` greedy steps.
-    Times are host wall times that end in a device synchronize."""
+    ``caches``: caches of ``prompt_len + gen`` positions to start from
+    (the vlm and audio families' with their context caches filled);
+    otherwise they are made here, and for those families filled from
+    ``ctx`` by :func:`fill_ctx_caches` within ``prefill_s``, as the
+    reference's ``serve`` times it.  Times are host wall times that end
+    in a device synchronize."""
     batch, prompt_len = prompts.shape
     dev = model.device
+    needs_ctx = model.cfg.family in ("vlm", "audio")
+    if needs_ctx and caches is None and ctx is None:
+        raise ValueError(f"{model.cfg.name}: the {model.cfg.family!r} "
+                         f"family needs ctx or filled caches")
     _sync(dev)
     t0 = time.perf_counter()
-    caches = model.init_cache(batch, prompt_len + gen)
+    if caches is None:
+        caches = model.init_cache(batch, prompt_len + gen)
+        if needs_ctx:
+            caches = fill_ctx_caches(model, params, caches, ctx)
     logits = None
     for i in range(prompt_len):
         logits, caches = model.decode_step(params, caches,
@@ -74,11 +116,13 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
           gen: int = 16, quantize: bool = False, smoke: bool = True,
           seed: int = 0, greedy: bool = True, device="cuda") -> dict:
     """Serve ``batch`` random prompts of ``arch`` (reduced to smoke size
-    unless ``smoke=False``) with random weights from ``seed`` and prompts
-    from ``seed + 1``.  Returns ``tokens`` (batch, gen) int32,
+    unless ``smoke=False``) with random weights from ``seed``, prompts
+    from ``seed + 1`` and, for the vlm and audio families, the context
+    from ``seed + 2``.  Returns ``tokens`` (batch, gen) int32,
     ``prefill_s``, ``decode_s`` and ``tok_per_s``.  An MoE model at full
     width without ``quantize`` is refused: its float32 experts would be
-    drawn whole (see :func:`expert_bytes`)."""
+    drawn whole (see :func:`expert_bytes`); so is the vlm, whose
+    projections would stay float32."""
     if not greedy:
         raise NotImplementedError(
             "sampling is not implemented: decoding is greedy, as in the "
@@ -93,13 +137,23 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
             f"float32: {expert_bytes(cfg, False) / 1e9:.1f} GB "
             f"({expert_bytes(cfg, True) / 1e9:.1f} GB once quantized, "
             f"stored in the compute dtype); pass quantize=True (--quant)")
+    elif cfg.family == "vlm" and not quantize:
+        raise ValueError(
+            f"{arch} at full width without quantize keeps every projection "
+            f"float32, four times the bytes of its int8 ones; pass "
+            f"quantize=True (--quant)")
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(dev).manual_seed(seed),
                         quantize=quantize)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator(dev).manual_seed(
                                 seed + 1), device=dev)
-    return generate(model, params, prompts, gen=gen)
+    ctx = None
+    if cfg.family in ("vlm", "audio"):
+        ctx = torch.randn((batch, cfg.n_ctx_tokens, cfg.d_model),
+                          generator=torch.Generator(dev).manual_seed(
+                              seed + 2), device=dev) * 0.02
+    return generate(model, params, prompts, gen=gen, ctx=ctx)
 
 
 def main():
@@ -112,9 +166,13 @@ def main():
                     help="quantize the projections for serving (and store "
                          "an MoE model's experts in bf16)")
     ap.add_argument("--full", action="store_true",
-                    help="the config's full width (default: reduced); an "
-                         "MoE model needs --quant there (moonshot-v1-16b-a3b"
-                         "'s float32 experts are 106.3 GB)")
+                    help="the config's full width (default: reduced); the "
+                         "MoE models need --quant there (moonshot-v1-16b-a3b"
+                         "'s float32 experts are 106.3 GB), and so does "
+                         "llama-3.2-vision-90b (all 100 of its layers are "
+                         "92.8 GB even in int8, past an 80 GB card: serve it "
+                         "at a cut depth through generate()); whisper-medium "
+                         "fits either way")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,

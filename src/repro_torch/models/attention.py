@@ -1,5 +1,6 @@
-"""GQA self-attention: the full-sequence forward and decode with a KV
-cache, the reference's ``repro.models.attention`` for the dense family.
+"""GQA self-attention (the full-sequence forward and decode with a KV
+cache) and cross-attention over a precomputed context: the reference's
+``repro.models.attention``.
 
 * :func:`self_attention` (forward / prefill): projections, RoPE, then
   :func:`attend`, with an optional sliding ``window`` (gemma3's local
@@ -24,6 +25,10 @@ cache, the reference's ``repro.models.attention`` for the dense family.
   (``static_window == S``) or on a ``W``-wide slice of a longer cache
   (``static_window < S``); ``window`` masks keys older than
   ``pos - window + 1``.
+* :func:`context_kv` projects a context (image patches, encoder frames)
+  to keys and values once; :func:`cross_attention` attends to them
+  through :func:`attend` without a mask or RoPE, at every length (one
+  token at decode), so on the card through the flash kernel too.
 """
 
 from __future__ import annotations
@@ -150,11 +155,14 @@ def attend(q, k, v, *, causal=True, window=None, impl: str = "auto"):
         if max(q.shape[1], k.shape[1]) <= DENSE_SEQ_LIMIT:
             return dense_attention(q, k, v, causal=causal, window=window)
         return chunked_attention(q, k, v, causal=causal, window=window)
+    # Operands of mixed dtypes (a bf16 q against the float32 context k, v
+    # of the vlm forward) meet in float32, as the plain route computes
+    # them: the float32 kernel, out cast to q's dtype.
+    dt = q.dtype if q.dtype == k.dtype == v.dtype else torch.float32
     out = ops.flash_attention(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal, window=window,
-        impl="kernel")
-    return out.transpose(1, 2)
+        *(t.transpose(1, 2).to(dt).contiguous() for t in (q, k, v)),
+        causal=causal, window=window, impl="kernel")
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def self_attention(x, p, cfg, *, policy, train=False, window=None,
@@ -324,3 +332,33 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
     if kv_scales is not None:
         return out, cache_k, cache_v, kv_scales
     return out, cache_k, cache_v
+
+
+def cross_attention(x, ctx_k, ctx_v, p, cfg, *, policy, train=False,
+                    impl: str = "auto"):
+    """Attention of x (b, s, d) over a context's keys and values ctx_k,
+    ctx_v (b, sc, kvh, hd), precomputed by :func:`context_kv` (the
+    whisper decoder's and llama-3.2-vision's image layers): no RoPE, the
+    kv heads repeated to ``n_heads``, no mask."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = qdot(x, p["wq_x"], policy, train=train, impl=impl) \
+        .reshape(b, s, h, hd)
+    out = attend(q, _broadcast_kv(ctx_k, h), _broadcast_kv(ctx_v, h),
+                 causal=False, impl=impl)
+    return qdot(out.reshape(b, s, h * hd), p["wo_x"], policy, train=train,
+                impl=impl)
+
+
+def context_kv(ctx, p, cfg, *, policy, train=False, impl: str = "auto"):
+    """The context embeddings ctx (b, sc, d) projected once to (k, v),
+    each (b, sc, kvh, hd), in ctx's dtype under a quantized policy (one
+    per-tensor activation scale over the whole context, as ``serve_dot``
+    takes it) and in the compute dtype otherwise."""
+    b, sc, _ = ctx.shape
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    k = qdot(ctx, p["wk_img"], policy, train=train, impl=impl) \
+        .reshape(b, sc, kvh, hd)
+    v = qdot(ctx, p["wv_img"], policy, train=train, impl=impl) \
+        .reshape(b, sc, kvh, hd)
+    return k, v

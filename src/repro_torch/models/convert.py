@@ -6,7 +6,9 @@ hands the reference's params over as nested dicts of numpy arrays (the
 port never sees a JAX type), with each quantized leaf as a dict
 ``{"data", "scale", "mode", "orig_shape"}`` whose arrays keep the stacked
 ``(L, ...)`` axis.  The hybrid's ``shared`` block is not stacked: its
-leaves (quantized ones 2-D) are carried over as they are.
+leaves (quantized ones 2-D) are carried over as they are.  The vlm and
+audio families' stacked ``cross_layers`` and the audio family's
+``encoder_layers`` become lists as ``layers`` does.
 
 :func:`from_reference_cache` carries a reference decode-cache dict over
 the same way: the port's caches have the reference's keys, shapes and
@@ -29,6 +31,7 @@ MAMBA_KEYS = {"ln1", "in_proj", "conv_w", "dt_bias", "a_log", "d_skip",
               "out_proj"}
 MOE_KEYS = {"ln1", "ln2", "wq", "wk", "wv", "wo", "router",
             "w_experts_gate", "w_experts_in", "w_experts_out"}
+CROSS_KEYS = {"ln_x", "wq_x", "wk_img", "wv_img", "wo_x"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -67,34 +70,52 @@ def _check_keys(what: str, got, want: set) -> None:
                          f"{sorted(want)}")
 
 
+def _unstack(what: str, stacked: dict, keys: set, n: int, dev) -> list:
+    """A stack of ``n`` layers with ``keys`` -> one dict per layer."""
+    _check_keys(what, stacked, keys)
+    lengths = {len(v["data"] if isinstance(v, dict) else v)
+               for v in stacked.values()}
+    if lengths != {n}:
+        raise ValueError(f"{what}: stacked layer axes of lengths "
+                         f"{sorted(lengths)}, expected {n}")
+    return [{name: _leaf(leaf, l, dev) for name, leaf in stacked.items()}
+            for l in range(n)]
+
+
 def from_reference_params(cfg: ArchConfig, tree: dict, *,
                           device="cuda") -> dict:
-    """The reference's params of a dense, moe, ssm or hybrid model -> the
-    port's params on ``device``: ``embed`` and ``final_norm`` as tensors,
-    ``layers`` sliced into one dict per layer, the hybrid's ``shared``
-    unsliced.  Raises on a tree whose keys are not the family's."""
+    """The reference's params of a model of any family -> the port's
+    params on ``device``: ``embed`` and ``final_norm`` as tensors,
+    ``layers`` (and the vlm / audio ``cross_layers``, the audio
+    ``encoder_layers``) sliced into one dict per layer, the hybrid's
+    ``shared`` unsliced.  Raises on a tree whose keys are not the
+    family's."""
     dev = resolve_device(device)
     layer_keys = {"dense": _block_keys(cfg), "moe": MOE_KEYS,
-                  "ssm": MAMBA_KEYS, "hybrid": MAMBA_KEYS}.get(cfg.family)
+                  "ssm": MAMBA_KEYS, "hybrid": MAMBA_KEYS,
+                  "vlm": _block_keys(cfg),
+                  "audio": _block_keys(cfg)}.get(cfg.family)
     if layer_keys is None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet")
-    top = {"embed", "final_norm", "layers"}
-    _check_keys(f"{cfg.name} params", tree,
-                top | {"shared"} if cfg.family == "hybrid" else top)
-    layers = tree["layers"]
-    _check_keys(f"{cfg.name} layers", layers, layer_keys)
-    n = {len(v["data"] if isinstance(v, dict) else v)
-         for v in layers.values()}
-    if n != {cfg.n_layers}:
-        raise ValueError(
-            f"{cfg.name}: stacked layer axes of lengths {sorted(n)}, "
-            f"expected {cfg.n_layers}")
+            f"{cfg.name}: no model family {cfg.family!r}")
+    extra = {"hybrid": {"shared"}, "vlm": {"cross_layers"},
+             "audio": {"cross_layers", "encoder_layers"}}
+    _check_keys(f"{cfg.name} params", tree, {"embed", "final_norm", "layers"}
+                | extra.get(cfg.family, set()))
     out = {"embed": _tensor(tree["embed"], dev),
            "final_norm": _tensor(tree["final_norm"], dev),
-           "layers": [{name: _leaf(leaf, l, dev)
-                       for name, leaf in layers.items()}
-                      for l in range(cfg.n_layers)]}
+           "layers": _unstack(f"{cfg.name} layers", tree["layers"],
+                              layer_keys, cfg.n_layers, dev)}
+    if "cross_layers" in tree:
+        n_cross = cfg.n_layers // cfg.cross_attn_every \
+            if cfg.family == "vlm" else cfg.n_layers
+        out["cross_layers"] = _unstack(f"{cfg.name} cross layers",
+                                       tree["cross_layers"], CROSS_KEYS,
+                                       n_cross, dev)
+    if "encoder_layers" in tree:
+        out["encoder_layers"] = _unstack(
+            f"{cfg.name} encoder layers", tree["encoder_layers"],
+            _block_keys(cfg), cfg.encoder_layers, dev)
     if cfg.family == "hybrid":
         _check_keys(f"{cfg.name} shared block", tree["shared"],
                     _block_keys(cfg))
@@ -104,13 +125,17 @@ def from_reference_params(cfg: ArchConfig, tree: dict, *,
 
 
 def from_reference_cache(model, tree: dict, *, device="cuda") -> dict:
-    """A dense or moe model's reference decode-cache dict (numpy arrays,
-    bfloat16 ones too) -> the port's caches on ``device``.  Raises unless
-    the keys, shapes and dtypes are those of ``model.init_cache`` for the
-    batch, length and ``kv_quant`` of its ``k``."""
-    if model.cfg.family not in ("dense", "moe") or "k" not in tree:
-        raise ValueError(f"{model.cfg.name}: a dense or moe model's cache "
-                         f"with k and v, got keys {sorted(tree)}")
+    """A dense, moe, vlm or audio model's reference decode-cache dict
+    (numpy arrays, bfloat16 ones too; the vlm and audio ones with their
+    context caches ``ctx_k``, ``ctx_v``) -> the port's caches on
+    ``device``.  Raises unless the keys, shapes and dtypes are those of
+    ``model.init_cache`` for the batch, length and ``kv_quant`` of its
+    ``k``."""
+    if model.cfg.family not in ("dense", "moe", "vlm", "audio") \
+            or "k" not in tree:
+        raise ValueError(f"{model.cfg.name}: a dense, moe, vlm or audio "
+                         f"model's cache with k and v, got keys "
+                         f"{sorted(tree)}")
     dev = resolve_device(device)
     out = {name: _tensor(a, dev) for name, a in tree.items()}
     k = out["k"]

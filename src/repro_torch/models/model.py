@@ -1,41 +1,53 @@
-"""The quantization-aware LM of the port: the dense, MoE, SSM and hybrid
-families' serving path and the evaluation loss.
+"""The quantization-aware LM of the port: the serving path and the
+evaluation loss of all six families of the reference's ten models.
 
 :class:`Model` is the counterpart of ``repro.models.model.Model`` for
 the dense family (phi4-mini, starcoder2, deepseek, and gemma3 with its
 sliding-window local layers and a global layer every ``global_every``-th),
 the MoE family (moonshot, phi3.5-moe: the dense family's attention with a
 top-k mixture of experts, ``models/moe.py``, in place of the MLP), the SSM
-family (mamba2: a stack of Mamba-2 layers, ``models/ssm.py``) and
-the hybrid (zamba2: Mamba-2 layers with one shared attention + MLP block
-applied after every ``shared_attn_every``-th layer):
+family (mamba2: a stack of Mamba-2 layers, ``models/ssm.py``), the
+hybrid (zamba2: Mamba-2 layers with one shared attention + MLP block
+applied after every ``shared_attn_every``-th layer), the vision-language
+model (llama-3.2-vision: dense layers with a cross-attention injection
+over image embeddings after every ``cross_attn_every``-th) and the
+encoder-decoder audio model (whisper: an encoder of dense blocks over
+the frames, then decoder layers of self-attention, cross-attention on
+the encoder's output and an MLP):
 
 * ``init(generator, quantize=...)`` -> params;
 * ``quantize_params(params)`` -> params with every projection quantized;
-* ``forward(params, tokens, train=, last_only=)`` -> (logits, aux), aux
-  the MoE layers' load-balance losses summed in layer order (0 for the
-  other families);
-* ``loss(params, batch, train=)`` -> the scalar cross-entropy (+ z-loss);
+* ``forward(params, tokens, ctx=, train=, last_only=)`` -> (logits,
+  aux), aux the MoE layers' load-balance losses summed in layer order (0
+  for the other families); ``ctx`` (b, n_ctx_tokens, d): the vlm's image
+  embeddings or the audio model's frames;
+* ``loss(params, batch, train=)`` -> the scalar cross-entropy (+ z-loss),
+  with ``batch["ctx"]`` where the family takes one;
 * ``init_cache(batch, max_seq, kv_quant=)`` -> decode caches: KV (bf16,
   or int8 with per-(position, head) scales, dense and MoE only; gemma3's local
   layers keep ring buffers of ``window`` positions), the SSM
-  ``state`` and ``conv`` caches, and the hybrid's ``shared_k`` /
-  ``shared_v`` (one entry per application of the shared block);
+  ``state`` and ``conv`` caches, the hybrid's ``shared_k`` /
+  ``shared_v`` (one entry per application of the shared block), and the
+  vlm and audio families' context caches ``ctx_k`` / ``ctx_v`` (one entry
+  per cross layer), which ``launch.serve.fill_ctx_caches`` fills;
 * ``decode_step(params, caches, tokens, pos)`` -> (logits, caches), at
   one position or (dense, MoE) one per slot;
-* ``prefill(params, tokens, max_seq=)`` -> (logits, caches).
+* ``prefill(params, tokens, max_seq=)`` -> (logits, caches); refused for
+  the vlm and audio families (ROADMAP C.10).
 
 Params are plain dictionaries: ``embed`` (vocab, d) float32,
 ``final_norm`` (d,), ``layers``, a list with one dict per layer (the
 reference stacks them on a leading axis for ``lax.scan``; here the layers
-run in a Python loop), and for the hybrid ``shared``, the shared block's
-dict.  A projection is a float (d_in, d_out) tensor or a
+run in a Python loop), for the hybrid ``shared``, the shared block's
+dict, for the vlm and audio families ``cross_layers``, a list of cross
+layers (``ln_x``, ``wq_x``, ``wk_img``, ``wv_img``, ``wo_x``), and for the
+audio family ``encoder_layers``, a list of dense blocks.  A projection is
+a float (d_in, d_out) tensor or a
 :class:`~repro_torch.quant.qlinear.QuantizedTensor`.  An MoE layer also
 holds ``router`` (d, E) float32 and the stacked experts
 ``w_experts_gate`` / ``w_experts_in`` (E, d, ff) and ``w_experts_out``
 (E, ff, d): float32 as drawn, in the compute dtype once quantized for
-serving (the products cast them to it at every use anyway).  The vlm and
-audio families raise ``NotImplementedError`` (ROADMAP A.6); training
+serving (the products cast them to it at every use anyway).  Training
 under a quantized policy raises in ``qdot`` and ``moe.expert_ffn``
 (ROADMAP A.8).
 """
@@ -60,7 +72,7 @@ from repro_torch.quant.qlinear import qdot, quantize_weight
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "wq_x", "wk_img", "wv_img", "wo_x", "in_proj", "out_proj")
 EXPERT_NAMES = ("w_experts_gate", "w_experts_in", "w_experts_out")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _mlp(xn, lp, cfg, policy, train, impl):
@@ -116,7 +128,7 @@ def _is_shared_layer(cfg, l: int) -> bool:
 
 
 class Model(nn.Module):
-    """Decoder-only LM of the dense, moe, ssm or hybrid family.  ``impl``
+    """LM of the dense, moe, ssm, hybrid, vlm or audio family.  ``impl``
     picks the route of the quantized matmuls and of attention
     (:mod:`repro_torch.kernels.ops`): ``"auto"`` runs the CUDA kernels on
     the card and their plain versions on the CPU."""
@@ -126,10 +138,14 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP A.6); the port's model runs {FAMILIES}")
+                f"{cfg.name}: no model family {cfg.family!r}; the port's "
+                f"model runs the reference's {FAMILIES}")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if cfg.family == "vlm" and cfg.n_layers % cfg.cross_attn_every:
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_layers} layers are not whole groups of "
+                f"cross_attn_every = {cfg.cross_attn_every}")
         self.cfg = cfg
         self.policy: QuantPolicy = policy_for(cfg.quant)
         self.device = resolve_device(device)
@@ -198,9 +214,21 @@ class Model(nn.Module):
                                             scale=so))
         return lp
 
+    def _cross(self, generator: torch.Generator) -> dict:
+        """The reference's ``_cross_params`` and ``ln_x``: ``wo_x`` at the
+        layers' output scale."""
+        cfg, d = self.cfg, self.cfg.d_model
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        so = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+        return {"ln_x": self._ones(),
+                "wq_x": normal_init(generator, (d, h * hd)),
+                "wk_img": normal_init(generator, (d, kvh * hd)),
+                "wv_img": normal_init(generator, (d, kvh * hd)),
+                "wo_x": normal_init(generator, (h * hd, d), scale=so)}
+
     def _layer(self, generator: torch.Generator) -> dict:
         so = 0.02 / max(1.0, (2 * self.cfg.n_layers) ** 0.5)
-        if self.cfg.family == "dense":
+        if self.cfg.family in ("dense", "vlm", "audio"):
             return self._attn_mlp(generator, so)
         if self.cfg.family == "moe":
             return self._moe(generator, so)
@@ -225,6 +253,13 @@ class Model(nn.Module):
             params["layers"].append(keep(self._layer(generator)))
         if cfg.family == "hybrid":      # the shared attention + MLP block
             params["shared"] = keep(self._attn_mlp(generator, 0.01))
+        if cfg.family == "audio":       # whisper's encoder
+            params["encoder_layers"] = [
+                keep(self._attn_mlp(generator, 0.01))
+                for _ in range(cfg.encoder_layers)]
+        if cfg.family in ("vlm", "audio"):
+            params["cross_layers"] = [keep(self._cross(generator))
+                                      for _ in range(self._n_cross())]
         return params
 
     def _quantize_layer(self, lp: dict) -> dict:
@@ -238,7 +273,8 @@ class Model(nn.Module):
 
     def quantize_params(self, params: dict) -> dict:
         """Serving-time weight quantization per the config's mode: every
-        projection (the hybrid's shared ones too) becomes a
+        projection (the hybrid's shared block's, the cross and encoder
+        layers' too) becomes a
         QuantizedTensor (int8 W8A8 or packed pow2-int4 W4A8); the stacked
         experts are stored in the compute dtype (the reference keeps them
         float32 and casts them to it at every use: the same products);
@@ -246,16 +282,21 @@ class Model(nn.Module):
         as they are."""
         if not self.policy.quantized:
             return params
-        out = dict(params, layers=[self._quantize_layer(lp)
-                                   for lp in params["layers"]])
+        out = dict(params)
+        for key in ("layers", "cross_layers", "encoder_layers"):
+            if key in params:
+                out[key] = [self._quantize_layer(lp) for lp in params[key]]
         if "shared" in params:
             out["shared"] = self._quantize_layer(params["shared"])
         return out
 
     # ----------------------------------------------------------- forward
     def forward(self, params: dict, tokens: torch.Tensor, *,
-                train: bool = False, last_only: bool = False):
-        """tokens: (b, s) integer -> (logits (b, s, V), aux).  With
+                ctx: torch.Tensor | None = None, train: bool = False,
+                last_only: bool = False):
+        """tokens: (b, s) integer -> (logits (b, s, V), aux).  ``ctx``
+        (b, n_ctx_tokens, d): the vlm's image embeddings or the audio
+        model's frames (required there, unused elsewhere).  With
         ``last_only`` the logits of the final position only (serving
         prefill).  ``train`` goes to every ``qdot`` (a quantized policy on
         float weights raises there: QAT is ROADMAP A.8).  ``aux``: the MoE
@@ -264,6 +305,23 @@ class Model(nn.Module):
         cfg, policy, impl = self.cfg, self.policy, self.impl
         x = params["embed"][tokens].to(policy.compute_dtype)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if cfg.family in ("vlm", "audio"):
+            if ctx is None:
+                raise ValueError(f"{cfg.name}: the {cfg.family!r} family's "
+                                 f"forward needs ctx (b, n_ctx, d)")
+            x = (self._vlm_forward if cfg.family == "vlm"
+                 else self._audio_forward)(params, x, ctx, train)
+        else:
+            x, aux = self._stack_forward(params, x, aux, train)
+        if last_only:
+            x = x[:, -1:]
+        x = rms_norm(x, params["final_norm"])
+        logits = qdot(x, params["embed"].T, policy, train=train)
+        return logits, aux
+
+    def _stack_forward(self, params, x, aux, train):
+        """The dense, MoE, SSM and hybrid layer stacks; returns (x, aux)."""
+        cfg, policy, impl = self.cfg, self.policy, self.impl
         windows = layer_windows(cfg)
         for l, lp in enumerate(params["layers"]):
             if cfg.family == "dense":
@@ -278,20 +336,75 @@ class Model(nn.Module):
             if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
                 x = _dense_block(x, params["shared"], cfg, policy, train,
                                  impl)
-        if last_only:
-            x = x[:, -1:]
-        x = rms_norm(x, params["final_norm"])
-        logits = qdot(x, params["embed"].T, policy, train=train)
-        return logits, aux
+        return x, aux
+
+    def _cross_block(self, x, cp, ck, cv, train):
+        """The residual cross-attention injection of one cross layer."""
+        return x + attn.cross_attention(
+            rms_norm(x, cp["ln_x"]), ck, cv, cp, self.cfg,
+            policy=self.policy, train=train, impl=self.impl)
+
+    def _vlm_forward(self, params, x, ctx, train):
+        """Groups of ``cross_attn_every`` dense blocks, each group followed
+        by its cross layer over ``ctx``, which goes to ``context_kv`` as it
+        is (uncast, as the reference's forward passes it)."""
+        cfg, policy, impl = self.cfg, self.policy, self.impl
+        k = cfg.cross_attn_every
+        for g, cp in enumerate(params["cross_layers"]):
+            for lp in params["layers"][g * k:(g + 1) * k]:
+                x = _dense_block(x, lp, cfg, policy, train, impl)
+            ck, cv = attn.context_kv(ctx, cp, cfg, policy=policy,
+                                     train=train, impl=impl)
+            x = self._cross_block(x, cp, ck, cv, train)
+        return x
+
+    def _audio_forward(self, params, x, frames, train):
+        """The encoder over ``frames``, then per decoder layer
+        self-attention, cross-attention on the encoder's output and the
+        MLP."""
+        cfg, policy, impl = self.cfg, self.policy, self.impl
+        enc = self._encode(params, frames, train)
+        for lp, cp in zip(params["layers"], params["cross_layers"]):
+            h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
+                                       policy=policy, train=train, impl=impl)
+            x = x + h
+            ck, cv = attn.context_kv(enc, cp, cfg, policy=policy,
+                                     train=train, impl=impl)
+            x = self._cross_block(x, cp, ck, cv, train)
+            x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train,
+                         impl)
+        return x
+
+    def _encode(self, params: dict, frames: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """whisper's encoder: ``frames`` (b, n_ctx, d) cast to the compute
+        dtype through the dense blocks of ``encoder_layers``.  Their
+        attention is causal, as the reference's ``self_attention`` always
+        is, though its comments call the encoder bidirectional (ROADMAP
+        C.11)."""
+        x = frames.to(self.policy.compute_dtype)
+        for lp in params["encoder_layers"]:
+            x = _dense_block(x, lp, self.cfg, self.policy, train, self.impl)
+        return x
 
     def loss(self, params: dict, batch: dict, *,
              train: bool = True) -> torch.Tensor:
         """Mean token cross-entropy (+ z-loss) of ``batch["tokens"]``
-        against ``batch["labels"]``, plus 0.01 x the auxiliary loss."""
-        logits, aux = self.forward(params, batch["tokens"], train=train)
+        against ``batch["labels"]``, plus 0.01 x the auxiliary loss;
+        ``batch["ctx"]``, where present, goes to ``forward``."""
+        logits, aux = self.forward(params, batch["tokens"],
+                                   ctx=batch.get("ctx"), train=train)
         return cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
     # ----------------------------------------------------------- serving
+    def _n_cross(self) -> int:
+        """Cross layers: one a group of ``cross_attn_every`` layers (vlm),
+        one a layer (audio), none elsewhere."""
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return cfg.n_layers // cfg.cross_attn_every
+        return cfg.n_layers if cfg.family == "audio" else 0
+
     def _n_shared_apps(self) -> int:
         return sum(_is_shared_layer(self.cfg, l)
                    for l in range(self.cfg.n_layers))
@@ -309,7 +422,10 @@ class Model(nn.Module):
         ``state`` (L, batch, h, 64, n) float32 and ``conv`` (L, batch, 3,
         conv_dim); the hybrid also ``shared_k`` / ``shared_v`` (one entry
         per application of the shared block, batch, max_seq, kvh, hd).
-        The reference has no int8 KV for these families: ``kv_quant``
+        vlm and audio: ``k``, ``v`` as dense, and the context caches
+        ``ctx_k``, ``ctx_v`` (one entry per cross layer, batch,
+        n_ctx_tokens, kvh, hd), zero until filled.  The reference has no
+        int8 KV for the families other than dense and moe: ``kv_quant``
         raises for them."""
         cfg = self.cfg
         L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -321,6 +437,13 @@ class Model(nn.Module):
         def zeros(shape, dt):
             return torch.zeros(shape, dtype=dt, device=self.device)
         c = {}
+        if cfg.family in ("vlm", "audio"):
+            for key, n, seq in (("", L, max_seq),
+                                ("ctx_", self._n_cross(), cfg.n_ctx_tokens)):
+                shape = (n, batch, seq, kvh, hd)
+                c[key + "k"], c[key + "v"] = zeros(shape, dtype), \
+                    zeros(shape, dtype)
+            return c
         if cfg.family in ("dense", "moe"):
             if kv_quant:
                 dtype = torch.int8
@@ -359,6 +482,8 @@ class Model(nn.Module):
         x = params["embed"][tokens].to(self.policy.compute_dtype)
         if cfg.family in ("dense", "moe"):
             x = self._dense_decode(params, caches, x, pos)
+        elif cfg.family in ("vlm", "audio"):
+            x = self._cross_decode(params, caches, x, pos)
         else:
             x = self._ssm_decode(params, caches, x, pos)
         x = rms_norm(x, params["final_norm"])
@@ -396,6 +521,32 @@ class Model(nn.Module):
                 x = x + _mlp(xn, lp, cfg, policy, False, impl)
         return x
 
+    def _cross_decode(self, params, caches, x, pos):
+        """The vlm's and audio model's decoder layers on the filled context
+        caches: the vlm's dense layers with the cross injection after every
+        ``cross_attn_every``-th (the reference's ``_vlm_decode``), the
+        audio model's self-attention, cross-attention and MLP a layer
+        (``_audio_decode``)."""
+        cfg, policy, impl = self.cfg, self.policy, self.impl
+        audio = cfg.family == "audio"
+        every = 1 if audio else cfg.cross_attn_every
+        for l, lp in enumerate(params["layers"]):
+            x = x + attn.decode_self_attention(
+                rms_norm(x, lp["ln1"]), lp, cfg, caches["k"][l],
+                caches["v"][l], pos, policy=policy, impl=impl)[0]
+            g = l // every
+            if audio:
+                x = self._cross_block(x, params["cross_layers"][g],
+                                      caches["ctx_k"][g], caches["ctx_v"][g],
+                                      False)
+            x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, False,
+                         impl)
+            if not audio and l % every == every - 1:
+                x = self._cross_block(x, params["cross_layers"][g],
+                                      caches["ctx_k"][g], caches["ctx_v"][g],
+                                      False)
+        return x
+
     def _ssm_decode(self, params, caches, x, pos):
         """The SSM family's layer scan and the hybrid's unrolled layers
         with the shared block's decode attention after every
@@ -430,7 +581,19 @@ class Model(nn.Module):
                 max_seq: int | None = None):
         """Logits of the prompt (``forward``) and decode caches filled
         with it, as the reference builds them: the prompt is replayed
-        through ``decode_step`` into caches of the compute dtype."""
+        through ``decode_step`` into caches of the compute dtype.
+
+        Refused for the vlm and audio families (ROADMAP C.10): the
+        reference's ``prefill`` never fills the context caches, so its
+        decode after it attends to an all-zero context.  Serve them
+        through ``launch.serve.generate``, which fills them first."""
+        if self.cfg.family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"{self.cfg.name}: prefill of the {self.cfg.family!r} "
+                f"family is refused (ROADMAP C.10): the reference's prefill "
+                f"leaves ctx_k / ctx_v zero, so decoding after it would "
+                f"attend to no context; use launch.serve.generate, which "
+                f"fills them with fill_ctx_caches")
         b, s = tokens.shape
         logits, _ = self.forward(params, tokens)
         caches = self.init_cache(b, max_seq or s,

@@ -13,7 +13,9 @@ and conv caches are not position-masked, and the reference resets no
 cache when it reuses a slot.  The MoE family is refused (ROADMAP C.9):
 the reference's step feeds every slot's token to ``decode_step``, free
 slots' stale ones too, and a row's expert capacity depends on the other
-rows of the batch.  gemma3's ring buffers are served: each
+rows of the batch.  The vlm and audio families are refused (ROADMAP
+C.10): no request carries a context, and the reference's batcher never
+fills the context caches.  gemma3's ring buffers are served: each
 slot writes its ring at ``pos mod W``, and a reused slot starts clean as
 the full caches do (see the constructor).
 
@@ -66,6 +68,13 @@ class ContinuousBatcher:
                 f"reuses a slot without resetting its SSM state and conv "
                 f"caches, so a request's tokens would depend on what the "
                 f"slot served before")
+        if family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"{model.cfg.name}: continuous batching of the {family!r} "
+                f"family is refused (ROADMAP C.10): the reference's batcher "
+                f"inits its caches and never fills the context caches "
+                f"ctx_k / ctx_v (no request carries a context), so every "
+                f"request would attend to an all-zero context")
         if family == "moe":
             raise NotImplementedError(
                 f"{model.cfg.name}: continuous batching of the 'moe' family "

@@ -2,8 +2,10 @@
 mixed-precision sweeps and searches that launch it), the serving-fleet
 simulator's kernel, the two quantized matmuls of the serving path (also
 on depth-cut mamba2 and zamba2 at full width), the int8-KV decode
-attention and flash attention; and the MoE family's routes and
-combine on reduced moonshot.
+attention and flash attention; the MoE family's routes and combine on
+reduced moonshot; and the vlm and audio families' routes on reduced
+llama-3.2-vision and whisper, with flash at their cross-attention
+shapes.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -1536,3 +1538,129 @@ def test_moe_ffn_on_the_card_is_deterministic(cuda_device):
     cpu = M.combine(out_buf.cpu(), order.cpu(), slot.cpu(), keep.cpu(),
                     gates.cpu())
     assert torch.equal(card.cpu().view(torch.int16), cpu.view(torch.int16))
+
+
+def _cross_family(device, arch, impl, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    return Model(cfg, device=device, impl=impl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-medium"])
+def test_reduced_cross_family_swapped_attention_equals_plain(
+        cuda_device, monkeypatch, arch):
+    """Reduced llama-3.2-vision (4 layers, a cross layer every 2nd) and
+    whisper (2 + 2 layers), W8A8, a ragged context of 37 tokens: the
+    kernel route launches flash for every cross-attention (one token a
+    decode step) and, in the forward, every self-attention and the
+    encoder's; each application within 2e-2 of the plain attention; with
+    the plain attention swapped in, the context caches, teacher-forced
+    decode (logits and every cache) and the forward equal the plain route
+    bit for bit."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch.serve import fill_ctx_caches
+    from repro_torch.models import attention as A
+    over = dict(n_ctx_tokens=37, n_layers=4 if "vision" in arch else 2)
+    kern = _cross_family(cuda_device, arch, "kernel", **over)
+    plain = _cross_family(cuda_device, arch, "ref", **over)
+    cfg = kern.cfg
+    n_cross = len(kern.init_cache(1, 1)["ctx_k"])
+    params = kern.init(torch.Generator(cuda_device).manual_seed(0),
+                       quantize=True)
+    g = torch.Generator(cuda_device).manual_seed(1)
+    ctx = torch.randn((3, 37, cfg.d_model), generator=g,
+                      device=cuda_device) * 0.02
+    tokens = torch.randint(0, cfg.vocab, (3, 10), generator=g,
+                           device=cuda_device)
+    real = A.attend
+    errs = []
+
+    def swapped(q, k, v, **kw):
+        got = real(q, k, v, **kw)
+        want = real(q, k, v, **dict(kw, impl="ref"))
+        errs.append(float((got.float() - want.float()).abs().max()))
+        return want
+    before = F.launches
+    ck = fill_ctx_caches(kern, params, kern.init_cache(3, 10), ctx)
+    enc_apps = cfg.encoder_layers
+    assert F.launches - before == enc_apps
+    monkeypatch.setattr(A, "attend", swapped)
+    cs = fill_ctx_caches(kern, params, kern.init_cache(3, 10), ctx)
+    monkeypatch.setattr(A, "attend", real)
+    cp = fill_ctx_caches(plain, params, plain.init_cache(3, 10), ctx)
+    for name in ("ctx_k", "ctx_v"):
+        assert torch.equal(cs[name], cp[name]), name
+    for i in range(10):
+        tok = tokens[:, i:i + 1]
+        before = F.launches_tc
+        lk, ck = kern.decode_step(params, ck, tok, i)
+        assert F.launches_tc - before == n_cross
+        assert bool(torch.isfinite(lk).all())
+        monkeypatch.setattr(A, "attend", swapped)
+        ls, cs = kern.decode_step(params, cs, tok, i)
+        monkeypatch.setattr(A, "attend", real)
+        lp, cp = plain.decode_step(params, cp, tok, i)
+        assert torch.equal(ls, lp), i
+    for name in cp:
+        assert torch.equal(cs[name], cp[name]), name
+    before = F.launches
+    got, _ = kern.forward(params, tokens, ctx=ctx)
+    assert F.launches - before == enc_apps + cfg.n_layers + n_cross
+    assert bool(torch.isfinite(got).all())
+    want, _ = plain.forward(params, tokens, ctx=ctx)
+    monkeypatch.setattr(A, "attend", swapped)
+    mixed, _ = kern.forward(params, tokens, ctx=ctx)
+    assert torch.equal(mixed, want)
+    assert max(errs) <= 2e-2, max(errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (4, 64, 1, 1601, 128, False),     # llama-3.2-vision decode, cross
+    (4, 16, 1, 1500, 64, False),      # whisper decode, cross
+    (4, 16, 448, 1500, 64, False),    # whisper's 448-token forward, cross
+    (1, 64, 4096, 1601, 128, False),  # the vlm forward, cross
+    (4, 16, 1500, 1500, 64, True),    # whisper's encoder (causal, C.11)
+    (2, 3, 1, 65, 16, False),         # sq 1, one key past a tile
+])
+def test_flash_at_the_cross_attention_shapes(cuda_device, shape):
+    """bf16 flash at the vlm and audio paths' shapes (sq = 1, ragged key
+    counts 1601 = 25 x 64 + 1 and 1500, non-causal) within 2e-2 of its
+    plain version; at the vlm forward's shape also the float32 route (its
+    float32 context keys and values) within 1e-5."""
+    from repro_torch.kernels import flash_attention as F
+    b, h, sq, sk, d, causal = shape
+    dtypes = ((torch.bfloat16, 2e-2),)
+    if sq == 4096:
+        dtypes += ((torch.float32, 1e-5),)
+    for dtype, tol in dtypes:
+        q, k, v = _qkv(b, h, sq, sk, d, dtype, sq + sk, cuda_device)
+        got = OPS.flash_attention(q, k, v, causal=causal, impl="kernel")
+        want = OPS.flash_attention(q, k, v, causal=causal, impl="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, (shape, dtype, err)
+
+
+@pytest.mark.cuda
+def test_attend_meets_mixed_dtypes_in_float32(cuda_device):
+    """A bf16 q against float32 k, v (the vlm forward's context under
+    W8A8) runs the float32 kernel and returns bf16, within 2e-2 of the
+    plain route's float32 attention."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.models import attention as A
+    g = torch.Generator("cpu").manual_seed(5)
+    q = torch.randn((2, 33, 8, 128), generator=g).to(torch.bfloat16)
+    k, v = (torch.randn((2, 401, 8, 128), generator=g) for _ in range(2))
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    before = (F.launches_f32, F.launches_tc)
+    got = A.attend(q, k, v, causal=False, impl="kernel")
+    assert (F.launches_f32 - before[0], F.launches_tc - before[1]) == (1, 0)
+    want = A.attend(q, k, v, causal=False, impl="ref")
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2

@@ -67,7 +67,9 @@ def test_every_module_is_listed():
                  "repro_torch.models.ssm", "repro_torch.data",
                  "repro_torch.data.pipeline", "repro_torch.models.moe",
                  "repro_torch.configs.moonshot_v1_16b_a3b",
-                 "repro_torch.configs.phi3_5_moe_42b_a6_6b"):
+                 "repro_torch.configs.phi3_5_moe_42b_a6_6b",
+                 "repro_torch.configs.llama_3_2_vision_90b",
+                 "repro_torch.configs.whisper_medium"):
         assert name in mods
 
 
@@ -198,12 +200,14 @@ def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
 @pytest.mark.parametrize("entry", ["fit_ppa_suite", "predict", "resume_sweep",
                                    "resume_search", "run_checkpointed",
                                    "simulate_fleet", "serving_search",
-                                   "serve_moe", "moe_model"])
+                                   "serve_moe", "moe_model", "serve_vlm",
+                                   "serve_audio", "vlm_model",
+                                   "audio_model"])
 def test_slice_entry_points_default_to_the_card(entry, tmp_path):
     """The PPA fit, its predictions, the resumable sweep and search, the
-    fleet simulator, a serving search and the MoE family's serving and
-    model run on the card unless asked for the CPU, and raise without
-    one."""
+    fleet simulator, a serving search and the MoE, vlm and audio
+    families' serving and models (at full size) run on the card unless
+    asked for the CPU, and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     import numpy as np
@@ -240,6 +244,10 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
         "serve_moe": lambda: serve("moonshot-v1-16b-a3b", quantize=True),
         "moe_model": lambda: Model(reduced(get_config(
             "phi3.5-moe-42b-a6.6b"))),
+        "serve_vlm": lambda: serve("llama-3.2-vision-90b", quantize=True),
+        "serve_audio": lambda: serve("whisper-medium", quantize=True),
+        "vlm_model": lambda: Model(get_config("llama-3.2-vision-90b")),
+        "audio_model": lambda: Model(get_config("whisper-medium")),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

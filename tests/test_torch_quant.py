@@ -250,12 +250,17 @@ def test_configs_match_reference(arch):
 
 
 def test_config_registry_refuses_unported_archs():
-    with pytest.raises(KeyError, match="not yet ported"):
-        T_configs.get_config("llama-3.2-vision-90b")
+    """An arch name no config has is refused; all ten of the reference's
+    are registered, and the vlm family's parameter count is the
+    reference's."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        T_configs.get_config("llama-4-vision-400b")
+    assert set(T_configs.ALL_ARCHS) == set(R_configs.ALL_ARCHS)
     vlm = dataclasses.replace(T_configs.get_config("phi4-mini-3.8b"),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        vlm.n_params()
+                              family="vlm", cross_attn_every=4)
+    r_vlm = dataclasses.replace(R_configs.get_config("phi4-mini-3.8b"),
+                                family="vlm", cross_attn_every=4)
+    assert vlm.n_params() == r_vlm.n_params()
     assert {k: (v.seq_len, v.global_batch, v.kind)
             for k, v in T_base.SHAPES.items()} == \
         {k: (v.seq_len, v.global_batch, v.kind)

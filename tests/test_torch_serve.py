@@ -184,11 +184,13 @@ def test_decode_attention_refuses_unported_paths():
     assert tuple(out[0].shape) == (1, 1, cfg.d_model)
 
 
-@pytest.mark.parametrize("family,extra", [("audio", {}), ("vlm", {})])
+@pytest.mark.parametrize("family,extra", [("rnn", {}), ("diffusion", {})])
 def test_model_refuses_unported_families(family, extra):
+    """A family that neither the reference nor the port has is refused
+    (all six of the reference's are ported)."""
     cfg = dataclasses.replace(reduced(get_config("phi4-mini-3.8b")),
                               family=family, **extra)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no model family"):
         Model(cfg, device="cpu")
 
 

@@ -447,21 +447,16 @@ def test_reduced_matches_reference_for_every_arch(arch):
     """``reduced`` gives every reference arch's family the reference's
     small config, field for field (the port's ``ArchConfig`` built from
     the reference config's fields), and ``n_params`` agrees for every
-    family the port runs (``n_active_params`` too: the MoE family's)."""
+    family (``n_active_params`` too: the MoE family's)."""
     r = r_get_config(arch)
     t = ArchConfig(**dataclasses.asdict(r))
     assert dataclasses.asdict(reduced(t)) == dataclasses.asdict(r_reduced(r))
     assert dataclasses.asdict(reduced(t, n_layers=3)) == \
         dataclasses.asdict(r_reduced(r, n_layers=3))
-    if t.family in ("dense", "moe", "ssm", "hybrid"):
-        assert t.n_params() == r.n_params()
-        assert reduced(t).n_params() == r_reduced(r).n_params()
-        assert t.n_active_params() == r.n_active_params()
-        assert reduced(t).n_active_params() == \
-            r_reduced(r).n_active_params()
-    else:
-        with pytest.raises(NotImplementedError, match=t.family):
-            t.n_params()
+    assert t.n_params() == r.n_params()
+    assert reduced(t).n_params() == r_reduced(r).n_params()
+    assert t.n_active_params() == r.n_active_params()
+    assert reduced(t).n_active_params() == r_reduced(r).n_active_params()
 
 
 # ------------------------------------------------------ serving limits
