@@ -5,7 +5,8 @@ serving-fleet simulator and the serving-objective searches, the scalar
 dataflow oracle, the PPA models and RTL generator, the preemption-safe
 runtime, quantized LM serving (dense, windowed dense, MoE, SSM, hybrid,
 vision-language and audio), continuous batching over an int8 KV cache,
-and the full-sequence forward / prefill.
+the full-sequence forward / prefill, the accuracy tiers 1 and 2 and QAT
+training.
 
     python3 chip_smoke.py
 
@@ -267,7 +268,23 @@ Phases (any failure exits non-zero):
     float32, beside their plain versions, SDPA (for float32 also SDPA's
     kernel name and its error against the plain version) and their
     bounds (float32: 3xTF32 on the tensor cores, and the CUDA-core
-    rate).
+    rate);
+14. the accuracy tiers and training: ``calibrate`` (the tier-1 tables
+    of mamba2-130m and phi4-mini-3.8b at full depth and reduced width on
+    the card into an empty cache, a hit on the second call, the card's
+    tables within 1e-9 relative of the CPU's); ``validate_elites`` (a
+    ``calibrated-quick``-shaped ``measured:mamba2-130m`` search, budget 48,
+    population 8, on the card and the CPU: the same front; its elites'
+    losses on the card and the CPU within the bf16 loss bar; then
+    phi4-mini's 32-layer validation, one flash launch a layer a loss);
+    ``grad_guard`` (ROADMAP C.13: reduced phi4-mini under W8A8 QAT and
+    fp32, no kernel launch under grad, every leaf's gradient card vs
+    CPU, flash once a layer under ``no_grad``); ``train``
+    (``launch.train.train`` of mamba2-130m at full width and depth, W8A8
+    QAT, 8 x 64, 20 steps: the loss falls, no kernel launches; step time
+    and device share, tok/s, peak memory; the first two losses against
+    the CPU's; one QAT step of phi4-mini-3.8b at full width cut to 2
+    layers, loss and global gradient norm card vs CPU).
 
 The sweep kernel's entry of the kernels line also gives its launches in
 the three full-budget searches (``launches_coexplore``); the seventh
@@ -467,6 +484,26 @@ CROSS_ARCHS = {"vlm": dict(arch="llama-3.2-vision-90b", n_layers=60,
 # card vs CPU
 LOSS = dict(arch="mamba2-130m", quant="fp32", batch=4, seq_len=512, step=0,
             rtol=1e-5)
+# accuracy tiers 1 and 2 and training: the tier-1 tables (card vs CPU),
+# the tier-2 validation of a calibrated-quick-shaped search, the grad rule
+# on reduced phi4-mini, QAT training at full width
+CALIBRATE = dict(archs=("mamba2-130m", "phi4-mini-3.8b"), rtol=1e-9)
+VALIDATE = dict(workload="vgg16", preset="calibrated-quick",
+                model="mamba2-130m", attention_model="phi4-mini-3.8b",
+                budget=48, pop_size=8, max_elites=4, loss_rtol=2.5e-4)
+# per-leaf gradient bars, card vs CPU, each leaf to its largest magnitude:
+# set from the card's readings on an H100 80GB HBM3 at 700 W (the worst
+# leaf 5.6e-4 under W8A8 QAT, in bf16; 8.4e-7 under fp32), about 10x above
+GRAD_GUARD = dict(arch="phi4-mini-3.8b", batch=2, seq_len=16,
+                  bars={"w8a8": 5e-3, "fp32": 1e-5})
+# card vs CPU at full width under W8A8 QAT (bf16): losses at the later
+# steps' bar of tests/test_torch_train.py (at d 768 the bf16 activation
+# scales part the first step's losses by 4.0e-4, past the reduced
+# models' 2.5e-4); the global gradient norm at 2e-3, set from the card's
+# reading on the same H100 (4.4e-4 for phi4-mini at 2 layers)
+TRAIN = dict(arch="mamba2-130m", steps=20, batch=8, seq_len=64, timed=5,
+             attention_arch="phi4-mini-3.8b", attention_layers=2,
+             attention_batch=2, loss_rtol=1e-3, norm_rtol=2e-3)
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
 # float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
@@ -4598,6 +4635,385 @@ def phase_attention_timing(device) -> dict:
     return {"phase": "attention_timing", **out}
 
 
+# ------------------------------------- accuracy tiers 1 and 2, training
+
+def _tier_fields(tab) -> dict:
+    return {f: getattr(tab, f) for f in (
+        "table", "per_tensor_table", "act_noise", "absmax", "scale_pctl",
+        "std")}
+
+
+def phase_calibrate(device, cache_dir: str) -> dict:
+    """The tier-1 table of each ``CALIBRATE`` model (full depth, reduced
+    width, the port's own draw) measured on the card into an empty cache,
+    read back from it (a hit), and measured again on the CPU: every field
+    within ``CALIBRATE["rtol"]`` relative of the CPU's, element by
+    element."""
+    import numpy as np
+    import torch
+    from repro_torch.quant import calibrate as C
+    out = {"phase": "calibrate", "rtol": CALIBRATE["rtol"], "models": {}}
+    for arch in CALIBRATE["archs"]:
+        C.reset_calibration_cache_stats()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        card = C.calibrate_model(arch, cache_dir=cache_dir, device=device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = C.calibrate_model(arch, cache_dir=cache_dir, device=device)
+        hit_s = time.perf_counter() - t0
+        stats = C.calibration_cache_stats()
+        check(stats == {"hits": 1, "misses": 1}
+              and again.digest() == card.digest(),
+              f"calibrate {arch}: cache {stats}, digests {card.digest()} / "
+              f"{again.digest()}")
+        t0 = time.perf_counter()
+        cpu = C._measure(arch, card.seed, card.percentile, card.per_channel,
+                         device="cpu")
+        cpu_s = time.perf_counter() - t0
+        dist = {f: rel_err(v, getattr(cpu, f))
+                for f, v in _tier_fields(card).items()}
+        same = all(np.array_equal(v, getattr(cpu, f))
+                   for f, v in _tier_fields(card).items())
+        check(max(dist.values()) <= CALIBRATE["rtol"],
+              f"calibrate {arch}: card vs CPU {dist}")
+        out["models"][arch] = {
+            "layers": card.n_layers, "card_s": card_s,
+            "cache_hit_s": hit_s, "cpu_s": cpu_s, "digest": card.digest(),
+            "cpu_digest": cpu.digest(), "bit_identical": same,
+            "rel_dist": dist, "max_rel_dist": max(dist.values()),
+            "cache": stats}
+    return out
+
+
+def _distinct_plans(res, n_model_layers: int, elites) -> int:
+    import numpy as np
+    _, assign = res.space.decode(res.genomes)
+    wl_of = (np.arange(n_model_layers) * assign.shape[1]) // n_model_layers
+    return len(np.unique(assign[elites][:, wl_of], axis=0))
+
+
+def phase_validate_elites(device, cache_dir: str) -> dict:
+    """Tier 2.  A ``calibrated-quick``-shaped ``measured:mamba2-130m``
+    search (budget and population cut) on the card and on the CPU, both
+    scored with the card's table: the same front, so the same elites and
+    plans; ``validate_elites`` of the card's result on the card and on the
+    CPU: per-plan and baseline losses within the bf16 loss bar, seconds
+    per distinct plan.  Then phi4-mini-3.8b (32 layers, reduced width):
+    its elites' losses on the card go through the flash kernel (launches
+    counted: one a layer a loss), beside the CPU's plain route."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.dse import ExploreSpec, run
+    from repro_torch.explore.accuracy import (AccuracySpec,
+                                              CalibratedAccuracy,
+                                              validate_elites)
+    from repro_torch.quant.calibrate import calibration_config
+    V = VALIDATE
+    out = {"phase": "validate_elites", "loss_rtol": V["loss_rtol"]}
+    for arch in (V["model"], V["attention_model"]):
+        spec = AccuracySpec(tier=2, model=arch, cache_dir=cache_dir,
+                            max_elites=V["max_elites"])
+        acc = CalibratedAccuracy(spec, device=device)
+        search = ExploreSpec.mixed(V["workload"], preset=V["preset"],
+                                   budget=V["budget"],
+                                   pop_size=V["pop_size"], accuracy=acc)
+        row = {}
+        if arch == V["model"]:
+            t0 = time.perf_counter()
+            card_res = run(search, device=device)
+            torch.cuda.synchronize(device)
+            row["card_search_and_validation_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu_res = run(search, device="cpu")
+            row["cpu_search_and_validation_s"] = time.perf_counter() - t0
+            check(np.array_equal(card_res.genomes, cpu_res.genomes),
+                  f"validate_elites {arch}: the card's and the CPU's fronts "
+                  f"differ")
+            attached = card_res.validation
+        else:   # a tier-1 search, then the validation alone
+            card_res = run(dataclasses.replace(
+                search, accuracy=CalibratedAccuracy(
+                    dataclasses.replace(spec, tier=1), device=device)),
+                device=device)
+            attached = None
+        _reset_attention_counts()
+        _reset_matmul_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        card = validate_elites(card_res, acc, device=device)
+        torch.cuda.synchronize(device)
+        card_s = time.perf_counter() - t0
+        launches = {**_attention_counts(), **_matmul_counts()}
+        t0 = time.perf_counter()
+        cpu = validate_elites(card_res, acc, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        lm = calibration_config(arch).n_layers
+        plans = _distinct_plans(card_res, lm, card.elite_indices)
+        losses_card = np.r_[card.baseline_loss, card.quant_loss]
+        losses_cpu = np.r_[cpu.baseline_loss, cpu.quant_loss]
+        rel = rel_err(losses_card, losses_cpu)
+        check(np.array_equal(card.elite_indices, cpu.elite_indices),
+              f"validate_elites {arch}: elites differ")
+        if attached is not None:
+            check(np.array_equal(attached.quant_loss, card.quant_loss)
+                  and attached.baseline_loss == card.baseline_loss,
+                  f"validate_elites {arch}: run()'s attached validation "
+                  f"differs from a second one on the card")
+        check(rel <= V["loss_rtol"],
+              f"validate_elites {arch}: losses card vs CPU {rel:.3g}")
+        flash = launches["flash_attention"]
+        if arch == V["attention_model"]:
+            check(flash == lm * (plans + 1),
+                  f"validate_elites {arch}: {flash} flash launches for "
+                  f"{plans} plans + the baseline, {lm} layers")
+        check(launches["w8a8_matmul"] + launches["w4a8_matmul"] == 0,
+              f"validate_elites {arch}: quantized matmul launches "
+              f"{launches}")
+        row.update({
+            "layers": lm, "elites": card.elite_indices.tolist(),
+            "distinct_plans": plans, "losses_card": losses_card.tolist(),
+            "losses_cpu": losses_cpu.tolist(), "loss_rel_dist": rel,
+            "loss_delta_card": card.loss_delta.tolist(),
+            "pareto_mask_card": card.pareto_mask.tolist(),
+            "pareto_mask_cpu": cpu.pareto_mask.tolist(),
+            "card_validate_s": card_s, "cpu_validate_s": cpu_s,
+            "card_s_per_loss": card_s / (plans + 1),
+            "cpu_s_per_loss": cpu_s / (plans + 1),
+            "flash_launches": flash,
+            "flash_launches_per_loss": flash / (plans + 1),
+            "launches": launches})
+        out[arch] = row
+    return out
+
+
+def _grads(model, params_cpu, batch_cpu, device):
+    """(loss, leaves) of ``model``'s QAT loss on ``device``, every leaf
+    of ``params_cpu`` a fresh tensor there that requires grad."""
+    from repro_torch.models.tree import tree_map
+    leaves = tree_map(lambda p: p.detach().to(device).requires_grad_(True),
+                      params_cpu)
+    loss = model.loss(leaves, {k: v.to(device)
+                               for k, v in batch_cpu.items()})
+    loss.backward()
+    return float(loss.detach()), leaves
+
+
+def phase_grad_guard(device) -> dict:
+    """ROADMAP C.13: reduced phi4-mini (2 layers) under QAT (its w8a8
+    policy, ``train=True``) and under fp32: no kernel launches while the
+    loss is taken with grad, every leaf's gradient on the card within the
+    bar of the CPU's (``GRAD_GUARD``, each leaf to its largest magnitude);
+    the same model under ``torch.no_grad()`` launches flash once a
+    layer."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_map
+    from repro_torch.optim.adamw import leaves as tree_leaves
+    out = {"phase": "grad_guard", "arch": GRAD_GUARD["arch"]}
+    base = reduced(get_config(GRAD_GUARD["arch"]))
+    for mode, bar in GRAD_GUARD["bars"].items():
+        cfg = dataclasses.replace(base, quant=mode)
+        params = Model(cfg, device="cpu").init(
+            torch.Generator("cpu").manual_seed(0))
+        batch = SyntheticLM(DataConfig(cfg.vocab, GRAD_GUARD["seq_len"],
+                                       GRAD_GUARD["batch"])).batch(0, "cpu")
+        card_model = Model(cfg, device=device)
+        _reset_attention_counts()
+        _reset_matmul_counts()
+        card_loss, card = _grads(card_model, params, batch, device)
+        torch.cuda.synchronize(device)
+        under_grad = {**_attention_counts(), **_matmul_counts()}
+        check(not any(under_grad.values()),
+              f"grad_guard {mode}: kernels launched under grad "
+              f"{under_grad}")
+        cpu_loss, cpu = _grads(Model(cfg, device="cpu"), params, batch,
+                               "cpu")
+        worst, missing = (0.0, ""), []
+        for (path, a, _), (_, b, _) in zip(tree_leaves(card),
+                                           tree_leaves(cpu)):
+            if a.grad is None:
+                missing.append(path)
+                continue
+            err = float((a.grad.cpu() - b.grad).abs().max()
+                        / b.grad.abs().max().clamp_min(1e-30))
+            worst = max(worst, (err, path))
+        check(not missing, f"grad_guard {mode}: no gradient on {missing}")
+        check(worst[0] <= bar, f"grad_guard {mode}: worst leaf {worst}")
+        _reset_attention_counts()
+        with torch.no_grad():
+            card_model.loss(tree_map(lambda p: p.detach(), card),
+                            {k: v.to(device) for k, v in batch.items()},
+                            train=False)
+        torch.cuda.synchronize(device)
+        no_grad = _attention_counts()["flash_attention"]
+        check(no_grad == cfg.n_layers,
+              f"grad_guard {mode}: {no_grad} flash launches under no_grad "
+              f"for {cfg.n_layers} layers")
+        out[mode] = {"card_loss": card_loss, "cpu_loss": cpu_loss,
+                     "loss_rel_dist": abs(card_loss - cpu_loss)
+                     / abs(cpu_loss),
+                     "worst_leaf": worst[1], "worst_leaf_rel": worst[0],
+                     "bar": bar, "leaves": len(tree_leaves(card)),
+                     "launches_under_grad": under_grad,
+                     "flash_launches_under_no_grad": no_grad}
+    return out
+
+
+def _train_state(model, cfg, device):
+    """``launch.train``'s initial state: the CPU draw of seed 0 moved to
+    ``device``, fresh AdamW moments."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_map
+    from repro_torch.optim import adamw
+    params = tree_map(lambda p: p.to(device), Model(
+        cfg, device="cpu").init(torch.Generator("cpu").manual_seed(0)))
+    return {"params": params, "opt": adamw.init(params)}
+
+
+def phase_train(device) -> dict:
+    """``launch.train.train`` of mamba2-130m at full width and depth (W8A8
+    QAT, ``TRAIN`` batch x sequence, 20 steps) on the card: the loss
+    falls, no kernel launches, peak memory; then the same train step
+    timed step by step on batches drawn ahead (host clock around
+    synchronized steps, the profiler's device time per step; the draw of
+    a batch timed apart), its first two losses on the CPU against the
+    card's; then one QAT step of phi4-mini-3.8b at full width cut to 2
+    layers, loss and global gradient norm card vs CPU."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_map
+    from repro_torch.optim import adamw
+    T = TRAIN
+    out = {"phase": "train", "arch": T["arch"], "batch": T["batch"],
+           "seq_len": T["seq_len"], "steps": T["steps"]}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_attention_counts()
+    _reset_matmul_counts()
+    t0 = time.perf_counter()
+    losses = train(T["arch"], steps=T["steps"], smoke=False,
+                   seq_len=T["seq_len"], batch=T["batch"],
+                   log_every=T["steps"], device=device)
+    torch.cuda.synchronize(device)
+    out["train_s"] = time.perf_counter() - t0
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["launches"] = {**_attention_counts(), **_matmul_counts()}
+    out["losses"] = [l for _, l in losses]
+    check(not any(out["launches"].values()),
+          f"train: kernels launched {out['launches']}")
+    check(all(math.isfinite(l) for l in out["losses"])
+          and out["losses"][-1] < out["losses"][0],
+          f"train: loss did not fall {out['losses']}")
+
+    cfg = get_config(T["arch"])
+    model = Model(cfg, device=device)
+    ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=T["steps"],
+                             warmup_steps=max(1, T["steps"] // 10))
+    step_fn = make_train_step(model, ocfg)
+    # train()'s data and draw: seed 0; the batches drawn ahead, timed
+    # (the host's numpy draw over the vocabulary, a part of each step of
+    # train())
+    data = SyntheticLM(DataConfig(cfg.vocab, T["seq_len"], T["batch"],
+                                  seed=0))
+    t0 = time.perf_counter()
+    batches = [data.batch(s, device=device) for s in range(T["timed"] + 3)]
+    out["synthetic_batch_s"] = (time.perf_counter() - t0) / len(batches)
+    state = {"s": _train_state(model, cfg, device)}
+
+    def step(i):
+        state["s"], loss = step_fn(state["s"], batches[i % len(batches)])
+        return loss
+    step(0)
+    times = []
+    for i in range(1, T["timed"] + 1):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    device_ms, top, ops, kept = _profile_device_ms(step, 3)
+    out.update(step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=T["batch"] * T["seq_len"] / step_s,
+               device_ms_per_step=device_ms,
+               device_busy_share=(device_ms / (step_s * 1e3)
+                                  if device_ms else None),
+               device_ops_per_step=ops, profiler_records_kept=kept,
+               top_device_ops=top)
+    del state, batches
+    torch.cuda.empty_cache()
+
+    cpu_model = Model(cfg, device="cpu")
+    cpu_step = make_train_step(cpu_model, ocfg)
+    cpu_state = _train_state(cpu_model, cfg, "cpu")
+    t0 = time.perf_counter()
+    cpu_losses = []
+    for s in range(2):
+        cpu_state, loss = cpu_step(cpu_state, data.batch(s, device="cpu"))
+        cpu_losses.append(float(loss))
+    out["cpu_step_s"] = (time.perf_counter() - t0) / 2
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], cpu_losses)]
+    out.update(cpu_losses=cpu_losses, loss_rel_dist=rel)
+    check(max(rel) <= T["loss_rtol"],
+          f"train: first losses card {out['losses'][:2]} vs CPU "
+          f"{cpu_losses}")
+    del cpu_state
+
+    # attention under grad at full width: phi4-mini cut to 2 layers
+    import dataclasses
+    pcfg = dataclasses.replace(get_config(T["attention_arch"]),
+                               n_layers=T["attention_layers"])
+    params = Model(pcfg, device="cpu").init(
+        torch.Generator("cpu").manual_seed(0))
+    batch = SyntheticLM(DataConfig(pcfg.vocab, T["seq_len"],
+                                   T["attention_batch"])).batch(0, "cpu")
+    row = {"arch": T["attention_arch"], "n_layers": pcfg.n_layers,
+           "batch": T["attention_batch"], "seq_len": T["seq_len"]}
+    _reset_attention_counts()
+    _reset_matmul_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    card_loss, card = _grads(Model(pcfg, device=device), params, batch,
+                             device)
+    card_norm = float(adamw.global_norm(
+        tree_map(lambda p: p.grad, card)))
+    torch.cuda.synchronize(device)
+    row["card_s"] = time.perf_counter() - t0
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    row["launches"] = {**_attention_counts(), **_matmul_counts()}
+    del card
+    t0 = time.perf_counter()
+    cpu_loss, cpu = _grads(Model(pcfg, device="cpu"), params, batch, "cpu")
+    cpu_norm = float(adamw.global_norm(
+        tree_map(lambda p: p.grad, cpu)))
+    row["cpu_s"] = time.perf_counter() - t0
+    del cpu, params
+    row.update(card_loss=card_loss, cpu_loss=cpu_loss,
+               loss_rel_dist=abs(card_loss - cpu_loss) / abs(cpu_loss),
+               card_grad_norm=card_norm, cpu_grad_norm=cpu_norm,
+               grad_norm_rel_dist=abs(card_norm - cpu_norm) / cpu_norm)
+    check(not any(row["launches"].values()),
+          f"train {T['attention_arch']}: kernels under grad "
+          f"{row['launches']}")
+    check(row["loss_rel_dist"] <= T["loss_rtol"]
+          and row["grad_norm_rel_dist"] <= T["norm_rtol"],
+          f"train {T['attention_arch']}: card vs CPU {row}")
+    out["attention_step"] = row
+    return out
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 4 and sys.argv[1] == CHILD_FLAG:
@@ -4714,7 +5130,19 @@ def main() -> int:
     emit(aparity)
     atiming = phase_attention_timing(device)
     emit(atiming)
+    torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory() as cache:
+        emit(phase_calibrate(device, cache))
+        validate = phase_validate_elites(device, cache)
+        emit(validate)
+    emit(phase_grad_guard(device))
+    train_row = phase_train(device)
+    emit(train_row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    qat = {f"train ({TRAIN['arch']}, W8A8 QAT, {TRAIN['steps']} steps)":
+           train_row["launches"]["w8a8_matmul"]
+           + train_row["launches"]["w4a8_matmul"]}
     per = (f"one {SERVE_ARCH} layer's 7 projections at m = "
            f"{SERVE['batch']}, weights cold in L2")
     sweep = timing["vgg16"]
@@ -4785,7 +5213,7 @@ def main() -> int:
             **{f"{f}_serve ({cross[f + '_serve']['arch']}, "
                f"{cross[f + '_serve']['n_layers']} layers)":
                cross[f + "_serve"]["launches"]["w8a8_matmul_dp4a"]
-               for f in CROSS_ARCHS}},
+               for f in CROSS_ARCHS}, **qat},
         "moonshot_layer": moe_prefill["w8a8_decode_layer"]["layer"],
     })
     lay = qprefill["layer"]
@@ -4821,7 +5249,7 @@ def main() -> int:
                for f in CROSS_ARCHS},
             **{f"{f}_serve fill_ctx_caches ({cross[f + '_serve']['arch']})":
                cross[f + "_serve"]["fill_launches"]["w8a8_matmul_tc"]
-               for f in CROSS_ARCHS}},
+               for f in CROSS_ARCHS}, **qat},
         "context_kv_shapes": {
             f"{cross[f + '_serve']['arch']}": cross[f + "_serve"][
                 "w8a8_context_kv"]["layer"] for f in CROSS_ARCHS},
@@ -4847,6 +5275,9 @@ def main() -> int:
         "grid": {f"{k}x{n}": {key: qtiming["w4a8"][f"{k}x{n}"][key]
                               for key in ("splits", "blocks")}
                  for k, n in LAYER_PROJ},
+        "launches_by_path": {
+            f"serve_w4a8_pow2 ({SERVE_ARCH})":
+                serve["w4a8_pow2"]["launches"]["w4a8_matmul"], **qat},
         "per": per + " (split-k; splits and blocks as the C entry "
                      "reported its launch; launches: W4A8 serve run)",
     })
@@ -4939,7 +5370,15 @@ def main() -> int:
                 moe_prefill["launches"]["flash_attention_tc"],
             **{f"{ph} ({cross[ph]['arch']}, {cross[ph]['n_layers']} "
                f"layers)": cross[ph]["launches"]["flash_attention_tc"]
-               for ph in cross}},
+               for ph in cross},
+            **{f"validate_elites ({a}, {validate[a]['layers']} layers at "
+               f"reduced width, {validate[a]['distinct_plans']} plans + "
+               "the baseline)": validate[a]["launches"]["flash_attention_tc"]
+               for a in (VALIDATE["attention_model"],)},
+            f"train ({TRAIN['attention_arch']}, {TRAIN['attention_layers']}"
+            " layers, under grad)":
+                train_row["attention_step"]["launches"][
+                    "flash_attention_tc"]},
         "cross_family_shapes": {
             f"{ph} {kind}": {k: r[k] for k in (
                 "shape", "keys", "causal", "dtype", "best_kernel_ms",

@@ -10,14 +10,18 @@ target a workload suite with the multi-workload objectives; the
 names a :data:`repro_torch.serving.traffic.TRAFFIC_PRESETS` trace that
 the fleet simulator replays per candidate over ``n_slots`` slots.
 
-Every preset of the reference is registered.  One cannot run in the port
-yet: ``calibrated-quick`` (a tier-1 accuracy table, ROADMAP A.7), which
-the search entry points refuse.
+Every preset of the reference is registered; ``calibrated-quick`` scores
+on the tier-1 table of mamba2-130m, measured on the search's device and
+npz-cached.  The deprecated preset fields fold as in the reference:
+``sqnr_floor_db`` into ``accuracy=AccuracySpec(floor_db=...)``, legacy
+objective names into their canonical ones, each with a
+``DeprecationWarning``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 from repro_torch.explore.accuracy import AccuracySpec
 from repro_torch.explore.objectives import (DEFAULT_MULTI_OBJECTIVES,
@@ -46,13 +50,28 @@ class CoExplorePreset:
     # nsga2 external-archive bound: relative epsilon-dominance grid
     # resolution (fraction of each objective's span), None = unbounded
     archive_epsilon: float | None = None
+    sqnr_floor_db: float | tuple[float, ...] | None = None   # deprecated
 
     def __post_init__(self):
-        object.__setattr__(self, "objectives",
-                           resolve_objectives(self.objectives))
+        # the DeprecationWarning of a legacy name lands on whoever built
+        # the preset, 4 frames up through the generated __init__
+        object.__setattr__(self, "objectives", resolve_objectives(
+            self.objectives, stacklevel=4))
         if isinstance(self.accuracy, str):
             object.__setattr__(self, "accuracy",
                                AccuracySpec.parse(self.accuracy))
+        if self.sqnr_floor_db is not None:
+            warnings.warn(
+                f"preset {self.name!r}: sqnr_floor_db= is deprecated; "
+                f"use accuracy=AccuracySpec(floor_db=...)",
+                DeprecationWarning, stacklevel=4)
+            if self.accuracy is not None:
+                raise ValueError(
+                    f"preset {self.name!r}: pass either accuracy= or the "
+                    f"deprecated sqnr_floor_db=, not both")
+            object.__setattr__(self, "accuracy", AccuracySpec(
+                floor_db=self.sqnr_floor_db))
+            object.__setattr__(self, "sqnr_floor_db", None)
         serving = set(self.objectives) & set(SERVING_OBJECTIVES)
         if serving and self.traffic is None:
             raise ValueError(

@@ -305,16 +305,22 @@ def _coexplore(workload: Workload | str,
     latency and energy feed the fleet simulator over ``n_slots`` slots,
     and the objective set becomes
     :data:`~repro_torch.explore.objectives.DEFAULT_SERVING_OBJECTIVES`
-    unless the preset or ``objectives=`` already names serving ones."""
+    unless the preset or ``objectives=`` already names serving ones.
+
+    A tier-2 accuracy (``"measured:<model>"``) scores the search with its
+    tier-1 table and then re-scores the Pareto elites with quantized
+    forward passes on ``device``: ``result.validation``
+    (:func:`~repro_torch.explore.accuracy.validate_elites`)."""
     from repro_torch.configs.coexplore_presets import get_preset
-    from repro_torch.explore.accuracy import resolve_accuracy
+    from repro_torch.explore.accuracy import (resolve_accuracy,
+                                              validate_elites)
     from repro_torch.explore.objectives import (DEFAULT_SERVING_OBJECTIVES,
                                                 SERVING_OBJECTIVES)
     from repro_torch.explore.space import space_for_workload
 
     p = get_preset(preset)
     acc = accuracy if accuracy is not None else p.accuracy
-    acc_model = None if acc is None else resolve_accuracy(acc)
+    acc_model = None if acc is None else resolve_accuracy(acc, device=device)
     wl = _resolve(workload)
     space = space_for_workload(wl, **(space_overrides or {}))
     method, fn = _method(p, method)
@@ -336,7 +342,10 @@ def _coexplore(workload: Workload | str,
         n_slots=p.n_slots if n_slots is None else n_slots)
     _apply_checkpointing(kwargs, method, checkpoint_dir, checkpoint_every)
     kwargs.update(method_kwargs)
-    return fn(space, wl, p.budget if budget is None else budget, **kwargs)
+    res = fn(space, wl, p.budget if budget is None else budget, **kwargs)
+    if acc_model is not None and acc_model.tier == 2:
+        res.validation = validate_elites(res, acc_model, device=device)
+    return res
 
 
 def _coexplore_many(workloads: Sequence[Workload | str],
@@ -349,6 +358,7 @@ def _coexplore_many(workloads: Sequence[Workload | str],
                     objectives=None,
                     ref_point=None,
                     weights=None,
+                    sqnr_floor_db=None,
                     accuracy=None,
                     space_overrides: dict | None = None,
                     chunk_size: int | None = None,
@@ -359,16 +369,29 @@ def _coexplore_many(workloads: Sequence[Workload | str],
     hardware config, one per-layer precision assignment per workload.
     Each evaluation chunk runs all W workloads in one pass (on the card,
     one sweep-kernel launch), and the objectives aggregate across the
-    suite (worst case, or weighted means).  Returns a
-    :class:`~repro_torch.explore.search.SearchResult` whose
+    suite (worst case, or weighted means).  ``sqnr_floor_db`` is the
+    deprecated spelling of an accuracy ``floor_db``: it replaces the
+    preset's accuracy and the engine folds it in with a warning.  Tier 2
+    is refused: a multi-workload genome has no single precision plan.
+    Returns a :class:`~repro_torch.explore.search.SearchResult` whose
     ``front_points()`` decode to (config, ``{workload: modes}``)."""
     from repro_torch.configs.coexplore_presets import get_preset
     from repro_torch.explore.accuracy import resolve_accuracy
     from repro_torch.explore.space import space_for_workloads
 
     p = get_preset(preset)
-    acc = accuracy if accuracy is not None else p.accuracy
-    acc_model = None if acc is None else resolve_accuracy(acc)
+    if sqnr_floor_db is not None and accuracy is None:
+        # the deprecated floor override drops the preset's accuracy (in
+        # the committed presets only a floor); the engine folds and warns
+        acc = None
+    else:
+        acc = accuracy if accuracy is not None else p.accuracy
+    acc_model = None if acc is None else resolve_accuracy(acc, device=device)
+    if acc_model is not None and acc_model.tier == 2:
+        raise ValueError(
+            "tier-2 (measured) accuracy is single-workload only: a "
+            "multi-workload genome has no single precision plan to run "
+            "the calibration model under; use 'calibrated:<model>'")
     wls = tuple(_resolve(w) for w in workloads)
     if not wls:
         raise ValueError("coexplore_many needs at least one workload")
@@ -380,7 +403,8 @@ def _coexplore_many(workloads: Sequence[Workload | str],
         seed=p.seed if seed is None else seed, device=device,
         chunk_size=p.chunk_size if chunk_size is None else chunk_size,
         ref_point=ref_point, accuracy=acc_model,
-        weights=p.weights if weights is None else weights)
+        weights=p.weights if weights is None else weights,
+        sqnr_floor_db=sqnr_floor_db)
     _apply_checkpointing(kwargs, method, checkpoint_dir, checkpoint_every)
     kwargs.update(method_kwargs)
     return fn(space, wls, p.budget if budget is None else budget, **kwargs)
@@ -437,8 +461,10 @@ class ExploreSpec:
     n_slots: int | None = None
     ref_point: tuple | None = None
     weights: tuple | None = None
+    sqnr_floor_db: object = None        # deprecated: accuracy floor_db
     # accuracy model of the accuracy_noise objectives: None (the preset's,
-    # else the tier-0 proxy), a spec string, an AccuracySpec or a model
+    # else the tier-0 proxy), a spec string ("proxy" / "calibrated:<model>"
+    # / "measured:<model>"), an AccuracySpec or a model
     accuracy: object = None
     space_overrides: dict | None = None
     search_kwargs: dict | None = None
@@ -523,6 +549,7 @@ class ExploreSpec:
             ("budget", self.budget), ("objectives", self.objectives),
             ("traffic", self.traffic), ("n_slots", self.n_slots),
             ("ref_point", self.ref_point), ("weights", self.weights),
+            ("sqnr_floor_db", self.sqnr_floor_db),
             ("accuracy", self.accuracy),
             ("space_overrides", self.space_overrides),
             ("search_kwargs", self.search_kwargs)) if v is not None]
@@ -561,10 +588,11 @@ class ExploreSpec:
             raise ValueError(
                 f"sweep knob(s) {bad} only apply to "
                 f'precision="uniform" specs')
-        if self.weights is not None and len(self.workloads) == 1:
+        if (self.weights is not None or self.sqnr_floor_db is not None) \
+                and len(self.workloads) == 1:
             raise ValueError(
-                "weights aggregate across a workload suite; pass >= 2 "
-                "workloads")
+                "weights/sqnr_floor_db aggregate across a workload "
+                "suite; pass >= 2 workloads")
 
     # -- constructors ------------------------------------------------------
 
@@ -608,9 +636,11 @@ class ExploreSpec:
         ``"default"`` unless named); extra keywords go to the engine.  A
         ``traffic`` trace switches the objectives to the serving-fleet set
         (tail latency, SLO attainment, throughput, energy per served
-        token) over ``n_slots`` slots.  A ``checkpoint_dir`` snapshots the
-        search each ``checkpoint_every`` generations and resumes from the
-        newest snapshot (nsga2 only)."""
+        token) over ``n_slots`` slots.  ``accuracy`` picks the accuracy
+        tier; ``"measured:<model>"`` also re-scores the final Pareto elites
+        with quantized forward passes (``result.validation``).  A
+        ``checkpoint_dir`` snapshots the search each ``checkpoint_every``
+        generations and resumes from the newest snapshot (nsga2 only)."""
         _refuse_replaced(search_kwargs)
         return cls(workloads=(workload,), precision="mixed",
                    preset=preset, method=method, budget=budget,
@@ -626,7 +656,8 @@ class ExploreSpec:
              configs=None, outputs: str = "points",
              preset: str | None = None, method: str | None = None,
              budget: int | None = None, objectives=None,
-             weights=None, accuracy=None, seed: int | None = None,
+             weights=None, sqnr_floor_db=None, accuracy=None,
+             seed: int | None = None,
              ref_point=None, space_overrides: dict | None = None,
              chunk_size: int | None = None, use_cache: bool = True,
              mesh=None, checkpoint_dir: str | None = None,
@@ -636,7 +667,8 @@ class ExploreSpec:
         batch once per workload (synthesis shared);
         ``precision="mixed"`` searches one shared hardware config with a
         per-workload precision assignment (preset ``"many-default"``
-        unless named)."""
+        unless named); ``sqnr_floor_db`` is the deprecated spelling of an
+        accuracy ``floor_db`` (it replaces the preset's accuracy)."""
         _refuse_replaced(search_kwargs)
         if precision == "uniform" and search_kwargs:
             raise ValueError(
@@ -646,6 +678,7 @@ class ExploreSpec:
                    configs=None if configs is None else tuple(configs),
                    outputs=outputs, preset=preset, method=method,
                    budget=budget, objectives=objectives, weights=weights,
+                   sqnr_floor_db=sqnr_floor_db,
                    accuracy=accuracy, seed=seed, ref_point=ref_point,
                    space_overrides=space_overrides, chunk_size=chunk_size,
                    use_cache=use_cache, mesh=mesh,
@@ -706,7 +739,8 @@ def _run_dispatch(spec: ExploreSpec, device: torch.device):
         return _coexplore_many(
             spec.workloads,
             preset="many-default" if spec.preset is None else spec.preset,
-            weights=spec.weights, **common)
+            weights=spec.weights, sqnr_floor_db=spec.sqnr_floor_db,
+            **common)
     if len(spec.workloads) > 1:
         return _explore_many(spec.workloads, spec.configs,
                              use_cache=spec.use_cache, device=device,

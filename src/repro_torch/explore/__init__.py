@@ -10,9 +10,12 @@ sweep, whose aggregates come from the CUDA sweep kernel on the card.  See
 """
 
 from repro_torch.explore.accuracy import (AccuracyModel, AccuracySpec,
-                                          ProxyAccuracy, resolve_accuracy)
+                                          CalibratedAccuracy, EliteValidation,
+                                          ProxyAccuracy, resolve_accuracy,
+                                          validate_elites)
 from repro_torch.explore.objectives import (DEFAULT_MULTI_OBJECTIVES,
                                             DEFAULT_OBJECTIVES,
+                                            LEGACY_OBJECTIVE_ALIASES,
                                             MULTI_OBJECTIVES,
                                             OBJECTIVE_REGISTRY, OBJECTIVES,
                                             ObjectiveSpec,
@@ -38,9 +41,11 @@ __all__ = [
     "OBJECTIVES", "DEFAULT_OBJECTIVES", "objective_matrix", "quant_noise",
     "MULTI_OBJECTIVES", "DEFAULT_MULTI_OBJECTIVES",
     "multi_objective_matrix", "accuracy_floor_violation", "ObjectiveSpec",
-    "OBJECTIVE_REGISTRY", "resolve_objectives", "reset_sqnr_table",
+    "OBJECTIVE_REGISTRY", "LEGACY_OBJECTIVE_ALIASES", "resolve_objectives",
+    "reset_sqnr_table",
     "mode_noise_table", "mode_sqnr_db",
-    "AccuracyModel", "AccuracySpec", "ProxyAccuracy", "resolve_accuracy",
+    "AccuracyModel", "AccuracySpec", "ProxyAccuracy", "CalibratedAccuracy",
+    "EliteValidation", "resolve_accuracy", "validate_elites",
     "pareto_mask_k", "nondominated_sort", "crowding_distance",
     "hypervolume", "reference_point",
     "Evaluator", "SearchResult", "SEARCH_METHODS",

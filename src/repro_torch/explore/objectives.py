@@ -25,6 +25,7 @@ search on the card has no host loop.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 
@@ -84,6 +85,13 @@ _REGISTRY_SPECS = (
 OBJECTIVE_REGISTRY: dict[str, ObjectiveSpec] = {
     s.name: s for s in _REGISTRY_SPECS}
 
+# historical objective names -> canonical (accepted with a warning)
+LEGACY_OBJECTIVE_ALIASES = {
+    "quant_noise": "accuracy_noise",
+    "worst_quant_noise": "worst_accuracy_noise",
+    "mean_quant_noise": "mean_accuracy_noise",
+}
+
 
 def _scope(scope: str) -> tuple[str, ...]:
     return tuple(s.name for s in _REGISTRY_SPECS if s.scope == scope)
@@ -99,13 +107,22 @@ DEFAULT_MULTI_OBJECTIVES = ("neg_worst_perf_per_area", "total_energy_j",
                             "worst_accuracy_noise")
 
 
-def resolve_objectives(objectives, *,
+def resolve_objectives(objectives, *, stacklevel: int = 2,
                        scope: str | None = None) -> tuple[str, ...]:
-    """Check an objective-name sequence against the registry; unknown
-    names raise.  ``scope`` restricts the registry ("single" also admits
-    serving objectives, which are single-workload by construction)."""
+    """Canonicalize an objective-name sequence against the registry.
+    Legacy names (:data:`LEGACY_OBJECTIVE_ALIASES`) resolve to their
+    canonical ones with a ``DeprecationWarning`` attributed
+    ``stacklevel`` frames up; unknown names raise.  ``scope`` restricts
+    the registry ("single" also admits serving objectives, which are
+    single-workload by construction)."""
     out = []
     for name in objectives:
+        if name in LEGACY_OBJECTIVE_ALIASES:
+            new = LEGACY_OBJECTIVE_ALIASES[name]
+            warnings.warn(
+                f"objective name {name!r} is deprecated; use {new!r}",
+                DeprecationWarning, stacklevel=stacklevel)
+            name = new
         spec = OBJECTIVE_REGISTRY.get(name)
         if spec is None:
             raise ValueError(
@@ -232,7 +249,8 @@ def objective_matrix(agg: dict[str, np.ndarray],
     a ``floor_db`` adds a static penalty to every objective of a genome
     that breaks the floor.
     """
-    objectives = resolve_objectives(objectives, scope="single")
+    objectives = resolve_objectives(objectives, stacklevel=3,
+                                    scope="single")
     score = quant_noise if accuracy is None else accuracy.score
     need_serving = [n for n in objectives if n in SERVING_OBJECTIVES]
     fleet = None
@@ -315,7 +333,8 @@ def multi_objective_matrix(agg: dict[str, np.ndarray],
     genome's own energy.  A ``floor_db`` on ``accuracy`` adds the static
     penalty of :func:`accuracy_floor_violation`.
     """
-    objectives = resolve_objectives(objectives, scope="multi")
+    objectives = resolve_objectives(objectives, stacklevel=3,
+                                    scope="multi")
     score = quant_noise if accuracy is None else accuracy.score
     floor_db = getattr(accuracy, "floor_db", None)
     lat = np.asarray(agg["latency_s"], dtype=np.float64)

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -44,7 +45,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dse_batch import _sweep_mixed, _sweep_mixed_many
 from repro_torch.core.workloads import Workload, get_workload
-from repro_torch.explore.accuracy import resolve_accuracy
+from repro_torch.explore.accuracy import AccuracySpec, resolve_accuracy
 from repro_torch.explore.objectives import (DEFAULT_MULTI_OBJECTIVES,
                                             DEFAULT_OBJECTIVES,
                                             DEFAULT_SERVING_OBJECTIVES,
@@ -88,6 +89,9 @@ class SearchResult:
     # the external archive, a superset of this population's own front
     population: np.ndarray | None = None
     population_objectives: np.ndarray | None = None
+    # tier-2 quantized-forward elite validation, attached by
+    # core.dse._coexplore (explore.accuracy.EliteValidation)
+    validation: object | None = None
 
     @property
     def front_size(self) -> int:
@@ -139,6 +143,23 @@ def traffic_digest(trace) -> str:
     return h.hexdigest()
 
 
+def _fold_floor(accuracy, sqnr_floor_db, *, stacklevel: int = 3):
+    """Fold the deprecated ``sqnr_floor_db=`` into an accuracy spec
+    (``AccuracySpec(floor_db=...)``), with a ``DeprecationWarning``; both
+    spellings at once raise."""
+    if sqnr_floor_db is None:
+        return accuracy
+    warnings.warn(
+        "sqnr_floor_db= is deprecated; pass "
+        "accuracy=AccuracySpec(floor_db=...) instead",
+        DeprecationWarning, stacklevel=stacklevel)
+    if accuracy is not None:
+        raise ValueError(
+            "pass either accuracy= or the deprecated sqnr_floor_db=, not "
+            "both; put the floor on the accuracy spec (floor_db=)")
+    return AccuracySpec(floor_db=sqnr_floor_db)
+
+
 class Evaluator:
     """Chunked, memoized genome evaluation through the mixed sweep.
 
@@ -154,7 +175,9 @@ class Evaluator:
     mode segment per workload in one pass and scores the suite with
     :func:`~repro_torch.explore.objectives.multi_objective_matrix`.
     ``accuracy`` selects the accuracy model of the ``accuracy_noise``
-    columns (``None`` = the tier-0 proxy).  ``traffic`` (a trace, preset
+    columns (``None`` = the tier-0 proxy; a tier-1/2 spec calibrates on
+    ``device``); ``sqnr_floor_db`` is the deprecated spelling of its
+    ``floor_db``.  ``traffic`` (a trace, preset
     or preset name) scores serving objectives on an ``n_slots`` fleet and,
     without explicit ``objectives``, makes the serving set the default;
     serving objectives are single-workload only.
@@ -166,10 +189,11 @@ class Evaluator:
                  *, device: str | torch.device = "cuda",
                  chunk_size: int = 4096, use_cache: bool = True,
                  weights=None, accuracy=None, traffic=None,
-                 n_slots: int = 8):
+                 n_slots: int = 8, sqnr_floor_db=None):
+        accuracy = _fold_floor(accuracy, sqnr_floor_db, stacklevel=3)
         self.device = resolve_device(device)
         self.accuracy = (None if accuracy is None
-                         else resolve_accuracy(accuracy))
+                         else resolve_accuracy(accuracy, device=self.device))
         self.space = space
         self.multi = isinstance(workload, (list, tuple))
         if self.multi:
@@ -205,7 +229,8 @@ class Evaluator:
                 objectives = (DEFAULT_MULTI_OBJECTIVES if self.multi
                               else DEFAULT_OBJECTIVES)
         self.objectives = resolve_objectives(
-            objectives, scope="multi" if self.multi else "single")
+            objectives, stacklevel=3,
+            scope="multi" if self.multi else "single")
         serving = [o for o in self.objectives if o in SERVING_OBJECTIVES]
         if serving and self.multi:
             raise ValueError(
@@ -380,12 +405,22 @@ def random_search(space: CoExploreSpace, workload, budget: int, *,
                   chunk_size: int = 4096, batch_size: int | None = None,
                   ref_point: np.ndarray | None = None,
                   weights=None, accuracy=None, traffic=None,
-                  n_slots: int = 8) -> SearchResult:
+                  n_slots: int = 8, sqnr_floor_db=None,
+                  batch: int | None = None) -> SearchResult:
     """Uniform-random baseline: ``budget`` independent genomes, a running
     non-dominated reduction, hypervolume recorded per batch.  A workload
     sequence needs a :class:`CoExploreManySpace` (as for every engine);
     ``traffic=`` switches to serving-fleet objectives over an ``n_slots``
-    fleet (:class:`Evaluator`), for every engine."""
+    fleet (:class:`Evaluator`), for every engine.  ``batch=`` is the
+    deprecated spelling of ``batch_size=``, ``sqnr_floor_db=`` (every
+    engine) of ``accuracy=AccuracySpec(floor_db=...)``."""
+    if batch is not None:
+        warnings.warn(
+            "random_search(batch=...) is deprecated; use batch_size=",
+            DeprecationWarning, stacklevel=2)
+        if batch_size is None:
+            batch_size = batch
+    accuracy = _fold_floor(accuracy, sqnr_floor_db)
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
@@ -449,8 +484,8 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
           traffic=None, n_slots: int = 8,
           checkpoint_dir: str | None = None,
           checkpoint_every: int = 5,
-          fail_at_generation: dict[int, int] | None = None
-          ) -> SearchResult:
+          fail_at_generation: dict[int, int] | None = None,
+          sqnr_floor_db=None) -> SearchResult:
     """NSGA-II-style evolutionary multi-objective search.
 
     Elitist (mu + lambda) survival over non-domination rank then
@@ -496,6 +531,7 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
     if checkpoint_dir is not None:
         from repro_torch.runtime.dse_checkpoint import SearchCheckpointer
         ckpt = SearchCheckpointer(checkpoint_dir, every=checkpoint_every)
+    accuracy = _fold_floor(accuracy, sqnr_floor_db)
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
@@ -635,7 +671,8 @@ def successive_halving(space: CoExploreSpace, workload, budget: int, *,
                        chunk_size: int = 4096, min_layers: int = 2,
                        ref_point: np.ndarray | None = None,
                        weights=None, accuracy=None, traffic=None,
-                       n_slots: int = 8) -> SearchResult:
+                       n_slots: int = 8,
+                       sqnr_floor_db=None) -> SearchResult:
     """Successive halving over workload layer-prefix subsets.
 
     Rung ``r`` evaluates its population on the first ``m_r`` layers only
@@ -648,6 +685,7 @@ def successive_halving(space: CoExploreSpace, workload, budget: int, *,
         raise ValueError("budget must be >= 1")
     if eta < 2:
         raise ValueError("eta must be >= 2")
+    accuracy = _fold_floor(accuracy, sqnr_floor_db)
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,

@@ -9,6 +9,8 @@ cache) and cross-attention over a precomputed context: the reference's
   reference's TPU path; the plain route is the reference's own CPU path:
   :func:`dense_attention` up to ``DENSE_SEQ_LIMIT`` tokens and
   :func:`chunked_attention` (online softmax over key blocks) above.
+  Under grad the plain route runs on the card too: the kernel has no
+  backward.
 * :func:`decode_self_attention`: one token against a bf16 (or float)
   cache or an int8 cache with per-(position, head) scales, at one position
   for the whole batch (an int) or one per slot (a ``(b,)`` tensor, for
@@ -150,8 +152,11 @@ def attend(q, k, v, *, causal=True, window=None, impl: str = "auto"):
     """q: (b, sq, H, hd); k, v: (b, sk, H, hd) -> (b, sq, H, hd): the
     flash-attention kernel where ``impl`` routes to kernels, else the
     reference's route: :func:`dense_attention` up to
-    :data:`DENSE_SEQ_LIMIT` tokens, :func:`chunked_attention` above."""
-    if not ops.use_kernel(q, impl):
+    :data:`DENSE_SEQ_LIMIT` tokens, :func:`chunked_attention` above.
+    Under grad (grad enabled and q, k or v requiring it) ``"auto"`` takes
+    the reference's route on every device, the one its training step
+    differentiates: the kernel has no backward (``kernels/ops.py``)."""
+    if not ops.use_kernel(q, impl, grad=(q, k, v)):
         if max(q.shape[1], k.shape[1]) <= DENSE_SEQ_LIMIT:
             return dense_attention(q, k, v, causal=causal, window=window)
         return chunked_attention(q, k, v, causal=causal, window=window)
@@ -212,7 +217,7 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
     also masks keys at or before ``pos - window``; the int8 kernel has no
     such mask (ROADMAP A.6), so on the int8 kernel route it raises."""
     if window is not None and kv_scales is not None \
-            and ops.use_kernel(x, impl):
+            and ops.use_kernel(x, impl, grad=(x,)):
         raise NotImplementedError(
             "a dynamic decode window on the int8 KV cache runs on the plain "
             "route only: the int8 decode-attention kernel masks s <= pos "

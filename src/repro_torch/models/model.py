@@ -47,9 +47,15 @@ a float (d_in, d_out) tensor or a
 holds ``router`` (d, E) float32 and the stacked experts
 ``w_experts_gate`` / ``w_experts_in`` (E, d, ff) and ``w_experts_out``
 (E, ff, d): float32 as drawn, in the compute dtype once quantized for
-serving (the products cast them to it at every use anyway).  Training
-under a quantized policy raises in ``qdot`` and ``moe.expert_ffn``
-(ROADMAP A.8).
+serving (the products cast them to it at every use anyway).
+
+``loss(..., train=True)`` under a quantized policy is the reference's QAT
+loss: fake-quantized weights and activations with straight-through
+gradients (``qlinear.qdot``, ``moe.expert_ffn``).  Under grad every
+attention takes the plain route, on the card too (the kernels have no
+backward, ``kernels/ops.py``).  The reference remats each layer in
+training; that changes memory, not values, and the port keeps every
+activation.
 """
 
 from __future__ import annotations
@@ -65,12 +71,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (cross_entropy, gelu_mlp, normal_init,
                                        rms_norm, swiglu_mlp)
+from repro_torch.quant.calibrate import PROJ_NAMES
 from repro_torch.quant.policy import QuantPolicy, policy_for
 from repro_torch.quant.qlinear import qdot, quantize_weight
 
-# the projections that serving stores quantized (the reference's names)
-PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-              "wq_x", "wk_img", "wv_img", "wo_x", "in_proj", "out_proj")
 EXPERT_NAMES = ("w_experts_gate", "w_experts_in", "w_experts_out")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -298,8 +302,8 @@ class Model(nn.Module):
         (b, n_ctx_tokens, d): the vlm's image embeddings or the audio
         model's frames (required there, unused elsewhere).  With
         ``last_only`` the logits of the final position only (serving
-        prefill).  ``train`` goes to every ``qdot`` (a quantized policy on
-        float weights raises there: QAT is ROADMAP A.8).  ``aux``: the MoE
+        prefill).  ``train`` goes to every ``qdot`` (QAT under a quantized
+        policy on float weights).  ``aux``: the MoE
         layers' load-balance losses summed in float32 in layer order (the
         reference's scan carry), 0 for the other families."""
         cfg, policy, impl = self.cfg, self.policy, self.impl

@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.quant.qlinear import qat_act, qat_weight
+
 
 def topk_route(x: torch.Tensor, w_router: torch.Tensor, n_experts: int,
                top_k: int):
@@ -74,14 +76,20 @@ def dispatch(experts: torch.Tensor, n_experts: int, cap: int):
 
 def expert_ffn(buf: torch.Tensor, p: dict, policy, train: bool):
     """The experts' SwiGLU over the (E, C, d) buffer in the compute
-    dtype: ``"ecd,edf->ecf"`` for gate and in, ``"ecf,efd->ecd"`` out."""
-    if train and policy.quantized:
-        raise NotImplementedError(
-            "quantization-aware training of the experts (the reference's "
-            "qat_act / qat_weight in edot) is not ported yet (ROADMAP A.8)")
+    dtype: ``"ecd,edf->ecf"`` for gate and in, ``"ecf,efd->ecd"`` out.
+    Under QAT (``train`` and a quantized policy) the gate and in products
+    fake-quantize the buffer per tensor and each expert's weight per
+    output channel (``axis=1`` of (E, d, ff)); the out product does not,
+    as in the reference's ``edot``."""
     cd = policy.compute_dtype
-    g = torch.bmm(buf.to(cd), p["w_experts_gate"].to(cd))
-    u = torch.bmm(buf.to(cd), p["w_experts_in"].to(cd))
+
+    def edot(a, w):
+        if train and policy.quantized:
+            a = qat_act(a, policy)
+            w = qat_weight(w, policy, axis=1)
+        return torch.bmm(a.to(cd), w.to(cd))
+    g = edot(buf, p["w_experts_gate"])
+    u = edot(buf, p["w_experts_in"])
     h = F.silu(g) * u
     return torch.bmm(h.to(cd), p["w_experts_out"].to(cd))
 

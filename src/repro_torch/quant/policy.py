@@ -1,11 +1,11 @@
 """Execution-mode policy: the paper's PE types mapped to the port's modes.
 
-| QAPPA PE   | mode      | serve                                  |
-|------------|-----------|----------------------------------------|
-| FP32       | fp32      | float32                                |
-| INT16      | bf16      | bf16                                   |
-| LightPE-2  | w8a8      | int8 x int8 CUDA kernel                |
-| LightPE-1  | w4a8_pow2 | int8 x packed pow2-int4 CUDA kernel    |
+| QAPPA PE   | mode      | serve                               | train (QAT)             |
+|------------|-----------|-------------------------------------|-------------------------|
+| FP32       | fp32      | float32                             | float32                 |
+| INT16      | bf16      | bf16                                | bf16                    |
+| LightPE-2  | w8a8      | int8 x int8 CUDA kernel             | int8 fake-quant (STE)   |
+| LightPE-1  | w4a8_pow2 | int8 x packed pow2-int4 CUDA kernel | pow2 fake-quant (STE)   |
 """
 
 from __future__ import annotations
@@ -60,8 +60,10 @@ def pe_for_mode(mode) -> PEType:
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    """Resolved numerics policy for a model instance.  (The reference's
-    QAT fields arrive with training.)"""
+    """Resolved numerics policy for a model instance.  The reference's
+    QAT fields keep one value in all its callers, so the port has none:
+    QAT fake-quantizes weights per output channel and activations per
+    tensor (``qlinear.weight_quant_spec`` / ``act_quant_spec``)."""
 
     mode: ExecMode = ExecMode.BF16
 

@@ -7,9 +7,12 @@ One entry point, :func:`qdot`:
   int8 on the fly, and the contraction runs on a CUDA kernel with a fused
   dequantizing epilogue (:mod:`repro_torch.kernels.ops`; the plain
   version on the CPU);
+* **train (QAT)**: under a quantized policy with ``train=True``, the
+  weight (per output channel) and the activation (per tensor) are
+  fake-quantized with a straight-through gradient and contract in the
+  compute dtype with ``torch.matmul``, as the reference computes them in
+  XLA outside any Pallas kernel;
 * **eval**: a float weight contracts in the policy's compute dtype.
-
-Training (the reference's QAT fake-quant branch) is not ported yet.
 """
 
 from __future__ import annotations
@@ -67,6 +70,33 @@ def dequantize_weight(qw: QuantizedTensor,
     raise ValueError(qw.mode)
 
 
+def weight_quant_spec(policy: QuantPolicy, axis=0) -> qz.FakeQuantSpec:
+    """FakeQuantSpec for a (d_in, d_out) weight under ``policy``."""
+    if policy.mode == ExecMode.W8A8:
+        return qz.FakeQuantSpec("int", 8, axis)
+    if policy.mode == ExecMode.W4A8_POW2:
+        return qz.FakeQuantSpec("pow2", axis=axis)
+    return qz.FakeQuantSpec("none")
+
+
+def act_quant_spec(policy: QuantPolicy) -> qz.FakeQuantSpec:
+    """FakeQuantSpec for activations (dynamic per-tensor int8, or none)."""
+    if policy.quantized:
+        return qz.FakeQuantSpec("int", 8)
+    return qz.FakeQuantSpec("none")
+
+
+def qat_weight(w: torch.Tensor, policy: QuantPolicy,
+               axis=0) -> torch.Tensor:
+    """Fake-quantized weight view for training; STE gradients."""
+    return qz.fake_quant(w, weight_quant_spec(policy, axis=axis))
+
+
+def qat_act(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
+    """Fake-quantized activation (dynamic per-tensor int8)."""
+    return qz.fake_quant(x, act_quant_spec(policy))
+
+
 def int8_dot(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
              w_scale: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """(m, k) int8 x (k, n) int8 -> exact int32 -> dequant, the plain
@@ -101,9 +131,8 @@ def qdot(x: torch.Tensor, w, policy: QuantPolicy, *, train: bool,
     if isinstance(w, QuantizedTensor):
         return serve_dot(x, w, impl=impl)
     if train and policy.quantized:
-        raise NotImplementedError(
-            "quantization-aware training (the fake-quant branch of qdot) "
-            "is not ported yet (ROADMAP A.8); the port serves quantized "
-            "weights and evaluates with train=False")
+        cd = policy.compute_dtype
+        return torch.matmul(qat_act(x, policy).to(cd),
+                            qat_weight(w, policy, axis=0).to(cd))
     return torch.matmul(x.to(policy.compute_dtype),
                         w.to(policy.compute_dtype))

@@ -1,11 +1,12 @@
-"""Quantizers in PyTorch: the subset of ``repro.quant.quantizers`` that
-quantized serving and the co-exploration's accuracy proxy need.
+"""Quantizers in PyTorch: the port of ``repro.quant.quantizers``.
 
 * symmetric int8 (per-tensor or per-channel): the LightPE-2 / W8A8 format;
 * power-of-two 4-bit codes ``[sign | exp(3)]``: the LightPE-1 / W4A8 format;
 * int4 nibble packing for the W4A8 kernel;
 * quantize-dequantize driven by one :class:`FakeQuantSpec` (int, pow2,
-  two-term pow2), in the reference's operation order.
+  two-term pow2), in the reference's operation order;
+* fake quantization with a straight-through gradient for QAT
+  (:func:`ste`, :func:`fake_quant` and the per-kind wrappers).
 
 Every division is a tensor by tensor division on the input's device, so it
 is a true IEEE division: PyTorch turns the division of a CUDA tensor by a
@@ -170,3 +171,45 @@ def quantize_dequantize(x: torch.Tensor, spec: FakeQuantSpec) -> torch.Tensor:
     if spec.kind == "pow2":
         return _qdq_pow2(x, axis)
     return _qdq_pow2_2term(x, axis)
+
+
+def ste(x: torch.Tensor, qdq: torch.Tensor) -> torch.Tensor:
+    """Straight-through: forward ``x + (qdq - x)``, gradient the identity.
+    The forward keeps the reference's arithmetic, which in float32 is not
+    always ``qdq`` itself."""
+    return x + (qdq - x).detach()
+
+
+def fake_quant(x: torch.Tensor, spec: FakeQuantSpec) -> torch.Tensor:
+    """Fake-quantize ``x`` per ``spec``: forward qdq, gradient identity."""
+    if spec.kind == "none":
+        return x
+    return ste(x, quantize_dequantize(x.detach(), spec))
+
+
+# the reference's per-kind entry points, over the spec form
+
+def quantize_dequantize_int(x: torch.Tensor, bits: int,
+                            axis=None) -> torch.Tensor:
+    return quantize_dequantize(x, FakeQuantSpec("int", bits, axis))
+
+
+def quantize_dequantize_pow2(w: torch.Tensor, axis=None) -> torch.Tensor:
+    return quantize_dequantize(w, FakeQuantSpec("pow2", axis=axis))
+
+
+def quantize_dequantize_pow2_2term(w: torch.Tensor,
+                                   axis=None) -> torch.Tensor:
+    return quantize_dequantize(w, FakeQuantSpec("pow2_2term", axis=axis))
+
+
+def fake_quant_int(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    return fake_quant(x, FakeQuantSpec("int", bits, axis))
+
+
+def fake_quant_pow2(x: torch.Tensor, axis=None) -> torch.Tensor:
+    return fake_quant(x, FakeQuantSpec("pow2", axis=axis))
+
+
+def fake_quant_pow2_2term(x: torch.Tensor, axis=None) -> torch.Tensor:
+    return fake_quant(x, FakeQuantSpec("pow2_2term", axis=axis))

@@ -5,7 +5,8 @@ on depth-cut mamba2 and zamba2 at full width), the int8-KV decode
 attention and flash attention; the MoE family's routes and combine on
 reduced moonshot; and the vlm and audio families' routes on reduced
 llama-3.2-vision and whisper, with flash at their cross-attention
-shapes.
+shapes; and the grad rule that keeps the kernels (no backward) off the
+autograd graph (ROADMAP C.13).
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -1664,3 +1665,66 @@ def test_attend_meets_mixed_dtypes_in_float32(cuda_device):
     want = A.attend(q, k, v, causal=False, impl="ref")
     assert got.dtype == want.dtype == torch.bfloat16
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+# ------------------------------------------ the grad rule (ROADMAP C.13)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attend_under_grad_takes_the_plain_route(cuda_device, dtype):
+    """Under grad the kernels (no backward) stay off the graph: ``attend``
+    takes the dense route and its gradient is the CPU's; under
+    ``no_grad`` it launches flash; ``impl="kernel"`` under grad raises."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as A
+    g = torch.Generator("cpu").manual_seed(3)
+    q, k, v = (torch.randn((2, 40, 4, 16), generator=g).to(dtype)
+               for _ in range(3))
+    outs = {}
+    for dev in (cuda_device, CPU):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        before = FA.launches
+        out = A.attend(*leaves)
+        assert FA.launches == before and out.grad_fn is not None
+        out.float().square().sum().backward()
+        outs[dev.type] = [t.grad.float().cpu() for t in leaves]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    with torch.no_grad():
+        before = FA.launches
+        A.attend(*(t.to(cuda_device) for t in (q, k, v)))
+        assert FA.launches == before + 1
+    qq = q.to(cuda_device).transpose(1, 2).contiguous().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        OPS.flash_attention(qq, qq.detach(), qq.detach(), impl="kernel")
+
+
+@pytest.mark.cuda
+def test_qat_loss_gradients_on_the_card_match_the_cpu(cuda_device):
+    """Reduced phi4-mini's W8A8 QAT loss: no kernel launch under grad,
+    every leaf's gradient within 5e-3 of its largest magnitude of the
+    CPU's (measured on an H100 80GB HBM3 at 700 W: 5.6e-4, ``w_down``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_map
+    from repro_torch.optim.adamw import leaves
+    cfg = reduced(get_config("phi4-mini-3.8b"))
+    params = Model(cfg, device="cpu").init(
+        torch.Generator("cpu").manual_seed(0))
+    batch = SyntheticLM(DataConfig(cfg.vocab, 16, 2)).batch(0, "cpu")
+    grads = {}
+    for dev in (cuda_device, CPU):
+        tree = tree_map(lambda p: p.detach().to(dev).requires_grad_(True),
+                        params)
+        before = (FA.launches, W8.launches)
+        Model(cfg, device=dev).loss(
+            tree, {k: t.to(dev) for k, t in batch.items()}).backward()
+        assert (FA.launches, W8.launches) == before
+        grads[dev.type] = [(p, t.grad.cpu()) for p, t, _ in leaves(tree)]
+    for (path, a), (_, b) in zip(grads["cuda"], grads["cpu"]):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 5e-3, (path, err)

@@ -525,10 +525,26 @@ def test_golden_many_workload_front_reproduced():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=4), "one card")])
+    (dict(mesh=4), "one card"),
+    # the deprecated spellings (ROADMAP C.12) are the reference's: each
+    # refuses where the reference refuses, the mixed search's at run
+    # time, after its DeprecationWarning
+    (dict(sqnr_floor_db=20.0, accuracy="proxy"), r"not\s+both|only apply"),
+    (dict(sqnr_floor_db=0.0), r"floor_db must be > 0|only apply"),
+    (dict(objectives=("worst_quant_noise",)),
+     r"multi-workload only|only apply")])
 def test_spec_refuses_knobs_not_ported(kwargs, match):
-    with pytest.raises(ValueError, match=match):
-        TD.ExploreSpec.mixed("vgg16", **kwargs)
+    """A knob the port does not run refuses in every constructor; a
+    deprecated spelling refuses as the reference's does (a mixed search
+    only when it runs)."""
+    if "mesh" in kwargs:
+        with pytest.raises(ValueError, match=match):
+            TD.ExploreSpec.mixed("vgg16", **kwargs)
+    else:
+        spec = TD.ExploreSpec.mixed("vgg16", **kwargs)
+        with pytest.raises(ValueError, match=match):
+            with pytest.warns(DeprecationWarning, match="deprecated"):
+                TD.run(spec, device="cpu")
     with pytest.raises(ValueError, match=match):
         TD.ExploreSpec.many(SUITE, **kwargs)
     with pytest.raises(ValueError, match=match):
@@ -585,7 +601,10 @@ def test_spec_runs_the_a3_knobs_as_reference(tmp_path, knob):
     (dict(precision="half"), "precision must be"),
     (dict(workloads=SUITE, chunk_size=8, configs=()), "single workload"),
     (dict(workloads=()), "at least one workload"),
-    (dict(precision="mixed", accuracy="calibrated"), "bad accuracy spec")])
+    (dict(precision="mixed", accuracy="calibrated"), "bad accuracy spec"),
+    (dict(sqnr_floor_db=20.0), "search knob"),
+    (dict(precision="mixed", sqnr_floor_db=20.0),
+     "across a workload suite")])
 def test_spec_validation_as_reference(kw, match):
     kw = {"workloads": ("vgg16",), **kw}
     with pytest.raises(ValueError, match=match):
@@ -631,11 +650,16 @@ def test_nsga2_runs_the_a3_knobs_as_reference(tmp_path, knob):
     assert got.history == ref.history
 
 
-def test_search_refusals():
-    with pytest.raises(ValueError, match="ROADMAP A.7"):
-        TD.run(TD.ExploreSpec.mixed("vgg16", preset="calibrated-quick"),
-               device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A.7"):
+def test_search_refusals(monkeypatch, tmp_path):
+    """The tier-1/2 refusals (ROADMAP A.7) are gone: ``calibrated-quick``
+    runs (its front is held to the reference's in
+    ``test_torch_accuracy.py``); tier 2 over a suite refuses with the
+    reference's words."""
+    monkeypatch.setenv("REPRO_TORCH_CALIB_CACHE", str(tmp_path))
+    res = TD.run(TD.ExploreSpec.mixed("vgg16", preset="calibrated-quick",
+                                      budget=32, pop_size=8), device="cpu")
+    assert res.front_size >= 1 and res.validation is None
+    with pytest.raises(ValueError, match="single-workload only"):
         TD.run(TD.ExploreSpec.many(SUITE, precision="mixed",
                                    accuracy="measured:mamba2-130m"),
                device="cpu")

@@ -69,7 +69,9 @@ def test_every_module_is_listed():
                  "repro_torch.configs.moonshot_v1_16b_a3b",
                  "repro_torch.configs.phi3_5_moe_42b_a6_6b",
                  "repro_torch.configs.llama_3_2_vision_90b",
-                 "repro_torch.configs.whisper_medium"):
+                 "repro_torch.configs.whisper_medium",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.launch.train", "repro_torch.models.tree"):
         assert name in mods
 
 
@@ -202,12 +204,14 @@ def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
                                    "simulate_fleet", "serving_search",
                                    "serve_moe", "moe_model", "serve_vlm",
                                    "serve_audio", "vlm_model",
-                                   "audio_model"])
+                                   "audio_model", "calibrate",
+                                   "calibrated_search", "train"])
 def test_slice_entry_points_default_to_the_card(entry, tmp_path):
     """The PPA fit, its predictions, the resumable sweep and search, the
-    fleet simulator, a serving search and the MoE, vlm and audio
-    families' serving and models (at full size) run on the card unless
-    asked for the CPU, and raise without one."""
+    fleet simulator, a serving search, the MoE, vlm and audio families'
+    serving and models (at full size), the tier-1 calibration, a
+    calibrated search and training run on the card unless asked for the
+    CPU, and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     import numpy as np
@@ -221,7 +225,9 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
     from repro_torch.models.model import Model
+    from repro_torch.quant.calibrate import calibrate_model
     from repro_torch.serving.fleet_sim import simulate_fleet
     cfgs = [AcceleratorConfig(pe_rows=r, pe_cols=c) for r in (8, 12, 16)
             for c in (8, 14)]
@@ -248,6 +254,11 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
         "serve_audio": lambda: serve("whisper-medium", quantize=True),
         "vlm_model": lambda: Model(get_config("llama-3.2-vision-90b")),
         "audio_model": lambda: Model(get_config("whisper-medium")),
+        "calibrate": lambda: calibrate_model("mamba2-130m",
+                                             cache_dir=str(tmp_path)),
+        "calibrated_search": lambda: run(ExploreSpec.mixed(
+            "vgg16", preset="calibrated-quick")),
+        "train": lambda: train("mamba2-130m", steps=1),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -215,8 +215,12 @@ def test_qdot_eval_and_training_branches():
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                rtol=2e-2, atol=2e-2)
-    with pytest.raises(NotImplementedError, match="training"):
-        T_ql.qdot(x, w, policy, train=True)
+    # the QAT branch (once refused): the reference's bit for bit
+    qat = R_ql.qdot(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+                    R_policy.policy_for("w8a8"), train=True)
+    np.testing.assert_array_equal(
+        T_ql.qdot(x, w, policy, train=True).float().numpy(),
+        np.asarray(qat.astype(jnp.float32)))
 
 
 # ------------------------------------------------------ policy, configs
