@@ -504,6 +504,15 @@ GRAD_GUARD = dict(arch="phi4-mini-3.8b", batch=2, seq_len=16,
 TRAIN = dict(arch="mamba2-130m", steps=20, batch=8, seq_len=64, timed=5,
              attention_arch="phi4-mini-3.8b", attention_layers=2,
              attention_batch=2, loss_rtol=1e-3, norm_rtol=2e-3)
+# the restarting train loop at full width: mamba2-130m under W8A8 QAT with
+# int8 gradient compression, a checkpoint every 3 steps, the clean run
+# against one with two injected failures (bit for bit); compression card
+# vs CPU bit for bit; the clean run's step-5 checkpoint continued one step
+# on the card and on the CPU (the train phase's loss bar); step time with
+# and without compression in turns
+TRAIN_RESTART = dict(arch="mamba2-130m", steps=8, batch=8, seq_len=64,
+                     ckpt_every=3, fail_at={4: 1, 7: 1}, elastic_step=5,
+                     timed=4, loss_rtol=1e-3)
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
 # float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
@@ -4586,8 +4595,11 @@ def phase_attention_timing(device) -> dict:
                  3),
                 ("library", lambda i: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), 20)):
+            # the largest of three profiler windows: a window that drops
+            # records can read a call at half its events' time
             row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
-                fn, iters, seen=seen if name == "library" else None)
+                fn, iters, windows=3,
+                seen=seen if name == "library" else None)
         row["library_kernel"] = seen["top"][0][0] if seen.get("top") \
             else None
         # the kernel and SDPA against the plain version at this shape
@@ -4865,16 +4877,20 @@ def phase_grad_guard(device) -> dict:
     return out
 
 
-def _train_state(model, cfg, device):
+def _train_state(cfg, device, grad_compression: bool = False):
     """``launch.train``'s initial state: the CPU draw of seed 0 moved to
-    ``device``, fresh AdamW moments."""
+    ``device``, fresh AdamW moments, a zero error-feedback tree under
+    ``grad_compression``."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.models.tree import tree_map
     from repro_torch.optim import adamw
+    from repro_torch.parallel import compression
     params = tree_map(lambda p: p.to(device), Model(
         cfg, device="cpu").init(torch.Generator("cpu").manual_seed(0)))
-    return {"params": params, "opt": adamw.init(params)}
+    return {"params": params, "opt": adamw.init(params),
+            "err": compression.init_error_state(params)
+            if grad_compression else {}}
 
 
 def phase_train(device) -> dict:
@@ -4929,7 +4945,7 @@ def phase_train(device) -> dict:
     t0 = time.perf_counter()
     batches = [data.batch(s, device=device) for s in range(T["timed"] + 3)]
     out["synthetic_batch_s"] = (time.perf_counter() - t0) / len(batches)
-    state = {"s": _train_state(model, cfg, device)}
+    state = {"s": _train_state(cfg, device)}
 
     def step(i):
         state["s"], loss = step_fn(state["s"], batches[i % len(batches)])
@@ -4956,7 +4972,7 @@ def phase_train(device) -> dict:
 
     cpu_model = Model(cfg, device="cpu")
     cpu_step = make_train_step(cpu_model, ocfg)
-    cpu_state = _train_state(cpu_model, cfg, "cpu")
+    cpu_state = _train_state(cfg, "cpu")
     t0 = time.perf_counter()
     cpu_losses = []
     for s in range(2):
@@ -5011,6 +5027,275 @@ def phase_train(device) -> dict:
           and row["grad_norm_rel_dist"] <= T["norm_rtol"],
           f"train {T['attention_arch']}: card vs CPU {row}")
     out["attention_step"] = row
+    return out
+
+
+def _leaves_differ(a, b) -> dict:
+    """Leaves of two trees of one structure that differ: count, the
+    largest absolute difference, the first few paths by index."""
+    import torch
+    from repro_torch.models.tree import tree_flatten
+    la, da = tree_flatten(a)
+    lb, db = tree_flatten(b)
+    check(str(da) == str(db), "train_restart: the two states' structures")
+    bad, worst = [], 0.0
+    for i, (x, y) in enumerate(zip(la, lb)):
+        same = torch.equal(x, y) if torch.is_tensor(x) else x == y
+        if not same:
+            bad.append(i)
+            if torch.is_tensor(x):
+                worst = max(worst, float((x.double() - y.double())
+                                         .abs().max()))
+    return {"leaves": len(la), "differ": len(bad), "first": bad[:8],
+            "max_abs": worst}
+
+
+def _moved(tree, device):
+    """``tree`` with every tensor leaf on ``device``."""
+    import torch
+    from repro_torch.models.tree import tree_flatten
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten([t.to(device) if torch.is_tensor(t) else t
+                              for t in leaves])
+
+
+def phase_train_restart(device) -> dict:
+    """The rest of the training stack at full width: ``launch.train.train``
+    of mamba2-130m (W8A8 QAT, ``TRAIN_RESTART`` batch x sequence) with int8
+    gradient compression and a checkpoint every 3 steps, once clean and
+    once with two injected failures: the restarts counted, every loss of
+    a step and every leaf of the final checkpoint (params, AdamW's ``mu``,
+    ``nu``, ``step``, the error feedback) bit for bit, no kernel launch.
+    The clean run's step-5 checkpoint restored on the card and on the CPU
+    and stepped once on each (the card's equal to the clean run's step 6,
+    the CPU's within the loss bar); the checkpoint's bytes, save and
+    restore times; ``compress_grads`` of one full-width gradient tree on
+    the card and the CPU bit for bit; the compressed step's own time; the
+    ops deterministic mode names in a compressed step; the step with and
+    without compression in turns (host clock, CUDA events,
+    profiler device time, and the host time around the call before
+    ``float(loss)`` waits, which with the batch's draw is what the
+    straggler detector reads)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression
+    T = TRAIN_RESTART
+    out = {"phase": "train_restart", "arch": T["arch"], "batch": T["batch"],
+           "seq_len": T["seq_len"], "steps": T["steps"],
+           "ckpt_every": T["ckpt_every"],
+           "fail_at": {str(k): v for k, v in T["fail_at"].items()}}
+    cfg = get_config(T["arch"])
+    last = T["steps"] - 1
+    kw = dict(steps=T["steps"], smoke=False, seq_len=T["seq_len"],
+              batch=T["batch"], ckpt_every=T["ckpt_every"],
+              grad_compression=True, log_every=T["steps"], device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_attention_counts()
+    _reset_matmul_counts()
+    like_cpu = _train_state(cfg, "cpu", grad_compression=True)
+
+    def run(ckpt_dir, fail_at=None) -> dict:
+        printed = io.StringIO()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            losses = train(T["arch"], ckpt_dir=ckpt_dir, fail_at=fail_at,
+                           **kw)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        text = printed.getvalue()
+        print(text, end="", flush=True)
+        tail = text.rsplit("restarts=", 1)[1].split()
+        return {"losses": losses, "train_s": seconds,
+                "restarts": int(tail[0]),
+                "stragglers": int(tail[1].split("=")[1])}
+
+    with tempfile.TemporaryDirectory() as root:
+        clean_dir = os.path.join(root, "clean")
+        clean = run(clean_dir)
+        out["clean"] = {k: clean[k] for k in ("train_s", "restarts",
+                                              "stragglers")}
+        out["losses"] = [l for _, l in clean["losses"]]
+        check(clean["restarts"] == 0
+              and [s for s, _ in clean["losses"]] == list(range(T["steps"])),
+              f"train_restart: the clean run {clean['losses']}")
+        check(sorted(os.listdir(clean_dir)) == [
+            f"step_{s:08d}" for s in range(T["steps"])
+            if (s + 1) % T["ckpt_every"] == 0 or s == last][-3:],
+            f"train_restart: checkpoints {os.listdir(clean_dir)}")
+        npz = os.path.join(clean_dir, f"step_{last:08d}", "arrays.npz")
+        out["checkpoint_bytes"] = os.path.getsize(npz)
+        t0 = time.perf_counter()
+        final_clean = ckpt.restore(clean_dir, last, like_cpu)
+        out["restore_to_cpu_s"] = time.perf_counter() - t0
+
+        # the elastic case: the card's step-5 checkpoint on both devices
+        e = T["elastic_step"]
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        card_state = ckpt.restore(clean_dir, e, _moved(like_cpu, device))
+        torch.cuda.synchronize(device)
+        out["restore_to_card_s"] = time.perf_counter() - t0
+        cpu_state = ckpt.restore(clean_dir, e, like_cpu)
+        ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=T["steps"],
+                                 warmup_steps=max(1, T["steps"] // 10))
+        data = SyntheticLM(DataConfig(cfg.vocab, T["seq_len"], T["batch"],
+                                      seed=0))
+        batch = data.batch(e + 1, device="cpu")
+        card_step = make_train_step(Model(cfg, device=device), ocfg,
+                                    grad_compression=True)
+        card_state, card_loss = card_step(
+            card_state, {k: v.to(device) for k, v in batch.items()})
+        card_loss = float(card_loss)
+        t0 = time.perf_counter()
+        _, cpu_loss = make_train_step(Model(cfg, device="cpu"), ocfg,
+                                      grad_compression=True)(cpu_state, batch)
+        out["cpu_step_s"] = time.perf_counter() - t0
+        cpu_loss = float(cpu_loss)
+        del cpu_state
+        want = dict(clean["losses"])[e + 1]
+        out["elastic"] = {
+            "restored_step": e, "card_loss": card_loss,
+            "cpu_loss": cpu_loss, "clean_run_loss": want,
+            "card_vs_clean_equal": card_loss == want,
+            "cpu_vs_card_rel": abs(cpu_loss - card_loss) / abs(card_loss)}
+        check(card_loss == want,
+              f"train_restart: step {e + 1} from the restored checkpoint "
+              f"{card_loss} vs the clean run's {want}")
+        check(out["elastic"]["cpu_vs_card_rel"] <= T["loss_rtol"],
+              f"train_restart: the CPU's step {e + 1} {out['elastic']}")
+        # one save of a full state, timed
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(root, "timed"), e + 1, card_state)
+        out["save_s"] = time.perf_counter() - t0
+        del card_state
+        shutil.rmtree(clean_dir)
+        shutil.rmtree(os.path.join(root, "timed"))
+
+        faulty_dir = os.path.join(root, "faulty")
+        faulty = run(faulty_dir, dict(T["fail_at"]))
+        out["faulty"] = {k: faulty[k] for k in ("train_s", "restarts",
+                                                "stragglers")}
+        out["faulty"]["steps"] = [s for s, _ in faulty["losses"]]
+        final_faulty = ckpt.restore(faulty_dir, last, like_cpu)
+    out["launches"] = {**_attention_counts(), **_matmul_counts()}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    check(faulty["restarts"] == sum(T["fail_at"].values()),
+          f"train_restart: {faulty['restarts']} restarts")
+    out["final_loss_equal"] = faulty["losses"][-1] == clean["losses"][-1]
+    out["losses_equal"] = dict(faulty["losses"]) == dict(clean["losses"])
+    out["final_state"] = _leaves_differ(final_faulty, final_clean)
+    check(out["final_loss_equal"] and out["losses_equal"],
+          f"train_restart: losses {faulty['losses']} vs {clean['losses']}")
+    check(out["final_state"]["differ"] == 0
+          and final_faulty["opt"].step == final_clean["opt"].step == T["steps"],
+          f"train_restart: final state {out['final_state']}")
+    check(not any(out["launches"].values()),
+          f"train_restart: kernels launched {out['launches']}")
+    del final_faulty, final_clean, like_cpu
+
+    # compress_grads of one full-width gradient tree, card vs CPU
+    params_cpu = _train_state(cfg, "cpu")["params"]
+    batch = data.batch(0, device="cpu")
+    _, leaves = _grads(Model(cfg, device=device), params_cpu, batch, device)
+    g_card = tree_map(lambda p: p.grad, leaves)
+    g_cpu = _moved(g_card, "cpu")
+    del leaves
+    rounds, e_card, e_cpu = [], compression.init_error_state(g_card), \
+        compression.init_error_state(g_cpu)
+    for r in range(2):
+        q_card, s_card, e_card = compression.compress_grads(g_card, e_card)
+        q_cpu, s_cpu, e_cpu = compression.compress_grads(g_cpu, e_cpu)
+        rounds.append({name: _leaves_differ(_moved(a, "cpu"), b)
+                       for name, a, b in (("codes", q_card, q_cpu),
+                                          ("scales", s_card, s_cpu),
+                                          ("err", e_card, e_cpu))})
+    out["compress_card_vs_cpu"] = rounds
+    check(all(v["differ"] == 0 for r in rounds for v in r.values()),
+          f"train_restart: compression card vs CPU {rounds}")
+    out["compress_roundtrip_ms"] = _event_ms(
+        lambda: compression.compress_roundtrip(g_card, e_card), 5, 2)
+    t0 = time.perf_counter()
+    compression.compress_roundtrip(g_cpu, e_cpu)
+    out["compress_roundtrip_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+    del g_card, g_cpu, e_card, e_cpu, q_card, q_cpu, s_card, s_cpu
+
+    # the step with and without compression, in turns
+    model = Model(cfg, device=device)
+    batches = [data.batch(s, device=device) for s in range(T["timed"] + 1)]
+    # deterministic mode: the ops it names in a compressed step, its loss
+    step_fn = make_train_step(model, ocfg, grad_compression=True)
+    state = _train_state(cfg, device, grad_compression=True)
+    loss = float(step_fn(state, batches[0])[1])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det_loss = float(step_fn(state, batches[0])[1])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["deterministic_mode"] = {
+        "warnings": sorted({str(w.message)[:160] for w in caught}),
+        "loss_equal": det_loss == loss}
+    del state
+    timing = {}
+    for comp in (False, True, True, False):
+        step_fn = make_train_step(model, ocfg, grad_compression=comp)
+        state = {"s": _train_state(cfg, device, grad_compression=comp)}
+
+        def step(i):
+            state["s"], loss = step_fn(state["s"], batches[i % len(batches)])
+            return loss
+        step(0)
+        host, call, event = [], [], []
+        for i in range(1, T["timed"] + 1):
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            loss = step(i)
+            call.append(time.perf_counter() - t0)
+            end.record()
+            float(loss)
+            torch.cuda.synchronize(device)
+            host.append(time.perf_counter() - t0)
+            event.append(start.elapsed_time(end))
+        device_ms, top, ops, kept = _profile_device_ms(step, 3)
+        row = timing.setdefault("compressed" if comp else "plain", [])
+        row.append({"step_ms": statistics.median(host) * 1e3,
+                    "event_ms": statistics.median(event),
+                    # what the straggler detector reads, less the draw of
+                    # the batch: the host's clock around the call, before
+                    # float(loss) waits for the card
+                    "call_host_ms": statistics.median(call) * 1e3,
+                    "device_ms_per_step": device_ms,
+                    "device_busy_share": (
+                        device_ms / (statistics.median(host) * 1e3)
+                        if device_ms else None),
+                    "device_ops_per_step": ops,
+                    "profiler_records_kept": kept, "top_device_ops": top})
+        del state
+    out["step_timing"] = timing
+    out["step_ms"] = {k: min(r["step_ms"] for r in v)
+                      for k, v in timing.items()}
+    del batches, model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5139,10 +5424,16 @@ def main() -> int:
     emit(phase_grad_guard(device))
     train_row = phase_train(device)
     emit(train_row)
+    restart_row = phase_train_restart(device)
+    emit(restart_row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     qat = {f"train ({TRAIN['arch']}, W8A8 QAT, {TRAIN['steps']} steps)":
            train_row["launches"]["w8a8_matmul"]
-           + train_row["launches"]["w4a8_matmul"]}
+           + train_row["launches"]["w4a8_matmul"],
+           f"train_restart ({TRAIN_RESTART['arch']}, W8A8 QAT, int8 "
+           "gradient compression, 2 restarts)":
+           restart_row["launches"]["w8a8_matmul"]
+           + restart_row["launches"]["w4a8_matmul"]}
     per = (f"one {SERVE_ARCH} layer's 7 projections at m = "
            f"{SERVE['batch']}, weights cold in L2")
     sweep = timing["vgg16"]
@@ -5378,7 +5669,9 @@ def main() -> int:
             f"train ({TRAIN['attention_arch']}, {TRAIN['attention_layers']}"
             " layers, under grad)":
                 train_row["attention_step"]["launches"][
-                    "flash_attention_tc"]},
+                    "flash_attention_tc"],
+            f"train_restart ({TRAIN_RESTART['arch']}, under grad)":
+                restart_row["launches"]["flash_attention"]},
         "cross_family_shapes": {
             f"{ph} {kind}": {k: r[k] for k in (
                 "shape", "keys", "causal", "dtype", "best_kernel_ms",

@@ -1,24 +1,30 @@
-"""Checkpoint snapshots: step-indexed, checksummed, rotated.
+"""Checkpoint save/restore: step-indexed, checksummed, rotated.
 
-Port of the self-describing state format of
-:mod:`repro.checkpoint.checkpoint`, which the exploration runtime
-(:mod:`repro_torch.runtime.dse_checkpoint`) snapshots through:
+Port of :mod:`repro.checkpoint.checkpoint`, which the training loop
+(:func:`repro_torch.runtime.fault_tolerance.run_with_restarts`) and the
+exploration runtime (:mod:`repro_torch.runtime.dse_checkpoint`) stand on:
 
-* snapshots are atomic (write to tmp, fsync, rename);
-* every snapshot carries a content checksum; restore skips corrupt ones
-  and falls back to the newest valid snapshot;
-* :func:`save_state` / :func:`restore_state` store nested dicts of arrays
-  and scalars whose shapes grow between snapshots (a Pareto front, a
-  synthesis cache), with no ``like`` structure at restore time; array
-  dtype and shape round-trip exactly.
+* checkpoints are atomic (write to tmp, fsync, rename);
+* every checkpoint carries a content checksum; restore skips corrupt ones
+  and falls back to the newest valid one;
+* the data cursor (the step) and the whole train state are in the
+  checkpoint, so a restart equals the uninterrupted run bit for bit.
 
-The directory layout (``step_<n>/arrays.npz`` + ``meta.json``), the
-checksum rule and keep-N rotation are the reference's, so a snapshot
-written by either package restores in the other.
+Two snapshot formats share the directory layout (``step_<n>/arrays.npz``
++ ``meta.json``), the checksum rule and keep-N rotation, which are the
+reference's, so a checkpoint written by either package restores in the
+other:
 
-The reference's pytree ``save`` / ``restore`` serve its training loop and
-go through ``jax.tree_util``; they wait for the training stack's port
-(ROADMAP A.8).
+* :func:`save` / :func:`restore` — tree checkpoints of a train state,
+  leaves ``leaf_<i>`` in ``jax.tree_util``'s order
+  (:func:`repro_torch.models.tree.tree_flatten`), restored into the
+  structure, types, dtypes, shapes and **devices** of a ``like`` tree: a
+  state the card wrote restores on the CPU and the other way round (what
+  the reference's ``runtime.elastic.reshard`` does on a one-device mesh);
+* :func:`save_state` / :func:`restore_state` — self-describing nested
+  dicts of arrays and scalars whose shapes grow between snapshots (a
+  Pareto front, a synthesis cache), with no ``like`` structure at restore
+  time; array dtype and shape round-trip exactly.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ import os
 import shutil
 
 import numpy as np
+import torch
+
+from repro_torch.models.tree import tree_flatten
 
 
 def _rotate(ckpt_dir: str, keep: int):
@@ -43,7 +52,7 @@ def _valid(path: str) -> bool:
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         with open(os.path.join(path, "arrays.npz"), "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
+            digest = hashlib.file_digest(f, "sha256").hexdigest()
         return digest == meta["sha256"]
     except Exception:
         return False
@@ -58,6 +67,79 @@ def latest_step(ckpt_dir: str) -> int | None:
         if _valid(os.path.join(ckpt_dir, f"step_{s:08d}")):
             return s
     return None
+
+
+def _host_array(leaf, i: int) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise TypeError(
+                f"leaf {i} is bfloat16: the reference's restore cannot read "
+                f"a bfloat16 leaf back (np.load gives '|V2', which does not "
+                f"cast), so no such checkpoint is written (ROADMAP C.14)")
+        return leaf.detach().cpu().numpy()
+    if isinstance(leaf, (bool, int, float)):
+        return np.asarray(leaf)
+    raise TypeError(f"leaf {i} has unsupported type {type(leaf).__name__} "
+                    f"(use a tensor, an int or a float)")
+
+
+def _like(arr: np.ndarray, like):
+    """``arr`` as a leaf of ``like``'s type, dtype, shape and device."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=like.device, dtype=like.dtype).reshape(like.shape)
+    return type(like)(arr.item())
+
+
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
+    """Atomically save ``tree`` as checkpoints/step_<n>/ and rotate.
+    Tensors are copied to the host; host ints and floats are written as
+    0-d arrays."""
+    leaves, treedef = tree_flatten(tree)
+    arrs = {f"leaf_{i}": _host_array(l, i) for i, l in enumerate(leaves)}
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = path + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    npz = os.path.join(tmp, "arrays.npz")
+    with open(npz, "wb") as f:
+        np.savez(f, **arrs)
+        f.flush()
+        os.fsync(f.fileno())
+    del arrs
+    with open(npz, "rb") as f:
+        digest = hashlib.file_digest(f, "sha256").hexdigest()
+    meta = {"step": step, "n_leaves": len(leaves), "sha256": digest,
+            "treedef": str(treedef)}
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    if os.path.exists(path):
+        shutil.rmtree(path)      # a replayed step: replace it
+    os.replace(tmp, path)                      # atomic publish
+    _rotate(ckpt_dir, keep)
+    return path
+
+
+def restore(ckpt_dir: str, step: int, like):
+    """Restore into the structure of ``like`` (validates checksum); each
+    leaf takes the type, dtype, shape and device of ``like``'s."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not _valid(path):
+        raise IOError(f"checkpoint {path} is corrupt or missing")
+    leaves, treedef = tree_flatten(like)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        restored = [_like(data[f"leaf_{i}"], l)
+                    for i, l in enumerate(leaves)]
+    return treedef.unflatten(restored)
+
+
+def restore_latest(ckpt_dir: str, like):
+    s = latest_step(ckpt_dir)
+    if s is None:
+        return None, None
+    return s, restore(ckpt_dir, s, like)
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +196,8 @@ def save_state(ckpt_dir: str, step: int, state: dict, *,
     The snapshot is self-describing: array dtypes, shapes, and the dict
     structure restore exactly with no ``like`` tree — required for
     exploration state whose arrays (Pareto front, synthesis cache rows)
-    change shape between snapshots.  A directory may also hold the
-    reference's pytree checkpoints (same layout, checksum and rotation).
+    change shape between snapshots.  Same checksum validation and keep-N
+    rotation as tree checkpoints; the two formats may share a directory.
     """
     arrays, scalars = _flatten_state(state)
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -156,7 +238,7 @@ def restore_state(ckpt_dir: str, step: int) -> dict:
     if meta.get("format") != "state":
         raise IOError(
             f"checkpoint {path} is a pytree checkpoint, not a state "
-            f"snapshot")
+            f"snapshot (use restore())")
     with np.load(os.path.join(path, "arrays.npz")) as z:
         arrays = {k: z[k] for k in meta["array_paths"]}
     return _unflatten_state(arrays, meta["scalars"])

@@ -412,8 +412,8 @@ def _coexplore_many(workloads: Sequence[Workload | str],
 
 # reference knobs the port does not run: why each is refused
 _NOT_PORTED = {
-    "mesh": "the port runs on one card; multi-device sharding is not "
-            "queued (ROADMAP A.8 ports only what one card exercises)",
+    "mesh": "the port runs on one card; placement across cards waits "
+            "for a slice run on four (ROADMAP A.11)",
 }
 # reference knobs the port replaces by design
 _REPLACED = ("backend", "use_pallas")

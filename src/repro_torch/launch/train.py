@@ -2,24 +2,29 @@
 card.
 
 Wires config -> :class:`~repro_torch.models.model.Model` -> a train step
-(``Model.loss`` under QAT, its gradient by autograd, then
-:func:`repro_torch.optim.adamw.update`) -> the synthetic data pipeline.
-The reference's mesh and activation sharding have no counterpart on one
-card.  Under grad every attention runs the plain route (the kernels have
-no backward, ``kernels/ops.py``), and the projections of a quantized
-policy are fake-quantized float products (``quant/qlinear.qdot``), so a
-training step launches none of the port's kernels.
+(``Model.loss`` under QAT, its gradient by autograd, optional int8
+gradient compression with error feedback, then
+:func:`repro_torch.optim.adamw.update`) -> the synthetic data pipeline ->
+checkpoint/restart (:func:`repro_torch.runtime.fault_tolerance.run_with_restarts`
+when ``ckpt_dir`` is given).  The state is ``{"params", "opt", "err"}``,
+``err`` the error-feedback tree under ``grad_compression`` and ``{}``
+without.  The reference's mesh and activation sharding have no
+counterpart on one card.  Under grad every attention runs the plain route
+(the kernels have no backward, ``kernels/ops.py``), and the projections
+of a quantized policy are fake-quantized float products
+(``quant/qlinear.qdot``), so a training step launches none of the port's
+kernels.
 
-Not ported yet (ROADMAP A.8): the checkpointed, restarting loop
-(``ckpt_dir=``, ``fail_at=``: ``runtime.fault_tolerance.run_with_restarts``
-and the pytree checkpoints) and int8 gradient compression
-(``grad_compression=True``: ``parallel/compression.py``); both raise.
+A checkpoint restores into a state on any device
+(:func:`repro_torch.checkpoint.checkpoint.restore` with ``like`` there):
+a run the card checkpointed continues on the CPU, and the other way
+round.
 
 Usage (the CPU at reduced width; on the card at full width drop
 ``--device cpu`` and add ``--full``)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
-      --device cpu --steps 20
+      --device cpu --steps 20 --ckpt-dir /tmp/ckpt --grad-compression
 """
 
 from __future__ import annotations
@@ -36,27 +41,18 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models.model import Model
 from repro_torch.models.tree import tree_map
 from repro_torch.optim import adamw
-
-# the reference's knobs that wait for the rest of ROADMAP A.8
-_NOT_PORTED = {
-    "ckpt_dir": "the checkpointed, restarting loop "
-                "(runtime.fault_tolerance.run_with_restarts and the pytree "
-                "checkpoints) is not ported yet (ROADMAP A.8)",
-    "grad_compression": "int8 gradient compression (parallel/compression"
-                        ".py) is not ported yet (ROADMAP A.8)",
-}
+from repro_torch.parallel import compression
+from repro_torch.runtime.fault_tolerance import run_with_restarts
 
 
 def make_train_step(model: Model, ocfg: adamw.AdamWConfig, *,
                     grad_compression: bool = False):
     """``step(state, batch) -> (state, loss)`` with ``state = {"params",
-    "opt"}``: the QAT loss, its gradient with respect to every param leaf
-    (zero for a leaf the loss does not reach, as ``jax.grad`` gives) and
-    one AdamW update.  The new state holds new tensors; the caller drops
-    the old one."""
-    if grad_compression:
-        raise ValueError(f"grad_compression=True: "
-                         f"{_NOT_PORTED['grad_compression']}")
+    "opt", "err"}``: the QAT loss, its gradient with respect to every
+    param leaf (zero for a leaf the loss does not reach, as ``jax.grad``
+    gives), with ``grad_compression`` its int8 round trip carrying the
+    residual in ``err``, and one AdamW update.  The new state holds new
+    tensors; the caller drops the old one."""
 
     def train_step(state, batch):
         params = tree_map(
@@ -66,9 +62,12 @@ def make_train_step(model: Model, ocfg: adamw.AdamWConfig, *,
         grads = tree_map(
             lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
             params)
+        err = state["err"]
+        if grad_compression:
+            grads, err = compression.compress_roundtrip(grads, err)
         new_params, opt, _ = adamw.update(ocfg, grads, state["opt"],
                                           params)
-        return {"params": new_params, "opt": opt}, loss.detach()
+        return {"params": new_params, "opt": opt, "err": err}, loss.detach()
 
     return train_step
 
@@ -84,17 +83,21 @@ def context(cfg, batch: int, step: int, device) -> torch.Tensor:
 
 def train(arch: str, *, steps: int = 20, smoke: bool = True,
           seq_len: int = 64, batch: int = 8, ckpt_dir: str | None = None,
-          grad_compression: bool = False,
+          ckpt_every: int = 10, grad_compression: bool = False,
           fail_at: dict | None = None, log_every: int = 5, seed: int = 0,
           device="cuda") -> list[tuple[int, float]]:
     """``steps`` AdamW steps of ``arch`` (reduced width with ``smoke``,
     else full) on ``SyntheticLM`` batches; returns ``[(step, loss)]``.
     The params are drawn on the CPU from ``torch.Generator("cpu")
     .manual_seed(seed)`` and moved to ``device`` (the card unless the
-    caller asks for the CPU), so both devices start from one draw."""
-    for name, value in (("ckpt_dir", ckpt_dir), ("fail_at", fail_at)):
-        if value is not None:
-            raise ValueError(f"{name}=: {_NOT_PORTED['ckpt_dir']}")
+    caller asks for the CPU), so both devices start from one draw.
+
+    With ``ckpt_dir`` the loop is :func:`run_with_restarts`: a checkpoint
+    every ``ckpt_every`` steps and at the last, ``fail_at`` ({step:
+    times}) injected failures, each restarting from the newest valid
+    checkpoint; the losses of replayed steps appear again, as the
+    reference's do.  Without ``ckpt_dir`` ``fail_at`` is not read, as in
+    the reference."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if smoke:
@@ -107,12 +110,15 @@ def train(arch: str, *, steps: int = 20, smoke: bool = True,
                                   global_batch=batch, seed=seed))
     step_fn = make_train_step(model, ocfg,
                               grad_compression=grad_compression)
-    params = tree_map(
-        lambda p: p.to(dev),
-        Model(cfg, device="cpu").init(torch.Generator("cpu")
-                                      .manual_seed(seed)))
-    state = {"params": params, "opt": adamw.init(params)}
-    del params
+
+    def init_state() -> dict:
+        params = tree_map(
+            lambda p: p.to(dev),
+            Model(cfg, device="cpu").init(torch.Generator("cpu")
+                                          .manual_seed(seed)))
+        return {"params": params, "opt": adamw.init(params),
+                "err": compression.init_error_state(params)
+                if grad_compression else {}}
 
     def make_batch(step: int) -> dict:
         b = data.batch(step, device=dev)
@@ -120,15 +126,27 @@ def train(arch: str, *, steps: int = 20, smoke: bool = True,
             b["ctx"] = context(cfg, batch, step, dev)
         return b
 
-    losses = []
-    for s in range(steps):
-        t0 = time.perf_counter()
-        state, loss = step_fn(state, make_batch(s))
-        losses.append((s, float(loss)))
-        if s % log_every == 0:
-            print(f"step {s}: loss={losses[-1][1]:.4f} "
-                  f"({time.perf_counter() - t0:.2f}s)", flush=True)
-    return losses
+    if ckpt_dir is None:
+        # plain loop, no fault tolerance
+        state = init_state()
+        losses = []
+        for s in range(steps):
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, make_batch(s))
+            losses.append((s, float(loss)))
+            if s % log_every == 0:
+                print(f"step {s}: loss={losses[-1][1]:.4f} "
+                      f"({time.perf_counter() - t0:.2f}s)", flush=True)
+        return losses
+
+    result = run_with_restarts(
+        init_state=init_state, train_step=step_fn, data_batch=make_batch,
+        total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+        fail_at=fail_at)
+    for s, l in result.losses[::log_every]:
+        print(f"step {s}: loss={l:.4f}", flush=True)
+    print(f"restarts={result.restarts} stragglers={result.straggler_flags}")
+    return result.losses
 
 
 def main(argv=None) -> None:
@@ -139,10 +157,14 @@ def main(argv=None) -> None:
                     help="full width (default: the reduced smoke config)")
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     losses = train(args.arch, steps=args.steps, smoke=not args.full,
                    seq_len=args.seq_len, batch=args.batch,
+                   ckpt_dir=args.ckpt_dir,
+                   grad_compression=args.grad_compression,
                    device=args.device)
     first, last = losses[0][1], losses[-1][1]
     print(f"loss: {first:.4f} -> {last:.4f} "

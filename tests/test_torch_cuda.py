@@ -5,8 +5,9 @@ on depth-cut mamba2 and zamba2 at full width), the int8-KV decode
 attention and flash attention; the MoE family's routes and combine on
 reduced moonshot; and the vlm and audio families' routes on reduced
 llama-3.2-vision and whisper, with flash at their cross-attention
-shapes; and the grad rule that keeps the kernels (no backward) off the
-autograd graph (ROADMAP C.13).
+shapes; the grad rule that keeps the kernels (no backward) off the
+autograd graph (ROADMAP C.13); and the checkpointed, restarting train
+loop with int8 gradient compression, restored across devices.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -1728,3 +1729,53 @@ def test_qat_loss_gradients_on_the_card_match_the_cpu(cuda_device):
     for (path, a), (_, b) in zip(grads["cuda"], grads["cpu"]):
         err = float((a - b).abs().max() / b.abs().max())
         assert err <= 5e-3, (path, err)
+
+
+@pytest.mark.cuda
+def test_restarted_train_on_the_card_equals_uninterrupted(cuda_device,
+                                                          tmp_path):
+    """Reduced mamba2 under W8A8 QAT with int8 gradient compression on the
+    card: a run with two injected failures gives every step's loss and
+    every leaf of its final checkpoint bit for bit as the uninterrupted
+    run; the card's checkpoint restores on the CPU and the CPU's on the
+    card, each leaf on ``like``'s device."""
+    from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_flatten
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression
+    kw = dict(steps=6, batch=2, seq_len=16, ckpt_every=2,
+              grad_compression=True, log_every=100)
+    clean = train("mamba2-130m", ckpt_dir=str(tmp_path / "a"),
+                  device=cuda_device, **kw)
+    faulty = train("mamba2-130m", ckpt_dir=str(tmp_path / "b"),
+                   fail_at={3: 1, 5: 1}, device=cuda_device, **kw)
+    assert [s for s, _ in faulty] == [0, 1, 2, 2, 3, 4, 4, 5]
+    assert dict(faulty) == dict(clean)
+    cpu = train("mamba2-130m", ckpt_dir=str(tmp_path / "c"), device="cpu",
+                **kw)
+
+    def like(device):
+        params = Model(reduced(get_config("mamba2-130m")),
+                       device="cpu").init(torch.Generator("cpu")
+                                          .manual_seed(1))
+        state = {"params": params, "opt": adamw.init(params),
+                 "err": compression.init_error_state(params)}
+        leaves, treedef = tree_flatten(state)
+        return treedef.unflatten([t.to(device) if torch.is_tensor(t) else t
+                                  for t in leaves])
+    a = CK.restore(str(tmp_path / "a"), 5, like(CPU))
+    b = CK.restore(str(tmp_path / "b"), 5, like(CPU))
+    for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+        assert (torch.equal(x, y) if torch.is_tensor(x) else x == y)
+    assert all(t.device.type == "cpu"
+               for t in tree_flatten(a)[0] if torch.is_tensor(t))
+    c = CK.restore(str(tmp_path / "c"), 5, like(cuda_device))
+    assert all(t.device.type == "cuda"
+               for t in tree_flatten(c)[0] if torch.is_tensor(t))
+    assert c["opt"].step == 6
+    assert max(abs(x - y) / abs(y)
+               for (_, x), (_, y) in zip(clean[:2], cpu[:2])) <= 1e-3

@@ -71,7 +71,9 @@ def test_every_module_is_listed():
                  "repro_torch.configs.llama_3_2_vision_90b",
                  "repro_torch.configs.whisper_medium",
                  "repro_torch.optim", "repro_torch.optim.adamw",
-                 "repro_torch.launch.train", "repro_torch.models.tree"):
+                 "repro_torch.launch.train", "repro_torch.models.tree",
+                 "repro_torch.parallel",
+                 "repro_torch.parallel.compression"):
         assert name in mods
 
 
@@ -205,13 +207,15 @@ def test_attention_libraries_are_bound_and_hashed(name, fn, n_args,
                                    "serve_moe", "moe_model", "serve_vlm",
                                    "serve_audio", "vlm_model",
                                    "audio_model", "calibrate",
-                                   "calibrated_search", "train"])
+                                   "calibrated_search", "train",
+                                   "train_ckpt"])
 def test_slice_entry_points_default_to_the_card(entry, tmp_path):
     """The PPA fit, its predictions, the resumable sweep and search, the
     fleet simulator, a serving search, the MoE, vlm and audio families'
     serving and models (at full size), the tier-1 calibration, a
-    calibrated search and training run on the card unless asked for the
-    CPU, and raise without one."""
+    calibrated search and training (also the checkpointed, restarting
+    loop) run on the card unless asked for the CPU, and raise without
+    one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     import numpy as np
@@ -259,6 +263,9 @@ def test_slice_entry_points_default_to_the_card(entry, tmp_path):
         "calibrated_search": lambda: run(ExploreSpec.mixed(
             "vgg16", preset="calibrated-quick")),
         "train": lambda: train("mamba2-130m", steps=1),
+        "train_ckpt": lambda: train("mamba2-130m", steps=1,
+                                    ckpt_dir=str(tmp_path),
+                                    grad_compression=True),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

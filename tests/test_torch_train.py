@@ -31,6 +31,7 @@ the kernels (which have no backward) off the autograd graph.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -309,7 +310,7 @@ def test_train_step_matches_reference(arch, mode):
     rstep = r_make_train_step(rmodel, make_host_mesh(), rc)
     tstep = T_train.make_train_step(tmodel, tc)
     rs = {"params": rparams, "opt": RA.init(rparams), "err": {}}
-    ts = {"params": tparams, "opt": TA.init(tparams)}
+    ts = {"params": tparams, "opt": TA.init(tparams), "err": {}}
     for step in range(3):
         rb, tb = batches(step)
         rs, rloss = rstep(rs, rb)
@@ -374,19 +375,41 @@ def test_train_is_reproducible_and_context_seeded():
     assert not torch.equal(c0, T_train.context(cfg, 2, 1, "cpu"))
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(ckpt_dir="ck"), "run_with_restarts"),
-    (dict(fail_at={3: 1}), "run_with_restarts"),
-    (dict(grad_compression=True), "compression")])
-def test_train_refuses_the_rest_of_a8(kwargs, match):
-    with pytest.raises(ValueError, match=f"{match}.*ROADMAP A.8"):
-        T_train.train("mamba2-130m", steps=1, device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs,steps", [
+    (dict(ckpt_every=3), [0, 1, 2, 3]),
+    (dict(ckpt_every=2, fail_at={3: 1}), [0, 1, 2, 2, 3]),
+    (dict(grad_compression=True), [0, 1, 2, 3])])
+def test_train_runs_the_checkpoint_and_compression_knobs(tmp_path, kwargs,
+                                                         steps):
+    """``ckpt_dir`` / ``ckpt_every`` / ``fail_at`` run the restarting
+    loop (a failure at step 3 replays step 2 from step 1's checkpoint) and
+    give the plain loop's losses; ``grad_compression`` trains on int8
+    round-tripped gradients."""
+    kw = dict(steps=4, batch=2, seq_len=16, log_every=100, device="cpu")
+    ckpt = {} if "grad_compression" in kwargs else \
+        dict(ckpt_dir=str(tmp_path))
+    losses = T_train.train("mamba2-130m", **kw, **ckpt, **kwargs)
+    assert [s for s, _ in losses] == steps
+    assert all(np.isfinite(l) for _, l in losses)
+    plain = T_train.train("mamba2-130m", **kw)
+    assert (dict(losses) == dict(plain)) == ("grad_compression" not in kwargs)
+    if ckpt:
+        assert sorted(os.listdir(tmp_path))[-1] == "step_00000003"
 
 
 def test_train_main_cli(capsys):
     T_train.main(["--arch", "mamba2-130m", "--steps", "3", "--batch", "2",
                   "--seq-len", "16", "--device", "cpu"])
     assert "loss:" in capsys.readouterr().out
+
+
+def test_train_main_cli_checkpoints_and_compresses(tmp_path, capsys):
+    T_train.main(["--arch", "mamba2-130m", "--steps", "3", "--batch", "2",
+                  "--seq-len", "16", "--device", "cpu", "--ckpt-dir",
+                  str(tmp_path), "--grad-compression"])
+    out = capsys.readouterr().out
+    assert "restarts=0 stragglers=0" in out and "loss:" in out
+    assert os.listdir(tmp_path) == ["step_00000002"]
 
 
 def test_train_defaults_to_the_card():
