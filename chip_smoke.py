@@ -103,9 +103,9 @@ Phases (any failure exits non-zero):
 5. the serving path at phi4-mini-3.8b's full width (32 layers, d 3072,
    vocab 200064, random weights from a seed): ``serve(...,
    quantize=True, smoke=False)`` in W8A8, and the same loop
-   (``launch.serve.generate``) in W4A8-pow2, 16 prompt + 16 generated
+   (``launch.serve.generate``) in W4A8-pow2, 8 prompt + 8 generated
    tokens at batch 4; each matmul kernel must launch exactly
-   32 steps x 32 layers x 7 projections = 7168 times in its own run and
+   16 steps x 32 layers x 7 projections = 3584 times in its own run and
    never in the other's, W8A8 all on its split-k ``dp4a`` regime;
 6. serving parity: the same full-width params and prompts teacher-forced
    for 4 steps through the kernels and through their plain versions —
@@ -157,10 +157,10 @@ Phases (any failure exits non-zero):
 11c. ``ssm_serve`` / ``hybrid_serve``: mamba2-130m (24 Mamba-2 layers, d
     768) and zamba2-1.2b (38 layers, d 2048, the shared attention + MLP
     block after every 6th) at full width in W8A8 through
-    ``launch.serve.generate`` (random weights from seed 0), batch 4, 16 + 16 tokens: 48 and 118
+    ``launch.serve.generate`` (random weights from seed 0), batch 4, 8 + 8 tokens: 48 and 118
     W8A8 launches a step (2 a layer, 7 an application of the shared
     block), all on the split-k regime, no other kernel; ms a step,
-    tok/s, peak memory; the served 32 tokens teacher-forced through the
+    tok/s, peak memory; the served 16 tokens teacher-forced through the
     kernel and plain routes: logits and ``state``, ``conv``,
     ``shared_k``, ``shared_v`` identical after every step; one profiled
     step's busy share;
@@ -206,7 +206,7 @@ Phases (any failure exits non-zero):
     163840), W8A8 with bf16 experts, random weights from seed 0, drawn
     once for three phases: ``moe_serve`` (as ``ssm_serve``, bf16 KV: 192
     W8A8 launches a step, all split-k, nothing else; logits and ``k``,
-    ``v`` bit for bit between the routes over the served 32 tokens; the
+    ``v`` bit for bit between the routes over the served 16 tokens; the
     assignments dropped past an expert's capacity C = 1 a step, of b x 6
     x 48; the step's bytes, every expert's among them);
     ``moe_int8kv`` (the served stream teacher-forced on int8 KV through
@@ -237,7 +237,7 @@ Phases (any failure exits non-zero):
     n_ctx, whisper's encoder with its flash), then ``generate`` on the
     filled caches: every W8A8 product of a step on the split-k regime and
     one bf16 flash launch a cross layer at sq = 1, nothing else; the
-    served 32 tokens teacher-forced through the kernel route, the kernel
+    served 16 tokens teacher-forced through the kernel route, the kernel
     route with the plain attention swapped in and the plain route:
     swapped = plain bit for bit (context caches, logits, every cache),
     flash within 2e-2 x (1 + |out|) of the plain attention on every
@@ -284,14 +284,33 @@ Phases (any failure exits non-zero):
     QAT, 8 x 64, 20 steps: the loss falls, no kernel launches; step time
     and device share, tok/s, peak memory; the first two losses against
     the CPU's; one QAT step of phi4-mini-3.8b at full width cut to 2
-    layers, loss and global gradient norm card vs CPU).
+    layers, loss and global gradient norm card vs CPU); ``train_restart``
+    (the same model and step with int8 gradient compression and a
+    checkpoint every 3 steps, 6 steps clean and with failures injected at
+    steps 3 and 4: every loss and the final checkpoint byte for byte,
+    compression card vs CPU, the step-2 checkpoint stepped on both
+    devices);
+15. ``roofline``: the port's dry run and roofline of whole steps
+    (``launch/dryrun.run_cell(..., measure=True)``) on phi4-mini-3.8b at
+    full width and depth: W8A8 decode on a bf16 and an int8 KV cache and
+    W4A8-pow2 decode (batch 4, a 4096-position cache read to pos 4095),
+    and the W8A8 1 x 4096 prefill; each cell counted under fake tensors,
+    then on the card with its kernels launching (the counts equal, each
+    kernel call counted a launch), then timed beside its roofline step
+    time (``measured_fraction``), the count's temp bytes beside the peak
+    the card allocated.
+
+The model kernels' bounds (W8A8, W4A8, decode attention, flash) take
+their work from each kernel's ``cost()`` (``kernels/*.py``); every bound
+takes the card's peaks from ``repro_torch.core.gpu_roofline.H100``.
 
 The sweep kernel's entry of the kernels line also gives its launches in
 the three full-budget searches (``launches_coexplore``); the seventh
 entry, ``fleet_sim``, is the kernel that replaces the reference's jitted
 ``fori_loop`` (not a Pallas kernel), its launches those of the
 serving-default search.  The last lines
-are a ``{"kernels": [...]}`` JSON line, the card's name and
+are a ``{"phase_seconds": [...]}`` line (each phase's wall seconds), the
+total, a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -314,20 +333,16 @@ GRID_FULL = dict(glb_kbs=tuple(2 ** i for i in range(2, 13)),
 GRID_STREAM = dict(glb_kbs=tuple(2 ** i for i in range(2, 13)),
                    n_bws=1560)                    # 1,029,600 configs
 CHUNK = 32768
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 494.7e12
-TF32_PRODUCTS = 3           # the float32 flash route's 3xTF32 split
+# the card's peaks: the H100 SXM data sheet's, as the port's roofline
+# keeps them (H100.peak("fp32_dot"): the float32 flash route's 3xTF32)
+from repro_torch.core.gpu_roofline import H100  # noqa: E402
 # float32 operations of the sweep function, counted from the reference's
 # expressions: per (config, layer), and per (config, segment) outside the
 # layers; the kernel builds with -fmad=false, so each issues unfused at
 # half the 67 TFLOP/s FMA-counted rate
 F32_OPS_PER_CELL = 51
 F32_OPS_PER_CONFIG = 18
-PEAK_F32_OPS_UNFUSED = PEAK_F32_FLOPS / 2
+PEAK_F32_OPS_UNFUSED = H100.peak_fp32_flops / 2
 # the sweep kernel's timing shapes: the main path's chunk (VGG-16, uniform
 # columns), the same with (N, 16) mixed-precision columns, and the W = 3
 # concatenation of the many-workload path
@@ -400,7 +415,7 @@ CHILD_FLAG = "--resume-child"
 
 # the serving path: phi4-mini-3.8b at full width
 SERVE_ARCH = "phi4-mini-3.8b"
-SERVE = dict(batch=4, prompt_len=16, gen=16, seed=0)
+SERVE = dict(batch=4, prompt_len=8, gen=8, seed=0)
 PARITY_STEPS = 4
 # phi4-mini's projections per layer at m = batch: (k, n) -> count
 LAYER_PROJ = {(3072, 3072): 2, (3072, 1024): 2, (3072, 8192): 2,
@@ -501,18 +516,32 @@ GRAD_GUARD = dict(arch="phi4-mini-3.8b", batch=2, seq_len=16,
 # scales part the first step's losses by 4.0e-4, past the reduced
 # models' 2.5e-4); the global gradient norm at 2e-3, set from the card's
 # reading on the same H100 (4.4e-4 for phi4-mini at 2 layers)
-TRAIN = dict(arch="mamba2-130m", steps=20, batch=8, seq_len=64, timed=5,
+TRAIN = dict(arch="mamba2-130m", steps=20, batch=8, seq_len=64, timed=3,
              attention_arch="phi4-mini-3.8b", attention_layers=2,
              attention_batch=2, loss_rtol=1e-3, norm_rtol=2e-3)
 # the restarting train loop at full width: mamba2-130m under W8A8 QAT with
 # int8 gradient compression, a checkpoint every 3 steps, the clean run
 # against one with two injected failures (bit for bit); compression card
-# vs CPU bit for bit; the clean run's step-5 checkpoint continued one step
+# vs CPU bit for bit; the clean run's step-2 checkpoint continued one step
 # on the card and on the CPU (the train phase's loss bar); step time with
 # and without compression in turns
-TRAIN_RESTART = dict(arch="mamba2-130m", steps=8, batch=8, seq_len=64,
-                     ckpt_every=3, fail_at={4: 1, 7: 1}, elastic_step=5,
-                     timed=4, loss_rtol=1e-3)
+TRAIN_RESTART = dict(arch="mamba2-130m", steps=6, batch=8, seq_len=64,
+                     ckpt_every=3, fail_at={3: 1, 4: 1}, elastic_step=2,
+                     timed=2, loss_rtol=1e-3)
+# steps in a whole step's profiler window (busy share, device ops): cut
+# from 3, since reading back the trace of thousands of device ops a step
+# takes seconds a step
+BUSY_STEPS = 1
+# the roofline phase (launch/dryrun.run_cell(measure=True)): phi4-mini at
+# full width and depth, W8A8 decode on a bf16 and an int8 KV cache (batch
+# 4, a 4096-position cache read up to pos 4095), the W8A8 1 x 4096
+# prefill, then W4A8-pow2 decode; each kernel of the model path launches
+# in one of them
+ROOFLINE = dict(arch="phi4-mini-3.8b", cells=(
+    ("decode_4k", dict(serve_quant=True)),
+    ("decode_4k", dict(serve_quant=True, kv_quant=True)),
+    ("prefill_4k", dict(serve_quant=True)),
+    ("decode_4k", dict(serve_quant=True, mode="w4a8_pow2"))))
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
 # float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
@@ -526,7 +555,17 @@ W8A8_TC = tuple((m, k, n) for m in (PREFILL_M, 64) for k, n in LAYER_PROJ) \
     + ((41, 258, 301), (700, 1030, 777))
 
 
+#: (phase, wall seconds since the previous phase's row) in emit order
+PHASE_SECONDS = []
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print a result row; a phase's row also closes its wall time."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        PHASE_SECONDS.append([obj["phase"], now - _LAST_EMIT[0]])
+        _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -552,6 +591,19 @@ def rel_err(got, want) -> float:
     g = np.asarray(got, dtype=np.float64)
     w = np.asarray(want, dtype=np.float64)
     return float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+
+
+def _bound(cost) -> dict:
+    """The least time the card could take for a kernel call's work
+    ``cost`` = (operations, bytes, class), as the kernel's ``cost()``
+    counts it: the bytes over the memory rate or the operations over the
+    class's peak (``repro_torch.core.gpu_roofline.H100``), the larger."""
+    ops_, nbytes, cls = cost
+    bytes_ms = nbytes / H100.hbm_bw * 1e3
+    ops_ms = ops_ / H100.peak(cls) * 1e3
+    return dict(bytes=nbytes, ops=ops_, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def flash_row_err(got, want) -> dict:
@@ -1192,7 +1244,7 @@ def phase_fleet_timing(device) -> dict:
         # cores' 32-bit issue rate
         nbytes = 16 * n * r + 16 * n + 16 * r
         ops = n * r * FLEET_SLOTS_TIMED
-        bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+        bytes_ms = 1e3 * nbytes / H100.hbm_bw
         ops_ms = 1e3 * ops / PEAK_F32_OPS_UNFUSED
         row.update(
             plain_ms=min(plain_ms), cpu_route_ms=cpu_ms,
@@ -2004,7 +2056,7 @@ def phase_timing(device) -> dict:
             int(dcfg[k].shape[1] != 1) for k in K.MIXED_CFG_FIELDS) * (l - 1)
         bytes_moved = n * (n_read * 4 + 6 * w * 4) + table.numel() * 4
         ops = n * l * F32_OPS_PER_CELL + n * w * F32_OPS_PER_CONFIG
-        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        bytes_ms = bytes_moved / H100.hbm_bw * 1e3
         ops_ms = ops / PEAK_F32_OPS_UNFUSED * 1e3
         issue_ms = (None if cell_ins is None else
                     n * l / 32 * cell_ins
@@ -2125,7 +2177,7 @@ def phase_serve(device, quant: str) -> dict:
     check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
           "tokens outside [0, vocab)")
     step_ms = res["decode_s"] / SERVE["gen"] * 1e3
-    proj_bound_ms = _proj_bytes(quant) / PEAK_BYTES_PER_S * 1e3
+    proj_bound_ms = _proj_bytes(quant) / H100.hbm_bw * 1e3
     # the logits product reads the float32 embedding (the reference's
     # bf16 matmul on it) on top of the projections
     embed_bytes = cfg.vocab * cfg.d_model * 4
@@ -2135,7 +2187,7 @@ def phase_serve(device, quant: str) -> dict:
             "proj_bytes_per_step": _proj_bytes(quant),
             "proj_bound_ms": proj_bound_ms,
             "step_bound_ms": (_proj_bytes(quant) + embed_bytes)
-            / PEAK_BYTES_PER_S * 1e3,
+            / H100.hbm_bw * 1e3,
             "wall_s_with_init": wall_s, "peak_mem_bytes": peak,
             "tokens_head": toks[0, :8].tolist()}
 
@@ -2248,7 +2300,7 @@ def phase_serve_parity(device, quant: str) -> dict:
     step(0)
     torch.cuda.synchronize()
     step_wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top, ops, _ = _profile_device_ms(step, 3)
+    busy_ms, top, ops, _ = _profile_device_ms(step, BUSY_STEPS)
     return {"phase": f"serve_parity_{quant}", "steps": steps,
             "logits_max_abs": worst_abs, "logits_rel_to_max": worst_scaled,
             "greedy_tokens_identical": same_tokens,
@@ -2419,13 +2471,7 @@ def phase_qmatmul_timing(device) -> dict:
                 row["library_ms"], row["library_event_ms"] = _device_ms(
                     lib, 200)
                 del wcol
-            bytes_moved = m * k + wbytes + 4 + 4 * n + 4 * m * n
-            bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-            ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
-            row.update(bytes=bytes_moved, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                       bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="bytes" if bytes_ms >= ops_ms
-                       else "operations")
+            row.update(_bound((W4 if packed else W8).cost(m, k, n)))
             out[mode][f"{k}x{n}"] = row
             del wl
 
@@ -2484,13 +2530,7 @@ def phase_qmatmul_prefill_timing(device) -> dict:
                 ("library", lambda i: torch._int_mm(x, wcol), 20)):
             row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
                                                                     iters)
-        bytes_moved = m * k + k * n + 4 + 4 * n + 4 * m * n
-        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
-        row.update(bytes=bytes_moved, int8_ops=2 * m * k * n,
-                   bytes_ms=bytes_ms, ops_ms=ops_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        row.update(_bound(W8.cost(m, k, n)))
         out[f"{k}x{n}"] = row
         del x, w, wcol
 
@@ -2506,9 +2546,9 @@ def phase_qmatmul_prefill_timing(device) -> dict:
         "kernel_ms": min(layer("kernel" + sfx), layer("kernel_again" + sfx)),
         "plain_ms": min(layer("plain" + sfx), layer("plain_again" + sfx)),
         "library_ms": layer("library" + sfx),
-        "bound_ms": layer("bound_ms"), "int8_ops": layer("int8_ops"),
+        "bound_ms": layer("bound_ms"), "int8_ops": layer("ops"),
         "bound_by": "operations" if bounds == {"operations"} else "bytes",
-        "tops": layer("int8_ops") / (min(layer("kernel" + sfx),
+        "tops": layer("ops") / (min(layer("kernel" + sfx),
                                          layer("kernel_again" + sfx))
                                      * 1e-3) / 1e12}
     return {"phase": "qmatmul_prefill_timing", "m": m, "timer": timer,
@@ -2639,7 +2679,7 @@ def phase_batcher(device, model, params,
     step(0)
     torch.cuda.synchronize(device)
     step_wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top, ops, _ = _profile_device_ms(step, 3)
+    busy_ms, top, ops, _ = _profile_device_ms(step, BUSY_STEPS)
     return {"phase": name, "launches": launches,
             "iterations": steps,
             "requests": [[r.rid, len(r.prompt), r.max_new, r.submit_iter,
@@ -2961,7 +3001,7 @@ def phase_arch_serve(device, arch: str, name: str, built=None) -> dict:
     (mamba2-130m), hybrid (zamba2-1.2b), windowed dense (gemma3-4b, bf16
     KV: ring buffers on its local layers) or MoE (moonshot, phi3.5-moe)
     family, every W8A8 product on the split-k regime and no other kernel;
-    then the served 32 tokens teacher-forced through the kernel and plain
+    then the served 16 tokens teacher-forced through the kernel and plain
     routes on the same params (logits and every cache bit for bit after
     each step; for MoE also the assignments dropped past an expert's
     capacity, counted on the kernel route) and one profiled decode step.
@@ -3049,7 +3089,7 @@ def phase_arch_serve(device, arch: str, name: str, built=None) -> dict:
     step(0)
     torch.cuda.synchronize(device)
     step_wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top, ops, _ = _profile_device_ms(step, 3)
+    busy_ms, top, ops, _ = _profile_device_ms(step, BUSY_STEPS)
     # bytes a step must read: the quantized projections and their scales,
     # and the float32 embedding the logits product reads; an MoE layer's
     # router and every expert (the (E, C, d) buffer's products read all E)
@@ -3095,7 +3135,7 @@ def phase_arch_serve(device, arch: str, name: str, built=None) -> dict:
                                   if busy_ms else None),
             "step_device_ops": ops, "step_top_kernels_ms": top,
             "step_bytes": step_bytes,
-            "step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3}
+            "step_bound_ms": step_bytes / H100.hbm_bw * 1e3}
 
 
 def _profile_split(fn, names: dict) -> dict:
@@ -3292,11 +3332,8 @@ def phase_ssm_tc_shapes(device) -> dict:
                 ("library", lambda i: torch._int_mm(x, wcol), 20)):
             row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
                                                                     iters)
-        bytes_ms = (m * k + k * n + 4 + 4 * n + 4 * m * n) \
-            / PEAK_BYTES_PER_S * 1e3
-        ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
-        row.update(bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        bound = _bound(W8.cost(m, k, n))
+        row.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
         out[f"{k}x{n}"] = row
         del x, w, wcol, got
     return out
@@ -3518,14 +3555,6 @@ def phase_window_wrap(device) -> dict:
             "greedy_agreement_per_step": agree, "caches_identical": same}
 
 
-def _flash_pairs(s: int, window) -> int:
-    """(query, key) pairs a causal attention over s tokens computes, with
-    a sliding window where given."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def phase_window_prefill(device, model, params) -> dict:
     """gemma3's 1 x 4096 forward at full depth: 34 bf16 flash launches,
     29 with the window of 1024 and 5 without, and 7 W8A8 ``tc`` launches a
@@ -3724,17 +3753,10 @@ def _flash_timing(device, q, k, v, window=None, causal=True) -> dict:
              10)):
         row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn, iters)
     _best_times(row)
-    pairs = _flash_pairs(sq, window) if causal else sq * sk
-    flops = 4 * d * h * b * pairs
-    bytes_moved = 2 * (sq + sk) * b * h * d * q.element_size()
-    if q.dtype == torch.float32:    # 3xTF32 on the tensor cores
-        ops_ms = TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
-    else:
-        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    row.update(flops=flops, bytes=bytes_moved, ops_ms=ops_ms,
-               bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+    # float32: 3xTF32 on the tensor cores (the fp32_dot class)
+    bound = _bound(FA.cost(b, h, sq, sk, d, causal=causal, window=window,
+                           dtype=q.dtype))
+    row.update(flops=bound.pop("ops"), **bound,
                kernel_max_abs_vs_plain=float(
                    (FA.flash_attention(q, k, v, **kw).float()
                     - FA.flash_attention_ref(q, k, v, **kw)
@@ -3777,11 +3799,9 @@ def _qmm_layer_timing(device, proj: dict, m: int) -> dict:
             row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
                                                                     iters)
         _best_times(row)
-        bytes_moved = m * k + k * n + 4 + 4 * n + 4 * m * n
-        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
-        row.update(bytes=bytes_moved, bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        bound = _bound(W8.cost(m, k, n))
+        row.update(bytes=bound["bytes"], bound_ms=bound["bound_ms"],
+                   bound_by=bound["bound_by"])
         rows[f"{k}x{n}"] = row
         del x, wl, wcol, xp
     layer = {key: sum(c * rows[f"{k}x{n}"][key]
@@ -3982,7 +4002,7 @@ def phase_moe_prefill(device, model, params) -> dict:
            "expert_ffn_layer_event_ms": exp_event_ms,
            "expert_products_flops": expert_flops,
            "expert_products_bound_ms":
-               expert_flops / PEAK_BF16_FLOPS * 1e3,
+               expert_flops / H100.peak_bf16_flops * 1e3,
            **prof, **split, "flash_timing": flash,
            "w8a8_decode_layer": qmm}
     del plain, fwd, mixed, kept, seen, x0, p0, buf0, q, k, v
@@ -4128,7 +4148,7 @@ def _stored_bytes(params: dict, names=None) -> int:
 
 def phase_cross_serve(device, family: str, model, params) -> dict:
     """The vlm or audio model served through ``fill_ctx_caches`` and
-    ``launch.serve.generate`` (SERVE: batch 4, 16 + 16 tokens) on a
+    ``launch.serve.generate`` (SERVE: batch 4, 8 + 8 tokens) on a
     context drawn as ``serve`` draws it: the fill's time (whisper's
     encoder alone too) and launches (W8A8 ``tc`` at m = 4 x n_ctx, the
     encoder's flash), a step's W8A8 products all on the split-k regime
@@ -4239,7 +4259,7 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
     step(0)
     torch.cuda.synchronize(device)
     step_wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top, ops, _ = _profile_device_ms(step, 3)
+    busy_ms, top, ops, _ = _profile_device_ms(step, BUSY_STEPS)
     weight_bytes = _stored_bytes(params)
     # a step reads the decoder's layers, the cross layers' wq_x and wo_x,
     # the float32 embedding (the logits product) and the context caches
@@ -4285,7 +4305,7 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
                                   if busy_ms else None),
             "step_device_ops": ops, "step_top_kernels_ms": top,
             "step_bytes": step_bytes,
-            "step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
+            "step_bound_ms": step_bytes / H100.hbm_bw * 1e3,
             "flash_timing": flash, "w8a8_context_kv": qmm,
             "broadcast_kv_layer_ms": repeat_ms}
 
@@ -4537,14 +4557,8 @@ def _decode_timing(device, shape, S: int) -> dict:
           f"{split.splits})")
     check(row["blocks"] >= H100_SMS,
           f"decode grid of {row['blocks']} blocks at S {S}")
-    bytes_moved = (b * kvh * rep * (hd + 4) + kv_bytes + 4 * b
-                   + 4 * b * kvh * rep * hd)
-    ops_ = 4 * b * kvh * rep * S * hd
-    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops_ / PEAK_INT8_OPS * 1e3
-    row.update(bytes=bytes_moved, int8_ops=ops_, bytes_ms=bytes_ms,
-               ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    bound = _bound(D.cost(b, kvh, rep, hd, [S] * b))
+    row.update(int8_ops=bound.pop("ops"), **bound)
     _best_times(row)
     return row
 
@@ -4580,7 +4594,6 @@ def phase_attention_timing(device) -> dict:
                       for S in DECODE_S}, "flash": {}}
 
     bb, h, s, d = FLASH_SHAPE
-    flops = 4 * d * h * bb * s * (s + 1) // 2
     for key, dtype in (("flash", torch.bfloat16), ("flash_f32", torch.float32)):
         g = torch.Generator(device).manual_seed(60)
         q, k, v = (torch.randn((bb, h, s, d), generator=g, device=device)
@@ -4620,21 +4633,17 @@ def phase_attention_timing(device) -> dict:
                 row["kernel_sustained_event_ms"] = _event_ms(
                     lambda: FA.flash_attention(q, k, v), 200)
             row["kernel_sustained_clocks"] = clocks.summary()
-        elem = q.element_size()
-        bytes_moved = 4 * bb * h * s * d * elem
-        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        bound = _bound(FA.cost(bb, h, s, s, d, causal=True, window=None,
+                               dtype=dtype))
+        flops = bound.pop("ops")
         if dtype == torch.bfloat16:
-            peak, ops_ms = PEAK_BF16_FLOPS, flops / PEAK_BF16_FLOPS * 1e3
+            peak = H100.peak_bf16_flops
         else:
             # 3xTF32 on the tensor cores; the CUDA cores' float32 rate
             # stated beside it
-            peak = PEAK_TF32_FLOPS
-            ops_ms = TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
-            row["ops_cuda_core_ms"] = flops / PEAK_F32_FLOPS * 1e3
-        row.update(flops=flops, bytes=bytes_moved, bytes_ms=bytes_ms,
-                   ops_ms=ops_ms, peak_flops=peak,
-                   bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            peak = H100.peak_tf32_flops
+            row["ops_cuda_core_ms"] = flops / H100.peak_fp32_flops * 1e3
+        row.update(flops=flops, peak_flops=peak, **bound)
         out[key] = row
         del q, k, v
 
@@ -4895,7 +4904,7 @@ def _train_state(cfg, device, grad_compression: bool = False):
 
 def phase_train(device) -> dict:
     """``launch.train.train`` of mamba2-130m at full width and depth (W8A8
-    QAT, ``TRAIN`` batch x sequence, 20 steps) on the card: the loss
+    QAT, ``TRAIN`` batch x sequence and steps) on the card: the loss
     falls, no kernel launches, peak memory; then the same train step
     timed step by step on batches drawn ahead (host clock around
     synchronized steps, the profiler's device time per step; the draw of
@@ -4959,7 +4968,7 @@ def phase_train(device) -> dict:
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
-    device_ms, top, ops, kept = _profile_device_ms(step, 3)
+    device_ms, top, ops, kept = _profile_device_ms(step, BUSY_STEPS)
     out.update(step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in times],
                tokens_per_s=T["batch"] * T["seq_len"] / step_s,
                device_ms_per_step=device_ms,
@@ -5030,6 +5039,14 @@ def phase_train(device) -> dict:
     return out
 
 
+def _checkpoint_digest(ckpt_dir: str, step: int) -> tuple:
+    """``(step, sha256 of arrays.npz)`` from a checkpoint's ``meta.json``:
+    ``np.savez`` writes equal trees to equal bytes."""
+    with open(pathlib.Path(ckpt_dir, f"step_{step:08d}", "meta.json")) as f:
+        meta = json.load(f)
+    return meta["step"], meta["sha256"]
+
+
 def _leaves_differ(a, b) -> dict:
     """Leaves of two trees of one structure that differ: count, the
     largest absolute difference, the first few paths by index."""
@@ -5064,11 +5081,12 @@ def phase_train_restart(device) -> dict:
     of mamba2-130m (W8A8 QAT, ``TRAIN_RESTART`` batch x sequence) with int8
     gradient compression and a checkpoint every 3 steps, once clean and
     once with two injected failures: the restarts counted, every loss of
-    a step and every leaf of the final checkpoint (params, AdamW's ``mu``,
-    ``nu``, ``step``, the error feedback) bit for bit, no kernel launch.
-    The clean run's step-5 checkpoint restored on the card and on the CPU
-    and stepped once on each (the card's equal to the clean run's step 6,
-    the CPU's within the loss bar); the checkpoint's bytes, save and
+    a step and the final checkpoint (params, AdamW's ``mu``, ``nu``,
+    ``step``, the error feedback) byte for byte (its sha256; where the
+    bytes differ, the leaves that differ), no kernel launch.  The clean
+    run's step-2 checkpoint restored on the card and on the CPU and
+    stepped once on each (the card's equal to the clean run's step 3, the
+    CPU's within the loss bar); the checkpoint's bytes, save and
     restore times; ``compress_grads`` of one full-width gradient tree on
     the card and the CPU bit for bit; the compressed step's own time; the
     ops deterministic mode names in a compressed step; the step with and
@@ -5139,18 +5157,18 @@ def phase_train_restart(device) -> dict:
             f"train_restart: checkpoints {os.listdir(clean_dir)}")
         npz = os.path.join(clean_dir, f"step_{last:08d}", "arrays.npz")
         out["checkpoint_bytes"] = os.path.getsize(npz)
-        t0 = time.perf_counter()
-        final_clean = ckpt.restore(clean_dir, last, like_cpu)
-        out["restore_to_cpu_s"] = time.perf_counter() - t0
+        clean_final = _checkpoint_digest(clean_dir, last)
 
-        # the elastic case: the card's step-5 checkpoint on both devices
+        # the elastic case: the card's step-2 checkpoint on both devices
         e = T["elastic_step"]
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         card_state = ckpt.restore(clean_dir, e, _moved(like_cpu, device))
         torch.cuda.synchronize(device)
         out["restore_to_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         cpu_state = ckpt.restore(clean_dir, e, like_cpu)
+        out["restore_to_cpu_s"] = time.perf_counter() - t0
         ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=T["steps"],
                                  warmup_steps=max(1, T["steps"] // 10))
         data = SyntheticLM(DataConfig(cfg.vocab, T["seq_len"], T["batch"],
@@ -5184,7 +5202,6 @@ def phase_train_restart(device) -> dict:
         ckpt.save(os.path.join(root, "timed"), e + 1, card_state)
         out["save_s"] = time.perf_counter() - t0
         del card_state
-        shutil.rmtree(clean_dir)
         shutil.rmtree(os.path.join(root, "timed"))
 
         faulty_dir = os.path.join(root, "faulty")
@@ -5192,22 +5209,29 @@ def phase_train_restart(device) -> dict:
         out["faulty"] = {k: faulty[k] for k in ("train_s", "restarts",
                                                 "stragglers")}
         out["faulty"]["steps"] = [s for s, _ in faulty["losses"]]
-        final_faulty = ckpt.restore(faulty_dir, last, like_cpu)
+        # the final states: equal checkpoint bytes are equal leaves; where
+        # the bytes differ, the leaves that differ
+        faulty_final = _checkpoint_digest(faulty_dir, last)
+        out["final_state"] = {"sha256_equal": faulty_final == clean_final,
+                              "step": faulty_final[0]}
+        if faulty_final != clean_final:
+            out["final_state"].update(_leaves_differ(
+                ckpt.restore(faulty_dir, last, like_cpu),
+                ckpt.restore(clean_dir, last, like_cpu)))
     out["launches"] = {**_attention_counts(), **_matmul_counts()}
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     check(faulty["restarts"] == sum(T["fail_at"].values()),
           f"train_restart: {faulty['restarts']} restarts")
     out["final_loss_equal"] = faulty["losses"][-1] == clean["losses"][-1]
     out["losses_equal"] = dict(faulty["losses"]) == dict(clean["losses"])
-    out["final_state"] = _leaves_differ(final_faulty, final_clean)
     check(out["final_loss_equal"] and out["losses_equal"],
           f"train_restart: losses {faulty['losses']} vs {clean['losses']}")
-    check(out["final_state"]["differ"] == 0
-          and final_faulty["opt"].step == final_clean["opt"].step == T["steps"],
+    check(out["final_state"]["sha256_equal"]
+          and faulty_final[0] == clean_final[0] == last,
           f"train_restart: final state {out['final_state']}")
     check(not any(out["launches"].values()),
           f"train_restart: kernels launched {out['launches']}")
-    del final_faulty, final_clean, like_cpu
+    del like_cpu
 
     # compress_grads of one full-width gradient tree, card vs CPU
     params_cpu = _train_state(cfg, "cpu")["params"]
@@ -5276,7 +5300,7 @@ def phase_train_restart(device) -> dict:
             torch.cuda.synchronize(device)
             host.append(time.perf_counter() - t0)
             event.append(start.elapsed_time(end))
-        device_ms, top, ops, kept = _profile_device_ms(step, 3)
+        device_ms, top, ops, kept = _profile_device_ms(step, BUSY_STEPS)
         row = timing.setdefault("compressed" if comp else "plain", [])
         row.append({"step_ms": statistics.median(host) * 1e3,
                     "event_ms": statistics.median(event),
@@ -5297,6 +5321,92 @@ def phase_train_restart(device) -> dict:
     del batches, model
     torch.cuda.empty_cache()
     return out
+
+
+def phase_roofline(device) -> dict:
+    """The port's roofline of whole steps (``launch/dryrun.run_cell(...,
+    measure=True)``) on the ``ROOFLINE`` cells: each cell dry-run under
+    fake tensors at full width and depth, then built on the card and
+    counted again with the kernels launching (the two counts equal field
+    by field, every kernel call of the count a launch), then timed (CUDA
+    events; profiler device time, the largest of three windows).  Prints
+    each cell's roofline step time, measured step, ``measured_fraction``
+    and the count's argument + temp bytes beside the peak the card
+    allocated.  The W8A8 cells share one draw of the params, freed before
+    the W4A8 cell draws its own."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    arch = ROOFLINE["arch"]
+    _reset_matmul_counts()
+    _reset_attention_counts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shared = Model(get_config(arch), device=device).init(
+        torch.Generator(device).manual_seed(0), quantize=True)
+    torch.cuda.synchronize(device)
+    draw_s = time.perf_counter() - t0
+    cells, kernels_seen = [], set()
+    for shape, kw in ROOFLINE["cells"]:
+        if kw.get("mode"):      # another mode draws its own params
+            shared = None
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, measure=True, device=device,
+                              out_dir=None, params=shared, **kw)
+        check(rec["status"] == "ok", f"roofline {arch} {shape} {kw}: "
+                                     f"{rec.get('error')}")
+        m, r, mem = rec["measured"], rec["roofline"], rec["memory_analysis"]
+        by_kernel = rec["stats"]["by_kernel"]
+        check(m["card_count_equal"],
+              f"roofline {shape} {kw}: the card's count differs from the "
+              f"dry run's: {m['card_stats']} vs {rec['stats']}")
+        for name, k in by_kernel.items():
+            check(m["kernel_launches"][name] == k["calls"] > 0,
+                  f"roofline {shape} {kw}: {k['calls']} {name} calls "
+                  f"counted, {m['kernel_launches'][name]} launched")
+            kernels_seen.add(name)
+        row = {"shape": shape, **{k: v for k, v in kw.items()},
+               "bottleneck": r["bottleneck"],
+               "roofline_step_s": r["step_time_s"],
+               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+               "measured_s": m["measured_s"],
+               "measured_fraction": m["measured_fraction"],
+               "device_s": m["device_s"],
+               "device_fraction": m["device_fraction"],
+               "device_busy_share": m["device_busy_share"],
+               "roofline_fraction": r["roofline_fraction"],
+               "useful_flops_ratio": r["useful_flops_ratio"],
+               "flops_by_class": r["flops_by_class"],
+               "bytes_accessed": rec["stats"]["bytes_accessed"],
+               "by_kernel": by_kernel,
+               "argument_bytes": mem["argument_bytes"],
+               "temp_bytes_estimate": mem["temp_bytes"],
+               "argument_plus_temp_bytes":
+                   mem["argument_bytes"] + mem["temp_bytes"],
+               "peak_allocated_bytes": m["peak_allocated_bytes"],
+               "peak_temp_allocated_bytes": m["peak_temp_allocated_bytes"],
+               "kernel_launches": m["kernel_launches"],
+               "dry_run_s": rec["compile_s"],
+               "card_count_s": m["card_count_s"],
+               "timing_s": m["timing_s"],
+               "cell_s": time.perf_counter() - t0}
+        cells.append(row)
+        print(f"roofline {arch} {shape} {kw}: bound {r['step_time_s']:.6g} "
+              f"s ({r['bottleneck']}), measured {m['measured_s']:.6g} s, "
+              f"measured_fraction {m['measured_fraction']:.4g}, device "
+              f"{m['device_s']} s; argument + temp bytes "
+              f"{row['argument_plus_temp_bytes']} vs peak allocated "
+              f"{m['peak_allocated_bytes']}", flush=True)
+    torch.cuda.empty_cache()
+    want = {"w8a8_matmul", "w4a8_matmul", "w8a8_decode_attention",
+            "flash_attention"}
+    check(kernels_seen == want, f"roofline: kernels under the counter "
+                                f"{sorted(kernels_seen)}")
+    return {"phase": "roofline", "arch": arch, "w8a8_draw_s": draw_s,
+            "cells": cells,
+            "launches": {**_attention_counts(), **_matmul_counts()}}
 
 
 def main() -> int:
@@ -5426,6 +5536,9 @@ def main() -> int:
     emit(train_row)
     restart_row = phase_train_restart(device)
     emit(restart_row)
+    roofline = phase_roofline(device)
+    emit(roofline)
+    emit({"phase_seconds": PHASE_SECONDS})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     qat = {f"train ({TRAIN['arch']}, W8A8 QAT, {TRAIN['steps']} steps)":
            train_row["launches"]["w8a8_matmul"]
@@ -5434,6 +5547,7 @@ def main() -> int:
            "gradient compression, 2 restarts)":
            restart_row["launches"]["w8a8_matmul"]
            + restart_row["launches"]["w4a8_matmul"]}
+    roof = f"roofline ({ROOFLINE['arch']}, 4 measured cells)"
     per = (f"one {SERVE_ARCH} layer's 7 projections at m = "
            f"{SERVE['batch']}, weights cold in L2")
     sweep = timing["vgg16"]
@@ -5504,7 +5618,8 @@ def main() -> int:
             **{f"{f}_serve ({cross[f + '_serve']['arch']}, "
                f"{cross[f + '_serve']['n_layers']} layers)":
                cross[f + "_serve"]["launches"]["w8a8_matmul_dp4a"]
-               for f in CROSS_ARCHS}, **qat},
+               for f in CROSS_ARCHS}, **qat,
+            roof: roofline["launches"]["w8a8_matmul_dp4a"]},
         "moonshot_layer": moe_prefill["w8a8_decode_layer"]["layer"],
     })
     lay = qprefill["layer"]
@@ -5540,7 +5655,8 @@ def main() -> int:
                for f in CROSS_ARCHS},
             **{f"{f}_serve fill_ctx_caches ({cross[f + '_serve']['arch']})":
                cross[f + "_serve"]["fill_launches"]["w8a8_matmul_tc"]
-               for f in CROSS_ARCHS}, **qat},
+               for f in CROSS_ARCHS}, **qat,
+            roof: roofline["launches"]["w8a8_matmul_tc"]},
         "context_kv_shapes": {
             f"{cross[f + '_serve']['arch']}": cross[f + "_serve"][
                 "w8a8_context_kv"]["layer"] for f in CROSS_ARCHS},
@@ -5568,7 +5684,8 @@ def main() -> int:
                  for k, n in LAYER_PROJ},
         "launches_by_path": {
             f"serve_w4a8_pow2 ({SERVE_ARCH})":
-                serve["w4a8_pow2"]["launches"]["w4a8_matmul"], **qat},
+                serve["w4a8_pow2"]["launches"]["w4a8_matmul"], **qat,
+            roof: roofline["launches"]["w4a8_matmul"]},
         "per": per + " (split-k; splits and blocks as the C entry "
                      "reported its launch; launches: W4A8 serve run)",
     })
@@ -5617,7 +5734,8 @@ def main() -> int:
                 moe_int8kv["launches"]["w8a8_decode_attention"],
             f"moe_phi35_int8kv ({MOE_PHI['arch']}, "
             f"{MOE_PHI['n_layers']} layers, rep 4)":
-                moe_phi35["int8kv"]["launches"]["w8a8_decode_attention"]},
+                moe_phi35["int8kv"]["launches"]["w8a8_decode_attention"],
+            roof: roofline["launches"]["w8a8_decode_attention"]},
         "moe_shapes": {f"rep {r['shape'][2]}": {
             k: r[k] for k in (
                 "shape", "splits", "positions", "max_abs_err", "rel_to_max",
@@ -5671,7 +5789,8 @@ def main() -> int:
                 train_row["attention_step"]["launches"][
                     "flash_attention_tc"],
             f"train_restart ({TRAIN_RESTART['arch']}, under grad)":
-                restart_row["launches"]["flash_attention"]},
+                restart_row["launches"]["flash_attention"],
+            roof: roofline["launches"]["flash_attention_tc"]},
         "cross_family_shapes": {
             f"{ph} {kind}": {k: r[k] for k in (
                 "shape", "keys", "causal", "dtype", "best_kernel_ms",

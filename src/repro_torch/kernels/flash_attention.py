@@ -37,6 +37,7 @@ kernel's (the reference's oracle rounds the scale to q's dtype first).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -66,6 +67,33 @@ def _mask(sq: int, sk: int, causal: bool, window, device) -> torch.Tensor:
     if window is not None:
         mask &= ki > qi - window
     return mask
+
+
+@functools.lru_cache(maxsize=256)
+def live_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask keeps: row ``i`` is position
+    ``i + sk - sq``; causal keeps keys up to it, a window those after
+    ``position - window``."""
+    total = 0
+    for i in range(sq):
+        qi = i + sk - sq
+        hi = min(qi, sk - 1) if causal else sk - 1
+        lo = 0 if window is None else max(0, qi - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def cost(b: int, h: int, sq: int, sk: int, d: int, *, causal: bool,
+         window: int | None, dtype) -> tuple[float, float, str]:
+    """``(FLOPs, bytes, class)`` of one call, from the function it
+    computes: QK^T and PV, 4 d FLOPs a live (query, key) pair
+    (:func:`live_pairs`) a head; q, k, v read once and the output written
+    once.  Class ``bf16`` for bf16 operands, ``fp32_dot`` for float32
+    (the 3xTF32 route)."""
+    return (4.0 * d * b * h * live_pairs(sq, sk, causal, window),
+            float(2 * (sq + sk) * b * h * d * dtype.itemsize),
+            "bf16" if dtype in (torch.bfloat16, torch.float16)
+            else "fp32_dot")
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

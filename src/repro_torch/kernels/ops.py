@@ -17,6 +17,17 @@ enabled and an operand that carries a gradient requires it,
 differentiates, and ``"kernel"`` raises.  Under ``torch.no_grad()`` the
 card routes as above.
 
+A fake tensor (``torch._subclasses.FakeTensor``: a shape with no
+storage, as the dry run of ``launch/dryrun.py`` builds a step) has nothing
+to launch on: every ``impl`` sends it to the plain version, which gives
+the output's shape.
+
+While an op counter of ``core/op_analysis.py`` is active, each entry runs
+inside a kernel scope with the kernel's cost (``cost()`` beside each
+kernel), whichever route runs, so a step counts the same work on the
+card, on the CPU and under fake tensors.  Under grad there is no kernel
+and no scope: the plain version is counted op by op.
+
 A failed build or launch raises; nothing falls back.  The reference's
 padding to block multiples (and its assertion of divisible lengths for
 flash attention) has no counterpart: the kernels mask ragged edges
@@ -26,7 +37,10 @@ themselves.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _disable_current_modes
 
+from repro_torch.core import op_analysis
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import w4a8_matmul as _w4a8
 from repro_torch.kernels import w8a8_decode as _dec
@@ -47,11 +61,17 @@ def on_card(x: torch.Tensor) -> bool:
     return x.device.type != "cpu"
 
 
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a fake tensor (a shape without storage)."""
+    return isinstance(x, FakeTensor)
+
+
 def use_kernel(x_q: torch.Tensor, impl: str, *, grad=()) -> bool:
     """Whether ``impl`` sends an operation on ``x_q``'s device to its
     kernel.  ``grad``: the operands a gradient would flow through; when
     :func:`needs_grad` holds for them the plain version runs (``"auto"``)
-    or the call raises (``"kernel"``), since no kernel has a backward."""
+    or the call raises (``"kernel"``), since no kernel has a backward.  A
+    fake ``x_q`` takes the plain version."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if needs_grad(*grad):
@@ -61,58 +81,109 @@ def use_kernel(x_q: torch.Tensor, impl: str, *, grad=()) -> bool:
                 "grad under torch.is_grad_enabled(); use impl='auto' (the "
                 "plain version under grad) or torch.no_grad()")
         return False
+    if is_fake(x_q):
+        return False
     return impl == "kernel" or (impl == "auto" and on_card(x_q))
+
+
+def counted(name: str, cost, run, *, grad=()):
+    """``run()`` inside the active op counter's kernel scope of ``name``
+    with the cost ``cost()`` gives, its output followed as a result;
+    ``run()`` alone without a counter or under grad (:func:`needs_grad`
+    of ``grad``: no kernel runs, the plain version is counted op by
+    op)."""
+    counter = op_analysis.active()
+    if counter is None or needs_grad(*grad):
+        return run()
+    with counter.kernel_scope(name, *cost()):
+        out = run()
+    counter.track(out)
+    return out
+
+
+def live_keys(pos, b: int, S: int) -> list[int]:
+    """The keys each of ``b`` rows reads at ``pos`` (an int, a 0-d or a
+    ``(b,)`` tensor): ``min(pos, S - 1) + 1``.  A tensor is read on the
+    host with the counter paused; a fake one has no values, so every row
+    counts all ``S`` keys."""
+    if isinstance(pos, torch.Tensor):
+        if is_fake(pos):
+            return [S] * b
+        with _disable_current_modes():
+            vals = pos.reshape(-1).tolist()
+        vals = vals * b if len(vals) == 1 else vals
+    else:
+        vals = [int(pos)] * b
+    return [min(max(p, 0), S - 1) + 1 for p in vals]
 
 
 def w8a8_matmul(x_q, w_q, x_scale, w_scale, *, out_dtype=torch.float32,
                 impl: str = "auto") -> torch.Tensor:
     """x_q (m, k) int8 x w_q (k, n) int8, dequantized by the scalar
     ``x_scale`` and per-column ``w_scale``."""
-    if use_kernel(x_q, impl, grad=(x_scale, w_scale)):
-        return _w8a8.w8a8_matmul(x_q, w_q, x_scale, w_scale,
-                                 out_dtype=out_dtype)
-    return _w8a8.w8a8_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
+    fn = _w8a8.w8a8_matmul if use_kernel(x_q, impl, grad=(x_scale, w_scale)) \
+        else _w8a8.w8a8_matmul_ref
+    return counted("w8a8_matmul", lambda: _w8a8.cost(
+        x_q.shape[0], x_q.shape[1], w_q.shape[1], out_dtype),
+        lambda: fn(x_q, w_q, x_scale, w_scale, out_dtype=out_dtype),
+        grad=(x_scale, w_scale))
 
 
 def w4a8_matmul(x_q, w_packed, x_scale, w_scale, *,
                 out_dtype=torch.float32, impl: str = "auto") -> torch.Tensor:
     """x_q (m, k) int8 x w_packed (k/2, n) packed pow2 codes, dequantized
     by the scalar ``x_scale`` and per-column ``w_scale``."""
-    if use_kernel(x_q, impl, grad=(x_scale, w_scale)):
-        return _w4a8.w4a8_matmul(x_q, w_packed, x_scale, w_scale,
-                                 out_dtype=out_dtype)
-    return _w4a8.w4a8_matmul_ref(x_q, w_packed, x_scale, w_scale, out_dtype)
+    fn = _w4a8.w4a8_matmul if use_kernel(x_q, impl, grad=(x_scale, w_scale)) \
+        else _w4a8.w4a8_matmul_ref
+    return counted("w4a8_matmul", lambda: _w4a8.cost(
+        x_q.shape[0], x_q.shape[1], w_packed.shape[1], out_dtype),
+        lambda: fn(x_q, w_packed, x_scale, w_scale, out_dtype=out_dtype),
+        grad=(x_scale, w_scale))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     scale=None, impl: str = "auto") -> torch.Tensor:
     """Attention forward over q, k, v ``(b, h, s, d)`` with the kv heads
     broadcast (see ``flash_attention.flash_attention_ref``)."""
-    if use_kernel(q, impl, grad=(q, k, v)):
-        return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      scale=scale)
-    return _flash.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                      scale=scale)
+    fn = _flash.flash_attention if use_kernel(q, impl, grad=(q, k, v)) \
+        else _flash.flash_attention_ref
+    b, h, sq, d = q.shape
+    return counted("flash_attention", lambda: _flash.cost(
+        b, h, sq, k.shape[2], d, causal=causal, window=window,
+        dtype=q.dtype), lambda: fn(q, k, v, causal=causal, window=window,
+                                   scale=scale), grad=(q, k, v))
 
 
 def w8a8_decode_attention(q, k_q, v_q, k_scale, v_scale, pos, *,
                           bs: int = 512, impl: str = "auto") -> torch.Tensor:
     """int8-KV grouped decode attention, q quantized in float32 (the TPU
     entry point; see ``w8a8_decode.w8a8_decode_attention_ref``)."""
-    if use_kernel(q, impl, grad=(q, k_scale, v_scale)):
-        return _dec.w8a8_decode_attention(q, k_q, v_q, k_scale, v_scale, pos,
-                                          bs=bs)
-    return _dec.w8a8_decode_attention_ref(q, k_q, v_q, k_scale, v_scale, pos,
-                                          bs=bs)
+    fn = _dec.w8a8_decode_attention \
+        if use_kernel(q, impl, grad=(q, k_scale, v_scale)) \
+        else _dec.w8a8_decode_attention_ref
+    b, kvh, rep, hd = q.shape
+    return counted("w8a8_decode_attention", lambda: _dec.cost(
+        b, kvh, rep, hd, live_keys(pos, b, k_q.shape[1]),
+        q_row_bytes=hd * q.element_size(), out_dtype=q.dtype),
+        lambda: fn(q, k_q, v_q, k_scale, v_scale, pos, bs=bs),
+        grad=(q, k_scale, v_scale))
 
 
 def w8a8_decode_attention_body(q_q, factor, k_q, v_q, k_scale, v_scale, pos,
                                *, bs: int, out_dtype=torch.float32,
                                impl: str = "auto") -> torch.Tensor:
     """The body of :func:`w8a8_decode_attention` on q codes and per-row
-    logit factors that the caller computed (the model's bf16 form)."""
+    logit factors that the caller computed (the model's bf16 form);
+    ``pos`` an int or a ``(b,)`` int32 tensor."""
     fn = _dec.w8a8_decode_attention_body \
         if use_kernel(q_q, impl, grad=(factor, k_scale, v_scale)) \
         else _dec.w8a8_decode_attention_body_ref
-    return fn(q_q, factor, k_q, v_q, k_scale, v_scale, pos, bs=bs,
-              out_dtype=out_dtype)
+    b, kvh, rep, hd = q_q.shape
+
+    def run():
+        return fn(q_q, factor, k_q, v_q, k_scale, v_scale,
+                  _dec.positions(pos, b, q_q.device), bs=bs,
+                  out_dtype=out_dtype)
+    return counted("w8a8_decode_attention", lambda: _dec.cost(
+        b, kvh, rep, hd, live_keys(pos, b, k_q.shape[1]),
+        out_dtype=out_dtype), run, grad=(factor, k_scale, v_scale))

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.kernels.w8a8_matmul import (Plan, check_operands,
                                              launch_planned, split_k)
+from repro_torch.kernels.w8a8_matmul import cost as w8a8_cost
 from repro_torch.quant.quantizers import POW2_EXP_BIAS, unpack_int4
 
 #: kernel launches since the counter was last set to 0
@@ -54,6 +55,15 @@ def plan(m: int, k: int, n: int) -> Plan:
     :func:`~repro_torch.kernels.w8a8_matmul.split_k` (cached: a decode
     step asks for the same few shapes every layer)."""
     return Plan("splitk", *split_k(m, k, n))
+
+
+def cost(m: int, k: int, n: int, out_dtype=torch.float32
+         ) -> tuple[float, float, str]:
+    """``(operations, bytes, class)`` of one call: W8A8's
+    (:func:`~repro_torch.kernels.w8a8_matmul.cost`) with the weights at
+    half a byte each."""
+    ops, nbytes, cls = w8a8_cost(m, k, n, out_dtype)
+    return ops, nbytes - k * n + k * n // 2, cls
 
 
 def pow2_integers(w_packed: torch.Tensor) -> torch.Tensor:

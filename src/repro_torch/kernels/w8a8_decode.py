@@ -116,6 +116,24 @@ def plan(b: int, kvh: int, rep: int, hd: int, S: int, bs: int) -> Plan:
     return Plan(splits, keys, bg * splits, scratch, bg * rep * hd + bg)
 
 
+def cost(b: int, kvh: int, rep: int, hd: int, live, *,
+         q_row_bytes: int | None = None, out_dtype=torch.float32
+         ) -> tuple[float, float, str]:
+    """``(operations, bytes, class)`` of one call, from the function it
+    computes: the int8 QK^T and PV over the ``live[i]`` keys batch row
+    ``i`` reads (positions ``[0, pos]``), 4 hd operations a query row and
+    key; q (codes and the logit factor, or ``q_row_bytes`` a query row
+    where the entry takes q unquantized), the int8 k and v and their
+    scales up to ``pos``, the positions read once, the output written
+    once."""
+    keys = sum(live)
+    rows = b * kvh * rep
+    q_bytes = rows * (hd + 4 if q_row_bytes is None else q_row_bytes)
+    return (4.0 * rep * hd * kvh * keys,
+            float(q_bytes + 2 * keys * kvh * (hd + 4) + 4 * b
+                  + out_dtype.itemsize * rows * hd), "int8")
+
+
 def positions(pos, b: int, device) -> torch.Tensor:
     """``pos`` (an int, a 0-d or a ``(b,)`` tensor) as a ``(b,)`` int32
     tensor on ``device``; a scalar is broadcast, nothing syncs."""

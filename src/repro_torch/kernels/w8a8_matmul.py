@@ -107,6 +107,16 @@ def plan(m: int, k: int, n: int) -> Plan:
     return Plan("dp4a", *split_k(m, k, n))
 
 
+def cost(m: int, k: int, n: int, out_dtype=torch.float32
+         ) -> tuple[float, float, str]:
+    """``(operations, bytes, class)`` of one ``(m, k) x (k, n)`` call, from
+    the function it computes: 2 m k n int8 operations; x and w codes, the
+    x scale and n w scales read once, the output written once."""
+    return (2.0 * m * k * n,
+            float(m * k + k * n + 4 + 4 * n + out_dtype.itemsize * m * n),
+            "int8")
+
+
 def w8a8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
                     x_scale: torch.Tensor, w_scale: torch.Tensor,
                     out_dtype=torch.float32) -> torch.Tensor:

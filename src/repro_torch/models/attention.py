@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops, w8a8_decode
+from repro_torch.kernels import flash_attention, ops, w8a8_decode
 from repro_torch.models.common import rope
 from repro_torch.quant.quantizers import const_like
 from repro_torch.quant.qlinear import qdot
@@ -155,15 +155,27 @@ def attend(q, k, v, *, causal=True, window=None, impl: str = "auto"):
     :data:`DENSE_SEQ_LIMIT` tokens, :func:`chunked_attention` above.
     Under grad (grad enabled and q, k or v requiring it) ``"auto"`` takes
     the reference's route on every device, the one its training step
-    differentiates: the kernel has no backward (``kernels/ops.py``)."""
+    differentiates: the kernel has no backward (``kernels/ops.py``).
+    Operands of mixed dtypes (a bf16 q against the float32 context k, v
+    of the vlm forward) meet in float32, as the plain route computes
+    them: the float32 kernel, out cast to q's dtype.  An op counter counts
+    either route as one flash call (``ops.counted``)."""
+    dt = q.dtype if q.dtype == k.dtype == v.dtype else torch.float32
+    b, sq, h, hd = q.shape
+    return ops.counted("flash_attention", lambda: flash_attention.cost(
+        b, h, sq, k.shape[1], hd, causal=causal, window=window, dtype=dt),
+        lambda: _attend(q, k, v, causal, window, impl, dt), grad=(q, k, v))
+
+
+def _attend(q, k, v, causal, window, impl, dt):
+    """:func:`attend`'s two routes."""
     if not ops.use_kernel(q, impl, grad=(q, k, v)):
-        if max(q.shape[1], k.shape[1]) <= DENSE_SEQ_LIMIT:
+        # a fake q outside grad is inside the flash scope, where only the
+        # output's shape counts: the dense route gives it for nothing
+        if max(q.shape[1], k.shape[1]) <= DENSE_SEQ_LIMIT or (
+                ops.is_fake(q) and not ops.needs_grad(q, k, v)):
             return dense_attention(q, k, v, causal=causal, window=window)
         return chunked_attention(q, k, v, causal=causal, window=window)
-    # Operands of mixed dtypes (a bf16 q against the float32 context k, v
-    # of the vlm forward) meet in float32, as the plain route computes
-    # them: the float32 kernel, out cast to q's dtype.
-    dt = q.dtype if q.dtype == k.dtype == v.dtype else torch.float32
     out = ops.flash_attention(
         *(t.transpose(1, 2).to(dt).contiguous() for t in (q, k, v)),
         causal=causal, window=window, impl="kernel")
@@ -307,17 +319,19 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
         # pos - ((pos - r) mod S) <= pos always, and ki >= 0 exactly when
         # r <= pos.  Both sum the slots in slot order r.  On the slice the
         # position is relative to its start.
-        body_pos = pos_b - start_b if sliced else pos
+        body_pos = pos if not sliced else pos_b - start_b if per_slot \
+            else pos - start
         kk, vv, ks, vs = (read(t).contiguous() for t in (
             cache_k, cache_v, k_scale, v_scale))
-        body_args = (q_q, factor, kk, vv, ks, vs,
-                     w8a8_decode.positions(body_pos, b, dev))
         if keep is None:
             out = ops.w8a8_decode_attention_body(
-                *body_args, bs=kk.shape[1], out_dtype=out_dtype, impl=impl)
+                q_q, factor, kk, vv, ks, vs, body_pos, bs=kk.shape[1],
+                out_dtype=out_dtype, impl=impl)
         else:   # the plain route (the kernel route refused it above)
             out = w8a8_decode.w8a8_decode_attention_body_ref(
-                *body_args, bs=kk.shape[1], out_dtype=out_dtype, keep=keep)
+                q_q, factor, kk, vv, ks, vs,
+                w8a8_decode.positions(body_pos, b, dev), bs=kk.shape[1],
+                out_dtype=out_dtype, keep=keep)
     else:
         write(cache_k, k)
         write(cache_v, v)

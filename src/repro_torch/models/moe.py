@@ -44,8 +44,10 @@ def topk_route(x: torch.Tensor, w_router: torch.Tensor, n_experts: int,
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # E * sum(fraction of tokens whose first choice is e * mean prob of e)
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(experts[:, 0], n_experts)
-                    .to(torch.float32), dim=0)
+    # the one-hot of the first choices as a comparison: F.one_hot runs
+    # other ops on the CPU (a range check), the card and fake tensors
+    first = experts[:, :1] == torch.arange(n_experts, device=x.device)
+    ce = torch.mean(first.to(torch.float32), dim=0)
     aux = n_experts * torch.sum(me * ce)
     return gates, experts, aux
 

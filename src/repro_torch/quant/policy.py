@@ -60,12 +60,13 @@ def pe_for_mode(mode) -> PEType:
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    """Resolved numerics policy for a model instance.  The reference's
-    QAT fields keep one value in all its callers, so the port has none:
-    QAT fake-quantizes weights per output channel and activations per
-    tensor (``qlinear.weight_quant_spec`` / ``act_quant_spec``)."""
+    """Resolved numerics policy for a model instance.  QAT fake-quantizes
+    weights per output channel and, with ``qat_acts`` (the reference's
+    field; False only in the dry run's weight-only QAT cells), activations
+    per tensor (``qlinear.weight_quant_spec`` / ``act_quant_spec``)."""
 
     mode: ExecMode = ExecMode.BF16
+    qat_acts: bool = True
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -81,7 +81,7 @@ def weight_quant_spec(policy: QuantPolicy, axis=0) -> qz.FakeQuantSpec:
 
 def act_quant_spec(policy: QuantPolicy) -> qz.FakeQuantSpec:
     """FakeQuantSpec for activations (dynamic per-tensor int8, or none)."""
-    if policy.quantized:
+    if policy.quantized and policy.qat_acts:
         return qz.FakeQuantSpec("int", 8)
     return qz.FakeQuantSpec("none")
 

@@ -7,7 +7,9 @@ reduced moonshot; and the vlm and audio families' routes on reduced
 llama-3.2-vision and whisper, with flash at their cross-attention
 shapes; the grad rule that keeps the kernels (no backward) off the
 autograd graph (ROADMAP C.13); and the checkpointed, restarting train
-loop with int8 gradient compression, restored across devices.
+loop with int8 gradient compression, restored across devices; and the
+dry run's op count of a step on the card, with its kernels launching,
+against the same step's count under fake tensors.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports only the port (no jax, nothing of ``repro``), so it runs
@@ -1779,3 +1781,36 @@ def test_restarted_train_on_the_card_equals_uninterrupted(cuda_device,
     assert c["opt"].step == 6
     assert max(abs(x - y) / abs(y)
                for (_, x), (_, y) in zip(clean[:2], cpu[:2])) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw,kernels", [
+    ("d_small", dict(serve_quant=True, kv_quant=True),
+     {"w8a8_matmul", "w8a8_decode_attention"}),
+    ("d_small", dict(serve_quant=True, mode="w4a8_pow2"), {"w4a8_matmul"}),
+    ("p_small", dict(serve_quant=True),
+     {"w8a8_matmul", "flash_attention"})])
+def test_dry_run_count_equals_the_card_run(cuda_device, monkeypatch, shape,
+                                           kw, kernels):
+    """Reduced phi4-mini through ``launch.dryrun.run_cell(measure=True)``:
+    the step counted on the card with its kernels launching equals its
+    dry run under fake tensors field by field, and every kernel call of
+    the count is a launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, reduced
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda arch: reduced(get_config(arch)))
+    monkeypatch.setattr(dryrun, "ONE_CARD_SHAPES", {
+        "d_small": ShapeConfig("d_small", 64, 4, "decode"),
+        "p_small": ShapeConfig("p_small", 64, 1, "prefill")})
+    monkeypatch.setattr(dryrun, "MEASURE_ITERS", 2)
+    rec = dryrun.run_cell("phi4-mini-3.8b", shape, measure=True,
+                          out_dir=None, **kw)
+    m = rec["measured"]
+    assert rec["status"] == "ok" and m["card_count_equal"]
+    by_kernel = rec["stats"]["by_kernel"]
+    assert set(by_kernel) == kernels
+    for name, k in by_kernel.items():
+        assert m["kernel_launches"][name] == k["calls"] > 0
+    assert m["measured_s"] > 0 and m["measured_fraction"] > 0

@@ -73,7 +73,10 @@ def test_every_module_is_listed():
                  "repro_torch.optim", "repro_torch.optim.adamw",
                  "repro_torch.launch.train", "repro_torch.models.tree",
                  "repro_torch.parallel",
-                 "repro_torch.parallel.compression"):
+                 "repro_torch.parallel.compression",
+                 "repro_torch.core.gpu_roofline",
+                 "repro_torch.core.op_analysis",
+                 "repro_torch.launch.dryrun"):
         assert name in mods
 
 
