@@ -298,7 +298,23 @@ Phases (any failure exits non-zero):
     then on the card with its kernels launching (the counts equal, each
     kernel call counted a launch), then timed beside its roofline step
     time (``measured_fraction``), the count's temp bytes beside the peak
-    the card allocated.
+    the card allocated;
+16. ``mesh``: placement across ranks.  A one-rank NCCL mesh
+    (``make_sweep_mesh()``): the 720-point sweep (points and aggregates),
+    ``.many`` of the three workloads, the chunked stream over the
+    102,960-config grid and a ``many-quick`` nsga2 search, each bit for
+    bit the call without ``mesh`` (same genomes and front, ``mesh_shards``
+    1), the group destroyed after; then 4 gloo ranks on the one card
+    (this script's children, ``--mesh-child RANK DIR``; NCCL puts one
+    rank on a card): each rank's slice of that grid at W = 3 through the
+    sweep kernel, gathered bit for bit the one-launch result (and of the
+    grid less one row, one row padded); ``moe_ffn_ep`` on a moonshot
+    layer at full width (64 experts, 4 x 64 tokens) on (1, 4) and
+    (2, 2) against ``moe_ffn`` on each data slice within 2e-2 x (1 +
+    |want|) (the CPU tests' bf16 bar), aux within 1e-6; ``reshard`` of a
+    train state (4, 1) -> (2, 2) -> ``survivable_mesh`` of 3 ranks, bit
+    for bit, on host meshes (a DTensor of CUDA tensors over gloo
+    crashes).
 
 The model kernels' bounds (W8A8, W4A8, decode attention, flash) take
 their work from each kernel's ``cost()`` (``kernels/*.py``); every bound
@@ -542,6 +558,14 @@ ROOFLINE = dict(arch="phi4-mini-3.8b", cells=(
     ("decode_4k", dict(serve_quant=True, kv_quant=True)),
     ("prefill_4k", dict(serve_quant=True)),
     ("decode_4k", dict(serve_quant=True, mode="w4a8_pow2"))))
+# the mesh phase: 4 gloo ranks on the one card (NCCL takes one rank a
+# card), the padded slice of (b)'s sweep one row past a multiple of 4,
+# the EP input of moonshot (batch x seq tokens of d 2048) and the bf16
+# bar of the CPU tests (2e-2 x (1 + |want|)), the children's time limit
+MESH_CHILD_FLAG = "--mesh-child"
+MESH = dict(world=4, pad=1, search=dict(preset="many-quick", seed=0),
+            ep=dict(batch=4, seq=64, meshes=((1, 4), (2, 2)), tol=2e-2),
+            reshard_arch="mamba2-130m", timeout_s=300)
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
 # float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
@@ -4945,7 +4969,7 @@ def phase_train(device) -> dict:
     model = Model(cfg, device=device)
     ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=T["steps"],
                              warmup_steps=max(1, T["steps"] // 10))
-    step_fn = make_train_step(model, ocfg)
+    step_fn = make_train_step(model, None, ocfg)
     # train()'s data and draw: seed 0; the batches drawn ahead, timed
     # (the host's numpy draw over the vocabulary, a part of each step of
     # train())
@@ -4980,7 +5004,7 @@ def phase_train(device) -> dict:
     torch.cuda.empty_cache()
 
     cpu_model = Model(cfg, device="cpu")
-    cpu_step = make_train_step(cpu_model, ocfg)
+    cpu_step = make_train_step(cpu_model, None, ocfg)
     cpu_state = _train_state(cfg, "cpu")
     t0 = time.perf_counter()
     cpu_losses = []
@@ -5174,14 +5198,15 @@ def phase_train_restart(device) -> dict:
         data = SyntheticLM(DataConfig(cfg.vocab, T["seq_len"], T["batch"],
                                       seed=0))
         batch = data.batch(e + 1, device="cpu")
-        card_step = make_train_step(Model(cfg, device=device), ocfg,
-                                    grad_compression=True)
+        card_step = make_train_step(Model(cfg, device=device), None,
+                                    ocfg, grad_compression=True)
         card_state, card_loss = card_step(
             card_state, {k: v.to(device) for k, v in batch.items()})
         card_loss = float(card_loss)
         t0 = time.perf_counter()
-        _, cpu_loss = make_train_step(Model(cfg, device="cpu"), ocfg,
-                                      grad_compression=True)(cpu_state, batch)
+        _, cpu_loss = make_train_step(
+            Model(cfg, device="cpu"), None, ocfg,
+            grad_compression=True)(cpu_state, batch)
         out["cpu_step_s"] = time.perf_counter() - t0
         cpu_loss = float(cpu_loss)
         del cpu_state
@@ -5263,7 +5288,7 @@ def phase_train_restart(device) -> dict:
     model = Model(cfg, device=device)
     batches = [data.batch(s, device=device) for s in range(T["timed"] + 1)]
     # deterministic mode: the ops it names in a compressed step, its loss
-    step_fn = make_train_step(model, ocfg, grad_compression=True)
+    step_fn = make_train_step(model, None, ocfg, grad_compression=True)
     state = _train_state(cfg, device, grad_compression=True)
     loss = float(step_fn(state, batches[0])[1])
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -5279,7 +5304,7 @@ def phase_train_restart(device) -> dict:
     del state
     timing = {}
     for comp in (False, True, True, False):
-        step_fn = make_train_step(model, ocfg, grad_compression=comp)
+        step_fn = make_train_step(model, None, ocfg, grad_compression=comp)
         state = {"s": _train_state(cfg, device, grad_compression=comp)}
 
         def step(i):
@@ -5321,6 +5346,333 @@ def phase_train_restart(device) -> dict:
     del batches, model
     torch.cuda.empty_cache()
     return out
+
+
+def _mesh_grid():
+    """(b)'s sweep: the 102,960-config grid of ``phase_parity`` in one
+    batch, its synthesis, and each config's own PE type on every layer of
+    VGG-16, ResNet-34 and ResNet-50 (W = 3)."""
+    import numpy as np
+    from repro_torch.core.synthesis import synthesize_soa
+    from repro_torch.core.workloads import get_workload
+    chunks = list(grid(GRID_FULL))
+    soa = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    wls = tuple(get_workload(w) for w in TIMING_W3)
+    assigns = [np.repeat(soa["pe_type_idx"][:, None], len(w.layers), axis=1)
+               for w in wls]
+    return wls, soa, synthesize_soa(soa), assigns
+
+
+def _rows(tree: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in tree.items()}
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(
+        np.asarray(a[k]).shape == np.asarray(b[k]).shape
+        and np.array_equal(a[k], b[k]) for k in a)
+
+
+def mesh_child(rank: int, tmp: str, device_type: str = "cuda") -> int:
+    """One of the mesh phase's 4 gloo ranks on the card: (b)'s sharded
+    sweep through the kernel, expert parallelism on a moonshot layer at
+    full width, and a reshard of a train state; writes its row to
+    ``tmp/rank{rank}.json``.  ``device_type="cpu"`` rehearses it on the
+    host (the sweep's exact path, no kernel)."""
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.dse_batch import AGGREGATE_OUTPUTS
+    from repro_torch.core.dse_batch import _sweep_mixed_many
+    from repro_torch.kernels import sweep_kernel
+    from repro_torch.launch.mesh import make_sweep_mesh
+    out = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init",
+                            rank=rank, world_size=MESH["world"])
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    device = torch.device("cuda", 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    try:
+        t0 = time.perf_counter()
+        wls, soa, cols, assigns = _mesh_grid()
+        z = np.load(f"{tmp}/want.npz")
+        n_full = len(soa["pe_rows"])
+        mesh = make_sweep_mesh(device_type=device_type)
+        sweep_kernel.launches = 0
+        out["sweep"] = {}
+        for n in (n_full, n_full - MESH["pad"]):
+            got = _sweep_mixed_many(wls, _rows(soa, n),
+                                    [a[:n] for a in assigns],
+                                    cols=_rows(cols, n), device=device,
+                                    mesh=mesh)
+            want = {k: z[f"{n}/{k}"] for k in AGGREGATE_OUTPUTS}
+            out["sweep"][str(n)] = {
+                "bit_for_bit": _same_arrays(
+                    {k: got[k] for k in AGGREGATE_OUTPUTS}, want),
+                "differing": {k: int(np.sum(got[k] != want[k]))
+                              for k in AGGREGATE_OUTPUTS
+                              if got[k].shape == want[k].shape},
+                "pad": -n % MESH["world"],
+                "local_rows": -(-n // MESH["world"])}
+        out["sweep_launches"] = sweep_kernel.launches
+        out["sweep_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ep"] = _mesh_child_ep(device)
+        out["ep_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["reshard"] = _mesh_child_reshard()
+        out["reshard_s"] = time.perf_counter() - t0
+    except Exception:
+        out["error"] = traceback.format_exc()[-3000:]
+    finally:
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        if "error" not in out:
+            dist.barrier()
+        dist.destroy_process_group()
+    return 0 if "error" not in out else 1
+
+
+def _mesh_child_ep(device) -> dict:
+    """``moe_ffn_ep`` on one moonshot MoE layer at full width (64
+    experts, top-6, d 2048), W8A8's bf16 compute, on the meshes (1, 4)
+    and (2, 2): against ``moe_ffn`` on each data slice alone (at (1, 4)
+    the whole batch), aux against the slices' mean."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import (activation_sharding,
+                                               default_activation_rules)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=1)
+    model = Model(cfg, device=device)
+    gen = torch.Generator(device).manual_seed(0)
+    lp = model.init(gen)["layers"][0]
+    ep = MESH["ep"]
+    x = torch.randn((ep["batch"], ep["seq"], cfg.d_model), generator=gen,
+                    device=device).to(model.policy.compute_dtype)
+    rows = {}
+    for shape in ep["meshes"]:
+        mesh = device_mesh(device.type, torch.arange(MESH["world"])
+                           .reshape(shape), ("data", "model"))
+        with activation_sharding(mesh, default_activation_rules(
+                mesh, seq_sharded=False)):
+            y, aux = moe.moe_ffn_ep(x, lp, cfg, policy=model.policy,
+                                    train=False)
+        parts = [moe.moe_ffn(xs, lp, cfg, policy=model.policy, train=False)
+                 for xs in x.chunk(shape[0])]
+        want = torch.cat([p[0] for p in parts]).float()
+        want_aux = float(sum(p[1] for p in parts)) / shape[0]
+        err = (y.float() - want).abs()
+        scale = float(want.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        rows[f"{shape[0]}x{shape[1]}"] = {
+            "experts_local": cfg.n_experts // shape[1],
+            "tokens_local": ep["batch"] * ep["seq"] // shape[0],
+            "within_tol": bool((err <= ep["tol"] * (1 + want.abs()))
+                               .all()),
+            "max_abs_err": float(err.max()), "scale": scale,
+            "max_err_scale_ulps": float(err.max()) / ulp,
+            "equal_elements": float((err == 0).float().mean()),
+            "aux": float(aux), "aux_err": abs(float(aux) - want_aux),
+            "finite": bool(torch.isfinite(y).all())}
+    return rows
+
+
+def _mesh_child_reshard() -> dict:
+    """A train state (reduced mamba2-130m: params and AdamW moments) on
+    host meshes of the 4 ranks: (4, 1), then (2, 2), then
+    ``survivable_mesh`` of ranks 0-2; every leaf's ``full_tensor()``
+    against the state after each step.  On the host: a ``DTensor`` of
+    CUDA tensors over gloo ends the process (SIGSEGV, torch 2.11)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_flatten
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import reshard, survivable_mesh
+    cfg = reduced(get_config(MESH["reshard_arch"]))
+    params = Model(cfg, device="cpu").init(
+        torch.Generator("cpu").manual_seed(0))
+    state = {"params": params, "opt": adamw.init(params)}
+    leaves, _ = tree_flatten(state)
+    names = ("data", "model")
+    meshes = {"4x1": device_mesh("cpu", torch.arange(4).reshape(4, 1), names),
+              "2x2": device_mesh("cpu", torch.arange(4).reshape(2, 2), names)}
+    meshes["survivable_3"] = survivable_mesh([0, 1, 2], device_type="cpu")
+    rows = {"survivable_3_shape": list(meshes["survivable_3"].shape),
+            "survivable_shapes": {k: list(survivable_mesh(
+                list(range(k)), device_type="cpu").shape) for k in (4, 3, 2)}}
+    cur = state
+    for name, mesh in meshes.items():
+        cur = reshard(cur, mesh)
+        got, _ = tree_flatten(cur)
+        inside = mesh.get_coordinate() is not None
+        same = n = 0
+        for a, b in zip(leaves, got):
+            if isinstance(a, torch.Tensor):
+                n += 1
+                same += int(isinstance(b, DTensor) and (
+                    not inside or torch.equal(b.full_tensor(), a)))
+        rows[name] = {"leaves": n, "bit_for_bit": same == n,
+                      "in_mesh": inside}
+    return rows
+
+
+def phase_mesh(device) -> dict:
+    """Placement across ranks on the card.  (a) A one-rank NCCL mesh
+    (``make_sweep_mesh()``): the 720-point VGG-16 sweep (points and
+    aggregates), ``.many`` of the three workloads, the chunked stream over
+    the 102,960-config grid and a ``many-quick`` nsga2 search, each bit
+    for bit the same call without ``mesh`` (the sweep kernel's launches
+    counted over the mesh runs); the group destroyed after.  (b) 4 gloo
+    ranks on the card, this script's children (``--mesh-child``): each
+    sweeps its slice of the grid at W = 3 with the kernel (and of the
+    grid less one row: one padded row), gathered bit for bit the one-launch
+    result; ``moe_ffn_ep`` on a moonshot layer at full width on (1, 4) and
+    (2, 2); ``reshard`` of a train state (4, 1) -> (2, 2) -> 3 ranks."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        return _phase_mesh(device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_mesh(device, tmp: str) -> dict:
+    import os
+    import numpy as np
+    from repro_torch.core.dse import ExploreSpec, run
+    from repro_torch.core.dse_batch import (AGGREGATE_OUTPUTS,
+                                            _sweep_mixed_many)
+    from repro_torch.kernels import sweep_kernel
+    from repro_torch.launch.mesh import make_sweep_mesh, release_process_group
+
+    out = {"phase": "mesh"}
+    t0 = time.perf_counter()
+    wls, soa, cols, assigns = _mesh_grid()
+    n_full = len(soa["pe_rows"])
+    want = {}
+    for n in (n_full, n_full - MESH["pad"]):
+        got = _sweep_mixed_many(wls, _rows(soa, n), [a[:n] for a in assigns],
+                                cols=_rows(cols, n), device=device)
+        want.update({f"{n}/{k}": got[k] for k in AGGREGATE_OUTPUTS})
+    np.savez(f"{tmp}/want.npz", **want)
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               MESH_CHILD_FLAG, str(r), tmp])
+             for r in range(MESH["world"])]
+    try:
+        t1 = time.perf_counter()
+        mesh = make_sweep_mesh()
+        check(mesh.size() == 1 and mesh.device_type == device.type,
+              "one-rank mesh on the card")
+        out["backend"] = __import__("torch").distributed.get_backend()
+        calls = {
+            "single_points": lambda m: run(ExploreSpec.single(
+                "vgg16", outputs="sweep", mesh=m), device=device).arrays,
+            "single_aggregates": lambda m: run(ExploreSpec.single(
+                "vgg16", outputs="aggregates", mesh=m),
+                device=device).arrays,
+            "many_w3": lambda m: {
+                f"{w}/{k}": v for w, r in run(ExploreSpec.many(
+                    TIMING_W3, outputs="aggregates", mesh=m),
+                    device=device).items() for k, v in r.arrays.items()},
+            "stream": lambda m: _stream_arrays(run(ExploreSpec.single(
+                "vgg16", grid(GRID_FULL), chunk_size=CHUNK, mesh=m),
+                device=device)),
+            "search": lambda m: _search_arrays(run(ExploreSpec.many(
+                TIMING_W3, precision="mixed", mesh=m, **MESH["search"]),
+                device=device))}
+        plain = {name: fn(None) for name, fn in calls.items()}
+        sweep_kernel.launches = 0
+        sharded = {name: fn(mesh) for name, fn in calls.items()}
+        out["one_rank_launches"] = sweep_kernel.launches
+        shards = {k: int(v.pop("mesh_shards")) for k, v in (
+            ("plain", plain["search"]), ("mesh", sharded["search"]))}
+        out["one_rank"] = {name: _same_arrays(sharded[name], plain[name])
+                           for name in calls}
+        out["one_rank_mesh_shards"] = shards["mesh"]
+        check(shards["plain"] == -1, "search without a mesh: mesh_shards")
+        out["one_rank_s"] = time.perf_counter() - t1
+        release_process_group()
+        check(not __import__("torch").distributed.is_initialized(),
+              "the one-rank group is destroyed")
+        for name, same in out["one_rank"].items():
+            check(same, f"one-rank mesh {name} differs from no mesh")
+        check(out["one_rank_mesh_shards"] == 1, "search mesh_shards")
+        check(device.type != "cuda"       # a host rehearsal launches none
+              or out["one_rank_launches"] >= 1 + len(TIMING_W3) + 4,
+              f"sweep kernel launches on the mesh runs "
+              f"{out['one_rank_launches']}")
+        deadline = time.monotonic() + MESH["timeout_s"]
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r in range(MESH["world"]):
+        path = f"{tmp}/rank{r}.json"
+        check(os.path.exists(path), f"mesh child {r} wrote no row")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    for r, row in enumerate(ranks):
+        check("error" not in row, f"mesh child {r}: {row.get('error')}")
+        check(procs[r].returncode == 0, f"mesh child {r} exit code")
+        for n, res in row["sweep"].items():
+            check(res["bit_for_bit"],
+                  f"rank {r}: sharded sweep of {n} configs differs from "
+                  f"the one-launch result")
+        check(device.type != "cuda" or row["sweep_launches"] == 2,
+              f"rank {r}: {row['sweep_launches']} sweep launches, not 2")
+        for shape, ep in row["ep"].items():
+            check(ep["within_tol"] and ep["finite"],
+                  f"rank {r}: moe_ffn_ep {shape} beyond the bf16 bar")
+            check(ep["aux_err"] <= 1e-6, f"rank {r}: moe_ffn_ep {shape} aux")
+        rs = row["reshard"]
+        for name in ("4x1", "2x2", "survivable_3"):
+            check(rs[name]["bit_for_bit"], f"rank {r}: reshard {name}")
+        check(rs["survivable_3_shape"] == [3, 1], "survivable mesh of 3")
+        check(rs["survivable_shapes"] == {"4": [1, 4], "3": [3, 1],
+                                          "2": [1, 2]},
+              "survivable mesh shapes")
+    out["four_ranks"] = {
+        "sweep": ranks[0]["sweep"],
+        "sweep_launches_by_rank": [row["sweep_launches"] for row in ranks],
+        "ep": ranks[0]["ep"], "reshard": ranks[0]["reshard"],
+        "seconds_by_rank": [{k: row[k] for k in ("sweep_s", "ep_s",
+                                                 "reshard_s")}
+                            for row in ranks],
+        "collectives": "gloo: sweep all_gather and EP all_reduce / "
+                       "all_gather staged through host memory; reshard's "
+                       "DTensor collectives on host tensors"}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _stream_arrays(res) -> dict:
+    import numpy as np
+    return {"n": np.array([res.n_configs, res.n_chunks]),
+            **{f"soa/{k}": v for k, v in res.front_soa.items()},
+            **{f"metrics/{k}": v for k, v in res.front_metrics.items()}}
+
+
+def _search_arrays(res) -> dict:
+    import numpy as np
+    shards = res.stats["mesh_shards"]
+    return {"genomes": res.genomes, "front": res.front_objectives,
+            "mesh_shards": np.array(-1 if shards is None else shards)}
 
 
 def phase_roofline(device) -> dict:
@@ -5413,6 +5765,8 @@ def main() -> int:
     import torch
     if len(sys.argv) == 4 and sys.argv[1] == CHILD_FLAG:
         return resume_child(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == MESH_CHILD_FLAG:
+        return mesh_child(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script measures the "
               "port on an NVIDIA GPU", file=sys.stderr)
@@ -5538,6 +5892,8 @@ def main() -> int:
     emit(restart_row)
     roofline = phase_roofline(device)
     emit(roofline)
+    mesh = phase_mesh(device)
+    emit(mesh)
     emit({"phase_seconds": PHASE_SECONDS})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     qat = {f"train ({TRAIN['arch']}, W8A8 QAT, {TRAIN['steps']} steps)":
@@ -5567,6 +5923,12 @@ def main() -> int:
         "event_ms": min(sweep["kernel_ms"]),
         "issue_bound_ms": sweep["issue_bound_ms"],
         "grid": sweep["grid"],
+        "launches_by_path": {
+            "main_path": main_path["launches"],
+            "mesh, one-rank NCCL mesh (the mesh runs of the phase)":
+                mesh["one_rank_launches"],
+            "mesh, 4 gloo ranks on the card (each rank)":
+                mesh["four_ranks"]["sweep_launches_by_rank"]},
         "launches_coexplore": {"coexplore": coexplore["launches"],
                                "coexplore_many": coexplore_many["launches"],
                                "coexplore_serving":

@@ -19,8 +19,9 @@ other:
   leaves ``leaf_<i>`` in ``jax.tree_util``'s order
   (:func:`repro_torch.models.tree.tree_flatten`), restored into the
   structure, types, dtypes, shapes and **devices** of a ``like`` tree: a
-  state the card wrote restores on the CPU and the other way round (what
-  the reference's ``runtime.elastic.reshard`` does on a one-device mesh);
+  state the card wrote restores on the CPU and the other way round; a
+  restored state goes onto a mesh of ranks with
+  :func:`repro_torch.runtime.elastic.reshard`;
 * :func:`save_state` / :func:`restore_state` — self-describing nested
   dicts of arrays and scalars whose shapes grow between snapshots (a
   Pareto front, a synthesis cache), with no ``like`` structure at restore

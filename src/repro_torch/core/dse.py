@@ -38,9 +38,9 @@ from repro_torch.core.accelerator import (AcceleratorConfig, configs_to_soa,
 from repro_torch.core.confighash import config_digests, digest_keys
 from repro_torch.core.dataflow import WorkloadResult, run_workload
 from repro_torch.core.device import resolve_device
-from repro_torch.core.dse_batch import (BatchedWorkloadResult, _synthesize,
-                                        _sweep_chunked, _sweep_workload,
-                                        pareto_mask)
+from repro_torch.core.dse_batch import (BatchedWorkloadResult, _mesh_shards,
+                                        _synthesize, _sweep_chunked,
+                                        _sweep_workload, pareto_mask)
 from repro_torch.core.pe import PEType
 from repro_torch.core.workloads import Workload, get_workload
 
@@ -162,11 +162,11 @@ def _explore_many(workloads: Sequence[Workload | str],
                   *,
                   use_cache: bool = True,
                   device: str | torch.device = "cuda",
-                  outputs: str = "points") -> dict:
+                  outputs: str = "points", mesh=None) -> dict:
     """Uniform-precision sweep of a workload suite: synthesis and the SoA
     conversion run once for the config batch and are shared by every
-    workload.  Returns ``{workload name: result}`` with each result as
-    ``outputs`` asks (see :func:`run`)."""
+    workload; ``mesh`` shards the config axis.  Returns ``{workload name:
+    result}`` with each result as ``outputs`` asks (see :func:`run`)."""
     if outputs not in _OUTPUT_MODES:
         raise ValueError(
             f"unknown outputs mode {outputs!r} "
@@ -179,7 +179,7 @@ def _explore_many(workloads: Sequence[Workload | str],
     for wl in workloads:
         wl = _resolve(wl)
         sweep = _sweep_workload(
-            wl, cfgs, cols, soa=soa, device=device,
+            wl, cfgs, cols, soa=soa, device=device, mesh=mesh,
             outputs="aggregates" if outputs == "aggregates" else "full")
         if outputs != "points":
             out[wl.name] = sweep
@@ -292,6 +292,7 @@ def _coexplore(workload: Workload | str,
                n_slots: int | None = None,
                checkpoint_dir: str | None = None,
                checkpoint_every: int | None = None,
+               mesh=None,
                **method_kwargs):
     """Guided co-exploration of one workload's joint (config x per-layer
     precision) space: resolves a named preset
@@ -339,7 +340,7 @@ def _coexplore(workload: Workload | str,
         chunk_size=p.chunk_size if chunk_size is None else chunk_size,
         ref_point=ref_point, accuracy=acc_model,
         traffic=traffic if traffic is not None else p.traffic,
-        n_slots=p.n_slots if n_slots is None else n_slots)
+        n_slots=p.n_slots if n_slots is None else n_slots, mesh=mesh)
     _apply_checkpointing(kwargs, method, checkpoint_dir, checkpoint_every)
     kwargs.update(method_kwargs)
     res = fn(space, wl, p.budget if budget is None else budget, **kwargs)
@@ -364,6 +365,7 @@ def _coexplore_many(workloads: Sequence[Workload | str],
                     chunk_size: int | None = None,
                     checkpoint_dir: str | None = None,
                     checkpoint_every: int | None = None,
+                    mesh=None,
                     **method_kwargs):
     """Multi-workload co-exploration (the QUIDAM setting): one shared
     hardware config, one per-layer precision assignment per workload.
@@ -404,17 +406,12 @@ def _coexplore_many(workloads: Sequence[Workload | str],
         chunk_size=p.chunk_size if chunk_size is None else chunk_size,
         ref_point=ref_point, accuracy=acc_model,
         weights=p.weights if weights is None else weights,
-        sqnr_floor_db=sqnr_floor_db)
+        sqnr_floor_db=sqnr_floor_db, mesh=mesh)
     _apply_checkpointing(kwargs, method, checkpoint_dir, checkpoint_every)
     kwargs.update(method_kwargs)
     return fn(space, wls, p.budget if budget is None else budget, **kwargs)
 
 
-# reference knobs the port does not run: why each is refused
-_NOT_PORTED = {
-    "mesh": "the port runs on one card; placement across cards waits "
-            "for a slice run on four (ROADMAP A.11)",
-}
 # reference knobs the port replaces by design
 _REPLACED = ("backend", "use_pallas")
 
@@ -481,16 +478,17 @@ class ExploreSpec:
     # repro_torch.obs.configure() (e.g. {"jsonl_path": ...,
     # "torch_annotations": True}).  The metrics registry is always on.
     telemetry: object = None
-    # the reference's sharding knob, not ported (_NOT_PORTED): stays None
+    # shards the config (genome) axis: None, an int (simulated shards,
+    # device="cpu") or a DeviceMesh (repro_torch.launch.mesh
+    # .make_sweep_mesh), every route bit for bit the unsharded one
     mesh: object = None
 
     def __post_init__(self):
         if not self.workloads:
             raise ValueError("ExploreSpec needs at least one workload")
         object.__setattr__(self, "workloads", tuple(self.workloads))
-        for name, why in _NOT_PORTED.items():
-            if getattr(self, name) is not None:
-                raise ValueError(f"{name}= is not ported yet: {why}")
+        if isinstance(self.mesh, int):
+            _mesh_shards(self.mesh)     # refuses a count below 1
         if self.precision not in ("uniform", "mixed"):
             raise ValueError(
                 f"precision must be 'uniform' or 'mixed', "
@@ -603,7 +601,7 @@ class ExploreSpec:
                cache=None, save_cache: bool = True, overlap: bool = True,
                prefetch_depth: int = 2, checkpoint_dir: str | None = None,
                checkpoint_every: int | None = None, telemetry=None,
-               **not_ported) -> "ExploreSpec":
+               mesh=None, **replaced) -> "ExploreSpec":
         """Uniform-precision sweep of one workload over a config batch
         (the paper's design space when ``configs`` is None).  A
         ``chunk_size`` streams an arbitrary-size feed with bounded memory
@@ -611,8 +609,9 @@ class ExploreSpec:
         a ``checkpoint_dir`` makes the stream preemption-safe (periodic
         snapshots, resumed automatically — ``configs`` should then be a
         re-iterable feed or a zero-arg factory).  ``engine="scalar"``
-        runs the per-config host oracle (``device="cpu"`` only)."""
-        _refuse_replaced(not_ported)
+        runs the per-config host oracle (``device="cpu"`` only).  ``mesh``
+        shards the config axis (of every chunk, when streamed)."""
+        _refuse_replaced(replaced)
         return cls(workloads=(workload,), configs=configs, engine=engine,
                    outputs=outputs,
                    chunk_size=chunk_size, use_cache=use_cache, cache=cache,
@@ -620,7 +619,7 @@ class ExploreSpec:
                    prefetch_depth=prefetch_depth,
                    checkpoint_dir=checkpoint_dir,
                    checkpoint_every=checkpoint_every, telemetry=telemetry,
-                   **not_ported)
+                   mesh=mesh, **replaced)
 
     @classmethod
     def mixed(cls, workload, *, preset: str | None = None,
@@ -730,7 +729,8 @@ def _run_dispatch(spec: ExploreSpec, device: torch.device):
                       space_overrides=spec.space_overrides,
                       accuracy=spec.accuracy, chunk_size=spec.chunk_size,
                       checkpoint_dir=spec.checkpoint_dir,
-                      checkpoint_every=spec.checkpoint_every, **extra)
+                      checkpoint_every=spec.checkpoint_every,
+                      mesh=spec.mesh, **extra)
         if len(spec.workloads) == 1:
             return _coexplore(
                 spec.workloads[0],
@@ -744,13 +744,13 @@ def _run_dispatch(spec: ExploreSpec, device: torch.device):
     if len(spec.workloads) > 1:
         return _explore_many(spec.workloads, spec.configs,
                              use_cache=spec.use_cache, device=device,
-                             outputs=spec.outputs)
+                             outputs=spec.outputs, mesh=spec.mesh)
     wl = _resolve(spec.workloads[0])
     if spec.chunk_size is not None:
         kwargs = dict(device=device, chunk_size=spec.chunk_size,
                       use_cache=spec.use_cache, cache=spec.cache,
                       save_cache=spec.save_cache, overlap=spec.overlap,
-                      prefetch_depth=spec.prefetch_depth)
+                      prefetch_depth=spec.prefetch_depth, mesh=spec.mesh)
         if spec.checkpoint_dir is not None:
             from repro_torch.runtime.dse_checkpoint import resume_sweep
             if spec.checkpoint_every is not None:
@@ -762,7 +762,7 @@ def _run_dispatch(spec: ExploreSpec, device: torch.device):
         return _explore_scalar(wl, spec.configs, use_cache=spec.use_cache)
     cfgs = tuple(design_space() if spec.configs is None else spec.configs)
     sweep = _sweep_workload(
-        wl, cfgs, device=device, use_cache=spec.use_cache,
+        wl, cfgs, device=device, use_cache=spec.use_cache, mesh=spec.mesh,
         outputs="aggregates" if spec.outputs == "aggregates" else "full")
     if spec.outputs != "points":
         return sweep

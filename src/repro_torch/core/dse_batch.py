@@ -351,24 +351,142 @@ def _make_cfg_lay(soa: dict, cols: dict, wb: WorkloadBatch
     return cfg, lay
 
 
+# ---------------------------------------------------------------------------
+# The config axis across shards: ``mesh=None``, an int (shards simulated
+# on the CPU) or a DeviceMesh (ranks)
+# ---------------------------------------------------------------------------
+
+def _mesh_shards(mesh) -> int:
+    """Config-axis shards a ``mesh=`` argument implies: ``None`` -> 1, an
+    int -> itself (the CPU route's simulated shard count), a mesh -> its
+    size."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, int):
+        if mesh < 1:
+            raise ValueError(f"mesh shard count must be >= 1, got {mesh}")
+        return mesh
+    return int(mesh.size())
+
+
+def _check_mesh(mesh, device: torch.device) -> None:
+    """Refuse a ``mesh=`` the sweep cannot place on ``device``: an int on
+    the card (as the reference's jax backend refuses one), a mesh of
+    another device type, a mesh of more than one dim, or one this rank
+    is not in."""
+    if mesh is None:
+        return
+    if isinstance(mesh, int):
+        _mesh_shards(mesh)
+        if device.type != "cpu":
+            raise ValueError(
+                "device='cuda' needs a torch DeviceMesh for mesh=, not an "
+                "int shard count (see repro_torch.launch.mesh"
+                ".make_sweep_mesh)")
+        return
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh= takes None, an int shard count (device='cpu') or a "
+            f"DeviceMesh (repro_torch.launch.mesh.make_sweep_mesh), got "
+            f"{type(mesh).__name__}")
+    if mesh.ndim != 1:
+        raise ValueError(
+            f"a sweep shards its config axis over a 1-D mesh, got axes "
+            f"{mesh.mesh_dim_names}")
+    if mesh.device_type != device.type:
+        raise ValueError(
+            f"a {mesh.device_type!r} mesh cannot place a sweep on "
+            f"{device}: build the mesh for the sweep's device")
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the sweep's mesh")
+
+
+def _pad_rows(arrays: dict, pad: int) -> dict:
+    """Repeat each array's last row ``pad`` times (row-local kernels make
+    the padded rows valid throwaway work; callers slice them back off)."""
+    if pad <= 0:
+        return arrays
+    return {k: np.concatenate([v, v[-1:].repeat(pad, axis=0)])
+            for k, v in arrays.items()}
+
+
+def _eval_rows(fn, cfg: dict, lo: int, hi: int, axis: int):
+    """``fn`` on config rows ``[lo, hi)``: ``(outputs, config-major
+    names)``, those outputs cut to the slice.  A one-row slice runs with
+    its row twice, so that every config-major output is told from the
+    layer-only ones (``(1, L)``) by its length."""
+    part = {k: v[lo:hi] for k, v in cfg.items()}
+    if hi - lo == 1:
+        part = _pad_rows(part, 1)
+    rows = len(part["pe_rows"])
+    out = fn(part)
+    major = {k for k, v in out.items()
+             if v.dim() > axis and v.shape[axis] == rows}
+    return ({k: v.narrow(axis, 0, hi - lo) if k in major else v
+             for k, v in out.items()}, major)
+
+
+def _on_shards(fn, cfg: dict, mesh, axis: int = 0) -> dict:
+    """``fn(cfg rows) -> {name: tensor}`` over the config axis as ``mesh``
+    places it; its config-major outputs (config axis ``axis``) come back
+    whole, in config order.  Every row is evaluated alone, so each split
+    gives the unsharded bits:
+
+    * ``None`` — one call;
+    * an int — ``min(shards, max(1, n))`` contiguous ``np.array_split``
+      slices, each its own call, concatenated (the reference's simulated
+      shards);
+    * a ``DeviceMesh`` — the config axis padded by repeating its last row
+      ``-n % shards`` times, this rank's contiguous slice evaluated, every
+      rank's gathered (:func:`repro_torch.launch.mesh.all_gather_group`)
+      and the padding sliced off.
+    """
+    n = len(cfg["pe_rows"])
+    if mesh is None:
+        return fn(cfg)
+    if isinstance(mesh, int):
+        shards = min(_mesh_shards(mesh), max(1, n))
+        if shards == 1:
+            return fn(cfg)
+        parts = [_eval_rows(fn, cfg, int(idx[0]), int(idx[-1]) + 1, axis)
+                 for idx in np.array_split(np.arange(n), shards)]
+        major = parts[0][1]
+        return {k: torch.cat([p[k] for p, _ in parts], dim=axis)
+                if k in major else v for k, v in parts[0][0].items()}
+    from repro_torch.launch.mesh import all_gather_group
+    shards = mesh.size()
+    cfg = _pad_rows(cfg, -n % shards)
+    per = len(cfg["pe_rows"]) // shards
+    r = mesh.get_local_rank(0)
+    local, major = _eval_rows(fn, cfg, r * per, (r + 1) * per, axis)
+    return {k: all_gather_group(v, mesh.get_group(), dim=axis)
+            .narrow(axis, 0, n) if k in major else v
+            for k, v in local.items()}
+
+
 def _run_kernel(cfg: dict, lay: dict, device: torch.device,
-                outputs: str = "full") -> dict[str, np.ndarray]:
-    """Evaluate numpy ``(cfg, lay)`` on ``device``; numpy results."""
+                outputs: str = "full", mesh=None) -> dict[str, np.ndarray]:
+    """Evaluate numpy ``(cfg, lay)`` on ``device``, the config axis placed
+    by ``mesh`` (:func:`_on_shards`); numpy results."""
     if outputs not in OUTPUT_MODES:
         raise ValueError(
             f"unknown sweep outputs: {outputs!r} (choose from "
             f"{OUTPUT_MODES})")
     device = resolve_device(device)
-    if device.type == "cpu":
-        dcfg, dlay = _to_device_inputs(cfg, lay, device, exact=True)
-        out = _sweep_kernel(dcfg, dlay, exact=True, outputs=outputs)
-    elif outputs == "aggregates":
-        from repro_torch.kernels.sweep_kernel import sweep_aggregates
-        out = sweep_aggregates(_cfg_to_device(cfg, device, exact=False),
-                               _lay_to_device(lay, _CPU, exact=False))
-    else:
-        dcfg, dlay = _to_device_inputs(cfg, lay, device, exact=False)
-        out = _sweep_kernel(dcfg, dlay, exact=False, outputs=outputs)
+    _check_mesh(mesh, device)
+
+    def evaluate(c: dict) -> dict:
+        if device.type == "cpu":
+            dcfg, dlay = _to_device_inputs(c, lay, device, exact=True)
+            return _sweep_kernel(dcfg, dlay, exact=True, outputs=outputs)
+        if outputs == "aggregates":
+            from repro_torch.kernels.sweep_kernel import sweep_aggregates
+            return sweep_aggregates(_cfg_to_device(c, device, exact=False),
+                                    _lay_to_device(lay, _CPU, exact=False))
+        dcfg, dlay = _to_device_inputs(c, lay, device, exact=False)
+        return _sweep_kernel(dcfg, dlay, exact=False, outputs=outputs)
+    out = _on_shards(evaluate, cfg, mesh)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -482,11 +600,13 @@ def _sweep_workload(workload: Workload,
                     device: str | torch.device = "cuda",
                     use_cache: bool = True,
                     soa: dict[str, np.ndarray] | None = None,
-                    outputs: str = "full") -> BatchedSweep:
+                    outputs: str = "full", mesh=None) -> BatchedSweep:
     """Evaluate ``workload`` on every config in one batched pass.
     ``cols`` / ``soa`` let a many-workload sweep synthesize and convert
-    the batch once and reuse it for every workload."""
+    the batch once and reuse it for every workload; ``mesh`` shards the
+    config axis (:func:`_on_shards`)."""
     device = resolve_device(device)
+    _check_mesh(mesh, device)
     configs = tuple(configs)
     if soa is None:
         soa = configs_to_soa(configs)
@@ -494,7 +614,7 @@ def _sweep_workload(workload: Workload,
         cols = _synthesize(soa, use_cache)
     wb = _workload_batch(workload)
     cfg, lay = _make_cfg_lay(soa, cols, wb)
-    out = _run_kernel(cfg, lay, device, outputs=outputs)
+    out = _run_kernel(cfg, lay, device, outputs=outputs, mesh=mesh)
     return BatchedSweep(workload=workload.name, configs=configs,
                         layer_names=wb.layer_names, macs=wb.arrays["macs"],
                         clock_ghz=cfg["clock_ghz"][:, 0],
@@ -564,7 +684,8 @@ def _sweep_mixed(workload: Workload,
                  *,
                  use_cache: bool = True,
                  device: str | torch.device = "cuda",
-                 outputs: str = "aggregates") -> dict[str, np.ndarray]:
+                 outputs: str = "aggregates",
+                 mesh=None) -> dict[str, np.ndarray]:
     """Evaluate a batch of mixed-precision genomes in one pass.
 
     ``soa`` is the hardware half of the batch, ``assign`` the ``(N, L)``
@@ -573,8 +694,10 @@ def _sweep_mixed(workload: Workload,
     columns plus ``clock_ghz`` / ``area_mm2``: on the CPU bit-identical to
     the reference's numpy path, on CUDA the ``"aggregates"`` come from the
     sweep kernel and per-layer outputs from the plain expressions.
+    ``mesh`` shards the config axis (:func:`_on_shards`).
     """
     device = resolve_device(device)
+    _check_mesh(mesh, device)
     wb = _workload_batch(workload)
     assign = np.asarray(assign, dtype=np.int64)
     if assign.shape != (len(soa["pe_rows"]), len(wb)):
@@ -586,7 +709,7 @@ def _sweep_mixed(workload: Workload,
         cols = _synthesize(soa, use_cache)
     cfg, lay = _make_cfg_lay(soa, cols, wb)
     cfg = mixed_assign_cfg(cfg, assign)
-    out = dict(_run_kernel(cfg, lay, device, outputs=outputs))
+    out = dict(_run_kernel(cfg, lay, device, outputs=outputs, mesh=mesh))
     out["clock_ghz"] = cfg["clock_ghz"][:, 0]
     out["area_mm2"] = cfg["area_mm2"][:, 0]
     return out
@@ -618,8 +741,8 @@ def _sweep_mixed_many(workloads: Sequence[Workload],
                       cols: dict[str, np.ndarray] | None = None,
                       *,
                       use_cache: bool = True,
-                      device: str | torch.device = "cuda"
-                      ) -> dict[str, np.ndarray]:
+                      device: str | torch.device = "cuda",
+                      mesh=None) -> dict[str, np.ndarray]:
     """Evaluate one genome batch against W workloads in one pass.
 
     ``soa`` is the shared hardware half (N configs); ``assigns`` holds one
@@ -631,8 +754,15 @@ def _sweep_mixed_many(workloads: Sequence[Workload],
     Returns ``{column: (W, N)}`` over :data:`AGGREGATE_OUTPUTS` plus
     ``clock_ghz`` / ``area_mm2`` as ``(N,)``.  On the CPU workload ``w``'s
     row is bit-identical to the reference's numpy path.
+
+    ``mesh`` shards the genome (config) axis (:func:`_on_shards`): an int
+    splits the batch into that many contiguous shards on the CPU, a
+    ``DeviceMesh`` (:func:`repro_torch.launch.mesh.make_sweep_mesh`)
+    gives each rank its slice, on the card one kernel launch, and
+    gathers the columns; either is bit for bit the unsharded result.
     """
     device = resolve_device(device)
+    _check_mesh(mesh, device)
     wls = tuple(workloads)
     if not wls:
         raise ValueError("sweep_mixed_many needs at least one workload")
@@ -653,16 +783,19 @@ def _sweep_mixed_many(workloads: Sequence[Workload],
         cols = _synthesize(soa, use_cache)
     cfg, lay = _make_cfg_lay(soa, cols, combined)
     cfg = mixed_assign_cfg(cfg, assign_all)
-    if device.type == "cpu":
-        dcfg, dlay = _to_device_inputs(cfg, lay, device, exact=True)
-        totals = _sweep_kernel(dcfg, dlay, exact=True,
-                               outputs="layer_totals")
-        agg = _segment_aggregates(totals, dcfg, dlay, bounds, exact=True)
-    else:
+
+    def evaluate(c: dict) -> dict:
+        if device.type == "cpu":
+            dcfg, dlay = _to_device_inputs(c, lay, device, exact=True)
+            totals = _sweep_kernel(dcfg, dlay, exact=True,
+                                   outputs="layer_totals")
+            return _segment_aggregates(totals, dcfg, dlay, bounds,
+                                       exact=True)
         from repro_torch.kernels.sweep_kernel import sweep_aggregates
-        agg = sweep_aggregates(_cfg_to_device(cfg, device, exact=False),
-                               _lay_to_device(lay, _CPU, exact=False),
-                               bounds=bounds)
+        return sweep_aggregates(_cfg_to_device(c, device, exact=False),
+                                _lay_to_device(lay, _CPU, exact=False),
+                                bounds=bounds)
+    agg = _on_shards(evaluate, cfg, mesh, axis=1)
     out = {k: v.cpu().numpy() for k, v in agg.items()}
     out["clock_ghz"] = cfg["clock_ghz"][:, 0]
     out["area_mm2"] = cfg["area_mm2"][:, 0]
@@ -752,9 +885,13 @@ class ChunkDeadlineExceeded(TimeoutError):
     sweep's watchdog deadline (``chunk_deadline_s``)."""
 
 
-def _dispatch_chunk(cfg: dict, klay: dict, device: torch.device):
+def _dispatch_chunk(cfg: dict, klay: dict, device: torch.device,
+                    mesh=None):
     """Start the aggregates kernel on one chunk; returns
     ``finalize(timeout=None)`` giving the host ``(n,)`` aggregate columns.
+    ``mesh`` shards the chunk's config axis (:func:`_on_shards`): on a
+    ``DeviceMesh`` each rank launches on its slice and the ``(n, 6)``
+    columns are gathered on the card.
 
     On CUDA the kernel launches on the current stream, its ``(n, 6)``
     result is copied without blocking into pinned host memory, and an
@@ -765,13 +902,16 @@ def _dispatch_chunk(cfg: dict, klay: dict, device: torch.device):
     the CPU the exact path runs at once, so a deadline cannot fire.
     """
     if device.type == "cpu":
-        out = _sweep_kernel(_cfg_to_device(cfg, device, exact=True), klay,
-                            exact=True, outputs="aggregates")
+        out = _on_shards(
+            lambda c: _sweep_kernel(_cfg_to_device(c, device, exact=True),
+                                    klay, exact=True, outputs="aggregates"),
+            cfg, mesh)
         res = {k: v.numpy() for k, v in out.items()}
         return lambda timeout=None: res
     from repro_torch.kernels.sweep_kernel import sweep_aggregates_packed
-    packed = sweep_aggregates_packed(_cfg_to_device(cfg, device, False),
-                                     klay)
+    packed = _on_shards(
+        lambda c: {"packed": sweep_aggregates_packed(
+            _cfg_to_device(c, device, False), klay)}, cfg, mesh)["packed"]
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
     host.copy_(packed, non_blocking=True)
     done = torch.cuda.Event()
@@ -805,7 +945,8 @@ def _sweep_chunked(workload: Workload,
                    prefetch_depth: int = 2,
                    checkpoint=None,
                    fail_at: dict[int, int] | None = None,
-                   chunk_deadline_s: float | None = None) -> ChunkedSweep:
+                   chunk_deadline_s: float | None = None,
+                   mesh=None) -> ChunkedSweep:
     """Stream an arbitrary-size config feed through the sweep in bounded
     memory, keeping only running totals + the Pareto front.
 
@@ -841,12 +982,27 @@ def _sweep_chunked(workload: Workload,
       on the same device through the same kernel (counted in
       ``timings["watchdog_redispatches"]`` and
       ``["abandoned_finalizers"]``); if that launch fails, the stream
-      raises.  Nothing falls back to another device.
+      raises.  Nothing falls back to another device.  The re-dispatch is
+      one rank's decision, so on a mesh of several ranks (whose chunks
+      end in a collective) the watchdog is refused.
+
+    ``mesh`` shards every chunk's config axis (:func:`_on_shards`): an
+    int on the CPU, a ``DeviceMesh`` on either device; the front is the
+    unsharded one bit for bit.  Each rank of a mesh runs the whole
+    stream's host work, so with ``checkpoint`` each keeps its own
+    snapshot directory.
 
     The stages record ``sweep.*`` spans when :mod:`repro_torch.obs`
     tracing is on, and the totals always land in its metrics registry.
     """
     device = resolve_device(device)
+    _check_mesh(mesh, device)
+    if chunk_deadline_s is not None and not isinstance(mesh, int) \
+            and _mesh_shards(mesh) > 1:
+        raise ValueError(
+            "chunk_deadline_s: the watchdog's re-dispatch is one rank's "
+            "decision and would leave the other ranks' gathers unmatched; "
+            "drop it, or sweep on a one-rank mesh")
     if int(prefetch_depth) < 1:
         raise ValueError(
             f"prefetch_depth must be >= 1, got {prefetch_depth}")
@@ -938,6 +1094,13 @@ def _sweep_chunked(workload: Workload,
         front_soa = {k: v[keep] for k, v in front_soa.items()}
         front_metrics = {m: v[keep] for m, v in front_metrics.items()}
 
+    def dispatch(cfg: dict):
+        # the mesh only where there is one, so that a stand-in dispatch
+        # of the unsharded signature still takes the stream
+        if mesh is None:
+            return _dispatch_chunk(cfg, klay, device)
+        return _dispatch_chunk(cfg, klay, device, mesh)
+
     # in flight, in stream order: (soa, n, cfg, finalize, save_info,
     # cache_state, chunk_index, kernel_span, t_dispatch)
     pending: deque = deque()
@@ -959,7 +1122,7 @@ def _sweep_chunked(workload: Workload,
             reg.inc("sweep.watchdog_redispatches")
             kstatus = "watchdog"
             with obs_trace.span("sweep.watchdog_redispatch", chunk=pci):
-                out = _dispatch_chunk(pcfg, klay, device)()
+                out = dispatch(pcfg)()
         except Exception:
             obs_trace.span_end(kspan, status="error")
             raise
@@ -1027,7 +1190,7 @@ def _sweep_chunked(workload: Workload,
                                          device=str(device))
             try:
                 with obs_trace.span("sweep.dispatch", chunk=ci):
-                    finalize = _dispatch_chunk(cfg, klay, device)
+                    finalize = dispatch(cfg)
             except Exception:
                 obs_trace.span_end(kspan, status="error")
                 raise

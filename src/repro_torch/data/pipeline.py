@@ -1,6 +1,6 @@
-"""Deterministic synthetic token pipeline: the reference's
-``repro.data.pipeline`` without its mesh placement (the port runs on one
-card).
+"""Deterministic synthetic token pipeline: the port of the reference's
+``repro.data.pipeline``, its mesh placement (:func:`shard_batch`) on
+``torch.distributed`` ranks.
 
 An indexable, stateless source (step -> global batch), so any worker can
 reproduce any batch.  The "dataset" is a seeded Markov-ish token stream
@@ -64,3 +64,12 @@ class SyntheticLM:
         while True:
             yield step, self.batch(step, device)
             step += 1
+
+
+def shard_batch(batch: dict, mesh, batch_spec):
+    """Place a batch (the same full tensors on every rank) onto ``mesh``
+    with the training spec: every leaf a ``DTensor`` under ``batch_spec``
+    (:mod:`repro_torch.parallel.sharding`)."""
+    from repro_torch.models.tree import tree_map
+    from repro_torch.parallel.sharding import distribute
+    return tree_map(lambda x: distribute(x, mesh, batch_spec), batch)

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.dse_batch import _sweep_mixed, _sweep_mixed_many
+from repro_torch.core.dse_batch import (_check_mesh, _mesh_shards,
+                                        _sweep_mixed, _sweep_mixed_many)
 from repro_torch.core.workloads import Workload, get_workload
 from repro_torch.explore.accuracy import AccuracySpec, resolve_accuracy
 from repro_torch.explore.objectives import (DEFAULT_MULTI_OBJECTIVES,
@@ -180,7 +181,10 @@ class Evaluator:
     ``floor_db``.  ``traffic`` (a trace, preset
     or preset name) scores serving objectives on an ``n_slots`` fleet and,
     without explicit ``objectives``, makes the serving set the default;
-    serving objectives are single-workload only.
+    serving objectives are single-workload only.  ``mesh`` shards each
+    chunk's genome axis (an int on the CPU, a ``DeviceMesh`` from
+    :func:`repro_torch.launch.mesh.make_sweep_mesh` on either device),
+    bit for bit the unsharded rows.
     """
 
     def __init__(self, space: CoExploreSpace,
@@ -189,9 +193,14 @@ class Evaluator:
                  *, device: str | torch.device = "cuda",
                  chunk_size: int = 4096, use_cache: bool = True,
                  weights=None, accuracy=None, traffic=None,
-                 n_slots: int = 8, sqnr_floor_db=None):
+                 n_slots: int = 8, sqnr_floor_db=None, mesh=None):
         accuracy = _fold_floor(accuracy, sqnr_floor_db, stacklevel=3)
         self.device = resolve_device(device)
+        # mesh= shards every evaluation chunk's genome axis: an int
+        # simulates that many shards on the CPU, a DeviceMesh places them
+        # on its ranks (dse_batch._on_shards); an int on the card raises
+        _check_mesh(mesh, self.device)
+        self.mesh = mesh
         self.accuracy = (None if accuracy is None
                          else resolve_accuracy(accuracy, device=self.device))
         self.space = space
@@ -298,7 +307,7 @@ class Evaluator:
                        for (s, e), w in zip(self.space.segment_bounds, wls)]
             agg = _sweep_mixed_many(wls, soa, assigns,
                                     use_cache=self.use_cache,
-                                    device=self.device)
+                                    device=self.device, mesh=self.mesh)
             agg = {k: v for k, v in agg.items() if np.ndim(v) == 2}
             return multi_objective_matrix(
                 agg, assigns, macs, self.objectives, weights=self.weights,
@@ -306,7 +315,8 @@ class Evaluator:
         wl, = wls
         a = assign[:, :len(wl.layers)]
         agg = _sweep_mixed(wl, soa, a, use_cache=self.use_cache,
-                           device=self.device, outputs="aggregates")
+                           device=self.device, outputs="aggregates",
+                           mesh=self.mesh)
         return objective_matrix(agg, a, macs[0], self.objectives,
                                 traffic=self.traffic, n_slots=self.n_slots,
                                 device=self.device, accuracy=self.accuracy)
@@ -374,6 +384,8 @@ class Evaluator:
             "eval_seconds": self.eval_seconds,
             "device": str(self.device),
             "n_workloads": len(self.workloads),
+            "mesh_shards": (None if self.mesh is None else
+                            _mesh_shards(self.mesh)),
             "traffic": (None if self.traffic is None
                         else self.traffic.name),
             "n_slots": (None if self.traffic is None else self.n_slots),
@@ -406,7 +418,7 @@ def random_search(space: CoExploreSpace, workload, budget: int, *,
                   ref_point: np.ndarray | None = None,
                   weights=None, accuracy=None, traffic=None,
                   n_slots: int = 8, sqnr_floor_db=None,
-                  batch: int | None = None) -> SearchResult:
+                  batch: int | None = None, mesh=None) -> SearchResult:
     """Uniform-random baseline: ``budget`` independent genomes, a running
     non-dominated reduction, hypervolume recorded per batch.  A workload
     sequence needs a :class:`CoExploreManySpace` (as for every engine);
@@ -424,7 +436,8 @@ def random_search(space: CoExploreSpace, workload, budget: int, *,
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
-                   accuracy=accuracy, traffic=traffic, n_slots=n_slots)
+                   accuracy=accuracy, traffic=traffic, n_slots=n_slots,
+                   mesh=mesh)
     if budget < 1:
         raise ValueError("budget must be >= 1")
     if batch_size is not None and batch_size < 1:
@@ -485,7 +498,7 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
           checkpoint_dir: str | None = None,
           checkpoint_every: int = 5,
           fail_at_generation: dict[int, int] | None = None,
-          sqnr_floor_db=None) -> SearchResult:
+          sqnr_floor_db=None, mesh=None) -> SearchResult:
     """NSGA-II-style evolutionary multi-objective search.
 
     Elitist (mu + lambda) survival over non-domination rank then
@@ -535,7 +548,8 @@ def nsga2(space: CoExploreSpace, workload, budget: int, *,
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
-                   accuracy=accuracy, traffic=traffic, n_slots=n_slots)
+                   accuracy=accuracy, traffic=traffic, n_slots=n_slots,
+                   mesh=mesh)
 
     def eps_vector(ref, F0) -> np.ndarray | None:
         if archive_epsilon is None:
@@ -672,7 +686,7 @@ def successive_halving(space: CoExploreSpace, workload, budget: int, *,
                        ref_point: np.ndarray | None = None,
                        weights=None, accuracy=None, traffic=None,
                        n_slots: int = 8,
-                       sqnr_floor_db=None) -> SearchResult:
+                       sqnr_floor_db=None, mesh=None) -> SearchResult:
     """Successive halving over workload layer-prefix subsets.
 
     Rung ``r`` evaluates its population on the first ``m_r`` layers only
@@ -689,7 +703,8 @@ def successive_halving(space: CoExploreSpace, workload, budget: int, *,
     rng = np.random.default_rng(seed)
     ev = Evaluator(space, workload, objectives, device=device,
                    chunk_size=chunk_size, weights=weights,
-                   accuracy=accuracy, traffic=traffic, n_slots=n_slots)
+                   accuracy=accuracy, traffic=traffic, n_slots=n_slots,
+                   mesh=mesh)
     L = ev.full_subset
     sizes = [L]
     while sizes[-1] > min(min_layers, L) and len(sizes) < 4:

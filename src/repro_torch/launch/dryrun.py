@@ -21,8 +21,20 @@ The steps are the reference's: train (``Model.loss``, its gradient, with
 the reference's microbatch accumulation, and ``adamw.update``), prefill
 (``forward(last_only=True)``) and decode (``decode_step`` at ``pos =
 seq_len - 1``, so the whole cache is read).  The mesh is one card
-(``"1"``): ``multi_pod`` and ``kv_seq_shard`` place work across cards
-and are refused (ROADMAP A.11).
+(``"1"``).
+
+``multi_pod`` (the 2 x 16 x 16 mesh ``"2x16x16"``, else 16 x 16
+``"16x16"``) and ``kv_seq_shard`` place the cell on the reference's pod
+meshes (:func:`repro_torch.launch.mesh.make_production_mesh`, axis names
+and sizes only): params and optimizer state by
+:func:`~repro_torch.parallel.sharding.tree_pspecs`, the batch and caches
+by :func:`batch_pspecs` / :func:`cache_pspecs`, ports of the reference's
+rule tables.  The record (status ``"placed"``) holds each card's
+argument bytes, the sum of its local shard sizes, and ``fits_hbm``
+against one H100's memory.  The reference also parses the sharded step's
+per-card count and collective bytes from HLO; the port has no sharded
+step under the op counter, so those fields are ``None`` and the record
+says why (ROADMAP A.11) — never a one-card count divided by the chips.
 
 With ``measure=True`` (a card) the cell is also built for real from a
 seeded generator and run on the card: the step counted again (the kernels
@@ -32,11 +44,14 @@ gains ``measured_s``, ``measured_fraction`` (the roofline's step time over
 it), the device-time counterparts, the peak allocated bytes and the
 kernels' launches.
 
-Usage (the host; add ``--measure`` on the card)::
+Usage (the host; add ``--measure`` on the card; ``--mesh pod``,
+``multipod`` or ``both`` places the cells on the pod meshes instead)::
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b \\
       --shape decode_4k --quant --kv-quant --measure
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-67b \\
+      --shape train_4k --mesh both
 """
 
 from __future__ import annotations
@@ -59,11 +74,21 @@ from repro_torch.core.gpu_roofline import H100, roofline_from_stats
 from repro_torch.core.op_analysis import analyze_step, distinct_bases
 from repro_torch.kernels import (flash_attention, w4a8_matmul, w8a8_decode,
                                  w8a8_matmul)
+from repro_torch.launch.mesh import make_production_mesh, mesh_sizes
 from repro_torch.models.model import Model
 from repro_torch.models.tree import tree_map
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import (P, data_axes, leaf_specs,
+                                           local_shape)
 
 OUT_DIR = "experiments/dryrun_torch"
+#: where ``main`` writes the pod meshes' placement records (they carry no
+#: roofline, so they stay out of the one-card records' directory)
+POD_OUT_DIR = "experiments/dryrun_torch_pod"
+#: why a pod record has no count, collective bytes or roofline
+POD_ABSENT = ("not counted: the port has no sharded step under the op "
+              "counter, so the per-card count and collective bytes the "
+              "reference parses from HLO are absent (ROADMAP A.11)")
 #: shapes one card serves at full width (the reference's ``SHAPES`` are
 #: sized for a pod): a decode step of batch 4 over a 4096-position cache
 #: and a 1 x 4096 prefill
@@ -127,6 +152,120 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, device,
     return {"batch": batch}
 
 
+def _fit(shape, spec, mesh) -> P:
+    """Drop spec axes whose dim is not divisible by the mesh axis size."""
+    sizes = mesh_sizes(mesh)
+
+    def ax_size(ax):
+        if ax is None:
+            return 1
+        if isinstance(ax, (tuple, list)):
+            n = 1
+            for a in ax:
+                n *= sizes.get(a, 1)
+            return n
+        return sizes.get(ax, 1)
+
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        out.append(ax if ax is not None and dim % ax_size(ax) == 0 else None)
+    return P(*out)
+
+
+def _axis_prod(mesh) -> int:
+    sizes = mesh_sizes(mesh)
+    return sizes.get("pod", 1) * sizes.get("data", 1)
+
+
+def batch_pspecs(cfg, shape, mesh, batch) -> dict:
+    """The batch's specs: tokens (and labels) over the data axes (only
+    "data" when the batch does not divide over both, none when not even
+    that), train's sequence over "model"; ``pos`` replicated."""
+    db = data_axes(mesh)
+    b = shape.global_batch
+    if b % _axis_prod(mesh) != 0:
+        db = ("data",) if b % mesh_sizes(mesh).get("data", 1) == 0 \
+            else None
+    out = {}
+    for k, v in batch.items():
+        if k == "pos":
+            out[k] = P()
+        elif k == "ctx":
+            out[k] = _fit(v.shape, (db, None, None), mesh)
+        else:
+            out[k] = _fit(v.shape, (db, "model" if shape.kind == "train"
+                                    else None), mesh)
+    return out
+
+
+def cache_pspecs(cfg, shape, mesh, caches, *, kv_seq_shard=False) -> dict:
+    """KV caches: batch->data normally; seq->data for batch=1 long ctx;
+    ``kv_seq_shard`` additionally shards the cache sequence dim over the
+    "model" axis (sharded flash-decode)."""
+    b = shape.global_batch
+    batch1 = b < _axis_prod(mesh) and b == 1
+    db = ("pod", "data") if "pod" in mesh.mesh_dim_names else "data"
+    out = {}
+    for k, v in caches.items():
+        if k in ("k", "v", "shared_k", "shared_v", "ctx_k", "ctx_v"):
+            if batch1:
+                spec = (None, None, "data", None, None)
+            elif kv_seq_shard:
+                spec = (None, db, "model", None, None)
+            else:
+                spec = (None, db, None, None, None)
+        elif k in ("k_local", "v_local"):   # ring buffers: batch only
+            spec = (None, db, None, None, None) if not batch1 \
+                else (None, None, None, None, None)
+        elif k in ("k_local_scale", "v_local_scale"):
+            spec = (None, db, None, None) if not batch1 \
+                else (None, None, None, None)
+        elif k in ("k_scale", "v_scale"):
+            if batch1:
+                spec = (None, None, "data", None)
+            elif kv_seq_shard:
+                spec = (None, db, "model", None)
+            else:
+                spec = (None, db, None, None)
+        elif k == "state":
+            spec = (None, None, "model", None, None) if batch1 \
+                else (None, "data", "model", None, None)
+        elif k == "conv":
+            spec = (None, None, None, None) if batch1 \
+                else (None, "data", None, None)
+        else:
+            spec = ()
+        out[k] = _fit(v.shape, spec, mesh)
+    return out
+
+
+def _local_bytes(pairs, mesh) -> int:
+    """One card's bytes of ``[(tensor, spec)]``: each tensor's local
+    shard under its spec."""
+    return sum(math.prod(local_shape(tuple(t.shape), spec, mesh))
+               * t.element_size() for t, spec in pairs)
+
+
+def placement(cfg, shape, mesh, args, *, kv_seq_shard=False) -> dict:
+    """Each placed argument group's bytes on one card of ``mesh``:
+    ``params`` (and train's ``opt``) by ``tree_pspecs``, ``batch`` by
+    :func:`batch_pspecs`, decode's ``caches`` by :func:`cache_pspecs`;
+    a host scalar (``pos``, the optimizer's step) holds no card bytes."""
+    params, batch = args[0], args[-1]
+    groups = {"params": leaf_specs(params, mesh)}
+    if shape.kind == "train":
+        groups["opt"] = leaf_specs(args[1], mesh)
+    elif shape.kind == "decode":
+        specs = cache_pspecs(cfg, shape, mesh, args[1],
+                             kv_seq_shard=kv_seq_shard)
+        groups["caches"] = [(v, specs[k]) for k, v in args[1].items()]
+    specs = batch_pspecs(cfg, shape, mesh, batch)
+    groups["batch"] = [(v, specs[k]) for k, v in batch.items()
+                       if isinstance(v, torch.Tensor)]
+    return {k: _local_bytes(v, mesh) for k, v in groups.items()}
+
+
 def _bf16_view(params):
     """Big float32 projection leaves cast to bf16 (the reference's
     ``_bf16_view``: compute in bf16, the float32 master kept)."""
@@ -136,6 +275,35 @@ def _bf16_view(params):
             return p.to(torch.bfloat16)
         return p
     return tree_map(cast, params)
+
+
+def accumulate_grads(model, params, batch: dict, microbatch: int = 1, *,
+                     view=None):
+    """The train cell's loss and gradients with the reference's
+    microbatch accumulation: ``microbatch`` equal slices of the batch, one
+    backward each, gradients summed and divided by ``microbatch`` (the
+    loss is a per-token mean, so their mean is the full batch's
+    gradient), live activations shrunk by the factor.  ``view`` maps the
+    params before the loss (``_bf16_view``).  Returns ``(loss, grads,
+    leaves)``, ``leaves`` the params the gradients belong to; a leaf the
+    loss does not reach gets zeros."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    p_view = view(leaves) if view is not None else leaves
+    if microbatch > 1:
+        loss = 0.0
+        n = batch["tokens"].shape[0] // microbatch
+        for i in range(microbatch):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            part = model.loss(p_view, mb)
+            part.backward()
+            loss = loss + part.detach()
+        loss = loss / microbatch
+    else:
+        loss = model.loss(p_view, batch)
+        loss.backward()
+    grads = tree_map(lambda p: p.grad / microbatch if p.grad is not None
+                     else torch.zeros_like(p), leaves)
+    return loss.detach(), grads, leaves
 
 
 def build_cell(arch: str, shape_name: str, *, serve_quant: bool = False,
@@ -168,28 +336,11 @@ def build_cell(arch: str, shape_name: str, *, serve_quant: bool = False,
         ocfg = adamw.AdamWConfig()
 
         def train_step(params, opt, batch):
-            leaves = tree_map(
-                lambda p: p.detach().requires_grad_(True), params)
-            p_view = _bf16_view(leaves) if bf16_params else leaves
-            if microbatch > 1:
-                # gradient accumulation over micro-slices: live activations
-                # shrink by the microbatch factor
-                loss = 0.0
-                n = b // microbatch
-                for i in range(microbatch):
-                    mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                    part = model.loss(p_view, mb)
-                    part.backward()
-                    loss = loss + part.detach()
-                loss = loss / microbatch
-            else:
-                loss = model.loss(p_view, batch)
-                loss.backward()
-            grads = tree_map(
-                lambda p: p.grad / microbatch if p.grad is not None
-                else torch.zeros_like(p), leaves)
+            loss, grads, leaves = accumulate_grads(
+                model, params, batch, microbatch,
+                view=_bf16_view if bf16_params else None)
             new_params, new_opt, _ = adamw.update(ocfg, grads, opt, leaves)
-            return new_params, new_opt, loss.detach()
+            return new_params, new_opt, loss
 
         args = (params, opt, batch)
         model_flops = 6.0 * cfg.n_active_params() * b * s
@@ -307,11 +458,12 @@ def _measure(step, args, roof, fake_stats) -> dict:
             "card": torch.cuda.get_device_name(0)}
 
 
-def _variant(kw: dict) -> str:
+def _variant(kw: dict, kv_seq_shard: bool = False) -> str:
     """The record's suffix of a cell's options (the reference's tags)."""
     return "".join([
         "__quant" if kw["serve_quant"] else "",
         "__kvq" if kw["kv_quant"] else "",
+        "__kvshard" if kv_seq_shard else "",
         "__bf16p" if kw["bf16_params"] else "",
         "__woqat" if kw["weight_only_qat"] else "",
         f"__{kw['mode']}" if kw["mode"] else "",
@@ -331,11 +483,20 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ``device``: the fake tensors' device, default the CPU (the card with
     ``measure``); CUDA raises on a host without it.  ``params``: the
     measured cell's params on the card, where several cells of one arch
-    and mode share one draw (else drawn from :data:`SEED`)."""
+    and mode share one draw (else drawn from :data:`SEED`).
+
+    ``multi_pod`` or ``kv_seq_shard`` place the cell on a pod mesh
+    instead (:func:`run_pod_cell`)."""
     if multi_pod or kv_seq_shard:
-        raise ValueError(
-            "multi_pod and kv_seq_shard place work across cards: not on one "
-            "card (ROADMAP A.11, placement across cards)")
+        if measure:
+            raise ValueError("a pod mesh's cell is placed, not measured: "
+                             "measure=True times one card")
+        kw = dict(serve_quant=serve_quant, kv_quant=kv_quant,
+                  bf16_params=bf16_params, weight_only_qat=weight_only_qat,
+                  mode=mode, microbatch=microbatch)
+        return run_pod_cell(arch, shape_name, multi_pod=multi_pod,
+                            kv_seq_shard=kv_seq_shard, out_dir=out_dir,
+                            device=device, **kw)
     if measure and not torch.cuda.is_available():
         raise RuntimeError("run_cell(measure=True) times the step on a "
                            "card, and CUDA is not available")
@@ -394,6 +555,55 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return rec
 
 
+def run_pod_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+                 kv_seq_shard: bool = False, out_dir: str | None = OUT_DIR,
+                 device=None, **kw) -> dict:
+    """Place one cell on the reference's pod mesh (16 x 16, or 2 x 16 x 16
+    with ``multi_pod``) and record each card's argument bytes: the cell
+    built under ``FakeTensorMode`` at full width and depth (nothing
+    allocated), its arguments placed by the rule tables.  ``kw``: the
+    cell's options, as :func:`run_cell` takes them."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    mesh_name = "x".join(str(n) for n in mesh.shape)
+    dev = resolve_device(device or "cpu")
+    cfg = get_config(arch)
+    shape = shape_config(shape_name)
+    tag = f"{arch}__{shape_name}__{mesh_name}{_variant(kw, kv_seq_shard)}"
+    base = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
+    reason = skip_reason(cfg, shape)
+    if reason:
+        rec = {**base, "status": "skipped", "reason": reason}
+        _dump(out_dir, tag, rec)
+        return rec
+    t0 = time.perf_counter()
+    try:
+        with FakeTensorMode():
+            _, args, model_flops = build_cell(arch, shape_name, device=dev,
+                                              **kw)
+            groups = placement(cfg, shape, mesh, args,
+                               kv_seq_shard=kv_seq_shard)
+            del args
+        arg = sum(groups.values())
+        hbm = H100.hbm_gb * 1e9
+        rec = {**base, "status": "placed", "chips": mesh.size(),
+               "quant": kw["serve_quant"],
+               "variant": _variant(kw, kv_seq_shard),
+               "place_s": round(time.perf_counter() - t0, 1),
+               "model_flops": model_flops,
+               "memory_analysis": {
+                   "argument_bytes": arg,
+                   "argument_bytes_by_group": groups,
+                   "hbm_bytes": hbm,
+                   "fits_hbm": arg <= hbm},
+               "stats": None, "collective_bytes": None, "roofline": None,
+               "absent": POD_ABSENT}
+    except Exception as e:  # a failure here is a bug in the system
+        rec = {**base, "status": "error", "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-2000:]}
+    _dump(out_dir, tag, rec)
+    return rec
+
+
 def _dump(out_dir, tag, rec):
     if out_dir is None:
         return
@@ -423,20 +633,45 @@ def main(argv=None):
     ap.add_argument("--measure", action="store_true",
                     help="also build the cell for real and time it on the "
                          "card")
-    ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--mesh", default="card",
+                    choices=("card", "pod", "multipod", "both"),
+                    help="one card (counted), or placement on the 16x16 "
+                         "pod, the 2x16x16 multi-pod or both")
+    ap.add_argument("--kv-seq-shard", action="store_true",
+                    help="shard the KV cache's sequence over 'model' "
+                         "(pod meshes)")
+    ap.add_argument("--out", default=None,
+                    help=f"default {OUT_DIR} (card), {POD_OUT_DIR} (pods)")
     args = ap.parse_args(argv)
+    pods = {"card": (), "pod": (False,), "multipod": (True,),
+            "both": (False, True)}[args.mesh]
 
     archs = ALL_ARCHS if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) \
         else [args.shape]
+    kw = dict(serve_quant=args.quant, kv_quant=args.kv_quant,
+              bf16_params=args.bf16_params,
+              weight_only_qat=args.weight_only_qat, mode=args.mode,
+              microbatch=args.microbatch)
     for arch in archs:
         for shape in shapes:
-            rec = run_cell(arch, shape, serve_quant=args.quant,
-                           kv_quant=args.kv_quant,
-                           bf16_params=args.bf16_params,
-                           weight_only_qat=args.weight_only_qat,
-                           mode=args.mode, microbatch=args.microbatch,
-                           measure=args.measure, out_dir=args.out)
+            for multi_pod in pods:
+                rec = run_pod_cell(arch, shape, multi_pod=multi_pod,
+                                   kv_seq_shard=args.kv_seq_shard,
+                                   out_dir=args.out or POD_OUT_DIR, **kw)
+                extra = ""
+                if rec["status"] == "placed":
+                    mem = rec["memory_analysis"]
+                    extra = (f" arg={mem['argument_bytes'] / 1e9:.4g}GB"
+                             f" fits={mem['fits_hbm']}")
+                elif rec["status"] == "error":
+                    extra = " " + rec["error"][:120]
+                print(f"[{rec['mesh']}] {arch} x {shape}: "
+                      f"{rec['status']}{extra}", flush=True)
+            if pods:
+                continue
+            rec = run_cell(arch, shape, measure=args.measure,
+                           out_dir=args.out or OUT_DIR, **kw)
             status = rec["status"]
             extra = ""
             if status == "ok":

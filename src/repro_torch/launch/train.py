@@ -1,5 +1,4 @@
-"""The training driver: the port of :mod:`repro.launch.train` on one
-card.
+"""The training driver: the port of :mod:`repro.launch.train`.
 
 Wires config -> :class:`~repro_torch.models.model.Model` -> a train step
 (``Model.loss`` under QAT, its gradient by autograd, optional int8
@@ -8,10 +7,16 @@ gradient compression with error feedback, then
 checkpoint/restart (:func:`repro_torch.runtime.fault_tolerance.run_with_restarts`
 when ``ckpt_dir`` is given).  The state is ``{"params", "opt", "err"}``,
 ``err`` the error-feedback tree under ``grad_compression`` and ``{}``
-without.  The reference's mesh and activation sharding have no
-counterpart on one card.  Under grad every attention runs the plain route
-(the kernels have no backward, ``kernels/ops.py``), and the projections
-of a quantized policy are fake-quantized float products
+without.  The step runs under the reference's activation rules on a
+mesh (:func:`~repro_torch.parallel.sharding.default_activation_rules`,
+``seq_sharded=False``), and :func:`train` builds it on
+:func:`~repro_torch.launch.mesh.make_host_mesh` as the reference does,
+then releases the one-rank group that started.  Its params are plain
+tensors, on which the rules' ``shard`` is the identity, so a one-rank
+run's losses are those without a mesh bit for bit; the model's MoE
+layers route through ``moe_ffn_ep``.  Under grad every attention runs the
+plain route (the kernels have no backward, ``kernels/ops.py``), and the
+projections of a quantized policy are fake-quantized float products
 (``quant/qlinear.qdot``), so a training step launches none of the port's
 kernels.
 
@@ -30,6 +35,7 @@ Usage (the CPU at reduced width; on the card at full width drop
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
@@ -41,23 +47,31 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models.model import Model
 from repro_torch.models.tree import tree_map
 from repro_torch.optim import adamw
+from repro_torch.launch.mesh import make_host_mesh, release_process_group
 from repro_torch.parallel import compression
+from repro_torch.parallel.sharding import (activation_sharding,
+                                           default_activation_rules)
 from repro_torch.runtime.fault_tolerance import run_with_restarts
 
 
-def make_train_step(model: Model, ocfg: adamw.AdamWConfig, *,
+def make_train_step(model: Model, mesh, ocfg: adamw.AdamWConfig, *,
                     grad_compression: bool = False):
     """``step(state, batch) -> (state, loss)`` with ``state = {"params",
-    "opt", "err"}``: the QAT loss, its gradient with respect to every
-    param leaf (zero for a leaf the loss does not reach, as ``jax.grad``
-    gives), with ``grad_compression`` its int8 round trip carrying the
-    residual in ``err``, and one AdamW update.  The new state holds new
-    tensors; the caller drops the old one."""
+    "opt", "err"}``: the QAT loss under ``mesh``'s activation rules (none
+    for ``mesh=None``), its gradient with respect to every param leaf
+    (zero for a leaf the loss does not reach, as ``jax.grad`` gives), with
+    ``grad_compression`` its int8 round trip carrying the residual in
+    ``err``, and one AdamW update.  The new state holds new tensors; the
+    caller drops the old one."""
+    rules = None if mesh is None else default_activation_rules(
+        mesh, seq_sharded=False)
 
     def train_step(state, batch):
         params = tree_map(
             lambda p: p.detach().requires_grad_(True), state["params"])
-        loss = model.loss(params, batch)
+        with (contextlib.nullcontext() if mesh is None
+              else activation_sharding(mesh, rules)):
+            loss = model.loss(params, batch)
         loss.backward()
         grads = tree_map(
             lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
@@ -108,8 +122,23 @@ def train(arch: str, *, steps: int = 20, smoke: bool = True,
                              warmup_steps=max(1, steps // 10))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
                                   global_batch=batch, seed=seed))
-    step_fn = make_train_step(model, ocfg,
-                              grad_compression=grad_compression)
+    started = not torch.distributed.is_initialized()
+    try:
+        step_fn = make_train_step(model, make_host_mesh(device_type=dev.type),
+                                  ocfg, grad_compression=grad_compression)
+        return _loop(cfg, model, data, step_fn, steps=steps, batch=batch,
+                     seed=seed, dev=dev, ckpt_dir=ckpt_dir,
+                     ckpt_every=ckpt_every, grad_compression=grad_compression,
+                     fail_at=fail_at, log_every=log_every)
+    finally:
+        if started:
+            # the one-rank group the mesh started is not left behind
+            release_process_group()
+
+
+def _loop(cfg, model, data, step_fn, *, steps, batch, seed, dev, ckpt_dir,
+          ckpt_every, grad_compression, fail_at, log_every):
+    """:func:`train`'s loop: plain, or :func:`run_with_restarts`."""
 
     def init_state() -> dict:
         params = tree_map(

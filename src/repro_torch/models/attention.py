@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.kernels import flash_attention, ops, w8a8_decode
 from repro_torch.models.common import rope
+from repro_torch.parallel.sharding import shard
 from repro_torch.quant.quantizers import const_like
 from repro_torch.quant.qlinear import qdot
 
@@ -194,6 +195,7 @@ def self_attention(x, p, cfg, *, policy, train=False, window=None,
         .reshape(b, s, kvh, hd)
     v = qdot(x, p["wv"], policy, train=train, impl=impl) \
         .reshape(b, s, kvh, hd)
+    q = shard(q, "attn_qkv")
     positions = torch.arange(s, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import shard
 from repro_torch.quant.qlinear import qdot
 
 
@@ -60,7 +61,8 @@ def swiglu_mlp(x, w_gate, w_up, w_down, policy, train, *,
                impl: str = "auto"):
     g = qdot(x, w_gate, policy, train=train, impl=impl)
     u = qdot(x, w_up, policy, train=train, impl=impl)
-    return qdot(F.silu(g) * u, w_down, policy, train=train, impl=impl)
+    h = shard(F.silu(g) * u, "ffn_hidden")
+    return qdot(h, w_down, policy, train=train, impl=impl)
 
 
 def normal_init(generator: torch.Generator, shape,

@@ -71,6 +71,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (cross_entropy, gelu_mlp, normal_init,
                                        rms_norm, swiglu_mlp)
+from repro_torch.parallel.sharding import shard
 from repro_torch.quant.calibrate import PROJ_NAMES
 from repro_torch.quant.policy import QuantPolicy, policy_for
 from repro_torch.quant.qlinear import qdot, quantize_weight
@@ -90,22 +91,24 @@ def _dense_block(x, lp, cfg, policy, train, impl, window=None):
     h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
                                policy=policy, train=train, window=window,
                                impl=impl)
-    x = x + h
-    return x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train, impl)
+    x = shard(x + h, "residual")
+    return shard(x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train,
+                          impl), "residual")
 
 
 def _moe_block(x, lp, cfg, policy, train, impl):
     h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
                                policy=policy, train=train, impl=impl)
-    x = x + h
-    m, aux = moe_mod.moe_ffn(rms_norm(x, lp["ln2"]), lp, cfg, policy=policy,
-                             train=train)
-    return x + m, aux
+    x = shard(x + h, "residual")
+    m, aux = moe_mod.moe_ffn_ep(rms_norm(x, lp["ln2"]), lp, cfg,
+                                policy=policy, train=train)
+    return shard(x + m, "residual"), aux
 
 
 def _mamba_layer(x, lp, cfg, policy, train, impl):
-    return x + ssm_mod.mamba2_block(rms_norm(x, lp["ln1"]), lp, cfg,
-                                    policy=policy, train=train, impl=impl)
+    return shard(x + ssm_mod.mamba2_block(rms_norm(x, lp["ln1"]), lp, cfg,
+                                          policy=policy, train=train,
+                                          impl=impl), "residual")
 
 
 def _is_global_layer(cfg, l: int) -> bool:
@@ -307,7 +310,8 @@ class Model(nn.Module):
         layers' load-balance losses summed in float32 in layer order (the
         reference's scan carry), 0 for the other families."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
-        x = params["embed"][tokens].to(policy.compute_dtype)
+        x = shard(params["embed"][tokens].to(policy.compute_dtype),
+                  "residual")
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family in ("vlm", "audio"):
             if ctx is None:
@@ -321,7 +325,7 @@ class Model(nn.Module):
             x = x[:, -1:]
         x = rms_norm(x, params["final_norm"])
         logits = qdot(x, params["embed"].T, policy, train=train)
-        return logits, aux
+        return (shard(logits, "logits") if not last_only else logits), aux
 
     def _stack_forward(self, params, x, aux, train):
         """The dense, MoE, SSM and hybrid layer stacks; returns (x, aux)."""
@@ -344,9 +348,9 @@ class Model(nn.Module):
 
     def _cross_block(self, x, cp, ck, cv, train):
         """The residual cross-attention injection of one cross layer."""
-        return x + attn.cross_attention(
+        return shard(x + attn.cross_attention(
             rms_norm(x, cp["ln_x"]), ck, cv, cp, self.cfg,
-            policy=self.policy, train=train, impl=self.impl)
+            policy=self.policy, train=train, impl=self.impl), "residual")
 
     def _vlm_forward(self, params, x, ctx, train):
         """Groups of ``cross_attn_every`` dense blocks, each group followed
@@ -371,12 +375,12 @@ class Model(nn.Module):
         for lp, cp in zip(params["layers"], params["cross_layers"]):
             h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
                                        policy=policy, train=train, impl=impl)
-            x = x + h
+            x = shard(x + h, "residual")
             ck, cv = attn.context_kv(enc, cp, cfg, policy=policy,
                                      train=train, impl=impl)
             x = self._cross_block(x, cp, ck, cv, train)
-            x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train,
-                         impl)
+            x = shard(x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy,
+                               train, impl), "residual")
         return x
 
     def _encode(self, params: dict, frames: torch.Tensor,
@@ -386,7 +390,7 @@ class Model(nn.Module):
         attention is causal, as the reference's ``self_attention`` always
         is, though its comments call the encoder bidirectional (ROADMAP
         C.11)."""
-        x = frames.to(self.policy.compute_dtype)
+        x = shard(frames.to(self.policy.compute_dtype), "residual")
         for lp in params["encoder_layers"]:
             x = _dense_block(x, lp, self.cfg, self.policy, train, self.impl)
         return x
@@ -499,8 +503,9 @@ class Model(nn.Module):
         ``_windowed_decode`` in one loop: a windowed model's (gemma3)
         global layers decode on ``k`` / ``v`` and its local layers on
         their ring buffers ``k_local`` / ``v_local`` (``static_window`` =
-        the ring's length).  An MoE layer runs ``moe_ffn`` over the b
-        tokens of the step in place of the MLP."""
+        the ring's length).  An MoE layer runs ``moe_ffn_ep`` (without a
+        mesh ``moe_ffn``) over the b tokens of the step in place of the
+        MLP."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         kv_quant = "k_scale" in caches
         ring = caches["k_local"].shape[2] if "k_local" in caches else None
@@ -519,8 +524,8 @@ class Model(nn.Module):
             x = x + h
             xn = rms_norm(x, lp["ln2"])
             if cfg.family == "moe":
-                x = x + moe_mod.moe_ffn(xn, lp, cfg, policy=policy,
-                                        train=False)[0]
+                x = x + moe_mod.moe_ffn_ep(xn, lp, cfg, policy=policy,
+                                           train=False)[0]
             else:
                 x = x + _mlp(xn, lp, cfg, policy, False, impl)
         return x

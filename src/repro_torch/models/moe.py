@@ -16,11 +16,14 @@ token's contributions one at a time in the order of the sorted entries
 XLA's ``segment_sum`` scatters them: no atomics, so the result is the
 same on every run and device route.
 
-The reference's expert-parallel ``moe_ffn_ep`` (a ``shard_map`` over the
-mesh's "model" axis) falls back to ``moe_ffn`` without a mesh; the port
-runs on one card and has :func:`moe_ffn` alone.  The expert products are
-plain PyTorch on both routes, as the reference's are XLA outside any
-Pallas kernel.
+:func:`moe_ffn_ep` is the reference's expert parallelism on
+``torch.distributed`` ranks: inside :func:`~repro_torch.parallel
+.sharding.activation_sharding` on a mesh with a "model" axis each rank
+routes its data slice of the tokens to its own ``E / n_model`` experts
+and one float32 all-reduce over "model" sums the contributions; without
+a mesh, or when the experts do not divide, it is :func:`moe_ffn`, as in
+the reference.  The expert products are plain PyTorch on every route, as
+the reference's are XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import shard
 from repro_torch.quant.qlinear import qat_act, qat_weight
 
 
@@ -134,6 +138,86 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, *, policy, train: bool,
     # ones all land on the spare row E * C, cut off after
     buf = torch.zeros((E * cap + 1, d), dtype=xf.dtype, device=xf.device)
     buf.index_copy_(0, slot, xf[order // K])
-    out_buf = expert_ffn(buf[:E * cap].view(E, cap, d), p, policy, train)
+    buf = shard(buf[:E * cap].view(E, cap, d), "moe_buffer")
+    out_buf = shard(expert_ffn(buf, p, policy, train), "moe_buffer")
     out = combine(out_buf, order, slot, keep, gates)
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def moe_ffn_ep(x, p: dict, cfg, *, policy, train: bool,
+               capacity_factor: float = 1.25):
+    """Expert-parallel MoE over the activation context's mesh (the
+    reference's ``shard_map`` body, one rank per device).
+
+    Each rank takes its data slice of the tokens (``x`` and ``p`` whole
+    on every rank), routes them over all ``E`` experts, and
+    dispatches the entries of its local experts ``[e0, e0 + E / n_model)``
+    into a ``(E / n_model, C, d)`` buffer, ``C`` the capacity of its
+    ``T`` tokens, in a stable order with the other ranks' entries last.
+    It runs the local expert products, gathers, weights and sums each
+    token's entries, and one float32 all-reduce over the "model" group
+    sums the ranks' contributions; ``aux`` is averaged over the data
+    axes, and the output gathered whole over them on every rank.
+
+    Without a mesh, without a "model" axis, or when ``E`` does not divide
+    over it, this is :func:`moe_ffn`.
+    """
+    from repro_torch.launch.mesh import (all_gather_group, all_reduce_sum,
+                                         mesh_sizes)
+    from repro_torch.parallel.sharding import _mesh, data_axes
+    mesh = _mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return moe_ffn(x, p, cfg, policy=policy, train=train,
+                       capacity_factor=capacity_factor)
+    E, K = cfg.n_experts, cfg.top_k
+    sizes = mesh_sizes(mesh)
+    n_model = sizes["model"]
+    if E % n_model != 0:
+        return moe_ffn(x, p, cfg, policy=policy, train=train,
+                       capacity_factor=capacity_factor)
+    db = data_axes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    n_data, data_idx = 1, 0
+    for a in db:                         # major to minor
+        n_data *= sizes[a]
+        data_idx = data_idx * sizes[a] + coord[a]
+    if x.shape[0] % n_data:
+        raise ValueError(f"moe_ffn_ep: batch {x.shape[0]} does not divide "
+                         f"over the data axes {db} ({n_data})")
+    b_l = x.shape[0] // n_data
+    x_l = x.narrow(0, data_idx * b_l, b_l)
+    e_l = E // n_model
+    e0 = coord["model"] * e_l
+    local_p = {k: p[k].narrow(0, e0, e_l)
+               for k in ("w_experts_gate", "w_experts_in", "w_experts_out")}
+
+    b_l, s, d = x_l.shape
+    T = b_l * s
+    xf = x_l.reshape(T, d)
+    gates, experts, aux = topk_route(xf, p["router"], E, K)
+    flat = experts.reshape(-1)
+    local = (flat >= e0) & (flat < e0 + e_l)
+    le = torch.where(local, flat - e0, torch.full_like(flat, e_l))
+    order = torch.argsort(le, stable=True)           # non-local last
+    se = le[order]
+    starts = torch.searchsorted(
+        se, torch.arange(e_l, device=se.device, dtype=se.dtype))
+    kept_local = se < e_l
+    pos = torch.arange(se.numel(), device=se.device) \
+        - torch.where(kept_local, starts[se.clamp(max=e_l - 1)], 0)
+    cap = capacity(T, E, K, capacity_factor)
+    keep = kept_local & (pos < cap)
+    slot = torch.where(keep, se * cap + pos, e_l * cap)
+    buf = torch.zeros((e_l * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf.index_copy_(0, slot, xf[order // K])
+    out_buf = expert_ffn(buf[:e_l * cap].view(e_l, cap, d), local_p, policy,
+                         train)
+    out = combine(out_buf, order, slot, keep, gates)
+    out = all_reduce_sum(out.to(torch.float32), mesh.get_group("model"))
+    for a in db:
+        aux = all_reduce_sum(aux, mesh.get_group(a))
+    aux = aux / n_data
+    out = out.reshape(b_l, s, d).to(x_l.dtype)
+    for a in reversed(db):               # minor first: major-to-minor order
+        out = all_gather_group(out, mesh.get_group(a))
+    return out, aux

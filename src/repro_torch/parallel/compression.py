@@ -5,9 +5,10 @@ QAPPA's low-bit idea applied to the gradients: each is quantized to int8
 with one symmetric scale, and the quantization residual is carried to
 the next step (error feedback, 1-bit-Adam style), so the cumulative
 compressed gradient stays within one step's quantization error of the
-raw one.  On one card no all-reduce crosses a data-parallel axis, so the
-step applies :func:`compress_roundtrip`, as the reference's does on its
-one-device mesh.
+raw one.  The train step applies :func:`compress_roundtrip` on whatever
+mesh it runs under (:func:`repro_torch.launch.train.make_train_step`),
+as the reference's does: neither package sends the int8 codes through a
+data-parallel all-reduce.
 
 **One scale per leaf of the reference's stacked tree.**  The reference
 takes ``max|g + e|`` over each leaf of its tree, where a per-layer

@@ -196,7 +196,8 @@ def test_compressed_train_step_matches_reference(arch, mode):
     tc = TA.AdamWConfig(lr=3e-3, total_steps=3, warmup_steps=1)
     rstep = r_make_train_step(rmodel, make_host_mesh(), rc,
                               grad_compression=True)
-    tstep = T_train.make_train_step(tmodel, tc, grad_compression=True)
+    tstep = T_train.make_train_step(tmodel, None, tc,
+                                    grad_compression=True)
     rs = {"params": rparams, "opt": RA.init(rparams),
           "err": RC.init_error_state(rparams)}
     ts = {"params": tparams, "opt": TA.init(tparams),

@@ -525,7 +525,8 @@ def test_golden_many_workload_front_reproduced():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=4), "one card"),
+    # the reference's own refusal of a shard count below 1
+    (dict(mesh=0), "shard count"),
     # the deprecated spellings (ROADMAP C.12) are the reference's: each
     # refuses where the reference refuses, the mixed search's at run
     # time, after its DeprecationWarning
@@ -534,9 +535,9 @@ def test_golden_many_workload_front_reproduced():
     (dict(objectives=("worst_quant_noise",)),
      r"multi-workload only|only apply")])
 def test_spec_refuses_knobs_not_ported(kwargs, match):
-    """A knob the port does not run refuses in every constructor; a
-    deprecated spelling refuses as the reference's does (a mixed search
-    only when it runs)."""
+    """``mesh=0`` refuses in every constructor; a deprecated spelling
+    refuses as the reference's does (a mixed search only when it
+    runs)."""
     if "mesh" in kwargs:
         with pytest.raises(ValueError, match=match):
             TD.ExploreSpec.mixed("vgg16", **kwargs)
@@ -549,6 +550,24 @@ def test_spec_refuses_knobs_not_ported(kwargs, match):
         TD.ExploreSpec.many(SUITE, **kwargs)
     with pytest.raises(ValueError, match=match):
         TD.ExploreSpec.single("vgg16", **kwargs)
+
+
+@pytest.mark.parametrize("spec", [
+    lambda: TD.ExploreSpec.mixed("vgg16", preset="quick", budget=16,
+                                 mesh=2),
+    lambda: TD.ExploreSpec.many(("vgg16", "resnet34"), mesh=2),
+    lambda: TD.ExploreSpec.single("vgg16", mesh=2)])
+def test_int_mesh_refused_on_the_card(spec, monkeypatch):
+    """An int shard count is the CPU route's simulation; on the card it
+    raises and names ``make_sweep_mesh``, as the reference's jax backend
+    refuses an int.  The device is a stand-in ``cuda`` device, so the
+    refusal comes before anything reaches CUDA."""
+    from repro_torch.core import dse_batch as TDB
+    fake = lambda device="cuda": torch.device("cuda", 0)  # noqa: E731
+    for mod in (TD, TDB, TS):
+        monkeypatch.setattr(mod, "resolve_device", fake)
+    with pytest.raises(ValueError, match="make_sweep_mesh"):
+        TD.run(spec(), device="cuda")
 
 
 @pytest.mark.parametrize("knob,value", [("backend", "numpy"),

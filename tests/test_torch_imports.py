@@ -76,7 +76,10 @@ def test_every_module_is_listed():
                  "repro_torch.parallel.compression",
                  "repro_torch.core.gpu_roofline",
                  "repro_torch.core.op_analysis",
-                 "repro_torch.launch.dryrun"):
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.runtime.elastic"):
         assert name in mods
 
 

@@ -362,7 +362,7 @@ def test_restored_state_continues_on_its_like_device(tmp_path):
                for t in tree_flatten(state)[0] if torch.is_tensor(t))
     ocfg = TA.AdamWConfig(lr=3e-3, total_steps=TRAIN["steps"],
                           warmup_steps=max(1, TRAIN["steps"] // 10))
-    step = T_train.make_train_step(Model(cfg, device="cpu"), ocfg,
+    step = T_train.make_train_step(Model(cfg, device="cpu"), None, ocfg,
                                    grad_compression=True)
     data = SyntheticLM(DataConfig(cfg.vocab, TRAIN["seq_len"],
                                   TRAIN["batch"], seed=0))

@@ -502,13 +502,27 @@ def test_skip_reason_matches_reference():
     assert sum(v is not None for v in got.values()) > 0
 
 
+@pytest.mark.parametrize("kwargs,mesh", [(dict(multi_pod=True), "2x16x16"),
+                                         (dict(kv_seq_shard=True), "16x16")])
+def test_pod_mesh_records(kwargs, mesh):
+    """``multi_pod`` and ``kv_seq_shard`` place the cell on the
+    reference's pod mesh: a record of each card's argument bytes, and no
+    count, collective bytes or roofline (the port has no sharded step
+    under the op counter: ROADMAP A.11)."""
+    rec = dryrun.run_cell("phi4-mini-3.8b", "decode_4k", out_dir=None,
+                          **kwargs)
+    assert rec["status"] == "placed" and rec["mesh"] == mesh
+    mem = rec["memory_analysis"]
+    assert 0 < mem["argument_bytes"] <= mem["hbm_bytes"] and mem["fits_hbm"]
+    assert rec["stats"] is None and rec["collective_bytes"] is None
+    assert rec["roofline"] is None and "A.11" in rec["absent"]
+    one_card = dryrun.run_cell("phi4-mini-3.8b", "decode_4k", out_dir=None)
+    # params, caches and batch of the one-card cell, spread over the pod
+    assert mem["argument_bytes"] \
+        < one_card["memory_analysis"]["argument_bytes"]
+
+
 def test_refusals():
-    with pytest.raises(ValueError, match="A.11"):
-        dryrun.run_cell("phi4-mini-3.8b", "decode_4k", multi_pod=True,
-                        out_dir=None)
-    with pytest.raises(ValueError, match="A.11"):
-        dryrun.run_cell("phi4-mini-3.8b", "decode_4k", kv_seq_shard=True,
-                        out_dir=None)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

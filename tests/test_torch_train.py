@@ -308,7 +308,7 @@ def test_train_step_matches_reference(arch, mode):
     rc = RA.AdamWConfig(lr=3e-3, total_steps=3, warmup_steps=1)
     tc = TA.AdamWConfig(lr=3e-3, total_steps=3, warmup_steps=1)
     rstep = r_make_train_step(rmodel, make_host_mesh(), rc)
-    tstep = T_train.make_train_step(tmodel, tc)
+    tstep = T_train.make_train_step(tmodel, None, tc)
     rs = {"params": rparams, "opt": RA.init(rparams), "err": {}}
     ts = {"params": tparams, "opt": TA.init(tparams), "err": {}}
     for step in range(3):
