@@ -314,7 +314,25 @@ Phases (any failure exits non-zero):
     |want|) (the CPU tests' bf16 bar), aux within 1e-6; ``reshard`` of a
     train state (4, 1) -> (2, 2) -> ``survivable_mesh`` of 3 ranks, bit
     for bit, on host meshes (a DTensor of CUDA tensors over gloo
-    crashes).
+    crashes);
+17. ``pod_count``: the sharded step under the op counter.  (i) phi4-mini
+    at full width and depth (seed 0), W8A8 decode on an int8 KV cache
+    (batch 4, 4096 positions) and the W8A8 1 x 4096 prefill, each run as
+    a sharded step on a one-rank NCCL ``DeviceMesh`` (1, 1) with every
+    argument a ``DTensor`` by the rule tables and the kernels on the
+    local shards (``launch/dryrun.count_sharded``): logits and caches bit
+    for bit the unsharded step's, each kernel's launches equal to the
+    counter's calls of it, the card's count equal field for field to the
+    fake group's at (1, 1) and to the one-card dry run's, no collective
+    byte; (ii) this script's child (``--pod-child DIR``, started before
+    the build, since a fake process group cannot share a process with the
+    NCCL one) counts phi4-mini's pod cells on fake-group meshes (16 x 16
+    ``decode_32k`` W8A8 + int8 KV, the same on 2 x 16 x 16 with the
+    cache's sequence split, ``prefill_32k`` W8A8, ``train_4k``) and the
+    phase prints each one's bottleneck, FLOPs a card by class, collective
+    bytes a card by kind, step time and ``fits_hbm``, and holds the
+    collectives to the ones pinned in ``POD_COUNT`` (the same under
+    every torch version).
 
 The model kernels' bounds (W8A8, W4A8, decode attention, flash) take
 their work from each kernel's ``cost()`` (``kernels/*.py``); every bound
@@ -566,6 +584,45 @@ MESH_CHILD_FLAG = "--mesh-child"
 MESH = dict(world=4, pad=1, search=dict(preset="many-quick", seed=0),
             ep=dict(batch=4, seq=64, meshes=((1, 4), (2, 2)), tol=2e-2),
             reshard_arch="mamba2-130m", timeout_s=300)
+# the pod_count phase: (i) phi4-mini's W8A8 decode on an int8 KV cache
+# (batch 4, 4096 positions) and 1 x 4096 prefill as a sharded step on a
+# one-rank NCCL DeviceMesh (1, 1), every argument a DTensor; (ii) this
+# script's child (--pod-child DIR, started at the top of the run: a fake
+# process group cannot share a process with the NCCL one) counting the
+# pod cells (shape, options, multi_pod, kv_seq_shard) on the fake-group
+# 16 x 16 and 2 x 16 x 16 meshes
+POD_CHILD_FLAG = "--pod-child"
+POD_COUNT = dict(
+    arch="phi4-mini-3.8b",
+    cells=(("decode_4k", dict(serve_quant=True, kv_quant=True)),
+           ("prefill_4k", dict(serve_quant=True))),
+    pods=(("decode_32k", dict(serve_quant=True, kv_quant=True), False,
+           False),
+          ("decode_32k", dict(serve_quant=True, kv_quant=True), True,
+           True),
+          ("prefill_32k", dict(serve_quant=True), False, False),
+          ("train_4k", dict(), False, False)),
+    # each pod cell's collective bytes and counts a card by kind, (shape,
+    # mesh) -> (bytes, counts), as torch 2.13 counts them: the port
+    # chooses every redistribution of these cells itself (products and
+    # einsums on local shards, the decode's residual, a gathering
+    # reshape, a Partial amax, a gradient placed as its param), so the
+    # pod count must not move with the torch version
+    collectives={
+        ("decode_32k", "16x16"): (
+            {"all-gather": 27200512, "all-reduce": 3195904},
+            {"all-gather": 386, "all-reduce": 321}),
+        ("decode_32k", "2x16x16"): (
+            {"all-gather": 580766720, "all-reduce": 1599360},
+            {"all-gather": 514, "all-reduce": 545}),
+        ("prefill_32k", "16x16"): (
+            {"all-gather": 2442955776, "all-reduce": 26172457984},
+            {"all-gather": 418, "all-reduce": 321}),
+        ("train_4k", "16x16"): (
+            {"all-gather": 13299878912, "reduce-scatter": 91479097344,
+             "all-reduce": 1870954},
+            {"all-gather": 647, "reduce-scatter": 451, "all-reduce": 1062})},
+    timeout_s=900)
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
 # float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
@@ -5761,8 +5818,233 @@ def phase_roofline(device) -> dict:
             "launches": {**_attention_counts(), **_matmul_counts()}}
 
 
+def _pod_options(kw: dict) -> dict:
+    return {**dict(serve_quant=False, kv_quant=False, bf16_params=False,
+                   weight_only_qat=False, mode=None, microbatch=1), **kw}
+
+
+def pod_child(tmp: str) -> int:
+    """The pod_count phase's child: each ``POD_COUNT["pods"]`` cell's
+    sharded step counted on one card of a fake-group pod mesh (host work
+    on fake tensors, nothing on the card); writes ``tmp/pod.json``."""
+    import torch
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    rows = []
+    for shape, kw, multi_pod, kvs in POD_COUNT["pods"]:
+        t0 = time.perf_counter()
+        rec = dryrun.run_pod_cell(POD_COUNT["arch"], shape, out_dir=None,
+                                  multi_pod=multi_pod, kv_seq_shard=kvs,
+                                  count=True, **_pod_options(kw))
+        row = {"shape": shape, **kw, "mesh": rec["mesh"],
+               "kv_seq_shard": kvs, "status": rec["status"],
+               "torch": torch.__version__,
+               "seconds": time.perf_counter() - t0}
+        if rec["status"] == "ok":
+            r, st = rec["roofline"], rec["stats"]
+            mem = rec["memory_analysis"]
+            row.update(chips=rec["chips"], bottleneck=r["bottleneck"],
+                       step_time_s=r["step_time_s"],
+                       compute_s=r["compute_s"], memory_s=r["memory_s"],
+                       collective_s=r["collective_s"],
+                       flops_by_class=st["flops_by_class"],
+                       bytes_accessed=st["bytes_accessed"],
+                       collective_bytes_by_kind=st[
+                           "collective_bytes_by_kind"],
+                       collective_count_by_kind=st[
+                           "collective_count_by_kind"],
+                       by_kernel=st["by_kernel"],
+                       argument_bytes=mem["argument_bytes"],
+                       temp_bytes=mem["temp_bytes"],
+                       fits_hbm=mem["fits_hbm"],
+                       notes=rec.get("notes"))
+        else:
+            row["error"] = rec.get("error")
+        rows.append(row)
+        print(json.dumps({"pod_child": row}), flush=True)
+    with open(f"{tmp}/pod.json", "w") as f:
+        json.dump(rows, f)
+    return 0 if all(r["status"] == "ok" for r in rows) else 1
+
+
+def start_pod_child():
+    """Start :func:`pod_child` (host work only) in a temporary directory;
+    returns ``(process, directory)``."""
+    import atexit
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+    with open(f"{tmp}/child.log", "w") as log:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 POD_CHILD_FLAG, tmp], stdout=log,
+                                stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, tmp
+
+
+def _step_tensors(result) -> dict:
+    """A decode step's logits and caches, or a prefill's logits, by name;
+    a ``DTensor`` as its local shard."""
+    logits, caches = result if isinstance(result, tuple) else (result, {})
+    out = {"logits": logits, **caches}
+    return {k: v.to_local() if hasattr(v, "to_local") else v
+            for k, v in out.items()}
+
+
+def phase_pod_count(device, child) -> dict:
+    """The sharded step under the op counter.  (i) On the card: each
+    ``POD_COUNT["cells"]`` cell of phi4-mini at full width and depth
+    (seed 0) run as a sharded step on a one-rank NCCL ``DeviceMesh`` (1,
+    1), every argument a ``DTensor`` by the rule tables and the kernels on
+    the local shards (``launch/dryrun.count_sharded``): its logits and
+    caches bit for bit the unsharded step's, each kernel's launches equal
+    to the counter's calls of it, the card's count equal field for field
+    to the fake group's at (1, 1) and to the one-card dry run's, and no
+    collective byte.  (ii) The child's pod counts (16 x 16 and 2 x 16 x
+    16), printed a cell a line, their collectives equal to
+    ``POD_COUNT["collectives"]``."""
+    import shutil
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (device_mesh, fake_process_mesh,
+                                         release_process_group)
+    from repro_torch.models.model import Model
+    proc, tmp = child
+    arch = POD_COUNT["arch"]
+    t0 = time.perf_counter()
+    check(not torch.distributed.is_initialized(),
+          "pod_count: a process group is up before the fake-group count")
+    fake = {}
+    for shape, kw in POD_COUNT["cells"]:
+        rec = dryrun.run_cell(arch, shape, out_dir=None, **_pod_options(kw))
+        check(rec["status"] == "ok", f"pod_count one-card {shape}: "
+                                     f"{rec.get('error')}")
+        with fake_process_mesh((1, 1), ("data", "model")) as mesh, \
+                FakeTensorMode():
+            _, st, _, _, _ = dryrun.count_sharded(
+                arch, shape, mesh, device="cpu", **_pod_options(kw))
+        fake[shape] = st.as_dict()
+        check(fake[shape] == rec["stats"],
+              f"pod_count {shape}: the fake group's (1, 1) count differs "
+              f"from the one-card record")
+    fake_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    params = Model(get_config(arch), device=device).init(
+        torch.Generator(device).manual_seed(0), quantize=True)
+    torch.cuda.synchronize(device)
+    draw_s = time.perf_counter() - t1
+    cells = []
+    mesh = device_mesh("cuda", [[0]], ("data", "model"))
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              "pod_count: the one-rank mesh is NCCL")
+        for shape, kw in POD_COUNT["cells"]:
+            t1 = time.perf_counter()
+            step, args, _ = dryrun.build_cell(arch, shape, device=device,
+                                              params=params,
+                                              **_pod_options(kw))
+            want = {k: v.clone() for k, v in
+                    _step_tensors(step(*args)).items()}
+            del step, args
+            _reset_matmul_counts()
+            _reset_attention_counts()
+            before = dryrun._launches()
+            result, st, _, _, _ = dryrun.count_sharded(
+                arch, shape, mesh, device=device, params=params,
+                **_pod_options(kw))
+            torch.cuda.synchronize(device)
+            launched = {k: v - before[k]
+                        for k, v in dryrun._launches().items()}
+            got = _step_tensors(result)
+            card = st.as_dict()
+            row = {"shape": shape, **kw,
+                   "bit_for_bit": {k: bool(torch.equal(got[k], want[k]))
+                                   for k in want},
+                   "on_card": all(t.is_cuda for t in got.values()),
+                   "card_equals_fake_1x1": card == fake[shape],
+                   "collective_bytes": card["collective_bytes"],
+                   "by_kernel": card["by_kernel"], "launched": launched,
+                   "launches": {**_matmul_counts(), **_attention_counts()},
+                   "seconds": time.perf_counter() - t1}
+            cells.append(row)
+            del result, got, want
+            print(f"pod_count {arch} {shape} {kw} on a one-rank NCCL mesh: "
+                  f"bit for bit {row['bit_for_bit']}, launches {launched}, "
+                  f"count == fake (1, 1) {row['card_equals_fake_1x1']}",
+                  flush=True)
+            check(row["on_card"], f"pod_count {shape}: a result off the "
+                                  f"card")
+            for k, same in row["bit_for_bit"].items():
+                check(same, f"pod_count {shape}: {k} differs from the "
+                            f"unsharded step")
+            check(row["card_equals_fake_1x1"],
+                  f"pod_count {shape}: the card's count {card} differs "
+                  f"from the fake group's {fake[shape]}")
+            check(card["collective_bytes"] == 0,
+                  f"pod_count {shape}: collective bytes on one rank")
+            for name, k in card["by_kernel"].items():
+                check(launched[name] == k["calls"] > 0,
+                      f"pod_count {shape}: {k['calls']} {name} calls "
+                      f"counted, {launched[name]} launched")
+    finally:
+        release_process_group()
+    del params
+    torch.cuda.empty_cache()
+    seen = {name for row in cells for name in row["by_kernel"]}
+    check(seen == {"w8a8_matmul", "w8a8_decode_attention",
+                   "flash_attention"},
+          f"pod_count: kernels on the local shards {sorted(seen)}")
+    t1 = time.perf_counter()
+    try:
+        proc.wait(timeout=POD_COUNT["timeout_s"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wait_s = time.perf_counter() - t1
+    try:
+        with open(f"{tmp}/child.log") as f:
+            log = f.read()
+        check(proc.returncode == 0,
+              f"pod_count child exit {proc.returncode}: {log[-3000:]}")
+        with open(f"{tmp}/pod.json") as f:
+            pods = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in pods:
+        check(row["status"] == "ok",
+              f"pod_count {row['shape']} on {row['mesh']}: {row.get('error')}")
+        coll = {k: round(v) for k, v in
+                row["collective_bytes_by_kind"].items()}
+        pinned = POD_COUNT["collectives"][(row["shape"], row["mesh"])]
+        row["collectives_as_pinned"] = \
+            (coll, row["collective_count_by_kind"]) == pinned
+        check(row["collectives_as_pinned"],
+              f"pod_count {row['shape']} on {row['mesh']}: collectives "
+              f"{coll} {row['collective_count_by_kind']} under torch "
+              f"{row['torch']}, pinned {pinned}")
+        print(f"pod_count {arch} {row['shape']} on {row['mesh']}"
+              f"{' kv_seq_shard' if row['kv_seq_shard'] else ''} "
+              f"({row['chips']} cards): bottleneck {row['bottleneck']}, "
+              f"step {row['step_time_s']:.6g} s (compute "
+              f"{row['compute_s']:.4g}, memory {row['memory_s']:.4g}, "
+              f"collective {row['collective_s']:.4g}), FLOPs a card "
+              f"{row['flops_by_class']}, collective bytes a card {coll}, "
+              f"fits_hbm {row['fits_hbm']}", flush=True)
+    return {"phase": "pod_count", "arch": arch, "cells": cells,
+            "pods": pods, "fake_count_s": fake_s, "w8a8_draw_s": draw_s,
+            "child_wait_s": wait_s,
+            "launches": {k: sum(row["launches"][k] for row in cells)
+                         for k in cells[0]["launches"]},
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) == 3 and sys.argv[1] == POD_CHILD_FLAG:
+        return pod_child(sys.argv[2])
     if len(sys.argv) == 4 and sys.argv[1] == CHILD_FLAG:
         return resume_child(sys.argv[2], sys.argv[3])
     if len(sys.argv) == 4 and sys.argv[1] == MESH_CHILD_FLAG:
@@ -5774,6 +6056,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     smi = nvidia_smi()
+    pod_child_proc = start_pod_child()
     emit(phase_build())
     print(smi, flush=True)
     main_path = phase_main_path(device)
@@ -5894,6 +6177,8 @@ def main() -> int:
     emit(roofline)
     mesh = phase_mesh(device)
     emit(mesh)
+    pod = phase_pod_count(device, pod_child_proc)
+    emit(pod)
     emit({"phase_seconds": PHASE_SECONDS})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     qat = {f"train ({TRAIN['arch']}, W8A8 QAT, {TRAIN['steps']} steps)":
@@ -5904,6 +6189,7 @@ def main() -> int:
            restart_row["launches"]["w8a8_matmul"]
            + restart_row["launches"]["w4a8_matmul"]}
     roof = f"roofline ({ROOFLINE['arch']}, 4 measured cells)"
+    podk = f"pod_count ({POD_COUNT['arch']}, one-rank NCCL mesh)"
     per = (f"one {SERVE_ARCH} layer's 7 projections at m = "
            f"{SERVE['batch']}, weights cold in L2")
     sweep = timing["vgg16"]
@@ -5981,7 +6267,8 @@ def main() -> int:
                f"{cross[f + '_serve']['n_layers']} layers)":
                cross[f + "_serve"]["launches"]["w8a8_matmul_dp4a"]
                for f in CROSS_ARCHS}, **qat,
-            roof: roofline["launches"]["w8a8_matmul_dp4a"]},
+            roof: roofline["launches"]["w8a8_matmul_dp4a"],
+            podk: pod["launches"]["w8a8_matmul_dp4a"]},
         "moonshot_layer": moe_prefill["w8a8_decode_layer"]["layer"],
     })
     lay = qprefill["layer"]
@@ -6018,7 +6305,8 @@ def main() -> int:
             **{f"{f}_serve fill_ctx_caches ({cross[f + '_serve']['arch']})":
                cross[f + "_serve"]["fill_launches"]["w8a8_matmul_tc"]
                for f in CROSS_ARCHS}, **qat,
-            roof: roofline["launches"]["w8a8_matmul_tc"]},
+            roof: roofline["launches"]["w8a8_matmul_tc"],
+            podk: pod["launches"]["w8a8_matmul_tc"]},
         "context_kv_shapes": {
             f"{cross[f + '_serve']['arch']}": cross[f + "_serve"][
                 "w8a8_context_kv"]["layer"] for f in CROSS_ARCHS},
@@ -6097,7 +6385,8 @@ def main() -> int:
             f"moe_phi35_int8kv ({MOE_PHI['arch']}, "
             f"{MOE_PHI['n_layers']} layers, rep 4)":
                 moe_phi35["int8kv"]["launches"]["w8a8_decode_attention"],
-            roof: roofline["launches"]["w8a8_decode_attention"]},
+            roof: roofline["launches"]["w8a8_decode_attention"],
+            podk: pod["launches"]["w8a8_decode_attention"]},
         "moe_shapes": {f"rep {r['shape'][2]}": {
             k: r[k] for k in (
                 "shape", "splits", "positions", "max_abs_err", "rel_to_max",
@@ -6152,7 +6441,8 @@ def main() -> int:
                     "flash_attention_tc"],
             f"train_restart ({TRAIN_RESTART['arch']}, under grad)":
                 restart_row["launches"]["flash_attention"],
-            roof: roofline["launches"]["flash_attention_tc"]},
+            roof: roofline["launches"]["flash_attention_tc"],
+            podk: pod["launches"]["flash_attention_tc"]},
         "cross_family_shapes": {
             f"{ph} {kind}": {k: r[k] for k in (
                 "shape", "keys", "causal", "dtype", "best_kernel_ms",

@@ -40,6 +40,16 @@ is added instead.  A step therefore counts the same work on the kernel
 route on the card, on the plain route on the CPU and under fake tensors.
 A backward has no kernel (ROADMAP C.13) and is counted op by op.
 
+A step on ``DTensor`` arguments (a sharded step on a ``DeviceMesh``,
+``launch/dryrun.run_pod_cell``) is counted on one card: the counter
+declines a call on ``DTensor`` operands (``NotImplemented``), so the
+``DTensor`` layer redistributes them (its collectives counted, on the
+local shards) and runs the op on the local shards, which the counter
+then sees.  DTensor's sharding propagation, which runs the op once more
+at the global shapes to learn the output's, is kept out of the count
+(:func:`quiet_sharding_propagation`).  Bytes, live bytes and the
+argument and output bytes are the local shards'.
+
 The counter also follows the bytes of the results it sees that are alive
 (``weakref.finalize``); their peak is ``temp_bytes``, the counterpart of
 XLA's ``temp_size``.  A kernel scope's intermediates are not followed,
@@ -62,7 +72,8 @@ import math
 import weakref
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 
 #: aten collectives by the reference's kinds (``hlo_analysis._COLLECTIVES``)
 _COLLECTIVE_KIND = {
@@ -225,11 +236,15 @@ class OpCounter(TorchDispatchMode):
 
     def __enter__(self):
         _ACTIVE.append(self)
+        self._quiet = contextlib.ExitStack()
         return super().__enter__()
 
     def __exit__(self, *exc):
         _ACTIVE.remove(self)
-        return super().__exit__(*exc)
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._quiet.close()
 
     # ------------------------------------------------------------ kernels
     @contextlib.contextmanager
@@ -271,6 +286,13 @@ class OpCounter(TorchDispatchMode):
 
     # ----------------------------------------------------------- aten ops
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_types(types):
+            # the DTensor layer takes the call and runs it on the local
+            # shards, which come back here; its propagation from the
+            # first such call on runs quiet
+            if not _QUIET:
+                self._quiet.enter_context(quiet_sharding_propagation())
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if self._scopes:
@@ -363,11 +385,125 @@ def kernel_scope(name: str, flops: float, bytes_: float, cls: str):
         yield
 
 
+_DTENSOR: list = []
+
+
+def _dtensor_class():
+    """``DTensor`` where ``torch.distributed`` has it, else None."""
+    if not _DTENSOR:
+        cls = None
+        if torch.distributed.is_available():
+            from torch.distributed.tensor import DTensor as cls
+        _DTENSOR.append(cls)
+    return _DTENSOR[0]
+
+
+def _dtensor_types(types) -> bool:
+    cls = _dtensor_class()
+    return cls is not None and any(issubclass(t, cls) for t in types)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """One card's part of ``t``: a ``DTensor``'s local shard, else ``t``."""
+    cls = _dtensor_class()
+    return t._local_tensor if cls is not None and isinstance(t, cls) else t
+
+
+def _modes_off(fn):
+    def run(*args, **kwargs):
+        with _disable_current_modes():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _fake_mode_unset(fn):
+    def run():
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with unset_fake_temporarily():
+            return fn()
+    return run
+
+
+@contextlib.contextmanager
+def _wrapped(obj, name: str, wrap):
+    """``obj.name`` replaced by ``wrap(obj.name)`` inside the context (a
+    static method stays static).  Raises where ``obj`` has no ``name``:
+    a torch without it would count the propagation run again."""
+    if not hasattr(obj, name):
+        raise RuntimeError(
+            f"torch {torch.__version__}: {getattr(obj, '__name__', obj)!r} "
+            f"has no {name!r}, which the count of a DTensor step quiets")
+    own = name in vars(obj)
+    old = vars(obj).get(name)
+    new = wrap(getattr(obj, name))
+    setattr(obj, name, staticmethod(new) if isinstance(old, staticmethod)
+            else new)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, old)
+        else:
+            delattr(obj, name)
+
+
+#: set while :func:`quiet_sharding_propagation` is in force
+_QUIET: list = []
+
+
+@contextlib.contextmanager
+def quiet_sharding_propagation():
+    """Run DTensor's sharding propagation with every dispatch mode off.
+
+    DTensor learns an op's output placement by running the op once more
+    on fake tensors of the *global* shapes; an active counter would count
+    that run beside the local one (a product about ``1 + 1 / chips``
+    times).  Its strided-shard offsets also call ``tolist()`` on index
+    tensors, which fails where they are built under a ``FakeTensorMode``.
+    Both are bookkeeping on shapes, not work on the card: inside this
+    context they run outside the modes (the counter, the dry run's fake
+    mode).  DTensor also takes an active ``FakeTensorMode`` for a
+    ``torch.compile`` trace and then caches no propagation, so each layer
+    of a step would propagate every op anew: here an active fake mode
+    alone does not count as tracing (``_are_we_tracing``, where it is
+    defined and in every DTensor module that holds it).  A counter enters
+    this at its first ``DTensor`` call, so a step on plain tensors runs
+    none of it.  Raises where a name it replaces is missing; everything
+    is restored on exit."""
+    import sys
+
+    from torch.distributed import _functional_collectives as fc
+    from torch.distributed.tensor import DTensor, placement_types
+    tracing = getattr(fc, "_are_we_tracing", None)
+    with contextlib.ExitStack() as stack:
+        prop = DTensor._op_dispatcher.sharding_propagator
+        for name in ("propagate_op_sharding",
+                     "propagate_op_sharding_non_cached"):
+            stack.enter_context(_wrapped(prop, name, _modes_off))
+        stack.enter_context(_wrapped(placement_types._StridedShard,
+                                     "local_shard_size_and_offset",
+                                     _modes_off))
+        holders = [fc] + [
+            m for k, m in list(sys.modules.items())
+            if k.startswith("torch.distributed.tensor.") and m is not None
+            and tracing is not None
+            and getattr(m, "_are_we_tracing", None) is tracing]
+        for mod in holders:
+            stack.enter_context(_wrapped(mod, "_are_we_tracing",
+                                         _fake_mode_unset))
+        _QUIET.append(True)
+        try:
+            yield
+        finally:
+            _QUIET.pop()
+
+
 def leaves(tree):
     """The tensors of a tree of dicts, lists, tuples and dataclasses (a
-    quantized weight's ``data`` and ``scale``), in order."""
+    quantized weight's ``data`` and ``scale``), in order; a ``DTensor``
+    stands for its local shard."""
     if isinstance(tree, torch.Tensor):
-        yield tree
+        yield local(tree)
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from leaves(v)

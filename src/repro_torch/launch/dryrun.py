@@ -24,17 +24,28 @@ seq_len - 1``, so the whole cache is read).  The mesh is one card
 (``"1"``).
 
 ``multi_pod`` (the 2 x 16 x 16 mesh ``"2x16x16"``, else 16 x 16
-``"16x16"``) and ``kv_seq_shard`` place the cell on the reference's pod
-meshes (:func:`repro_torch.launch.mesh.make_production_mesh`, axis names
-and sizes only): params and optimizer state by
+``"16x16"``) and ``kv_seq_shard`` count the cell's **sharded step** on
+the reference's pod meshes, as one card of the mesh runs it
+(:func:`run_pod_cell`).  The mesh is a real ``DeviceMesh`` over a
+``fake`` process group of 256 / 512 ranks
+(:func:`repro_torch.launch.mesh.fake_production_mesh`; this process is
+rank 0, collectives move nothing).  The step's arguments, built under
+``FakeTensorMode`` at full width and depth, become ``DTensor``s by the
+rule tables (:func:`place_cell`: params and optimizer state by
 :func:`~repro_torch.parallel.sharding.tree_pspecs`, the batch and caches
-by :func:`batch_pspecs` / :func:`cache_pspecs`, ports of the reference's
-rule tables.  The record (status ``"placed"``) holds each card's
-argument bytes, the sum of its local shard sizes, and ``fits_hbm``
-against one H100's memory.  The reference also parses the sharded step's
-per-card count and collective bytes from HLO; the port has no sharded
-step under the op counter, so those fields are ``None`` and the record
-says why (ROADMAP A.11) — never a one-card count divided by the chips.
+by :func:`batch_pspecs` / :func:`cache_pspecs`), the activations follow
+``activation_sharding``'s ``shard()`` points, and the kernels and
+plain products run on local shards (``kernels/ops.on_local_shards``,
+``local_map``).  Every move of a placement is the port's choice, not
+one of DTensor's strategies, so the collectives do not change with the
+torch version.  The op counter sees one card's local ops and the
+collectives the moves issue, at their operand bytes; the record has the
+reference's schema
+with ``chips`` = the mesh's size (never a one-card count divided by the
+chips).  Under ``kv_seq_shard`` the decode body gathers the cache's
+sequence whole over "model" on each card (the record's ``notes``).
+:func:`run_pod_cell` with ``count=False`` records each card's argument
+bytes alone (status ``"placed"``).
 
 With ``measure=True`` (a card) the cell is also built for real from a
 seeded generator and run on the card: the step counted again (the kernels
@@ -72,23 +83,30 @@ from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gpu_roofline import H100, roofline_from_stats
 from repro_torch.core.op_analysis import analyze_step, distinct_bases
-from repro_torch.kernels import (flash_attention, w4a8_matmul, w8a8_decode,
-                                 w8a8_matmul)
-from repro_torch.launch.mesh import make_production_mesh, mesh_sizes
+from repro_torch.kernels import (flash_attention, ops, w4a8_matmul,
+                                 w8a8_decode, w8a8_matmul)
+from repro_torch.launch.mesh import (fake_production_mesh,
+                                     make_production_mesh, mesh_sizes)
 from repro_torch.models.model import Model
 from repro_torch.models.tree import tree_map
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import (P, data_axes, leaf_specs,
-                                           local_shape)
+from repro_torch.parallel.sharding import (P, activation_sharding,
+                                           data_axes,
+                                           default_activation_rules,
+                                           leaf_specs, local_shape, place,
+                                           tree_shardings)
 
 OUT_DIR = "experiments/dryrun_torch"
-#: where ``main`` writes the pod meshes' placement records (they carry no
-#: roofline, so they stay out of the one-card records' directory)
+#: where ``main`` writes the pod meshes' records (apart from the one-card
+#: records, which ``benchmarks/roofline_bench.py`` reads)
 POD_OUT_DIR = "experiments/dryrun_torch_pod"
-#: why a pod record has no count, collective bytes or roofline
-POD_ABSENT = ("not counted: the port has no sharded step under the op "
-              "counter, so the per-card count and collective bytes the "
-              "reference parses from HLO are absent (ROADMAP A.11)")
+#: what a record under ``kv_seq_shard`` counts for the decode attention
+KV_SEQ_SHARD_NOTE = (
+    "kv_seq_shard: the cache's sequence is split over 'model' in memory; "
+    "each card writes its token into its own part, and the int8 decode "
+    "body (or the bf16 einsum) gathers the sequence whole over 'model' "
+    "before attending (counted all-gathers), no cross-rank merge of "
+    "split-S partials")
 #: shapes one card serves at full width (the reference's ``SHAPES`` are
 #: sized for a pod): a decode step of batch 4 over a 4096-position cache
 #: and a 1 x 4096 prefill
@@ -266,6 +284,64 @@ def placement(cfg, shape, mesh, args, *, kv_seq_shard=False) -> dict:
     return {k: _local_bytes(v, mesh) for k, v in groups.items()}
 
 
+def place_cell(cfg, shape, mesh, args, *, kv_seq_shard=False) -> tuple:
+    """The cell's arguments as ``DTensor``s on ``mesh`` (a ``DeviceMesh``),
+    each rank keeping its own block (no collective): params and train's
+    optimizer state by ``tree_pspecs``, decode's caches by
+    :func:`cache_pspecs`, the batch by :func:`batch_pspecs`; host scalars
+    (``pos``, the optimizer's step) stay."""
+    params, batch = args[0], args[-1]
+    out = [tree_shardings(mesh, params)]
+    if shape.kind == "train":
+        out.append(tree_shardings(mesh, args[1]))
+    elif shape.kind == "decode":
+        specs = cache_pspecs(cfg, shape, mesh, args[1],
+                             kv_seq_shard=kv_seq_shard)
+        out.append({k: place(v, mesh, specs[k]) for k, v in args[1].items()})
+    specs = batch_pspecs(cfg, shape, mesh, batch)
+    out.append({k: place(v, mesh, specs[k]) if isinstance(v, torch.Tensor)
+                else v for k, v in batch.items()})
+    return tuple(out)
+
+
+def sharded_step(step, mesh, shape):
+    """``step`` on ``mesh``: the reference's activation rules
+    (``default_activation_rules``: sequence-parallel residual in train,
+    batch 1 on the long cells) at every ``shard()`` point, and plain
+    tensors made inside the step (positions, masks, zeros) taken as
+    replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    rules = default_activation_rules(mesh, seq_sharded=shape.kind == "train",
+                                     batch_1=shape.global_batch == 1)
+
+    def run(*args):
+        with activation_sharding(mesh, rules), implicit_replication():
+            return step(*args)
+    return run
+
+
+def count_sharded(arch: str, shape_name: str, mesh, *, device="cpu",
+                  kv_seq_shard: bool = False, params: dict | None = None,
+                  **kw) -> tuple:
+    """Build the cell (in the active mode: fake tensors in the dry run),
+    place it on ``mesh`` and count its sharded step on this rank; returns
+    ``(result, StepStats, alias_bytes, model_flops, groups)``, the
+    result's ``DTensor``s as the step left them and ``groups`` each
+    argument group's bytes on one card by the rule tables
+    (:func:`placement`)."""
+    cfg = get_config(arch)
+    if kw.get("mode"):
+        cfg = dataclasses.replace(cfg, quant=kw["mode"])
+    shape = shape_config(shape_name)
+    step, args, model_flops = build_cell(arch, shape_name, device=device,
+                                         params=params, **kw)
+    groups = placement(cfg, shape, mesh, args, kv_seq_shard=kv_seq_shard)
+    placed = place_cell(cfg, shape, mesh, args, kv_seq_shard=kv_seq_shard)
+    del args
+    result, stats, alias, _ = _count(sharded_step(step, mesh, shape), placed)
+    return result, stats, alias, model_flops, groups
+
+
 def _bf16_view(params):
     """Big float32 projection leaves cast to bf16 (the reference's
     ``_bf16_view``: compute in bf16, the float32 master kept)."""
@@ -283,7 +359,8 @@ def accumulate_grads(model, params, batch: dict, microbatch: int = 1, *,
     microbatch accumulation: ``microbatch`` equal slices of the batch, one
     backward each, gradients summed and divided by ``microbatch`` (the
     loss is a per-token mean, so their mean is the full batch's
-    gradient), live activations shrunk by the factor.  ``view`` maps the
+    gradient), live activations shrunk by the factor; on a mesh each
+    gradient is placed as its param.  ``view`` maps the
     params before the loss (``_bf16_view``).  Returns ``(loss, grads,
     leaves)``, ``leaves`` the params the gradients belong to; a leaf the
     loss does not reach gets zeros."""
@@ -301,9 +378,18 @@ def accumulate_grads(model, params, batch: dict, microbatch: int = 1, *,
     else:
         loss = model.loss(p_view, batch)
         loss.backward()
-    grads = tree_map(lambda p: p.grad / microbatch if p.grad is not None
-                     else torch.zeros_like(p), leaves)
+    grads = tree_map(lambda p: _placed_as(p.grad, p) / microbatch
+                     if p.grad is not None else torch.zeros_like(p), leaves)
     return loss.detach(), grads, leaves
+
+
+def _placed_as(grad, p):
+    """A ``DTensor`` gradient moved to its param's placements (the
+    reduce-scatter or all-reduce of its ``Partial`` sums, and any other
+    move, chosen here and not by the first op that reads it)."""
+    if ops.sharded(grad) and list(grad.placements) != list(p.placements):
+        return grad.redistribute(p.device_mesh, p.placements)
+    return grad
 
 
 def build_cell(arch: str, shape_name: str, *, serve_quant: bool = False,
@@ -485,18 +571,18 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     measured cell's params on the card, where several cells of one arch
     and mode share one draw (else drawn from :data:`SEED`).
 
-    ``multi_pod`` or ``kv_seq_shard`` place the cell on a pod mesh
-    instead (:func:`run_pod_cell`)."""
+    ``multi_pod`` or ``kv_seq_shard`` count the cell's sharded step on a
+    pod mesh instead (:func:`run_pod_cell`)."""
     if multi_pod or kv_seq_shard:
         if measure:
-            raise ValueError("a pod mesh's cell is placed, not measured: "
+            raise ValueError("a pod mesh's cell is counted, not measured: "
                              "measure=True times one card")
         kw = dict(serve_quant=serve_quant, kv_quant=kv_quant,
                   bf16_params=bf16_params, weight_only_qat=weight_only_qat,
                   mode=mode, microbatch=microbatch)
         return run_pod_cell(arch, shape_name, multi_pod=multi_pod,
                             kv_seq_shard=kv_seq_shard, out_dir=out_dir,
-                            device=device, **kw)
+                            device=device, count=True, **kw)
     if measure and not torch.cuda.is_available():
         raise RuntimeError("run_cell(measure=True) times the step on a "
                            "card, and CUDA is not available")
@@ -522,23 +608,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                                  device=dev, **kw)
             _, stats, alias, _ = _count(step, args)
             del step, args
-        roof = roofline_from_stats(stats, arch=arch, shape=shape_name,
-                                   mesh=mesh_name, chips=1,
-                                   model_flops=model_flops)
-        hbm = H100.hbm_gb * 1e9
-        rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-               "status": "ok", "quant": serve_quant, "variant": suffix,
-               "compile_s": round(time.perf_counter() - t0, 1),
-               "memory_analysis": {
-                   "argument_bytes": stats.argument_bytes,
-                   "output_bytes": stats.output_bytes,
-                   "temp_bytes": stats.temp_bytes,
-                   "alias_bytes": alias,
-                   "hbm_bytes": hbm,
-                   "fits_hbm": stats.argument_bytes + stats.temp_bytes
-                   <= hbm},
-               "stats": stats.as_dict(),
-               "roofline": roof.as_dict()}
+        rec, roof = _record(arch, shape_name, mesh_name, 1, stats, alias,
+                            model_flops, serve_quant, suffix, t0)
     except Exception as e:  # a failure here is a bug in the system
         if measure:
             raise
@@ -555,20 +626,47 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return rec
 
 
+def _record(arch, shape_name, mesh_name, chips, stats, alias, model_flops,
+            quant, suffix, t0) -> tuple:
+    """The reference's record of a counted cell, and its roofline."""
+    roof = roofline_from_stats(stats, arch=arch, shape=shape_name,
+                               mesh=mesh_name, chips=chips,
+                               model_flops=model_flops)
+    hbm = H100.hbm_gb * 1e9
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+           "status": "ok", "quant": quant, "variant": suffix,
+           "compile_s": round(time.perf_counter() - t0, 1),
+           "memory_analysis": {
+               "argument_bytes": stats.argument_bytes,
+               "output_bytes": stats.output_bytes,
+               "temp_bytes": stats.temp_bytes,
+               "alias_bytes": alias,
+               "hbm_bytes": hbm,
+               "fits_hbm": stats.argument_bytes + stats.temp_bytes <= hbm},
+           "stats": stats.as_dict(),
+           "roofline": roof.as_dict()}
+    return rec, roof
+
+
 def run_pod_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                  kv_seq_shard: bool = False, out_dir: str | None = OUT_DIR,
-                 device=None, **kw) -> dict:
-    """Place one cell on the reference's pod mesh (16 x 16, or 2 x 16 x 16
-    with ``multi_pod``) and record each card's argument bytes: the cell
-    built under ``FakeTensorMode`` at full width and depth (nothing
-    allocated), its arguments placed by the rule tables.  ``kw``: the
-    cell's options, as :func:`run_cell` takes them."""
+                 device=None, count: bool = False, **kw) -> dict:
+    """One cell on the reference's pod mesh (16 x 16, or 2 x 16 x 16 with
+    ``multi_pod``), built under ``FakeTensorMode`` at full width and depth
+    (nothing allocated).  With ``count``, its sharded step counted on one
+    card of a fake-group ``DeviceMesh`` (:func:`count_sharded`): the
+    reference's record with ``chips`` = the mesh's size and ``torch``,
+    the version that counted it.  Without, each
+    card's argument bytes under the rule tables alone (status
+    ``"placed"``).  ``kw``: the cell's options, as :func:`run_cell`
+    takes them."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     mesh_name = "x".join(str(n) for n in mesh.shape)
     dev = resolve_device(device or "cpu")
     cfg = get_config(arch)
     shape = shape_config(shape_name)
-    tag = f"{arch}__{shape_name}__{mesh_name}{_variant(kw, kv_seq_shard)}"
+    suffix = _variant(kw, kv_seq_shard)
+    tag = f"{arch}__{shape_name}__{mesh_name}{suffix}"
     base = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
     reason = skip_reason(cfg, shape)
     if reason:
@@ -576,6 +674,29 @@ def run_pod_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         _dump(out_dir, tag, rec)
         return rec
     t0 = time.perf_counter()
+    if count:
+        try:
+            with fake_production_mesh(multi_pod=multi_pod) as dmesh, \
+                    FakeTensorMode():
+                _, stats, alias, model_flops, groups = count_sharded(
+                    arch, shape_name, dmesh, device=dev,
+                    kv_seq_shard=kv_seq_shard, **kw)
+            rec, _ = _record(arch, shape_name, mesh_name, mesh.size(),
+                             stats, alias, model_flops, kw["serve_quant"],
+                             suffix, t0)
+            rec["chips"] = mesh.size()
+            # the port chooses the collectives; DTensor's own copies
+            # inside a move still differ between torch versions
+            rec["torch"] = torch.__version__
+            rec["memory_analysis"]["argument_bytes_by_group"] = groups
+            if kv_seq_shard and shape.kind == "decode":
+                rec["notes"] = KV_SEQ_SHARD_NOTE
+        except Exception as e:  # a failure here is a bug in the system
+            rec = {**base, "status": "error",
+                   "error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()[-2000:]}
+        _dump(out_dir, tag, rec)
+        return rec
     try:
         with FakeTensorMode():
             _, args, model_flops = build_cell(arch, shape_name, device=dev,
@@ -594,9 +715,7 @@ def run_pod_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                    "argument_bytes": arg,
                    "argument_bytes_by_group": groups,
                    "hbm_bytes": hbm,
-                   "fits_hbm": arg <= hbm},
-               "stats": None, "collective_bytes": None, "roofline": None,
-               "absent": POD_ABSENT}
+                   "fits_hbm": arg <= hbm}}
     except Exception as e:  # a failure here is a bug in the system
         rec = {**base, "status": "error", "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-2000:]}
@@ -635,8 +754,9 @@ def main(argv=None):
                          "card")
     ap.add_argument("--mesh", default="card",
                     choices=("card", "pod", "multipod", "both"),
-                    help="one card (counted), or placement on the 16x16 "
-                         "pod, the 2x16x16 multi-pod or both")
+                    help="one card, or the sharded step counted on one "
+                         "card of the 16x16 pod, the 2x16x16 multi-pod or "
+                         "both")
     ap.add_argument("--kv-seq-shard", action="store_true",
                     help="shard the KV cache's sequence over 'model' "
                          "(pod meshes)")
@@ -658,40 +778,40 @@ def main(argv=None):
             for multi_pod in pods:
                 rec = run_pod_cell(arch, shape, multi_pod=multi_pod,
                                    kv_seq_shard=args.kv_seq_shard,
-                                   out_dir=args.out or POD_OUT_DIR, **kw)
-                extra = ""
-                if rec["status"] == "placed":
-                    mem = rec["memory_analysis"]
-                    extra = (f" arg={mem['argument_bytes'] / 1e9:.4g}GB"
-                             f" fits={mem['fits_hbm']}")
-                elif rec["status"] == "error":
-                    extra = " " + rec["error"][:120]
-                print(f"[{rec['mesh']}] {arch} x {shape}: "
-                      f"{rec['status']}{extra}", flush=True)
+                                   out_dir=args.out or POD_OUT_DIR,
+                                   count=True, **kw)
+                _print(rec)
             if pods:
                 continue
             rec = run_cell(arch, shape, measure=args.measure,
                            out_dir=args.out or OUT_DIR, **kw)
-            status = rec["status"]
-            extra = ""
-            if status == "ok":
-                r, mem = rec["roofline"], rec["memory_analysis"]
-                gb = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e9
-                extra = (f" bottleneck={r['bottleneck']}"
-                         f" frac={r['roofline_fraction']:.3f}"
-                         f" step={r['step_time_s']:.4g}s"
-                         f" arg+temp={gb:.4g}GB"
-                         f" fits={mem['fits_hbm']}"
-                         f" count={rec['compile_s']}s")
-                if "measured" in rec:
-                    m = rec["measured"]
-                    extra += (f" measured={m['measured_s']:.4g}s"
-                              f" measured_fraction="
-                              f"{m['measured_fraction']:.4g}")
-            elif status == "error":
-                extra = " " + rec["error"][:120]
-            print(f"[{rec['mesh']}] {arch} x {shape}: {status}{extra}",
-                  flush=True)
+            _print(rec)
+
+
+def _print(rec: dict) -> None:
+    """One line of a record: its status, and a counted cell's bound."""
+    status = rec["status"]
+    extra = ""
+    if status == "ok":
+        r, mem = rec["roofline"], rec["memory_analysis"]
+        gb = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e9
+        coll = rec["stats"]["collective_bytes"]
+        extra = (f" bottleneck={r['bottleneck']}"
+                 f" frac={r['roofline_fraction']:.3f}"
+                 f" step={r['step_time_s']:.4g}s"
+                 f" arg+temp={gb:.4g}GB"
+                 f" fits={mem['fits_hbm']}"
+                 + (f" coll={coll / 1e9:.4g}GB" if coll else "")
+                 + f" count={rec['compile_s']}s")
+        if "measured" in rec:
+            m = rec["measured"]
+            extra += (f" measured={m['measured_s']:.4g}s"
+                      f" measured_fraction="
+                      f"{m['measured_fraction']:.4g}")
+    elif status == "error":
+        extra = " " + rec["error"][:120]
+    print(f"[{rec['mesh']}] {rec['arch']} x {rec['shape']}: {status}{extra}",
+          flush=True)
 
 
 if __name__ == "__main__":

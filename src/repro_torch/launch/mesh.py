@@ -16,7 +16,11 @@ so importing touches no process group.
   it: a CUDA mesh never becomes a CPU one.
 * :func:`make_production_mesh` returns a :class:`ShapeMesh`, axis names
   and sizes without ranks (no machine here has 256), which the sharding
-  rules and the dry run take wherever the reference takes its pod mesh.
+  rules read wherever the reference takes its pod mesh.
+  :func:`fake_production_mesh` gives a real ``DeviceMesh`` of that shape
+  over a ``fake`` process group of 256 / 512 ranks, on which the dry run
+  counts a sharded step as rank 0 sees it (collectives return at once,
+  moving nothing).
 
 The reference's ``compat_make_mesh`` and ``compat_shard_map`` paper over
 jax versions and have no torch counterpart: a sharded sweep takes its
@@ -27,6 +31,7 @@ the result (:mod:`repro_torch.core.dse_batch`), which replaces the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -99,6 +104,43 @@ def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
     if multi_pod:
         return ShapeMesh((2, 16, 16), ("pod", "data", "model"))
     return ShapeMesh((16, 16), ("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_process_mesh(shape: tuple, axis_names: tuple,
+                      device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` over a ``fake`` process group of
+    ``prod(shape)`` ranks in which this process is rank 0: every
+    collective returns at once without moving data, so a step on it runs
+    (on fake or real tensors) as rank 0 of the mesh would, and the op
+    counter sees its collectives at their real operand sizes.  The group
+    is destroyed on exit.  Refused while a default group is up: a fake
+    group must never stand where a real one is expected, nor a real one
+    be torn down under its users."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(
+            "a fake process group cannot start while a default group is up "
+            f"({dist.get_backend()}, {dist.get_world_size()} ranks); "
+            "release it first (release_process_group)")
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield DeviceMesh(device_type,
+                         torch.arange(n, dtype=torch.int64).reshape(shape),
+                         mesh_dim_names=tuple(axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def fake_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu"):
+    """:func:`fake_process_mesh` of the reference's pod mesh
+    (:func:`make_production_mesh`): 16 x 16 ``("data", "model")``, or
+    2 x 16 x 16 ``("pod", "data", "model")``."""
+    shape = make_production_mesh(multi_pod=multi_pod)
+    return fake_process_mesh(shape.shape, shape.mesh_dim_names, device_type)
 
 
 def make_host_mesh(model: int = 1, *, device_type: str = "cuda"):

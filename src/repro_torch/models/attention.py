@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.kernels import flash_attention, ops, w8a8_decode
 from repro_torch.models.common import rope
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import einsum, reshape, shard
 from repro_torch.quant.quantizers import const_like
 from repro_torch.quant.qlinear import qdot
 
@@ -72,13 +72,13 @@ def dense_attention(q, k, v, *, causal=True, window=None):
     float32 softmax, masked logits filled with -1e30."""
     sq, hd = q.shape[1], q.shape[3]
     sk = k.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * hd ** -0.5
+    logits = einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                    k.to(torch.float32)) * hd ** -0.5
     qi = (torch.arange(sq, device=q.device) + (sk - sq))[:, None]
     ki = torch.arange(sk, device=q.device)[None, :]
     p = torch.softmax(torch.where(_mask(qi, ki, causal, window), logits,
                                   NEG_INF), dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    out = einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
     return out.to(q.dtype)
 
 
@@ -123,7 +123,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
                        device=dev)
         l = torch.zeros((b, h, tile_q), dtype=torch.float32, device=dev)
         for j in range(n_kv):
-            s = torch.einsum("bqhd,bkhd->bhqk", qtile, kb[:, j]) * scale
+            s = einsum("bqhd,bkhd->bhqk", qtile, kb[:, j]) * scale
             ki = (j * bk + torch.arange(bk, device=dev))[None, :]
             s = torch.where(_mask(qi, ki, causal, window), s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -131,7 +131,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] \
-                + torch.einsum("bhqk,bkhd->bhqd", p, vb[:, j])
+                + einsum("bhqk,bkhd->bhqd", p, vb[:, j])
             m = m_new
         out = acc / l.clamp_min(1e-30)[..., None]
         return out.transpose(1, 2)    # (b, tile_q, h, hd)
@@ -160,7 +160,14 @@ def attend(q, k, v, *, causal=True, window=None, impl: str = "auto"):
     Operands of mixed dtypes (a bf16 q against the float32 context k, v
     of the vlm forward) meet in float32, as the plain route computes
     them: the float32 kernel, out cast to q's dtype.  An op counter counts
-    either route as one flash call (``ops.counted``)."""
+    either route as one flash call (``ops.counted``).  On ``DTensor``
+    operands each card attends over its own batch rows and heads
+    (``ops.on_local_shards``); a split sequence is gathered first."""
+    if ops.sharded(q, k, v):
+        return ops.on_local_shards(
+            lambda *t: attend(*t, causal=causal, window=window, impl=impl),
+            (q, k, v), (("b", "s", "h", "d"),) * 3, ("b", "s", "h", "d"),
+            split=("b", "h"))
     dt = q.dtype if q.dtype == k.dtype == v.dtype else torch.float32
     b, sq, h, hd = q.shape
     return ops.counted("flash_attention", lambda: flash_attention.cost(
@@ -190,18 +197,19 @@ def self_attention(x, p, cfg, *, policy, train=False, window=None,
     ``(out, (k, v))``."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = qdot(x, p["wq"], policy, train=train, impl=impl).reshape(b, s, h, hd)
-    k = qdot(x, p["wk"], policy, train=train, impl=impl) \
-        .reshape(b, s, kvh, hd)
-    v = qdot(x, p["wv"], policy, train=train, impl=impl) \
-        .reshape(b, s, kvh, hd)
+    q = reshape(qdot(x, p["wq"], policy, train=train, impl=impl),
+                b, s, h, hd)
+    k = reshape(qdot(x, p["wk"], policy, train=train, impl=impl),
+                b, s, kvh, hd)
+    v = reshape(qdot(x, p["wv"], policy, train=train, impl=impl),
+                b, s, kvh, hd)
     q = shard(q, "attn_qkv")
     positions = torch.arange(s, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = attend(q, _broadcast_kv(k, h), _broadcast_kv(v, h), window=window,
                  impl=impl)
-    out = out.reshape(b, s, h * hd)
+    out = reshape(out, b, s, h * hd)
     return qdot(out, p["wo"], policy, train=train, impl=impl), (k, v)
 
 
@@ -212,6 +220,32 @@ def _quantize_kv(t: torch.Tensor):
     t_q = torch.round(t / t_s.clamp_min(1e-8)[..., None]) \
         .clamp(-128, 127).to(torch.int8)
     return t_q, t_s
+
+
+def _write_on_shards(cache, val, w: int) -> None:
+    """``cache[:, w] = val`` in place on a ``DTensor`` cache: each rank
+    writes its own shard, and a rank whose part of a split sequence does
+    not hold slot ``w`` writes nothing (a slice of a split dim would be
+    written into a gathered copy, and lost)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, p in enumerate(cache.placements):
+        if type(p) is Shard and p.dim == 1:
+            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    start = idx * (cache.shape[1] // n)
+
+    def body(c, v):
+        if start <= w < start + c.shape[1]:
+            c[:, w - start:w - start + 1] = v.to(c.dtype)
+        return c
+    val_pl = tuple(Replicate() if type(p) is Shard and p.dim == 1 else p
+                   for p in cache.placements)
+    local_map(body, out_placements=[*cache.placements],
+              in_placements=(tuple(cache.placements), val_pl),
+              redistribute_inputs=True)(cache, val)
 
 
 def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
@@ -244,11 +278,12 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
     sliced = static_window is not None and static_window < S
     per_slot = isinstance(pos, torch.Tensor) and pos.dim() == 1
     dev = x.device
-    q = qdot(x, p["wq"], policy, train=train, impl=impl).reshape(b, 1, h, hd)
-    k = qdot(x, p["wk"], policy, train=train, impl=impl) \
-        .reshape(b, 1, kvh, hd)
-    v = qdot(x, p["wv"], policy, train=train, impl=impl) \
-        .reshape(b, 1, kvh, hd)
+    q = reshape(qdot(x, p["wq"], policy, train=train, impl=impl),
+                b, 1, h, hd)
+    k = reshape(qdot(x, p["wk"], policy, train=train, impl=impl),
+                b, 1, kvh, hd)
+    v = reshape(qdot(x, p["wv"], policy, train=train, impl=impl),
+                b, 1, kvh, hd)
     if per_slot:
         pos_b = pos.to(device=dev, dtype=torch.int64)
         posv = pos_b[:, None]
@@ -263,6 +298,8 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
         if per_slot:   # per-slot scatter write (iteration-level batching)
             cache[rows, pos_b % S if ring else pos_b] = val[:, 0].to(
                 cache.dtype)
+        elif ops.sharded(cache):
+            _write_on_shards(cache, val, pos % S if ring else pos)
         else:
             w = pos % S if ring else pos
             cache[:, w:w + 1] = val.to(cache.dtype)
@@ -301,7 +338,7 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
         return torch.gather(cache, 1, idx)
 
     keep = None if window is None else ki > pos_b[:, None] - window
-    qg = q.reshape(b, kvh, rep, hd)
+    qg = reshape(q, b, kvh, rep, hd)
     if kv_scales is not None:   # int8 KV cache
         k_scale, v_scale = kv_scales
         k_q, k_s = _quantize_kv(k)
@@ -338,17 +375,17 @@ def decode_self_attention(x, p, cfg, cache_k, cache_v, pos, *,
         write(cache_k, k)
         write(cache_v, v)
         kk, vv = read(cache_k), read(cache_v)
-        logits = torch.einsum("bgrd,bsgd->bgrs", qg.to(torch.float32),
-                              kk.to(torch.float32)) * hd ** -0.5
+        logits = einsum("bgrd,bsgd->bgrs", qg.to(torch.float32),
+                        kk.to(torch.float32)) * hd ** -0.5
         valid = (ki <= pos_b[:, None]) & (ki >= 0)
         if keep is not None:
             valid &= keep
         logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
         pr = torch.softmax(logits, dim=-1)            # (b, g, r, s) f32
-        out = torch.einsum("bgrs,bsgd->bgrd",
-                           pr.to(vv.dtype).to(torch.float32),
-                           vv.to(torch.float32))
-    out = out.reshape(b, 1, h * hd).to(x.dtype)
+        out = einsum("bgrs,bsgd->bgrd",
+                     pr.to(vv.dtype).to(torch.float32),
+                     vv.to(torch.float32))
+    out = reshape(out, b, 1, h * hd).to(x.dtype)
     out = qdot(out, p["wo"], policy, train=train, impl=impl)
     if kv_scales is not None:
         return out, cache_k, cache_v, kv_scales
@@ -363,11 +400,11 @@ def cross_attention(x, ctx_k, ctx_v, p, cfg, *, policy, train=False,
     kv heads repeated to ``n_heads``, no mask."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q = qdot(x, p["wq_x"], policy, train=train, impl=impl) \
-        .reshape(b, s, h, hd)
+    q = reshape(qdot(x, p["wq_x"], policy, train=train, impl=impl),
+                b, s, h, hd)
     out = attend(q, _broadcast_kv(ctx_k, h), _broadcast_kv(ctx_v, h),
                  causal=False, impl=impl)
-    return qdot(out.reshape(b, s, h * hd), p["wo_x"], policy, train=train,
+    return qdot(reshape(out, b, s, h * hd), p["wo_x"], policy, train=train,
                 impl=impl)
 
 
@@ -378,8 +415,8 @@ def context_kv(ctx, p, cfg, *, policy, train=False, impl: str = "auto"):
     takes it) and in the compute dtype otherwise."""
     b, sc, _ = ctx.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
-    k = qdot(ctx, p["wk_img"], policy, train=train, impl=impl) \
-        .reshape(b, sc, kvh, hd)
-    v = qdot(ctx, p["wv_img"], policy, train=train, impl=impl) \
-        .reshape(b, sc, kvh, hd)
+    k = reshape(qdot(ctx, p["wk_img"], policy, train=train, impl=impl),
+                b, sc, kvh, hd)
+    v = reshape(qdot(ctx, p["wv_img"], policy, train=train, impl=impl),
+                b, sc, kvh, hd)
     return k, v

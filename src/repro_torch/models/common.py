@@ -9,6 +9,47 @@ from repro_torch.parallel.sharding import shard
 from repro_torch.quant.qlinear import qdot
 
 
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On ``DTensor``s the vocab-parallel lookup:
+    each card holds the rows of its "model" slice of the vocab (the
+    table gathered over its other axes), looks up the tokens of its own
+    batch slice that fall in it, zeros the rest, and the cards' rows meet
+    as a ``Partial`` sum over "model" (exact: one nonzero a position).
+    Without a "model" split of the vocab the table is gathered whole and
+    looked up as it is."""
+    from repro_torch.kernels.ops import sharded
+    if not sharded(table, tokens):
+        return table[tokens]
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    n_model = mesh.size(names.index("model")) if "model" in names else 1
+    split = n_model > 1 and table.shape[0] % n_model == 0
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tab_pl = tuple(Shard(0) if split and a == "model" else Replicate()
+                   for a in names)
+    tok_pl = tuple(Replicate() if split and a == "model" else p
+                   for a, p in zip(names, tokens.placements))
+    out_pl = [Partial() if split and a == "model" else p
+              for a, p in zip(names, tok_pl)]
+    rows = table.shape[0] // n_model
+
+    def lookup(t, tok):
+        if not split:
+            return t[tok]
+        idx = tok.to(torch.int64) - mesh.get_local_rank("model") * rows
+        keep = (idx >= 0) & (idx < rows)
+        return t[idx.clamp(0, rows - 1)] * keep[..., None].to(t.dtype)
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(tab_pl, tok_pl),
+                     redistribute_inputs=True)(table, tokens)
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in float32 (precision-sensitive in every quantization

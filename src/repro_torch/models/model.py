@@ -69,9 +69,9 @@ from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (cross_entropy, gelu_mlp, normal_init,
-                                       rms_norm, swiglu_mlp)
-from repro_torch.parallel.sharding import shard
+from repro_torch.models.common import (cross_entropy, embed, gelu_mlp,
+                                       normal_init, rms_norm, swiglu_mlp)
+from repro_torch.parallel.sharding import placed_like, shard
 from repro_torch.quant.calibrate import PROJ_NAMES
 from repro_torch.quant.policy import QuantPolicy, policy_for
 from repro_torch.quant.qlinear import qdot, quantize_weight
@@ -87,28 +87,36 @@ def _mlp(xn, lp, cfg, policy, train, impl):
     return gelu_mlp(xn, lp["w_up"], lp["w_down"], policy, train, impl=impl)
 
 
+def _residual(x, h):
+    """``x + h`` placed by the ``residual`` rule.  On a mesh ``h`` (a
+    split contraction's ``Partial`` sums) is reduced to that placement
+    before the add: the collective is the port's choice, not the add's,
+    whose choice moves with the torch version."""
+    return shard(x + shard(h, "residual"), "residual")
+
+
 def _dense_block(x, lp, cfg, policy, train, impl, window=None):
     h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
                                policy=policy, train=train, window=window,
                                impl=impl)
-    x = shard(x + h, "residual")
-    return shard(x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train,
-                          impl), "residual")
+    x = _residual(x, h)
+    return _residual(x, _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, train,
+                             impl))
 
 
 def _moe_block(x, lp, cfg, policy, train, impl):
     h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
                                policy=policy, train=train, impl=impl)
-    x = shard(x + h, "residual")
+    x = _residual(x, h)
     m, aux = moe_mod.moe_ffn_ep(rms_norm(x, lp["ln2"]), lp, cfg,
                                 policy=policy, train=train)
-    return shard(x + m, "residual"), aux
+    return _residual(x, m), aux
 
 
 def _mamba_layer(x, lp, cfg, policy, train, impl):
-    return shard(x + ssm_mod.mamba2_block(rms_norm(x, lp["ln1"]), lp, cfg,
-                                          policy=policy, train=train,
-                                          impl=impl), "residual")
+    return _residual(x, ssm_mod.mamba2_block(rms_norm(x, lp["ln1"]), lp, cfg,
+                                             policy=policy, train=train,
+                                             impl=impl))
 
 
 def _is_global_layer(cfg, l: int) -> bool:
@@ -310,7 +318,7 @@ class Model(nn.Module):
         layers' load-balance losses summed in float32 in layer order (the
         reference's scan carry), 0 for the other families."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
-        x = shard(params["embed"][tokens].to(policy.compute_dtype),
+        x = shard(embed(params["embed"], tokens).to(policy.compute_dtype),
                   "residual")
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family in ("vlm", "audio"):
@@ -348,9 +356,9 @@ class Model(nn.Module):
 
     def _cross_block(self, x, cp, ck, cv, train):
         """The residual cross-attention injection of one cross layer."""
-        return shard(x + attn.cross_attention(
+        return _residual(x, attn.cross_attention(
             rms_norm(x, cp["ln_x"]), ck, cv, cp, self.cfg,
-            policy=self.policy, train=train, impl=self.impl), "residual")
+            policy=self.policy, train=train, impl=self.impl))
 
     def _vlm_forward(self, params, x, ctx, train):
         """Groups of ``cross_attn_every`` dense blocks, each group followed
@@ -375,12 +383,12 @@ class Model(nn.Module):
         for lp, cp in zip(params["layers"], params["cross_layers"]):
             h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
                                        policy=policy, train=train, impl=impl)
-            x = shard(x + h, "residual")
+            x = _residual(x, h)
             ck, cv = attn.context_kv(enc, cp, cfg, policy=policy,
                                      train=train, impl=impl)
             x = self._cross_block(x, cp, ck, cv, train)
-            x = shard(x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy,
-                               train, impl), "residual")
+            x = _residual(x, _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy,
+                                  train, impl))
         return x
 
     def _encode(self, params: dict, frames: torch.Tensor,
@@ -487,7 +495,8 @@ class Model(nn.Module):
         Updates ``caches`` in place and returns (logits (b, 1, V),
         caches)."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(self.policy.compute_dtype)
+        x = shard(embed(params["embed"], tokens).to(
+            self.policy.compute_dtype), "residual")
         if cfg.family in ("dense", "moe"):
             x = self._dense_decode(params, caches, x, pos)
         elif cfg.family in ("vlm", "audio"):
@@ -521,13 +530,13 @@ class Model(nn.Module):
                 caches["v" + pre][i], pos, policy=policy,
                 static_window=ring if pre else None, kv_scales=scales,
                 impl=impl)[0]
-            x = x + h
+            x = _residual(x, h)
             xn = rms_norm(x, lp["ln2"])
             if cfg.family == "moe":
-                x = x + moe_mod.moe_ffn_ep(xn, lp, cfg, policy=policy,
-                                           train=False)[0]
+                x = _residual(x, moe_mod.moe_ffn_ep(
+                    xn, lp, cfg, policy=policy, train=False)[0])
             else:
-                x = x + _mlp(xn, lp, cfg, policy, False, impl)
+                x = _residual(x, _mlp(xn, lp, cfg, policy, False, impl))
         return x
 
     def _cross_decode(self, params, caches, x, pos):
@@ -540,16 +549,16 @@ class Model(nn.Module):
         audio = cfg.family == "audio"
         every = 1 if audio else cfg.cross_attn_every
         for l, lp in enumerate(params["layers"]):
-            x = x + attn.decode_self_attention(
+            x = _residual(x, attn.decode_self_attention(
                 rms_norm(x, lp["ln1"]), lp, cfg, caches["k"][l],
-                caches["v"][l], pos, policy=policy, impl=impl)[0]
+                caches["v"][l], pos, policy=policy, impl=impl)[0])
             g = l // every
             if audio:
                 x = self._cross_block(x, params["cross_layers"][g],
                                       caches["ctx_k"][g], caches["ctx_v"][g],
                                       False)
-            x = x + _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy, False,
-                         impl)
+            x = _residual(x, _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy,
+                                  False, impl))
             if not audio and l % every == every - 1:
                 x = self._cross_block(x, params["cross_layers"][g],
                                       caches["ctx_k"][g], caches["ctx_v"][g],
@@ -566,23 +575,23 @@ class Model(nn.Module):
             y, st, cv = ssm_mod.mamba2_decode(
                 rms_norm(x, lp["ln1"]), lp, cfg, caches["state"][l],
                 caches["conv"][l], policy=policy, impl=impl)
-            x = x + y
+            x = _residual(x, y)
             if cfg.family == "ssm" and cv.dtype != caches["conv"].dtype:
                 # the reference's layer scan stacks the promoted window:
                 # a float32 step on a bf16 cache leaves it float32 (its
                 # hybrid writes into the cache's dtype instead)
                 caches["conv"] = caches["conv"].to(cv.dtype)
-            caches["state"][l] = st
-            caches["conv"][l] = cv
+            caches["state"][l] = placed_like(st, caches["state"][l])
+            caches["conv"][l] = placed_like(cv, caches["conv"][l])
             if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
                 sp = params["shared"]
                 h = attn.decode_self_attention(
                     rms_norm(x, sp["ln1"]), sp, cfg, caches["shared_k"][app],
                     caches["shared_v"][app], pos, policy=policy,
                     impl=impl)[0]
-                x = x + h
-                x = x + _mlp(rms_norm(x, sp["ln2"]), sp, cfg, policy, False,
-                             impl)
+                x = _residual(x, h)
+                x = _residual(x, _mlp(rms_norm(x, sp["ln2"]), sp, cfg, policy,
+                                      False, impl))
                 app += 1
         return x
 

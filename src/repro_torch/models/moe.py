@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.parallel.sharding import shard
 from repro_torch.quant.qlinear import qat_act, qat_weight
 
@@ -176,6 +177,9 @@ def moe_ffn_ep(x, p: dict, cfg, *, policy, train: bool,
         return moe_ffn(x, p, cfg, policy=policy, train=train,
                        capacity_factor=capacity_factor)
     db = data_axes(mesh)
+    if ops.sharded(x):
+        return _moe_ffn_ep_dtensor(x, p, cfg, db, policy, train,
+                                   capacity_factor)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     n_data, data_idx = 1, 0
     for a in db:                         # major to minor
@@ -191,10 +195,29 @@ def moe_ffn_ep(x, p: dict, cfg, *, policy, train: bool,
     local_p = {k: p[k].narrow(0, e0, e_l)
                for k in ("w_experts_gate", "w_experts_in", "w_experts_out")}
 
+    out, aux = _ep_local(x_l, p["router"], local_p, e0, e_l, cfg, policy,
+                         train, capacity_factor)
+    out = all_reduce_sum(out, mesh.get_group("model"))
+    for a in db:
+        aux = all_reduce_sum(aux, mesh.get_group(a))
+    aux = aux / n_data
+    out = out.reshape(x_l.shape).to(x_l.dtype)
+    for a in reversed(db):               # minor first: major-to-minor order
+        out = all_gather_group(out, mesh.get_group(a))
+    return out, aux
+
+
+def _ep_local(x_l, router, local_p, e0: int, e_l: int, cfg, policy, train,
+              capacity_factor):
+    """One rank's part of :func:`moe_ffn_ep`: its tokens ``x_l`` routed
+    over all experts, the entries of experts ``[e0, e0 + e_l)`` dispatched,
+    run and combined; returns (the float32 contributions, the tokens'
+    aux)."""
+    E, K = cfg.n_experts, cfg.top_k
     b_l, s, d = x_l.shape
     T = b_l * s
     xf = x_l.reshape(T, d)
-    gates, experts, aux = topk_route(xf, p["router"], E, K)
+    gates, experts, aux = topk_route(xf, router, E, K)
     flat = experts.reshape(-1)
     local = (flat >= e0) & (flat < e0 + e_l)
     le = torch.where(local, flat - e0, torch.full_like(flat, e_l))
@@ -213,11 +236,54 @@ def moe_ffn_ep(x, p: dict, cfg, *, policy, train: bool,
     out_buf = expert_ffn(buf[:e_l * cap].view(e_l, cap, d), local_p, policy,
                          train)
     out = combine(out_buf, order, slot, keep, gates)
-    out = all_reduce_sum(out.to(torch.float32), mesh.get_group("model"))
+    return out.to(torch.float32), aux
+
+
+def _moe_ffn_ep_dtensor(x, p, cfg, db, policy, train, capacity_factor):
+    """:func:`moe_ffn_ep` on ``DTensor`` operands, through ``local_map``:
+    the tokens split over the data axes and whole over "model", the
+    router whole, the stacked experts split over "model" (gathered over
+    the others).  Each rank runs :func:`_ep_local`; its contributions
+    leave as a ``Partial`` sum over "model", reduced in float32 before
+    the cast (the one all-reduce), and its aux as a ``Partial`` mean over
+    the data axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    E = cfg.n_experts
+    n_data = 1
     for a in db:
-        aux = all_reduce_sum(aux, mesh.get_group(a))
-    aux = aux / n_data
-    out = out.reshape(b_l, s, d).to(x_l.dtype)
-    for a in reversed(db):               # minor first: major-to-minor order
-        out = all_gather_group(out, mesh.get_group(a))
-    return out, aux
+        n_data *= mesh.size(names.index(a))
+    if x.shape[0] % n_data:
+        raise ValueError(f"moe_ffn_ep: batch {x.shape[0]} does not divide "
+                         f"over the data axes {db} ({n_data})")
+    e_l = E // mesh.size(names.index("model"))
+
+    def by_axis(on_data, on_model, other):
+        return tuple(on_data if a in db else on_model if a == "model"
+                     else other for a in names)
+    rep = by_axis(Replicate(), Replicate(), Replicate())
+    experts = by_axis(Replicate(), Shard(0), Replicate())
+
+    def body(x_l, router, wg, wi, wo):
+        e0 = mesh.get_local_rank("model") * e_l
+        local_p = {"w_experts_gate": wg, "w_experts_in": wi,
+                   "w_experts_out": wo}
+        out, aux = _ep_local(x_l, router, local_p, e0, e_l, cfg, policy,
+                             train, capacity_factor)
+        return out.reshape(x_l.shape), aux / n_data
+
+    out, aux = local_map(
+        body,
+        out_placements=(by_axis(Shard(0), Partial(), Replicate()),
+                        by_axis(Partial(), Replicate(), Replicate())),
+        in_placements=(by_axis(Shard(0), Replicate(), Replicate()), rep,
+                       experts, experts, experts),
+        redistribute_inputs=True)(
+            x, p["router"], p["w_experts_gate"], p["w_experts_in"],
+            p["w_experts_out"])
+    out = out.redistribute(out.device_mesh,
+                           by_axis(Shard(0), Replicate(), Replicate()))
+    aux = aux.redistribute(aux.device_mesh, rep)
+    return out.to(x.dtype), aux

@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import on_local_shards, sharded
+from repro_torch.parallel.sharding import einsum, gather_dim, reshape
 from repro_torch.quant.qlinear import qdot
 
 P_HEADDIM = 64
@@ -59,15 +61,32 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _conv_step(cache, x, w):
+    """The streaming step of :func:`causal_conv1d`."""
+    window = torch.cat([cache, x], dim=1)                 # (b, D_CONV, c)
+    y = torch.einsum("bkc,kc->bc", window.to(torch.float32),
+                     w.to(torch.float32))[:, None]
+    return F.silu(y).to(x.dtype), window[:, 1:]
+
+
 def causal_conv1d(x, w, cache=None):
     """Depthwise causal conv.  x: (b, s, c); w: (D_CONV, c).
     If cache (b, D_CONV-1, c) is given, performs a streaming step on s=1
     and returns (y, new_cache)."""
     if cache is not None:
-        window = torch.cat([cache, x], dim=1)             # (b, D_CONV, c)
-        y = torch.einsum("bkc,kc->bc", window.to(torch.float32),
-                         w.to(torch.float32))[:, None]
-        return F.silu(y).to(x.dtype), window[:, 1:]
+        if sharded(cache, x, w):
+            # on each card's batch rows and channels
+            return on_local_shards(
+                _conv_step, (cache, x, w),
+                (("b", "t", "c"), ("b", "s", "c"), ("k", "c")),
+                (("b", "s", "c"), ("b", "t", "c")), split=("b", "c"))
+        return _conv_step(cache, x, w)
+    if sharded(x, w):
+        # on each card's batch rows and channels, the sequence gathered
+        # whole: each position reads the D_CONV - 1 before it
+        return on_local_shards(lambda a, b: causal_conv1d(a, b)[0], (x, w),
+                               (("b", "s", "c"), ("k", "c")),
+                               ("b", "s", "c"), split=("b", "c")), None
     s = x.shape[1]
     xp = F.pad(x, (0, 0, D_CONV - 1, 0))
     # sum_k w[k] * x[t - (D_CONV-1) + k], in float32 in the order k = 0..3
@@ -76,11 +95,24 @@ def causal_conv1d(x, w, cache=None):
     return F.silu(y).to(x.dtype), None
 
 
+def _cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``; on a ``DTensor`` on each card's shards
+    with ``dim`` whole (its backward, a flipped cumsum, has no DTensor
+    sharding strategy in some torch versions)."""
+    if not sharded(x):
+        return torch.cumsum(x, dim=dim)
+    dim %= x.dim()
+    names = tuple(f"d{i}" for i in range(x.dim()))
+    return on_local_shards(lambda t: torch.cumsum(t, dim=dim), (x,),
+                           (names,), names,
+                           split=names[:dim] + names[dim + 1:])
+
+
 def _segsum(log_a):
     """(..., q) -> (..., q, q) lower-triangular cumulative-sum matrix:
     the difference of two cumulative sums, -inf above the diagonal."""
     q = log_a.shape[-1]
-    cs = torch.cumsum(log_a, dim=-1)
+    cs = _cumsum(log_a, -1)
     diff = cs[..., :, None] - cs[..., None, :]
     ii = torch.arange(q, device=log_a.device)
     mask = ii[:, None] >= ii[None, :]
@@ -111,24 +143,24 @@ def ssd_chunked(xh, dt, a_log, B, C, *, chunk: int = 256,
 
     # chunked views: (b, nc, q, ...)
     q = chunk
-    dAc = dA.reshape(b, nc, q, h)
-    Bc = Bh.reshape(b, nc, q, h, n)
-    Cc = Ch.reshape(b, nc, q, h, n)
-    xc = xf.reshape(b, nc, q, h, p)
+    dAc = reshape(dA, b, nc, q, h)
+    Bc = reshape(Bh, b, nc, q, h, n)
+    Cc = reshape(Ch, b, nc, q, h, n)
+    xc = reshape(xf, b, nc, q, h, p)
 
     # intra-chunk (quadratic) term
     L = _segsum(dAc.permute(0, 1, 3, 2)).exp_()               # (b,nc,h,q,q)
-    scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)        # (b,nc,h,q,q)
+    scores = einsum("bcqhn,bckhn->bchqk", Cc, Bc)              # (b,nc,h,q,q)
     scores.mul_(L)
     del L
-    y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores, xc)
+    y_intra = einsum("bchqk,bckhp->bcqhp", scores, xc)
     del scores
 
     # per-chunk input -> end-of-chunk state contribution
-    cumA = torch.cumsum(dAc, dim=2)                            # (b,nc,q,h)
+    cumA = _cumsum(dAc, 2)                                     # (b,nc,q,h)
     decay_to_end = torch.exp(cumA[:, :, -1:, :] - cumA)        # (b,nc,q,h)
-    chunk_states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn",
-                                Bc, decay_to_end, xc)          # (b,nc,h,p,n)
+    chunk_states = einsum("bcqhn,bcqh,bcqhp->bchpn",
+                          Bc, decay_to_end, xc)                # (b,nc,h,p,n)
     chunk_decay = torch.exp(cumA[:, :, -1, :])                 # (b,nc,h)
 
     # inter-chunk recurrence over the nc chunks (each step emits the state
@@ -143,9 +175,9 @@ def ssd_chunked(xh, dt, a_log, B, C, *, chunk: int = 256,
 
     # inter-chunk output: y += C_t · (decay from chunk start) · prev_state
     state_decay = torch.exp(cumA)                              # (b,nc,q,h)
-    y_inter = torch.einsum("bcqhn,bcqh,bchpn->bcqhp",
-                           Cc, state_decay, prev_states)
-    y = (y_intra + y_inter).reshape(b, s, h, p)
+    y_inter = einsum("bcqhn,bcqh,bchpn->bcqhp",
+                     Cc, state_decay, prev_states)
+    y = reshape(y_intra + y_inter, b, s, h, p)
     return y, state
 
 
@@ -156,9 +188,9 @@ def mamba2_block(x, p, cfg, *, policy, train=False, impl: str = "auto"):
     zxbcdt = qdot(x, p["in_proj"], policy, train=train, impl=impl)
     z, xbc, dt = _split(zxbcdt, cfg)
     xbc, _ = causal_conv1d(xbc, p["conv_w"])
-    xs = xbc[..., :d_inner].reshape(b, s, h, P_HEADDIM)
-    B = xbc[..., d_inner:d_inner + g * n].reshape(b, s, g, n)
-    C = xbc[..., d_inner + g * n:].reshape(b, s, g, n)
+    xs = reshape(xbc[..., :d_inner], b, s, h, P_HEADDIM)
+    B = reshape(xbc[..., d_inner:d_inner + g * n], b, s, g, n)
+    C = reshape(xbc[..., d_inner + g * n:], b, s, g, n)
     dt_ = _softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
     c0 = cfg.ssm_chunk
     chunk = min(c0, s) if s % c0 != 0 else c0
@@ -167,9 +199,23 @@ def mamba2_block(x, p, cfg, *, policy, train=False, impl: str = "auto"):
     y, _ = ssd_chunked(xs, dt_, p["a_log"], B, C, chunk=chunk)
     y = y + xs.to(torch.float32) \
         * p["d_skip"].to(torch.float32)[None, None, :, None]
-    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = reshape(y, b, s, d_inner).to(x.dtype)
     y = y * F.silu(z)                                          # gated
     return qdot(y, p["out_proj"], policy, train=train, impl=impl)
+
+
+def _ssm_step(state, xs, Bh, Ch, dt, dt_bias, a_log, d_skip):
+    """One token's recurrence on ``state`` (b, h, p, n); returns the
+    output (b, h, p) with the skip term, and the new state, float32."""
+    f32 = torch.float32
+    dt_ = _softplus(dt.to(f32) + dt_bias.to(f32))              # (b, h)
+    A = -torch.exp(a_log.to(f32))                              # (h,)
+    dA = torch.exp(dt_ * A)                                    # (b, h)
+    xf = xs.to(f32) * dt_[..., None]                           # (b, h, p)
+    state = state * dA[..., None, None] \
+        + torch.einsum("bhp,bhn->bhpn", xf, Bh)
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return y + xs.to(f32) * d_skip.to(f32)[None, :, None], state
 
 
 def mamba2_decode(x, p, cfg, state, conv_cache, *, policy, train=False,
@@ -180,24 +226,29 @@ def mamba2_decode(x, p, cfg, state, conv_cache, *, policy, train=False,
     b = x.shape[0]
     d_inner, h, g, n = dims(cfg)
     f32 = torch.float32
-    zxbcdt = qdot(x, p["in_proj"], policy, train=train, impl=impl)
+    # on a mesh the channels whole: z, x, B, C and dt are slices of them
+    zxbcdt = gather_dim(qdot(x, p["in_proj"], policy, train=train,
+                             impl=impl), -1)
     z, xbc, dt = _split(zxbcdt, cfg)
     xbc, conv_cache = causal_conv1d(xbc, p["conv_w"], cache=conv_cache)
-    xs = xbc[..., :d_inner].reshape(b, h, P_HEADDIM)
-    B = xbc[..., d_inner:d_inner + g * n].reshape(b, g, n)
-    C = xbc[..., d_inner + g * n:].reshape(b, g, n)
+    xs = reshape(xbc[..., :d_inner], b, h, P_HEADDIM)
+    B = reshape(xbc[..., d_inner:d_inner + g * n], b, g, n)
+    C = reshape(xbc[..., d_inner + g * n:], b, g, n)
     rep = h // g
     Bh = torch.repeat_interleave(B, rep, dim=1).to(f32)        # (b, h, n)
     Ch = torch.repeat_interleave(C, rep, dim=1).to(f32)
-    dt_ = _softplus(dt[:, 0].to(f32) + p["dt_bias"].to(f32))   # (b, h)
-    A = -torch.exp(p["a_log"].to(f32))                         # (h,)
-    dA = torch.exp(dt_ * A)                                    # (b, h)
-    xf = xs.to(f32) * dt_[..., None]                           # (b, h, p)
-    state = state * dA[..., None, None] \
-        + torch.einsum("bhp,bhn->bhpn", xf, Bh)
-    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
-    y = y + xs.to(f32) * p["d_skip"].to(f32)[None, :, None]
-    y = y.reshape(b, 1, d_inner).to(x.dtype)
+    args = (state, xs, Bh, Ch, dt[:, 0], p["dt_bias"], p["a_log"],
+            p["d_skip"])
+    if sharded(*args):
+        # on each card's batch rows and heads, as the state is placed
+        y, state = on_local_shards(
+            _ssm_step, args,
+            (("b", "h", "p", "n"), ("b", "h", "p"), ("b", "h", "n"),
+             ("b", "h", "n"), ("b", "h"), ("h",), ("h",), ("h",)),
+            (("b", "h", "p"), ("b", "h", "p", "n")), split=("b", "h"))
+    else:
+        y, state = _ssm_step(*args)
+    y = reshape(y, b, 1, d_inner).to(x.dtype)
     y = y * F.silu(z)
     return qdot(y, p["out_proj"], policy, train=train, impl=impl), state, \
         conv_cache

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.tree import tree_map
+from repro_torch.parallel.sharding import reduce_partial
 
 #: the param-tree keys whose lists the reference stacks on a layer axis
 STACKED = ("layers", "cross_layers", "encoder_layers")
@@ -109,10 +110,11 @@ def schedule(cfg: AdamWConfig, step: int) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the float32 sum of squares of every leaf, leaf by leaf in
-    the reference's order."""
+    the reference's order (a sharded leaf's sum all-reduced as it is
+    taken)."""
     sq = 0
     for _, g, _ in leaves(tree):
-        sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+        sq = sq + reduce_partial(torch.sum(torch.square(g.to(torch.float32))))
     return torch.sqrt(sq)
 
 

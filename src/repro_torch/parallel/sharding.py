@@ -18,6 +18,7 @@ through.  Like ``with_sharding_constraint`` it never changes a value.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
@@ -75,6 +76,139 @@ def shard(x, name: str):
         return x
     return x.redistribute(x.device_mesh,
                           to_placements(rules[name], x.device_mesh))
+
+
+def reduce_partial(x):
+    """A ``DTensor`` ``x`` with its ``Partial`` sums or maxima
+    all-reduced here, not in whatever collective the first op that reads
+    it would pick (DTensor's pick moves with the torch version); any
+    other tensor as it is."""
+    placements = getattr(x, "placements", None)
+    if placements is None or not any(p.is_partial() for p in placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in placements])
+
+
+def einsum(equation: str, *operands):
+    """``torch.einsum(equation, *operands)``; on ``DTensor`` operands run
+    on each card's shards (``kernels/ops.on_local_shards``): the index
+    letters of the output split over ranks where an operand is split on
+    them, a split contracted letter summed by an all-reduce here.  The
+    placements are the port's, not DTensor's einsum strategy, whose
+    flattening of split dims some torch versions refuse."""
+    from repro_torch.kernels.ops import on_local_shards, sharded
+    if not sharded(*operands):
+        return torch.einsum(equation, *operands)
+    ins, out = equation.replace(" ", "").split("->")
+    terms = ins.split(",")
+    summed = tuple(sorted(set(ins) - set(out) - {","}))
+    return reduce_partial(on_local_shards(
+        lambda *t: torch.einsum(equation, *t), operands,
+        tuple(tuple(t) for t in terms), tuple(out), split=tuple(out),
+        sums=summed))
+
+
+def placed_like(value, like):
+    """``value`` moved to ``like``'s placements where both are
+    ``DTensor``s, before a write into ``like`` (the port's move: the
+    write's own would move with the torch version, and may gather the
+    destination); any other ``value`` as it is."""
+    have = getattr(value, "placements", None)
+    want = getattr(like, "placements", None)
+    if have is None or want is None or list(have) == list(want):
+        return value
+    return value.redistribute(like.device_mesh, want)
+
+
+def gather_dim(x, dim: int):
+    """A ``DTensor`` ``x`` with dim ``dim`` whole on every rank (its
+    all-gathers counted); any other tensor as it is."""
+    placements = getattr(x, "placements", None)
+    if placements is None:
+        return x
+    from torch.distributed.tensor import Replicate
+    dim %= x.dim()
+    new = [Replicate() if p.is_shard(dim) else p for p in placements]
+    return x if new == list(placements) else \
+        x.redistribute(x.device_mesh, new)
+
+
+def _viewable(old, new, d: int, n: int) -> bool:
+    """Whether dim ``d`` of ``old``, split over ``n`` ranks, stays one
+    ``Shard`` in the view to ``new``: kept whole, cut into dims whose
+    outer one ``n`` divides, or merged with the dims after it as their
+    outer part.  A dim its ranks do not divide evenly never stays."""
+    if old[d] % n:
+        return False
+    pre = math.prod(old[:d])
+    for j in range(len(new)):
+        if math.prod(new[:j]) != pre:
+            continue
+        for k in range(j + 1, len(new) + 1):
+            size = math.prod(new[j:k])
+            if size == old[d]:
+                outer = next((m for m in new[j:k] if m != 1), 1)
+                return outer % n == 0
+            if size > old[d]:
+                break
+        if any(math.prod(old[d:e]) == new[j]
+               for e in range(d + 2, len(old) + 1)):
+            return True
+    return False
+
+
+def _gathering_reshape(x, shape):
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    shape = tuple(shape)
+    if -1 in shape:
+        i = shape.index(-1)
+        rest = math.prod(shape[:i] + shape[i + 1:])
+        shape = shape[:i] + (x.numel() // rest,) + shape[i + 1:]
+    old = tuple(x.shape)
+    ranks: dict = {}
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            ranks[p.dim] = ranks.get(p.dim, 1) * x.device_mesh.size(i)
+    placements = [Replicate() if p.is_shard() and not _viewable(
+        old, shape, p.dim, ranks[p.dim]) else p for p in x.placements]
+    if placements != list(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    return x.reshape(*shape)
+
+
+class _Reshape(torch.autograd.Function):
+    """The gathering reshape, and its inverse for the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = tuple(x.shape)
+        return _gathering_reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gathering_reshape(grad, ctx.in_shape), None
+
+
+def reshape(x, *shape):
+    """``x.reshape(*shape)``.  A ``DTensor`` split on a dim that the
+    reshape merges into another or cuts into parts its ranks do not
+    divide (24 heads of a 3072 wide projection over 16 ranks) has that
+    dim gathered first (the all-gathers counted); a dim kept whole, or
+    cut with its outer part divided by the ranks, stays split.  The rule
+    is the port's, not DTensor's view propagation, whose choice moves
+    with the torch version.  Its gradient takes the inverse reshape the
+    same way (the heads merged in the forward are split in the
+    backward)."""
+    from repro_torch.kernels.ops import sharded
+    if not sharded(x):
+        return x.reshape(*shape)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Reshape.apply(x, tuple(shape))
+    return _gathering_reshape(x, tuple(shape))
 
 
 def data_axes(mesh) -> tuple[str, ...]:
@@ -266,6 +400,15 @@ def to_placements(spec, mesh) -> list:
     return place
 
 
+def _placed(spec, mesh) -> list:
+    """:func:`to_placements` with every mesh dim of one rank
+    ``Replicate``: a shard of one rank is the whole tensor, and DTensor
+    refuses views of a dim it thinks split."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate() if mesh.size(i) == 1 else p
+            for i, p in enumerate(to_placements(spec, mesh))]
+
+
 def local_shape(shape: tuple, spec, mesh) -> tuple:
     """The shape of one rank's shard of a ``shape`` tensor under
     ``spec`` (every named axis divides its dim, as :func:`param_pspec`
@@ -285,6 +428,39 @@ def distribute(x: torch.Tensor, mesh, spec):
     ``DTensor`` under ``spec``."""
     from torch.distributed.tensor import distribute_tensor
     return distribute_tensor(x, mesh, to_placements(spec, mesh))
+
+
+def local_block(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` on ``mesh``: each
+    sharded dim cut to the rank's part, the mesh axes of a tuple entry
+    major to minor (``DTensor``'s order); a copy where it is cut."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    out = x
+    for d, entry in enumerate(tuple(spec)):
+        axes = tuple(entry) if isinstance(entry, (tuple, list)) \
+            else (entry,)
+        n, idx = 1, 0
+        for a in axes:
+            if a is None:
+                continue
+            i = names.index(a)
+            idx = idx * mesh.size(i) + coord[i]
+            n *= mesh.size(i)
+        if n > 1:
+            size = x.shape[d] // n
+            out = out.narrow(d, idx * size, size)
+    return out if out is x else out.clone()
+
+
+def place(x: torch.Tensor, mesh, spec):
+    """``x`` (the same full tensor on every rank) as a ``DTensor`` under
+    ``spec``, each rank keeping its own block: :func:`distribute` without
+    the scatter, so a fake process group places real shapes."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_block(x, mesh, spec), mesh,
+                              _placed(spec, mesh), run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def place_tree(mesh, tree, put):
@@ -312,5 +488,6 @@ def place_tree(mesh, tree, put):
 
 def tree_shardings(mesh, params):
     """``params`` (the same full tensors on every rank) with every tensor
-    leaf a ``DTensor`` placed on ``mesh`` by :func:`tree_pspecs`."""
-    return place_tree(mesh, params, lambda t, s: distribute(t, mesh, s))
+    leaf a ``DTensor`` placed on ``mesh`` by :func:`tree_pspecs`, each
+    rank keeping its own block (:func:`place`)."""
+    return place_tree(mesh, params, lambda t, s: place(t, mesh, s))

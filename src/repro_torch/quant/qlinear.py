@@ -125,14 +125,53 @@ def serve_dot(x: torch.Tensor, qw: QuantizedTensor, out_dtype=None, *,
     return out.reshape(*lead, d_out).to(out_dtype)
 
 
+def _one_split_lead(x):
+    """``x`` with its leading dims (all but the last) split over ranks on
+    one dim at most: a ``DTensor`` split on two (the batch on "data", the
+    sequence on "model") has the later one gathered, the all-gather of
+    sequence parallelism before a projection: the product then splits
+    the weight's columns over "model" instead of gathering the weight,
+    and the quantized one can flatten the leading dims, which a
+    ``DTensor`` views only from one split dim."""
+    if not ops.sharded(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    first, placements = None, list(x.placements)
+    for i, p in enumerate(placements):
+        d = getattr(p, "dim", None)
+        if d is None or d == x.dim() - 1:
+            continue
+        if first is None:
+            first = d
+        elif d != first:
+            placements[i] = Replicate()
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def _matmul(a, b):
+    """``a @ b``; on ``DTensor`` operands on each card's shards by the
+    quantized products' rule (``ops.on_local_shards``: rows and output
+    columns split, a split contraction a ``Partial`` output), so a
+    product's placements and collectives do not depend on its route or
+    on DTensor's own ``mm`` strategy."""
+    if not ops.sharded(a, b):
+        return torch.matmul(a, b)
+    lead = tuple(f"m{i}" for i in range(a.dim() - 1))
+    return ops.on_local_shards(torch.matmul, (a, b),
+                               (lead + ("k",), ("k", "n")), lead + ("n",),
+                               split=lead + ("n",), sums=("k",))
+
+
 def qdot(x: torch.Tensor, w, policy: QuantPolicy, *, train: bool,
          impl: str = "auto") -> torch.Tensor:
     """Quantization-aware (..., d_in) x (d_in, d_out) contraction."""
+    x = _one_split_lead(x)
     if isinstance(w, QuantizedTensor):
         return serve_dot(x, w, impl=impl)
     if train and policy.quantized:
         cd = policy.compute_dtype
-        return torch.matmul(qat_act(x, policy).to(cd),
-                            qat_weight(w, policy, axis=0).to(cd))
-    return torch.matmul(x.to(policy.compute_dtype),
-                        w.to(policy.compute_dtype))
+        return _matmul(qat_act(x, policy).to(cd),
+                       qat_weight(w, policy, axis=0).to(cd))
+    return _matmul(x.to(policy.compute_dtype), w.to(policy.compute_dtype))

@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.parallel.sharding import reduce_partial
+
 # value = sign * scale * 2**(exp - POW2_EXP_BIAS), exp in [0, 7]
 POW2_EXP_BIAS = 7
 
@@ -33,7 +35,8 @@ def const_like(value: float, like: torch.Tensor) -> torch.Tensor:
 def _absmax(x: torch.Tensor, axis=None) -> torch.Tensor:
     m = x.abs().amax() if axis is None else x.abs().amax(dim=axis,
                                                          keepdim=True)
-    return torch.clamp_min(m, 1e-8)
+    return torch.clamp_min(reduce_partial(m), 1e-8)
+
 
 
 def int_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:

@@ -505,21 +505,31 @@ def test_skip_reason_matches_reference():
 @pytest.mark.parametrize("kwargs,mesh", [(dict(multi_pod=True), "2x16x16"),
                                          (dict(kv_seq_shard=True), "16x16")])
 def test_pod_mesh_records(kwargs, mesh):
-    """``multi_pod`` and ``kv_seq_shard`` place the cell on the
-    reference's pod mesh: a record of each card's argument bytes, and no
-    count, collective bytes or roofline (the port has no sharded step
-    under the op counter: ROADMAP A.11)."""
+    """``multi_pod`` and ``kv_seq_shard`` count the cell's sharded step
+    on one card of the reference's pod mesh: the reference's record with
+    the per-card count, collective bytes and the three-term roofline over
+    the mesh's cards."""
     rec = dryrun.run_cell("phi4-mini-3.8b", "decode_4k", out_dir=None,
                           **kwargs)
-    assert rec["status"] == "placed" and rec["mesh"] == mesh
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == mesh
+    chips = 512 if kwargs.get("multi_pod") else 256
+    assert rec["chips"] == chips and rec["roofline"]["chips"] == chips
     mem = rec["memory_analysis"]
     assert 0 < mem["argument_bytes"] <= mem["hbm_bytes"] and mem["fits_hbm"]
-    assert rec["stats"] is None and rec["collective_bytes"] is None
-    assert rec["roofline"] is None and "A.11" in rec["absent"]
+    st = rec["stats"]
+    assert st["collective_bytes"] > 0 and st["collective_count"] > 0
+    roof = rec["roofline"]
+    assert roof["hlo_flops_per_device"] == st["flops"]
+    assert roof["collective_s"] > 0
+    assert roof["useful_flops_ratio"] == pytest.approx(
+        roof["model_flops"] / (st["flops"] * chips))
     one_card = dryrun.run_cell("phi4-mini-3.8b", "decode_4k", out_dir=None)
     # params, caches and batch of the one-card cell, spread over the pod
     assert mem["argument_bytes"] \
         < one_card["memory_analysis"]["argument_bytes"]
+    # the per-card count is the pod's share, not the one card's
+    assert st["flops"] < one_card["stats"]["flops"]
 
 
 def test_refusals():

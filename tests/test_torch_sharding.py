@@ -323,26 +323,33 @@ def test_pod_argument_bytes_equal_reference_local_shapes(ref, cell):
     (dict(kv_seq_shard=True), "16x16", 256),
     (dict(multi_pod=True, kv_seq_shard=True), "2x16x16", 512)])
 def test_pod_records(kwargs, mesh_name, chips, tmp_path):
-    """``run_cell`` with ``multi_pod`` or ``kv_seq_shard`` writes a
-    placement record: per-card bytes by group, ``fits_hbm`` against one
-    H100, and the counts it does not have said so, not filled in."""
+    """``run_cell`` with ``multi_pod`` or ``kv_seq_shard`` counts the
+    sharded step on one card of the pod mesh and writes the reference's
+    record: per-card counts, collective bytes and the roofline over
+    ``chips`` cards, per-card bytes by group, ``fits_hbm`` against one
+    H100."""
     rec = dryrun.run_cell("phi4-mini-3.8b", "decode_32k", out_dir=tmp_path,
                           **kwargs)
-    assert rec["status"] == "placed" and rec["mesh"] == mesh_name
-    assert rec["chips"] == chips
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == mesh_name and rec["chips"] == chips
     mem = rec["memory_analysis"]
+    # the counter's local shards are the rule tables' per-card bytes
     assert mem["argument_bytes"] == sum(mem["argument_bytes_by_group"]
                                         .values())
     assert set(mem["argument_bytes_by_group"]) == {"params", "caches",
                                                    "batch"}
-    assert mem["fits_hbm"] == (mem["argument_bytes"] <= mem["hbm_bytes"])
-    assert rec["stats"] is None and rec["roofline"] is None
-    assert "A.11" in rec["absent"]
+    assert mem["fits_hbm"] == (mem["argument_bytes"] + mem["temp_bytes"]
+                               <= mem["hbm_bytes"])
+    assert rec["stats"]["flops"] > 0 and rec["stats"]["collective_bytes"] > 0
+    assert rec["roofline"]["chips"] == chips
+    assert rec["roofline"]["collective_bytes_per_device"] \
+        == rec["stats"]["collective_bytes"]
     tag = "__kvshard" if kwargs.get("kv_seq_shard") else ""
     saved = json.loads((tmp_path / f"phi4-mini-3.8b__decode_32k__"
                         f"{mesh_name}{tag}.json").read_text())
     assert saved["memory_analysis"] == mem
     if kwargs.get("kv_seq_shard"):
+        assert "kv_seq_shard" in rec["notes"]
         plain = dryrun.run_pod_cell(
             "phi4-mini-3.8b", "decode_32k", out_dir=None,
             multi_pod=kwargs.get("multi_pod", False), serve_quant=False,
