@@ -562,6 +562,14 @@ TRAIN = dict(arch="mamba2-130m", steps=20, batch=8, seq_len=64, timed=3,
 TRAIN_RESTART = dict(arch="mamba2-130m", steps=6, batch=8, seq_len=64,
                      ckpt_every=3, fail_at={3: 1, 4: 1}, elastic_step=2,
                      timed=2, loss_rtol=1e-3)
+# training on a mesh: mamba2-130m at full width and depth under W8A8 QAT
+# with int8 gradient compression, the seed-0 state placed on a one-rank
+# NCCL mesh (DTensor leaves, every placement whole) against the same steps
+# of the plain state; then each route's step timed (host clock around
+# synchronized steps; the profiler's device time over BUSY_STEPS steps).
+# The phase's budget is 45 s of the run's
+TRAIN_MESH = dict(arch="mamba2-130m", steps=3, batch=8, seq_len=64,
+                  timed=2)
 # steps in a whole step's profiler window (busy share, device ops): cut
 # from 3, since reading back the trace of thousands of device ops a step
 # takes seconds a step
@@ -618,10 +626,12 @@ POD_COUNT = dict(
         ("prefill_32k", "16x16"): (
             {"all-gather": 2442955776, "all-reduce": 26172457984},
             {"all-gather": 418, "all-reduce": 321}),
+        # the embedding's gradient is a Partial sum over "data", reduced
+        # by one reduce-scatter (153,649,152 B), as both versions count
         ("train_4k", "16x16"): (
-            {"all-gather": 13299878912, "reduce-scatter": 91479097344,
+            {"all-gather": 13299878912, "reduce-scatter": 91632746496,
              "all-reduce": 1870954},
-            {"all-gather": 647, "reduce-scatter": 451, "all-reduce": 1062})},
+            {"all-gather": 647, "reduce-scatter": 452, "all-reduce": 1062})},
     timeout_s=900)
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
@@ -5732,6 +5742,154 @@ def _search_arrays(res) -> dict:
             "mesh_shards": np.array(-1 if shards is None else shards)}
 
 
+def phase_train_mesh(device) -> dict:
+    """Training on a mesh with values, on the card: ``make_train_step`` of
+    mamba2-130m at full width and depth (W8A8 QAT, ``TRAIN_MESH`` batch x
+    sequence, int8 gradient compression) on the seed-0 state placed on a
+    one-rank NCCL mesh (``make_host_mesh``; every leaf a ``DTensor``),
+    against the same steps of the plain state without a mesh: the losses
+    and every final leaf (params, AdamW's ``mu`` and ``nu``, the error
+    feedback) bit for bit, no kernel launch.  The placed state's
+    checkpoint against the plain state's: the sha256 of ``arrays.npz``
+    equal (the same bytes, which the CPU tests restore either way).  Then
+    each route's step time, in turns on the same batches: the host clock
+    around synchronized steps, and the profiler's device time over one
+    step (DTensor's dispatch is host time).  The state is drawn once and
+    copied for the placed route; the batches are drawn once."""
+    import statistics
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh, release_process_group
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.tree import tree_flatten
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import tree_shardings
+    T = TRAIN_MESH
+    t_phase = time.perf_counter()
+    out = {"phase": "train_mesh", "arch": T["arch"], "batch": T["batch"],
+           "seq_len": T["seq_len"], "steps": T["steps"]}
+    cfg = get_config(T["arch"])
+    model = Model(cfg, device=device)
+    ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=T["steps"],
+                             warmup_steps=max(1, T["steps"] // 10))
+    data = SyntheticLM(DataConfig(cfg.vocab, T["seq_len"], T["batch"],
+                                  seed=0))
+    t0 = time.perf_counter()
+    batches = [data.batch(s, device=device) for s in range(T["steps"])]
+    state = _train_state(cfg, device, grad_compression=True)
+    out["build_s"] = time.perf_counter() - t0
+    started = not dist.is_initialized()
+    try:
+        t0 = time.perf_counter()
+        mesh = make_host_mesh(device_type="cuda")
+        out["mesh"] = {"shape": list(mesh.shape),
+                       "backend": dist.get_backend(),
+                       "s": time.perf_counter() - t0}
+        leaves, treedef = tree_flatten(state)
+        copy = treedef.unflatten([l.clone() if torch.is_tensor(l) else l
+                                  for l in leaves])
+        routes = {"plain": (None, state),
+                  "placed": (mesh, tree_shardings(mesh, copy))}
+        del state, copy, leaves
+        check(all(hasattr(l, "placements") for l in tree_flatten(
+            routes["placed"][1])[0] if torch.is_tensor(l)),
+            "train_mesh: a leaf of the placed state is no DTensor")
+        runs = {}
+        _reset_attention_counts()
+        _reset_matmul_counts()
+        t0 = time.perf_counter()
+        for name, (m, state) in routes.items():
+            step = make_train_step(model, m, ocfg, grad_compression=True)
+            losses = []
+            for s in range(T["steps"]):
+                state, loss = step(state, batches[s])
+                losses.append(float(loss))
+            runs[name] = {"step": step, "state": state, "losses": losses}
+        torch.cuda.synchronize(device)
+        out["steps_s"] = time.perf_counter() - t0
+        out["launches"] = {**_attention_counts(), **_matmul_counts()}
+        check(not any(out["launches"].values()),
+              f"train_mesh: kernels launched {out['launches']}")
+        out["losses"] = {k: v["losses"] for k, v in runs.items()}
+        check(runs["placed"]["losses"] == runs["plain"]["losses"],
+              f"train_mesh: losses placed vs plain {out['losses']}")
+        t0 = time.perf_counter()
+        placed_leaves = tree_flatten(runs["placed"]["state"])[0]
+        check(all(hasattr(l, "placements") for l in placed_leaves
+                  if torch.is_tensor(l)),
+              "train_mesh: the state came back unplaced")
+        whole = [l.full_tensor() if hasattr(l, "full_tensor") else l
+                 for l in placed_leaves]
+        plain_leaves = tree_flatten(runs["plain"]["state"])[0]
+        differ = [i for i, (a, b) in enumerate(zip(whole, plain_leaves))
+                  if not (torch.equal(a, b) if torch.is_tensor(b)
+                          else a == b)]
+        out["leaves"] = len(plain_leaves)
+        out["leaves_differ"] = differ[:8]
+        check(not differ, f"train_mesh: leaves {differ[:8]} of "
+              f"{len(plain_leaves)} differ placed vs plain")
+        del whole
+        out["compare_s"] = time.perf_counter() - t0
+        # (b) the placed state's checkpoint is the plain state's
+        with tempfile.TemporaryDirectory() as root:
+            digests = {}
+            for name in ("placed", "plain"):
+                t0 = time.perf_counter()
+                ckpt.save(f"{root}/{name}", T["steps"] - 1,
+                          runs[name]["state"])
+                out[f"{name}_save_s"] = time.perf_counter() - t0
+                digests[name] = _checkpoint_digest(f"{root}/{name}",
+                                                   T["steps"] - 1)[1]
+            out["checkpoint_sha256"] = digests
+            check(digests["placed"] == digests["plain"],
+                  f"train_mesh: checkpoint sha256 {digests}")
+        # (c) each route's step, in turns: host clock around synchronized
+        # steps, then the profiler's device time over BUSY_STEPS steps
+        t0 = time.perf_counter()
+        times = {name: [] for name in runs}
+        for i in range(T["timed"]):
+            for name in (("placed", "plain") if i % 2 else
+                         ("plain", "placed")):
+                r = runs[name]
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                r["state"], _ = r["step"](r["state"],
+                                          batches[i % len(batches)])
+                torch.cuda.synchronize(device)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        for name, r in runs.items():
+            def one(i, r=r):
+                r["state"], loss = r["step"](r["state"], batches[i % 2])
+                return loss
+            device_ms, top, ops, kept = _profile_device_ms(one, BUSY_STEPS)
+            host_ms = statistics.median(times[name])
+            out[name] = {"step_ms": host_ms, "step_ms_all": times[name],
+                         "device_ms_per_step": device_ms,
+                         "device_busy_share": device_ms / host_ms
+                         if device_ms else None,
+                         "device_ops_per_step": ops,
+                         "profiler_records_kept": kept,
+                         "top_device_ops": top}
+        out["placed_over_plain_step_ms"] = out["placed"]["step_ms"] \
+            / out["plain"]["step_ms"]
+        out["timing_s"] = time.perf_counter() - t0
+        del runs, routes
+    finally:
+        t0 = time.perf_counter()
+        if started:
+            release_process_group()
+        out["release_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out["card"] = nvidia_smi()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def phase_roofline(device) -> dict:
     """The port's roofline of whole steps (``launch/dryrun.run_cell(...,
     measure=True)``) on the ``ROOFLINE`` cells: each cell dry-run under
@@ -5835,7 +5993,7 @@ def pod_child(tmp: str) -> int:
         t0 = time.perf_counter()
         rec = dryrun.run_pod_cell(POD_COUNT["arch"], shape, out_dir=None,
                                   multi_pod=multi_pod, kv_seq_shard=kvs,
-                                  count=True, **_pod_options(kw))
+                                  **_pod_options(kw))
         row = {"shape": shape, **kw, "mesh": rec["mesh"],
                "kv_seq_shard": kvs, "status": rec["status"],
                "torch": torch.__version__,
@@ -6173,6 +6331,14 @@ def main() -> int:
     emit(train_row)
     restart_row = phase_train_restart(device)
     emit(restart_row)
+    train_mesh = phase_train_mesh(device)
+    emit(train_mesh)
+    print(f"train_mesh on {train_mesh['card']}: placed step "
+          f"{train_mesh['placed']['step_ms']:.1f} ms, plain step "
+          f"{train_mesh['plain']['step_ms']:.1f} ms (host clock); device "
+          f"{train_mesh['placed']['device_ms_per_step']} / "
+          f"{train_mesh['plain']['device_ms_per_step']} ms a step",
+          flush=True)
     roofline = phase_roofline(device)
     emit(roofline)
     mesh = phase_mesh(device)

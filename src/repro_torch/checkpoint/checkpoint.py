@@ -22,6 +22,16 @@ other:
   state the card wrote restores on the CPU and the other way round; a
   restored state goes onto a mesh of ranks with
   :func:`repro_torch.runtime.elastic.reshard`;
+* a **placed** tree (``DTensor`` leaves, the state of a train step on a
+  mesh of ranks): :func:`save` gathers each leaf whole on every rank (a
+  collective each rank of the mesh makes), the rank at the mesh's
+  origin writes the file layout an unplaced save writes (same leaves,
+  dtypes and shapes) into a directory every rank reads, and every rank
+  then meets it at a barrier, so the newest valid step is the same for
+  all; :func:`restore` into a placed ``like`` cuts each rank's block
+  from the whole leaf, placed as ``like``'s.  A checkpoint of several
+  ranks restores into an unplaced state on one process, and the other
+  way round;
 * :func:`save_state` / :func:`restore_state` — self-describing nested
   dicts of arrays and scalars whose shapes grow between snapshots (a
   Pareto front, a synthesis cache), with no ``like`` structure at restore
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.tree import tree_flatten
+from repro_torch.parallel.sharding import place_as
 
 
 def _rotate(ckpt_dir: str, keep: int):
@@ -70,8 +81,25 @@ def latest_step(ckpt_dir: str) -> int | None:
     return None
 
 
+def _mesh_of(leaves):
+    """The ``DeviceMesh`` of the first placed leaf, or None."""
+    return next((l.device_mesh for l in leaves
+                 if hasattr(l, "device_mesh")), None)
+
+
+def _mesh_barrier(mesh) -> None:
+    """Return once every rank of ``mesh`` has come here: a one-element
+    all-reduce over the mesh, read back on the host."""
+    from torch.distributed.tensor import DTensor, Partial
+    one = torch.zeros(1, device=mesh.device_type)
+    float(DTensor.from_local(one, mesh, [Partial()] * mesh.ndim,
+                             run_check=False).full_tensor()[0])
+
+
 def _host_array(leaf, i: int) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()    # a collective on every rank
         if leaf.dtype == torch.bfloat16:
             raise TypeError(
                 f"leaf {i} is bfloat16: the reference's restore cannot read "
@@ -85,21 +113,33 @@ def _host_array(leaf, i: int) -> np.ndarray:
 
 
 def _like(arr: np.ndarray, like):
-    """``arr`` as a leaf of ``like``'s type, dtype, shape and device."""
+    """``arr`` as a leaf of ``like``'s type, dtype, shape, device and
+    placements."""
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=like.device, dtype=like.dtype).reshape(like.shape)
+        return place_as(torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=like.device, dtype=like.dtype).reshape(like.shape), like)
     return type(like)(arr.item())
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     """Atomically save ``tree`` as checkpoints/step_<n>/ and rotate.
     Tensors are copied to the host; host ints and floats are written as
-    0-d arrays."""
+    0-d arrays.  A placed tree: every rank of its mesh calls this; each
+    leaf is gathered, the mesh's origin writes, and all meet after the
+    publish."""
     leaves, treedef = tree_flatten(tree)
     arrs = {f"leaf_{i}": _host_array(l, i) for i, l in enumerate(leaves)}
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    mesh = _mesh_of(leaves)
+    if mesh is None or not any(mesh.get_coordinate()):
+        _write(ckpt_dir, path, step, arrs, len(leaves), treedef, keep)
+    if mesh is not None:
+        _mesh_barrier(mesh)
+    return path
+
+
+def _write(ckpt_dir, path, step, arrs, n_leaves, treedef, keep) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -109,10 +149,9 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
         np.savez(f, **arrs)
         f.flush()
         os.fsync(f.fileno())
-    del arrs
     with open(npz, "rb") as f:
         digest = hashlib.file_digest(f, "sha256").hexdigest()
-    meta = {"step": step, "n_leaves": len(leaves), "sha256": digest,
+    meta = {"step": step, "n_leaves": n_leaves, "sha256": digest,
             "treedef": str(treedef)}
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -120,12 +159,12 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
         shutil.rmtree(path)      # a replayed step: replace it
     os.replace(tmp, path)                      # atomic publish
     _rotate(ckpt_dir, keep)
-    return path
 
 
 def restore(ckpt_dir: str, step: int, like):
     """Restore into the structure of ``like`` (validates checksum); each
-    leaf takes the type, dtype, shape and device of ``like``'s."""
+    leaf takes the type, dtype, shape, device and placements of
+    ``like``'s."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not _valid(path):
         raise IOError(f"checkpoint {path} is corrupt or missing")

@@ -44,8 +44,6 @@ reference's schema
 with ``chips`` = the mesh's size (never a one-card count divided by the
 chips).  Under ``kv_seq_shard`` the decode body gathers the cache's
 sequence whole over "model" on each card (the record's ``notes``).
-:func:`run_pod_cell` with ``count=False`` records each card's argument
-bytes alone (status ``"placed"``).
 
 With ``measure=True`` (a card) the cell is also built for real from a
 seeded generator and run on the card: the step counted again (the kernels
@@ -83,18 +81,20 @@ from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gpu_roofline import H100, roofline_from_stats
 from repro_torch.core.op_analysis import analyze_step, distinct_bases
-from repro_torch.kernels import (flash_attention, ops, w4a8_matmul,
-                                 w8a8_decode, w8a8_matmul)
+from repro_torch.kernels import (flash_attention, w4a8_matmul, w8a8_decode,
+                                 w8a8_matmul)
 from repro_torch.launch.mesh import (fake_production_mesh,
                                      make_production_mesh, mesh_sizes)
 from repro_torch.models.model import Model
 from repro_torch.models.tree import tree_map
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import (P, activation_sharding,
-                                           data_axes,
+from repro_torch.parallel.sharding import (activation_sharding,
                                            default_activation_rules,
-                                           leaf_specs, local_shape, place,
+                                           fit_spec, leaf_specs, local_shape,
+                                           place, place_batch, placed_like,
                                            tree_shardings)
+from repro_torch.parallel.sharding import \
+    batch_pspecs as sharding_batch_pspecs
 
 OUT_DIR = "experiments/dryrun_torch"
 #: where ``main`` writes the pod meshes' records (apart from the one-card
@@ -170,51 +170,17 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, device,
     return {"batch": batch}
 
 
-def _fit(shape, spec, mesh) -> P:
-    """Drop spec axes whose dim is not divisible by the mesh axis size."""
-    sizes = mesh_sizes(mesh)
-
-    def ax_size(ax):
-        if ax is None:
-            return 1
-        if isinstance(ax, (tuple, list)):
-            n = 1
-            for a in ax:
-                n *= sizes.get(a, 1)
-            return n
-        return sizes.get(ax, 1)
-
-    out = []
-    for i, dim in enumerate(shape):
-        ax = spec[i] if i < len(spec) else None
-        out.append(ax if ax is not None and dim % ax_size(ax) == 0 else None)
-    return P(*out)
-
-
 def _axis_prod(mesh) -> int:
     sizes = mesh_sizes(mesh)
     return sizes.get("pod", 1) * sizes.get("data", 1)
 
 
 def batch_pspecs(cfg, shape, mesh, batch) -> dict:
-    """The batch's specs: tokens (and labels) over the data axes (only
-    "data" when the batch does not divide over both, none when not even
-    that), train's sequence over "model"; ``pos`` replicated."""
-    db = data_axes(mesh)
-    b = shape.global_batch
-    if b % _axis_prod(mesh) != 0:
-        db = ("data",) if b % mesh_sizes(mesh).get("data", 1) == 0 \
-            else None
-    out = {}
-    for k, v in batch.items():
-        if k == "pos":
-            out[k] = P()
-        elif k == "ctx":
-            out[k] = _fit(v.shape, (db, None, None), mesh)
-        else:
-            out[k] = _fit(v.shape, (db, "model" if shape.kind == "train"
-                                    else None), mesh)
-    return out
+    """The batch's specs (:func:`~repro_torch.parallel.sharding
+    .batch_pspecs`), train's sequence over "model" (the cells' rules are
+    sequence-parallel in train)."""
+    return sharding_batch_pspecs(mesh, batch,
+                                 seq_sharded=shape.kind == "train")
 
 
 def cache_pspecs(cfg, shape, mesh, caches, *, kv_seq_shard=False) -> dict:
@@ -254,7 +220,7 @@ def cache_pspecs(cfg, shape, mesh, caches, *, kv_seq_shard=False) -> dict:
                 else (None, "data", None, None)
         else:
             spec = ()
-        out[k] = _fit(v.shape, spec, mesh)
+        out[k] = fit_spec(v.shape, spec, mesh)
     return out
 
 
@@ -298,9 +264,7 @@ def place_cell(cfg, shape, mesh, args, *, kv_seq_shard=False) -> tuple:
         specs = cache_pspecs(cfg, shape, mesh, args[1],
                              kv_seq_shard=kv_seq_shard)
         out.append({k: place(v, mesh, specs[k]) for k, v in args[1].items()})
-    specs = batch_pspecs(cfg, shape, mesh, batch)
-    out.append({k: place(v, mesh, specs[k]) if isinstance(v, torch.Tensor)
-                else v for k, v in batch.items()})
+    out.append(place_batch(mesh, batch, seq_sharded=shape.kind == "train"))
     return tuple(out)
 
 
@@ -378,18 +342,9 @@ def accumulate_grads(model, params, batch: dict, microbatch: int = 1, *,
     else:
         loss = model.loss(p_view, batch)
         loss.backward()
-    grads = tree_map(lambda p: _placed_as(p.grad, p) / microbatch
+    grads = tree_map(lambda p: placed_like(p.grad, p) / microbatch
                      if p.grad is not None else torch.zeros_like(p), leaves)
     return loss.detach(), grads, leaves
-
-
-def _placed_as(grad, p):
-    """A ``DTensor`` gradient moved to its param's placements (the
-    reduce-scatter or all-reduce of its ``Partial`` sums, and any other
-    move, chosen here and not by the first op that reads it)."""
-    if ops.sharded(grad) and list(grad.placements) != list(p.placements):
-        return grad.redistribute(p.device_mesh, p.placements)
-    return grad
 
 
 def build_cell(arch: str, shape_name: str, *, serve_quant: bool = False,
@@ -582,7 +537,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                   mode=mode, microbatch=microbatch)
         return run_pod_cell(arch, shape_name, multi_pod=multi_pod,
                             kv_seq_shard=kv_seq_shard, out_dir=out_dir,
-                            device=device, count=True, **kw)
+                            device=device, **kw)
     if measure and not torch.cuda.is_available():
         raise RuntimeError("run_cell(measure=True) times the step on a "
                            "card, and CUDA is not available")
@@ -650,16 +605,15 @@ def _record(arch, shape_name, mesh_name, chips, stats, alias, model_flops,
 
 def run_pod_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                  kv_seq_shard: bool = False, out_dir: str | None = OUT_DIR,
-                 device=None, count: bool = False, **kw) -> dict:
+                 device=None, **kw) -> dict:
     """One cell on the reference's pod mesh (16 x 16, or 2 x 16 x 16 with
     ``multi_pod``), built under ``FakeTensorMode`` at full width and depth
-    (nothing allocated).  With ``count``, its sharded step counted on one
-    card of a fake-group ``DeviceMesh`` (:func:`count_sharded`): the
-    reference's record with ``chips`` = the mesh's size and ``torch``,
-    the version that counted it.  Without, each
-    card's argument bytes under the rule tables alone (status
-    ``"placed"``).  ``kw``: the cell's options, as :func:`run_cell`
-    takes them."""
+    (nothing allocated), its sharded step counted on one card of a
+    fake-group ``DeviceMesh`` (:func:`count_sharded`): the reference's
+    record with ``chips`` = the mesh's size and ``torch``, the version
+    that counted it.  Each card's argument bytes under the rule tables
+    alone are :func:`placement`'s.  ``kw``: the cell's options, as
+    :func:`run_cell` takes them."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     mesh_name = "x".join(str(n) for n in mesh.shape)
     dev = resolve_device(device or "cpu")
@@ -674,48 +628,21 @@ def run_pod_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         _dump(out_dir, tag, rec)
         return rec
     t0 = time.perf_counter()
-    if count:
-        try:
-            with fake_production_mesh(multi_pod=multi_pod) as dmesh, \
-                    FakeTensorMode():
-                _, stats, alias, model_flops, groups = count_sharded(
-                    arch, shape_name, dmesh, device=dev,
-                    kv_seq_shard=kv_seq_shard, **kw)
-            rec, _ = _record(arch, shape_name, mesh_name, mesh.size(),
-                             stats, alias, model_flops, kw["serve_quant"],
-                             suffix, t0)
-            rec["chips"] = mesh.size()
-            # the port chooses the collectives; DTensor's own copies
-            # inside a move still differ between torch versions
-            rec["torch"] = torch.__version__
-            rec["memory_analysis"]["argument_bytes_by_group"] = groups
-            if kv_seq_shard and shape.kind == "decode":
-                rec["notes"] = KV_SEQ_SHARD_NOTE
-        except Exception as e:  # a failure here is a bug in the system
-            rec = {**base, "status": "error",
-                   "error": f"{type(e).__name__}: {e}",
-                   "traceback": traceback.format_exc()[-2000:]}
-        _dump(out_dir, tag, rec)
-        return rec
     try:
-        with FakeTensorMode():
-            _, args, model_flops = build_cell(arch, shape_name, device=dev,
-                                              **kw)
-            groups = placement(cfg, shape, mesh, args,
-                               kv_seq_shard=kv_seq_shard)
-            del args
-        arg = sum(groups.values())
-        hbm = H100.hbm_gb * 1e9
-        rec = {**base, "status": "placed", "chips": mesh.size(),
-               "quant": kw["serve_quant"],
-               "variant": _variant(kw, kv_seq_shard),
-               "place_s": round(time.perf_counter() - t0, 1),
-               "model_flops": model_flops,
-               "memory_analysis": {
-                   "argument_bytes": arg,
-                   "argument_bytes_by_group": groups,
-                   "hbm_bytes": hbm,
-                   "fits_hbm": arg <= hbm}}
+        with fake_production_mesh(multi_pod=multi_pod) as dmesh, \
+                FakeTensorMode():
+            _, stats, alias, model_flops, groups = count_sharded(
+                arch, shape_name, dmesh, device=dev,
+                kv_seq_shard=kv_seq_shard, **kw)
+        rec, _ = _record(arch, shape_name, mesh_name, mesh.size(), stats,
+                         alias, model_flops, kw["serve_quant"], suffix, t0)
+        rec["chips"] = mesh.size()
+        # the port chooses the collectives; DTensor's own copies inside a
+        # move still differ between torch versions
+        rec["torch"] = torch.__version__
+        rec["memory_analysis"]["argument_bytes_by_group"] = groups
+        if kv_seq_shard and shape.kind == "decode":
+            rec["notes"] = KV_SEQ_SHARD_NOTE
     except Exception as e:  # a failure here is a bug in the system
         rec = {**base, "status": "error", "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-2000:]}
@@ -778,8 +705,7 @@ def main(argv=None):
             for multi_pod in pods:
                 rec = run_pod_cell(arch, shape, multi_pod=multi_pod,
                                    kv_seq_shard=args.kv_seq_shard,
-                                   out_dir=args.out or POD_OUT_DIR,
-                                   count=True, **kw)
+                                   out_dir=args.out or POD_OUT_DIR, **kw)
                 _print(rec)
             if pods:
                 continue

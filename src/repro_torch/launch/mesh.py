@@ -195,14 +195,18 @@ def stage(t: torch.Tensor, group) -> torch.Tensor:
 
 def _one_rank_under_grad(t: torch.Tensor, group) -> bool:
     """Whether a collective on ``t`` is the identity autograd can pass:
-    one rank.  Collectives of several ranks under autograd are refused
-    (the train step's gradients across ranks are not ported)."""
+    one rank.  Collectives of several ranks on plain tensors under
+    autograd are refused: they have no backward that would be right for
+    replicated consumers.  Training across ranks takes the placed route
+    instead (``DTensor`` state, whose moves carry their own gradients)."""
     if not (t.requires_grad and torch.is_grad_enabled()):
         return False
     if dist.get_world_size(group) > 1:
         raise NotImplementedError(
-            "a collective of several ranks under autograd: training across "
-            "ranks is not ported (ROADMAP A.4)")
+            "a collective of several ranks on plain tensors under autograd "
+            "has no backward here: train on placed (DTensor) state, as "
+            "repro_torch.launch.train.make_train_step does on a mesh of "
+            "several ranks")
     return True
 
 

@@ -10,15 +10,33 @@ when ``ckpt_dir`` is given).  The state is ``{"params", "opt", "err"}``,
 without.  The step runs under the reference's activation rules on a
 mesh (:func:`~repro_torch.parallel.sharding.default_activation_rules`,
 ``seq_sharded=False``), and :func:`train` builds it on
-:func:`~repro_torch.launch.mesh.make_host_mesh` as the reference does,
-then releases the one-rank group that started.  Its params are plain
-tensors, on which the rules' ``shard`` is the identity, so a one-rank
-run's losses are those without a mesh bit for bit; the model's MoE
-layers route through ``moe_ffn_ep``.  Under grad every attention runs the
-plain route (the kernels have no backward, ``kernels/ops.py``), and the
-projections of a quantized policy are fake-quantized float products
-(``quant/qlinear.qdot``), so a training step launches none of the port's
-kernels.
+:func:`~repro_torch.launch.mesh.make_host_mesh` over every rank of the
+group, as the reference builds its mesh over every device.
+
+What runs where:
+
+* **One rank** (no group, or a one-rank group, which :func:`train`
+  starts and releases again): the params stay plain tensors, on which
+  the rules' ``shard`` is the identity, so the losses are those without
+  a mesh bit for bit; the MoE layers route through ``moe_ffn_ep``.  A
+  state the caller placed on a one-rank mesh (``DTensor`` leaves, every
+  placement whole) runs placed, as the card's ``train_mesh`` phase of
+  ``chip_smoke.py`` runs it on a one-rank NCCL mesh.
+* **Several ranks** (a group the caller started: ``torchrun``, or
+  ``torch.multiprocessing`` with gloo on the host; :func:`train` leaves
+  it up): the state is placed by the rule tables, FSDP over "data", TP
+  over "model", EP for the stacked experts (``_moe_ffn_ep_dtensor``),
+  and each rank draws the same global batch from the ``SyntheticLM``
+  seed and keeps its block of it.  Gradients, AdamW, int8 compression
+  and checkpoints work on the placed leaves
+  (:func:`make_train_step`).  The MoE's capacity and aux loss are per
+  data shard, as in the reference's ``shard_map`` body, so an MoE
+  model's sharded step is not its unsharded step.
+
+Under grad every attention runs the plain route (the kernels have no
+backward, ``kernels/ops.py``), and the projections of a quantized policy
+are fake-quantized float products (``quant/qlinear.qdot``), so a
+training step launches none of the port's kernels.
 
 A checkpoint restores into a state on any device
 (:func:`repro_torch.checkpoint.checkpoint.restore` with ``like`` there):
@@ -26,16 +44,20 @@ a run the card checkpointed continues on the CPU, and the other way
 round.
 
 Usage (the CPU at reduced width; on the card at full width drop
-``--device cpu`` and add ``--full``)::
+``--device cpu`` and add ``--full``; under ``torchrun`` the ranks' group
+is started from its environment, gloo on the host)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
       --device cpu --steps 20 --ckpt-dir /tmp/ckpt --grad-compression
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch mamba2-130m --device cpu --steps 6
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
 
 import torch
@@ -44,13 +66,16 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.kernels import ops
 from repro_torch.models.model import Model
-from repro_torch.models.tree import tree_map
+from repro_torch.models.tree import tree_flatten, tree_map
 from repro_torch.optim import adamw
 from repro_torch.launch.mesh import make_host_mesh, release_process_group
 from repro_torch.parallel import compression
 from repro_torch.parallel.sharding import (activation_sharding,
-                                           default_activation_rules)
+                                           default_activation_rules, place,
+                                           place_batch, place_tree,
+                                           placed_like, reduce_partial)
 from repro_torch.runtime.fault_tolerance import run_with_restarts
 
 
@@ -62,11 +87,37 @@ def make_train_step(model: Model, mesh, ocfg: adamw.AdamWConfig, *,
     (zero for a leaf the loss does not reach, as ``jax.grad`` gives), with
     ``grad_compression`` its int8 round trip carrying the residual in
     ``err``, and one AdamW update.  The new state holds new tensors; the
-    caller drops the old one."""
+    caller drops the old one.
+
+    On a mesh of several ranks, or where a leaf of ``state`` already is a
+    ``DTensor``, the step runs placed: every plain leaf of ``state`` (the
+    same full tensor on every rank) becomes a ``DTensor`` by the rule
+    tables (:func:`~repro_torch.parallel.sharding.tree_pspecs`: FSDP over
+    "data", TP over "model", EP for the stacked experts), each rank
+    keeping its own block, and the global ``batch`` is placed over the
+    data axes with its sequence whole; each gradient is moved to its
+    param's placements.  The state that comes back is placed, and
+    ``loss`` is the replicated value as a plain 0-d tensor.  A plain state
+    on a one-rank mesh runs as it does without one."""
     rules = None if mesh is None else default_activation_rules(
         mesh, seq_sharded=False)
 
     def train_step(state, batch):
+        placed = mesh is not None and (mesh.size() > 1 or any(
+            map(ops.sharded, tree_flatten(state)[0])))
+        if not placed:
+            return _step(state, batch)
+        state = place_tree(mesh, state, lambda t, s: t if ops.sharded(t)
+                           else place(t, mesh, s))
+        # plain tensors the step makes (positions, masks, and their
+        # gradients) are taken as replicated
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            state, loss = _step(state, place_batch(mesh, batch))
+        return state, reduce_partial(loss).to_local()
+
+    def _step(state, batch):
         params = tree_map(
             lambda p: p.detach().requires_grad_(True), state["params"])
         with (contextlib.nullcontext() if mesh is None
@@ -74,8 +125,8 @@ def make_train_step(model: Model, mesh, ocfg: adamw.AdamWConfig, *,
             loss = model.loss(params, batch)
         loss.backward()
         grads = tree_map(
-            lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-            params)
+            lambda p: placed_like(p.grad, p) if p.grad is not None
+            else torch.zeros_like(p), params)
         err = state["err"]
         if grad_compression:
             grads, err = compression.compress_roundtrip(grads, err)
@@ -190,11 +241,24 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    losses = train(args.arch, steps=args.steps, smoke=not args.full,
-                   seq_len=args.seq_len, batch=args.batch,
-                   ckpt_dir=args.ckpt_dir,
-                   grad_compression=args.grad_compression,
-                   device=args.device)
+    # under torchrun (WORLD_SIZE > 1) the group of its ranks, from the
+    # environment it sets: gloo on the host, NCCL on the cards
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+        and not torch.distributed.is_initialized()
+    if launched:
+        dev = resolve_device(args.device)
+        torch.distributed.init_process_group(
+            "gloo" if dev.type == "cpu" else "nccl",
+            device_id=None if dev.type == "cpu" else dev)
+    try:
+        losses = train(args.arch, steps=args.steps, smoke=not args.full,
+                       seq_len=args.seq_len, batch=args.batch,
+                       ckpt_dir=args.ckpt_dir,
+                       grad_compression=args.grad_compression,
+                       device=args.device)
+    finally:
+        if launched:
+            torch.distributed.destroy_process_group()
     first, last = losses[0][1], losses[-1][1]
     print(f"loss: {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NOT improved'})")

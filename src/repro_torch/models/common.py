@@ -16,7 +16,8 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     batch slice that fall in it, zeros the rest, and the cards' rows meet
     as a ``Partial`` sum over "model" (exact: one nonzero a position).
     Without a "model" split of the vocab the table is gathered whole and
-    looked up as it is."""
+    looked up as it is.  Under autograd the table's gradient is a
+    ``Partial`` sum over the axes that split the tokens."""
     from repro_torch.kernels.ops import sharded
     if not sharded(table, tokens):
         return table[tokens]
@@ -37,6 +38,10 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                    for a, p in zip(names, tokens.placements))
     out_pl = [Partial() if split and a == "model" else p
               for a, p in zip(names, tok_pl)]
+    # each card's rows of the table take the gradient of its own tokens:
+    # a Partial sum over the axes that split the tokens
+    tab_grad = tuple(Partial() if p.is_shard() else t
+                     for t, p in zip(tab_pl, tok_pl))
     rows = table.shape[0] // n_model
 
     def lookup(t, tok):
@@ -47,6 +52,7 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         return t[idx.clamp(0, rows - 1)] * keep[..., None].to(t.dtype)
     return local_map(lookup, out_placements=out_pl,
                      in_placements=(tab_pl, tok_pl),
+                     in_grad_placements=(tab_grad, tok_pl),
                      redistribute_inputs=True)(table, tokens)
 
 

@@ -246,7 +246,13 @@ def _moe_ffn_ep_dtensor(x, p, cfg, db, policy, train, capacity_factor):
     the others).  Each rank runs :func:`_ep_local`; its contributions
     leave as a ``Partial`` sum over "model", reduced in float32 before
     the cast (the one all-reduce), and its aux as a ``Partial`` mean over
-    the data axes."""
+    the data axes and "model" (the "model" ranks hold equal values).
+
+    Under autograd each rank's gradients are its part of the whole:
+    ``Partial`` sums over "model" for the tokens and the router (a rank
+    differentiates its own experts' entries and its share of the aux),
+    over the data axes for the router and the experts (a rank sees its
+    own tokens), the experts' own rows split over "model"."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = x.device_mesh
@@ -258,7 +264,8 @@ def _moe_ffn_ep_dtensor(x, p, cfg, db, policy, train, capacity_factor):
     if x.shape[0] % n_data:
         raise ValueError(f"moe_ffn_ep: batch {x.shape[0]} does not divide "
                          f"over the data axes {db} ({n_data})")
-    e_l = E // mesh.size(names.index("model"))
+    n_model = mesh.size(names.index("model"))
+    e_l = E // n_model
 
     def by_axis(on_data, on_model, other):
         return tuple(on_data if a in db else on_model if a == "model"
@@ -272,14 +279,18 @@ def _moe_ffn_ep_dtensor(x, p, cfg, db, policy, train, capacity_factor):
                    "w_experts_out": wo}
         out, aux = _ep_local(x_l, router, local_p, e0, e_l, cfg, policy,
                              train, capacity_factor)
-        return out.reshape(x_l.shape), aux / n_data
+        return out.reshape(x_l.shape), aux / n_data / n_model
 
+    expert_grads = by_axis(Partial(), Shard(0), Replicate())
     out, aux = local_map(
         body,
         out_placements=(by_axis(Shard(0), Partial(), Replicate()),
-                        by_axis(Partial(), Replicate(), Replicate())),
+                        by_axis(Partial(), Partial(), Replicate())),
         in_placements=(by_axis(Shard(0), Replicate(), Replicate()), rep,
                        experts, experts, experts),
+        in_grad_placements=(by_axis(Shard(0), Partial(), Replicate()),
+                            by_axis(Partial(), Partial(), Replicate()),
+                            expert_grads, expert_grads, expert_grads),
         redistribute_inputs=True)(
             x, p["router"], p["w_experts_gate"], p["w_experts_in"],
             p["w_experts_out"])

@@ -17,7 +17,10 @@ reference's layout are kept in the port's:
   stacked leaf's layers summed one after another).
 
 The step counter is a host integer; the schedule and the bias
-corrections are float32, as the reference computes them.
+corrections are float32, as the reference computes them.  On placed
+trees (``DTensor`` leaves, :func:`repro_torch.launch.train.make_train_step`
+on a mesh) every update is elementwise on each rank's block and keeps
+its leaf's placements; only :func:`global_norm` meets across ranks.
 """
 
 from __future__ import annotations
@@ -84,11 +87,19 @@ def decayed(params) -> dict[str, torch.Tensor]:
             if p.dim() + stacked >= 2}
 
 
+def zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros in ``p``'s shape and device, and its placements
+    where ``p`` is a ``DTensor`` (read from ``p`` alone where it is not,
+    so a fake tensor of another mode serves)."""
+    if hasattr(p, "placements"):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init(params) -> AdamWState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return AdamWState(step=0, mu=tree_map(zeros, params),
-                      nu=tree_map(zeros, params))
+    """Zero moments (:func:`zeros_f32`), placed as their params."""
+    return AdamWState(step=0, mu=tree_map(zeros_f32, params),
+                      nu=tree_map(zeros_f32, params))
 
 
 def _f32(x: float) -> torch.Tensor:

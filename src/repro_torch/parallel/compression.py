@@ -8,7 +8,10 @@ compressed gradient stays within one step's quantization error of the
 raw one.  The train step applies :func:`compress_roundtrip` on whatever
 mesh it runs under (:func:`repro_torch.launch.train.make_train_step`),
 as the reference's does: neither package sends the int8 codes through a
-data-parallel all-reduce.
+data-parallel all-reduce.  On a placed tree (``DTensor`` leaves) each
+code, output and residual keeps its leaf's placements, and a split
+leaf's maximum is all-reduced before its scale is taken: a maximum is
+exact, so the placed round trip is the unplaced one bit for bit.
 
 **One scale per leaf of the reference's stacked tree.**  The reference
 takes ``max|g + e|`` over each leaf of its tree, where a per-layer
@@ -27,15 +30,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.tree import tree_map
-from repro_torch.optim.adamw import leaves
+from repro_torch.optim.adamw import leaves, zeros_f32
+from repro_torch.parallel.sharding import reduce_partial
 from repro_torch.quant import quantizers as qz
 
 BITS = 8
 
 
 def init_error_state(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """float32 zeros placed as each param (``adamw.zeros_f32``)."""
+    return tree_map(zeros_f32, params)
 
 
 def _scales(gf) -> dict[int, torch.Tensor]:
@@ -49,9 +53,10 @@ def _scales(gf) -> dict[int, torch.Tensor]:
         groups.setdefault(path, []).append(g)
     out = {}
     for members in groups.values():
-        # the absmax of the layers' absmaxes: the stack's, exactly
-        scale = qz.int_scale(torch.stack([g.abs().amax() for g in members]),
-                             BITS)
+        # the absmax of the layers' absmaxes: the stack's, exactly (a
+        # split leaf's maximum all-reduced over the mesh first)
+        scale = qz.int_scale(torch.stack(
+            [reduce_partial(g.abs().amax()) for g in members]), BITS)
         out.update((id(g), scale) for g in members)
     return out
 

@@ -112,9 +112,11 @@ def einsum(equation: str, *operands):
 
 def placed_like(value, like):
     """``value`` moved to ``like``'s placements where both are
-    ``DTensor``s, before a write into ``like`` (the port's move: the
+    ``DTensor``s: before a write into ``like`` (the port's move: the
     write's own would move with the torch version, and may gather the
-    destination); any other ``value`` as it is."""
+    destination), and a param's gradient to its param's placements (the
+    reduce-scatter or all-reduce of its ``Partial`` sums chosen here, not
+    by the first op that reads it); any other ``value`` as it is."""
     have = getattr(value, "placements", None)
     want = getattr(like, "placements", None)
     if have is None or want is None or list(have) == list(want):
@@ -214,6 +216,48 @@ def reshape(x, *shape):
 def data_axes(mesh) -> tuple[str, ...]:
     """Batch axes: ("pod","data") on the multi-pod mesh, else ("data",)."""
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def fit_spec(shape, spec, mesh) -> P:
+    """``spec`` for a ``shape`` tensor with every axis dropped whose dim
+    does not divide over it (that dim replicated)."""
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        out.append(ax if ax is not None
+                   and dim % _axis_size(mesh, ax) == 0 else None)
+    return P(*out)
+
+
+def batch_pspecs(mesh, batch: dict, *, seq_sharded: bool) -> dict:
+    """The specs of a batch of ``tokens`` (and ``labels``, ``ctx``,
+    ``pos``): the batch over the data axes (only "data" when it does not
+    divide over both, none when not even that), the sequence over
+    "model" with ``seq_sharded`` (the reference's sequence-parallel
+    train rules) and whole without; ``pos`` replicated."""
+    db = data_axes(mesh)
+    b = batch["tokens"].shape[0]
+    if b % _axis_size(mesh, db) != 0:
+        db = ("data",) if b % _axis_size(mesh, "data") == 0 else None
+    out = {}
+    for k, v in batch.items():
+        if k == "pos":
+            out[k] = P()
+        elif k == "ctx":
+            out[k] = fit_spec(v.shape, (db, None, None), mesh)
+        else:
+            out[k] = fit_spec(v.shape, (db, "model" if seq_sharded
+                                        else None), mesh)
+    return out
+
+
+def place_batch(mesh, batch: dict, *, seq_sharded: bool = False) -> dict:
+    """``batch`` (the same global batch on every rank) with each tensor a
+    ``DTensor`` under :func:`batch_pspecs`, each rank keeping its own
+    block; host values (``pos``) stay."""
+    specs = batch_pspecs(mesh, batch, seq_sharded=seq_sharded)
+    return {k: place(v, mesh, specs[k]) if isinstance(v, torch.Tensor)
+            else v for k, v in batch.items()}
 
 
 def default_activation_rules(mesh, *, seq_sharded: bool,
@@ -484,6 +528,19 @@ def place_tree(mesh, tree, put):
             return tuple(place(a, b) for a, b in zip(t, s))
         return t if s is None else put(t, s)
     return place(tree, tree_pspecs(tree, mesh))
+
+
+def place_as(x: torch.Tensor, like):
+    """``x`` (the same full tensor on every rank) placed as ``like``
+    where that is a ``DTensor`` (each rank cuts its own block: a move
+    from replicated, no collective); else ``x`` as it is."""
+    if not hasattr(like, "placements"):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(
+        mesh, like.placements)
 
 
 def tree_shardings(mesh, params):

@@ -6,7 +6,11 @@ Port of :mod:`repro.runtime.fault_tolerance`:
 * :func:`run_with_restarts` resumes the training loop from the newest
   *valid* checkpoint (:mod:`repro_torch.checkpoint.checkpoint`) and
   replays the data cursor, giving a run equal bit for bit to an
-  uninterrupted one;
+  uninterrupted one.  On a mesh of several ranks every rank runs the
+  loop: a placed state's checkpoint is published before the ranks meet
+  (``checkpoint.save``), so each rank restores the same step, and an
+  injected failure fires on every rank at the top of the same step,
+  before any of its collectives;
 * failure injection raises :class:`InjectedFailure` at a chosen step,
   chunk or generation boundary to exercise that path deterministically;
 * the straggler detector keeps an EWMA + variance of step wall-times and

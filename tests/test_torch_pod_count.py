@@ -519,7 +519,7 @@ def test_pod_collectives_equal_the_pinned_counts(index):
     shape, kw, multi_pod, kvs = smoke.POD_COUNT["pods"][index]
     rec = dryrun.run_pod_cell(smoke.POD_COUNT["arch"], shape, out_dir=None,
                               multi_pod=multi_pod, kv_seq_shard=kvs,
-                              count=True, **smoke._pod_options(kw))
+                              **smoke._pod_options(kw))
     assert rec["status"] == "ok", rec.get("error")
     assert rec["torch"] == torch.__version__
     got = ({k: round(v) for k, v in

@@ -304,18 +304,22 @@ def test_cache_specs_equal_reference(ref, cell):
 
 @pytest.mark.parametrize("cell", BYTES_CELLS, ids="|".join)
 def test_pod_argument_bytes_equal_reference_local_shapes(ref, cell):
-    """The dry run's per-card argument bytes on 16 x 16 are the sum of
-    the local shard sizes under the reference's own specs."""
+    """The dry run's per-card argument bytes on 16 x 16
+    (``dryrun.placement``) are the sum of the local shard sizes under the
+    reference's own specs."""
     arch, shape_name = cell
     mesh = make_production_mesh()
-    rec = dryrun.run_pod_cell(arch, shape_name, out_dir=None,
-                              serve_quant=False, kv_quant=False,
-                              bf16_params=False, weight_only_qat=False,
-                              mode=None, microbatch=1)
-    assert rec["status"] == "placed", rec.get("error")
-    assert rec["mesh"] == "16x16" and rec["chips"] == mesh.size() == 256
-    assert rec["memory_analysis"]["argument_bytes"] \
-        == ref["bytes"][f"{arch}|{shape_name}"]
+    assert mesh.shape == (16, 16) and mesh.size() == 256
+    groups = _placement(arch, shape_name, mesh)
+    assert sum(groups.values()) == ref["bytes"][f"{arch}|{shape_name}"]
+
+
+def _placement(arch, shape_name, mesh, **kw) -> dict:
+    """``dryrun.placement`` of a cell built under ``FakeTensorMode``."""
+    cfg, shape = get_config(arch), dryrun.shape_config(shape_name)
+    with FakeTensorMode():
+        _, args, _ = dryrun.build_cell(arch, shape_name, device="cpu")
+        return dryrun.placement(cfg, shape, mesh, args, **kw)
 
 
 @pytest.mark.parametrize("kwargs,mesh_name,chips", [
@@ -350,14 +354,12 @@ def test_pod_records(kwargs, mesh_name, chips, tmp_path):
     assert saved["memory_analysis"] == mem
     if kwargs.get("kv_seq_shard"):
         assert "kv_seq_shard" in rec["notes"]
-        plain = dryrun.run_pod_cell(
-            "phi4-mini-3.8b", "decode_32k", out_dir=None,
-            multi_pod=kwargs.get("multi_pod", False), serve_quant=False,
-            kv_quant=False, bf16_params=False, weight_only_qat=False,
-            mode=None, microbatch=1)
+        plain = _placement("phi4-mini-3.8b", "decode_32k",
+                           make_production_mesh(
+                               multi_pod=kwargs.get("multi_pod", False)))
         # sharding the cache's sequence over "model" divides its bytes
         assert mem["argument_bytes_by_group"]["caches"] * 16 \
-            == plain["memory_analysis"]["argument_bytes_by_group"]["caches"]
+            == plain["caches"]
 
 
 def test_pod_record_refuses_measure():
