@@ -225,10 +225,27 @@ Phases (any failure exits non-zero):
     width, depth cut to 8 layers: served and teacher-forced on int8 KV
     as moonshot, the decode kernel at rep 4 timed at (4, 8, 4, 128), S
     4096, and flash at (1, 32, 4096, 128));
-11h. the vlm and audio families, W8A8, random weights from seed 0:
+11h. the largest dense models whole, W8A8, random weights from seed 0,
+    each drawn once on a card no earlier phase holds memory of (its
+    ``mem_get_info`` reported): starcoder2-7b (32 layers, d 4608, 36
+    heads over 4 KV heads, gelu MLP) and deepseek-67b (95 layers, d 8192,
+    64 heads over 8, 69.1 GB of params); ``*_serve`` (as ``ssm_serve``: 6
+    / 7 W8A8 launches a layer and step, counted from the config, the
+    served stream bit for bit between the routes), ``starcoder2_batcher``
+    (the int8-KV batcher at rep 9), ``*_int8kv`` (``serve_batcher_parity``
+    on the model: int8 caches bit for bit at per-slot positions of a
+    4096-position cache; the decode kernel at (4, 4, 9, 128) / (4, 8, 8,
+    128), S 4096, held to its plain version and timed), ``*_prefill``
+    (the 1 x 4096 forward: flash at h 36 / 64 held per layer, the
+    swapped route bit for bit, the split, flash on layer 0's q, k, v
+    beside SDPA), ``deepseek_roofline`` (``run_cell(decode_4k, int8 KV,
+    measure=True)`` on the drawn params: the card's count equal to the
+    dry run's), ``*_shapes`` (W8A8 over a layer's projections at m = 4
+    and 4096 beside ``torch._int_mm``);
+11i. the vlm and audio families, W8A8, random weights from seed 0:
     llama-3.2-vision-90b at full width (d 8192, 64 heads x hd 128, 8 kv
     heads, a cross layer after every 5th of its dense layers, 1601 image
-    tokens) with **its depth cut to 60 of 100 layers** (57.35 GB in int8;
+    tokens) with **its depth cut to 20 of 100 layers** (21.9 GB in int8;
     100 layers are 92.8 GB, past the card), then whisper-medium at full
     width and depth (24 encoder, 24 decoder, 24 cross layers, d 1024, 1500
     frames), each drawn once for two phases: ``vlm_serve`` /
@@ -255,7 +272,12 @@ Phases (any failure exits non-zero):
     application and the swapped route bit for bit as in the serve
     phases; wall times and the device time split: W8A8 ``tc`` and flash
     by kernel name, each kind of flash application timed alone times
-    its count, the rest);
+    its count, the rest); then llama-3.2-vision-90b whole, all 100
+    layers and 20 cross layers in W4A8-pow2 (48.5 GB): ``vlm_w4a8_serve``
+    as ``vlm_serve`` (W4A8 in place of W8A8, the routes over the stream's
+    first 4 positions), ``vlm_w4a8_prefill`` (the 1 x 4096 forward once,
+    on the kernel route: launches, wall time, peak, finite logits),
+    ``vlm_w4a8_shapes`` (W4A8 over a layer at m = 4 and 4096);
 12. ``attention_parity``: both attention kernels against their plain
     versions (decode: bit for bit, at positions on the boundaries of its
     splits of S, within the 1e-5 x max|out| bound; flash: 1e-5 f32,
@@ -326,7 +348,9 @@ Phases (any failure exits non-zero):
     fake group's at (1, 1) and to the one-card dry run's, no collective
     byte; (ii) this script's child (``--pod-child DIR``, started before
     the build, since a fake process group cannot share a process with the
-    NCCL one) counts phi4-mini's pod cells on fake-group meshes (16 x 16
+    NCCL one; it then dry-runs the one-card cells of ``ONE_CARD_CELLS``,
+    which ``one_card_fit`` sets beside each full-size run's peak and the
+    card's memory) counts phi4-mini's pod cells on fake-group meshes (16 x 16
     ``decode_32k`` W8A8 + int8 KV, the same on 2 x 16 x 16 with the
     cache's sequence split, ``prefill_32k`` W8A8, ``train_4k``) and the
     phase prints each one's bottleneck, FLOPs a card by class, collective
@@ -351,6 +375,7 @@ power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import pathlib
@@ -515,9 +540,10 @@ MOE_PHI = dict(arch="phi3.5-moe-42b-a6.6b", n_layers=8)
 MOE_LAYER_PROJ = {(2048, 2048): 4}
 # the vlm and audio families, W8A8: llama-3.2-vision-90b at full width
 # (d 8192, 64 heads x hd 128, 8 kv heads, ff 28672, vocab 128256, 1601
-# image tokens) with its depth cut to 60 of 100 layers (12 groups of 5
-# and 12 cross layers: 57.35 GB in int8; all 100 are 92.8 GB, past the
-# 80 GB card), and whisper-medium at full width and depth (24 encoder,
+# image tokens) with its depth cut to 20 of 100 layers (4 groups of 5
+# and 4 cross layers, 21.9 GB in int8; all 100 are 92.8 GB, past the 80
+# GB card; 60 layers until the W4A8 run below took their time), and
+# whisper-medium at full width and depth (24 encoder,
 # 24 decoder and 24 cross layers, d 1024, 16 heads x hd 64, 1500
 # frames); served as phi4 is (SERVE) and forwarded at 1 x 4096 (the vlm)
 # and 4 x 448 (Whisper's 30 s window and 448-token decoder limit)
@@ -525,10 +551,44 @@ MOE_LAYER_PROJ = {(2048, 2048): 4}
 # layer's wq_x and wo_x (wk_img, wv_img made the context caches)
 PROJ_NAMES_DECODE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                      "wq_x", "wo_x")
-CROSS_ARCHS = {"vlm": dict(arch="llama-3.2-vision-90b", n_layers=60,
+# llama-3.2-vision-90b also whole, all 100 layers and 20 cross layers in
+# W4A8-pow2 (48.5 GB of params), served as above, the served stream
+# through the routes over its first ``parity_steps`` positions (the plain
+# route decodes every weight to float64: ~4.7 s a step); its forward on
+# the kernel route alone (the swapped-route comparison stays on the W8A8
+# run)
+CROSS_ARCHS = {"vlm": dict(arch="llama-3.2-vision-90b", n_layers=20,
                            full_layers=100, forward=(1, 4096)),
                "audio": dict(arch="whisper-medium", n_layers=None,
-                             full_layers=24, forward=(4, 448))}
+                             full_layers=24, forward=(4, 448)),
+               "vlm_w4a8": dict(arch="llama-3.2-vision-90b", n_layers=None,
+                                full_layers=100, forward=(1, 4096),
+                                quant="w4a8_pow2", parity_steps=4)}
+# the largest dense configurations, whole on one card in W8A8:
+# starcoder2-7b (32 layers, d 4608, 36 heads over 4 KV heads: rep 9, gelu
+# MLP, ff 18432) and deepseek-67b (95 layers, d 8192, 64 heads over 8:
+# rep 8, ff 22016; 65.8 GB of int8 projections and a 3.36 GB float32
+# embedding); each served as phi4 is (SERVE) with the served stream
+# through both routes, the int8-KV parity at per-slot positions of a
+# BATCHER["max_seq"] cache, the decode kernel at the model's shape and
+# the 1 x PREFILL["long_len"] forward; starcoder2's int8-KV batcher too,
+# and deepseek's ``roofline`` cell through the dry run on its drawn params
+DENSE_FULL = {"starcoder2": dict(arch="starcoder2-7b", batcher=True),
+              "deepseek": dict(arch="deepseek-67b", batcher=False,
+                               roofline=("decode_4k", dict(
+                                   serve_quant=True, kv_quant=True)))}
+# what an earlier phase may leave allocated on the card when a dense model
+# whole on it is drawn
+DENSE_IDLE_BYTES = 2 ** 30
+# the dry runs (fake tensors, on the host) each full-size run's peak
+# memory is held beside, counted by the pod child: (arch, shape, options)
+ONE_CARD_CELLS = (
+    ("starcoder2-7b", "decode_4k", dict(serve_quant=True, kv_quant=True)),
+    ("deepseek-67b", "prefill_4k", dict(serve_quant=True)),
+    ("llama-3.2-vision-90b", "decode_4k",
+     dict(serve_quant=True, mode="w4a8_pow2")),
+    ("llama-3.2-vision-90b", "prefill_4k",
+     dict(serve_quant=True, mode="w4a8_pow2")))
 # the evaluation loss: mamba2-130m under fp32 on SyntheticLM batch 0,
 # card vs CPU
 LOSS = dict(arch="mamba2-130m", quant="fp32", batch=4, seq_len=512, step=0,
@@ -2252,7 +2312,7 @@ def phase_serve(device, quant: str) -> dict:
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
     steps = SERVE["prompt_len"] + SERVE["gen"]
-    want = steps * cfg.n_layers * 7
+    want = steps * cfg.n_layers * _dense_products(cfg)
     mine = "w8a8_matmul" if quant == "w8a8" else "w4a8_matmul"
     other = "w4a8_matmul" if quant == "w8a8" else "w8a8_matmul"
     check(launches[mine] == want,
@@ -2771,7 +2831,7 @@ def phase_batcher(device, model, params,
     torch.cuda.synchronize(device)
     step_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top, ops, _ = _profile_device_ms(step, BUSY_STEPS)
-    return {"phase": name, "launches": launches,
+    return {"phase": name, "arch": cfg.name, "launches": launches,
             "iterations": steps,
             "requests": [[r.rid, len(r.prompt), r.max_new, r.submit_iter,
                           r.complete_iter] for r in reqs],
@@ -2787,13 +2847,15 @@ def phase_batcher(device, model, params,
             "step_device_ops": ops, "step_top_kernels_ms": top}
 
 
-def phase_batcher_parity(device, params) -> dict:
+def phase_batcher_parity(device, params, cfg=None,
+                         name: str = "serve_batcher_parity_int8kv") -> dict:
     """Kernel route vs plain route over int8 caches, teacher-forced at
-    per-slot positions that differ across slots."""
+    per-slot positions that differ across slots; ``cfg``: the model of
+    ``params`` (default ``SERVE_ARCH``'s)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = get_config(SERVE_ARCH)
+    cfg = cfg or get_config(SERVE_ARCH)
     kern = Model(cfg, device=device, impl="kernel")
     plain = Model(cfg, device=device, impl="ref")
     b = len(PARITY_OFFSETS)
@@ -2804,6 +2866,7 @@ def phase_batcher_parity(device, params) -> dict:
                            generator=torch.Generator(device).manual_seed(2))
     worst_abs, worst_scaled, agree = 0.0, 0.0, []
     _reset_attention_counts()
+    _reset_matmul_counts()
     for i in range(PARITY_STEPS):
         tok = tokens[:, i:i + 1]
         lk, ck = kern.decode_step(params, ck, tok, offs + i)
@@ -2814,14 +2877,18 @@ def phase_batcher_parity(device, params) -> dict:
         worst_scaled = max(worst_scaled,
                            diff / max(float(lp.float().abs().max()), 1e-30))
         agree.append(float((lk.argmax(-1) == lp.argmax(-1)).float().mean()))
-    launches = _attention_counts()
+    launches = {**_attention_counts(), **_matmul_counts()}
     check(launches["w8a8_decode_attention"] == PARITY_STEPS * cfg.n_layers,
-          "decode attention launches in the parity run")
+          f"{name}: decode attention launches in the parity run")
     check(worst_abs <= LOGIT_TOL,
-          f"int8-KV logits kernel vs plain {worst_abs:.3g} > {LOGIT_TOL}")
-    same = {name: bool(torch.equal(ck[name], cp[name])) for name in ck}
-    check(all(same.values()), f"int8 caches differ between routes: {same}")
-    return {"phase": "serve_batcher_parity_int8kv", "steps": PARITY_STEPS,
+          f"{name}: int8-KV logits kernel vs plain {worst_abs:.3g} > "
+          f"{LOGIT_TOL}")
+    same = {key: bool(torch.equal(ck[key], cp[key])) for key in ck}
+    check(all(same.values()), f"{name}: int8 caches differ between routes: "
+                              f"{same}")
+    del kern, plain, ck, cp
+    return {"phase": name, "arch": cfg.name, "steps": PARITY_STEPS,
+            "max_seq": BATCHER["max_seq"], "launches": launches,
             "offsets": list(PARITY_OFFSETS), "logits_max_abs": worst_abs,
             "logits_rel_to_max": worst_scaled,
             "greedy_agreement_per_step": agree, "caches_identical": same}
@@ -2873,9 +2940,10 @@ def phase_prefill(device, params) -> dict:
     prefill_mm = _matmul_counts()
     # the forward's projections at m = 4 x 16 on the tensor cores, the 16
     # replayed decode steps' at m = 4 on the split-k regime
-    check(prefill_mm["w8a8_matmul_tc"] == 7 * cfg.n_layers
+    per_pass = _dense_products(cfg) * cfg.n_layers
+    check(prefill_mm["w8a8_matmul_tc"] == per_pass
           and prefill_mm["w8a8_matmul_dp4a"]
-          == 7 * cfg.n_layers * PREFILL["prompt_len"],
+          == per_pass * PREFILL["prompt_len"],
           f"prefill W8A8 regimes: {prefill_mm}")
     check(tuple(logits.shape) == (PREFILL["batch"], PREFILL["prompt_len"],
                                   cfg.vocab), "prefill logits shape")
@@ -2905,10 +2973,10 @@ def phase_prefill(device, params) -> dict:
           f"forward's flash launches {flash_n}: all {cfg.n_layers} on the "
           f"tensor-core route expected")
     mm_n = fwd["kernel"]["matmul_launches"]
-    check(mm_n["w8a8_matmul_tc"] == 7 * cfg.n_layers
+    check(mm_n["w8a8_matmul_tc"] == per_pass
           and mm_n["w8a8_matmul_dp4a"] == 0,
-          f"forward's W8A8 launches {mm_n}: {7 * cfg.n_layers} on the "
-          f"tensor cores expected")
+          f"forward's W8A8 launches {mm_n}: {per_pass} on the tensor "
+          f"cores expected")
     check(fwd["plain"]["flash_launches"]["flash_attention"] == 0
           and fwd["plain"]["matmul_launches"]["w8a8_matmul"] == 0,
           "plain route launched a kernel")
@@ -3073,18 +3141,25 @@ def _arch_model(arch: str, device, impl: str = "auto", quant=None,
     return model, params
 
 
+def _dense_products(cfg) -> int:
+    """Quantized products of one dense block: its 4 attention projections
+    and its MLP's 3 (SwiGLU) or 2 (gelu)."""
+    return 4 + (3 if cfg.mlp_kind == "swiglu" else 2)
+
+
 def _matmuls_per_pass(cfg) -> tuple[int, int]:
-    """W8A8 products a decode step or forward makes (7 a dense layer; 4
-    an MoE layer, its attention's: the experts are bf16 products; in an
-    SSM or hybrid, in_proj and out_proj a layer and 7 an application of
-    the shared block), and the shared block's applications."""
+    """Quantized products a decode step or forward makes (a dense layer's
+    :func:`_dense_products`; 4 an MoE layer, its attention's: the experts
+    are bf16 products; in an SSM or hybrid, in_proj and out_proj a layer
+    and a dense block's an application of the shared block), and the
+    shared block's applications."""
     if cfg.family == "dense":
-        return 7 * cfg.n_layers, 0
+        return _dense_products(cfg) * cfg.n_layers, 0
     if cfg.family == "moe":
         return 4 * cfg.n_layers, 0
     apps = sum(1 for l in range(cfg.n_layers) if cfg.shared_attn_every
                and l % cfg.shared_attn_every == cfg.shared_attn_every - 1)
-    return 2 * cfg.n_layers + 7 * apps, apps
+    return 2 * cfg.n_layers + _dense_products(cfg) * apps, apps
 
 
 def phase_arch_serve(device, arch: str, name: str, built=None) -> dict:
@@ -3687,7 +3762,7 @@ def phase_window_prefill(device, model, params) -> dict:
           and n["flash_attention_windowed"] == n_win == 29,
           f"{WINDOW_ARCH} forward's flash launches {n}: {cfg.n_layers} on "
           f"the bf16 route, 29 windowed")
-    check(n["w8a8_matmul_tc"] == 7 * cfg.n_layers
+    check(n["w8a8_matmul_tc"] == _dense_products(cfg) * cfg.n_layers
           and n["w8a8_matmul_dp4a"] == 0,
           f"{WINDOW_ARCH} forward's W8A8 launches {n}")
     check(fwd["plain"]["launches"]["flash_attention"] == 0
@@ -3758,6 +3833,219 @@ def phase_window_prefill(device, model, params) -> dict:
             "flash_timing": flash}
 
 
+# ------------------------------- the largest dense models, whole on a card
+
+def _card_memory(device) -> dict:
+    """The card's memory as a phase starts: bytes this process has
+    allocated and reserved, and the card's free and total bytes
+    (``torch.cuda.mem_get_info``)."""
+    import torch
+    free, total = torch.cuda.mem_get_info(device)
+    return {"allocated_bytes": torch.cuda.memory_allocated(device),
+            "reserved_bytes": torch.cuda.memory_reserved(device),
+            "free_bytes": free, "total_bytes": total}
+
+
+def _layer_proj(cfg) -> dict:
+    """A dense block's projections, {(k, n): count}."""
+    d, ff = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    proj = {}
+    for kn in [(d, q), (d, kv), (d, kv), (q, d), (ff, d)] \
+            + [(d, ff)] * (_dense_products(cfg) - 5):
+        proj[kn] = proj.get(kn, 0) + 1
+    return proj
+
+
+def phase_layer_shapes(device, name: str, cfg) -> dict:
+    """The model's quantized product kernel (W8A8, or W4A8 for a
+    W4A8-pow2 config) over one dense block's projections at the decode's
+    m = SERVE["batch"] and the forward's m = PREFILL_M, each shape held to
+    its plain version and timed beside it, ``torch._int_mm`` (W8A8) and
+    its bound (:func:`_qmm_layer_timing`; 1 plain and 3 kernel calls a
+    window at PREFILL_M, where a call takes milliseconds)."""
+    packed = cfg.quant == "w4a8_pow2"
+    proj = _layer_proj(cfg)
+    return {"phase": name, "arch": cfg.name, "quant": cfg.quant,
+            "projections": {f"{k}x{n}": c for (k, n), c in proj.items()},
+            **{f"m{m}": _qmm_layer_timing(device, proj, m, packed=packed,
+                                          iters=its)
+               for m, its in ((SERVE["batch"], (10, 200)),
+                              (PREFILL_M, (1, 3)))}}
+
+
+def phase_dense_prefill(device, name: str, model, params) -> dict:
+    """A dense model's 1 x PREFILL["long_len"] forward on the kernel route
+    (after a warm-up) and the plain route (once, cold): wall times, the
+    peak the card allocated, launches (a bf16 flash launch a layer, none
+    windowed; every product on W8A8's tensor-core regime,
+    :func:`_dense_products` a layer; nothing on the plain route), finite
+    logits; flash within 2e-2 x (1 + |out|) of the plain attention on
+    each layer's own q, k, v (the CPU tests' bf16 bound; these models'
+    attention outputs pass 8, where one bf16 ulp is 2^-4) and each row
+    within 2^-6 of its own max, the kernel route with that attention
+    swapped in equal to the plain route bit for bit;
+    the device-time split of one more kernel-route forward; flash on
+    layer 0's q, k, v beside its plain version, SDPA and its bound."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    plain = Model(cfg, device=device, impl="ref")
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL["long_len"]),
+                           device=device,
+                           generator=torch.Generator(device).manual_seed(3))
+    model.forward(params, tokens, last_only=True)           # warm-up
+    fwd = {}
+    for route, m in (("kernel", model), ("plain", plain)):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        _reset_matmul_counts()
+        _reset_attention_counts()
+        t0 = time.perf_counter()
+        logits, _ = m.forward(params, tokens, last_only=True)
+        torch.cuda.synchronize(device)
+        fwd[route] = {"logits": logits, "wall_s": time.perf_counter() - t0,
+                      "peak_bytes": torch.cuda.max_memory_allocated(device),
+                      "peak_over_params_bytes":
+                          torch.cuda.max_memory_allocated(device) - base,
+                      "launches": {**_matmul_counts(),
+                                   **_attention_counts()}}
+    n, per_pass = fwd["kernel"]["launches"], _matmuls_per_pass(cfg)[0]
+    check(n["flash_attention_tc"] == n["flash_attention"] == cfg.n_layers
+          and n["flash_attention_windowed"] == 0,
+          f"{name}: flash launches {n}: {cfg.n_layers} on the bf16 route")
+    check(_product_counts(n, cfg, per_pass, "tc"),
+          f"{name}: product launches {n}: {per_pass} on the tensor cores")
+    check(fwd["plain"]["launches"]["flash_attention"] == 0
+          and fwd["plain"]["launches"]["w8a8_matmul"] == 0,
+          f"{name}: the plain route launched a kernel")
+    lk, lp = fwd["kernel"]["logits"], fwd["plain"]["logits"]
+    check(tuple(lk.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(lk).all()),
+          f"{name}: forward logits {tuple(lk.shape)}")
+
+    layers, kept = [], []
+    real_attend = attention.attend
+
+    def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
+        got = real_attend(q, k, v, causal=causal, window=window, impl=impl)
+        want = real_attend(q, k, v, causal=causal, window=window,
+                           impl="ref")
+        layers.append(flash_row_err(got, want))
+        if not kept:
+            kept.extend(t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return want
+    attention.attend = swapped
+    try:
+        mixed, _ = model.forward(params, tokens, last_only=True)
+    finally:
+        attention.attend = real_attend
+    check(len(layers) == cfg.n_layers, f"{name}: swapped attention calls")
+    worst = max(e["scaled"] for e in layers)
+    worst_row = max(e["row_rel"] for e in layers)
+    check(worst <= FLASH_TOL["bfloat16"] and worst_row <= FLASH_ROW_RTOL,
+          f"{name}: flash vs plain attention {worst:.3g} of 1 + |out|, "
+          f"{worst_row:.3g} of a row's max on a layer")
+    check(bool(torch.equal(mixed, lp)),
+          f"{name}: kernel route with plain attention differs from the "
+          f"plain route")
+    prof = _profile_split(
+        lambda: model.forward(params, tokens, last_only=True),
+        {"flash": ("flash_tc_kernel",), "w8a8": ("w8a8_tc_kernel",)})
+    flash = _flash_timing(device, *kept)
+    total_ms, flash_ms = prof["profiled_device_ms"], prof["flash_device_ms"]
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "forward_len": PREFILL["long_len"],
+           "forward_wall_s": fwd["kernel"]["wall_s"],
+           "forward_plain_wall_s": fwd["plain"]["wall_s"],
+           "peak_mem_bytes": fwd["kernel"]["peak_bytes"],
+           "plain_peak_mem_bytes": fwd["plain"]["peak_bytes"],
+           "peak_mem_over_params_bytes":
+               fwd["kernel"]["peak_over_params_bytes"],
+           "launches": n, "products_per_layer": _dense_products(cfg),
+           "logits_max_abs_vs_plain": float(
+               (lk.float() - lp.float()).abs().max()),
+           "logits_max_abs": float(lp.float().abs().max()),
+           "greedy_token_same": bool(torch.equal(lk.argmax(-1),
+                                                 lp.argmax(-1))),
+           "flash_vs_plain_scaled": worst, "flash_vs_plain_row_rel":
+               worst_row,
+           "flash_vs_plain_max_abs": max(e["max_abs"] for e in layers),
+           "attention_out_max_abs": max(e["max_abs_want"] for e in layers),
+           "flash_vs_plain_per_layer_max_abs": [e["max_abs"]
+                                                for e in layers],
+           "kernel_matmuls_plain_attention_equal_plain_route": True,
+           **prof,
+           "flash_share_of_device": flash_ms / total_ms if total_ms
+           else None,
+           "w8a8_share_of_device": prof["w8a8_device_ms"] / total_ms
+           if total_ms else None,
+           "flash_timing": flash}
+    del kept, plain, fwd, mixed, lk, lp
+    return out
+
+
+def phase_dense_full(device, family: str):
+    """``DENSE_FULL[family]`` at full width and depth in W8A8, drawn once
+    (layer by layer, each quantized as drawn) on a card that no earlier
+    phase still holds memory of; yields its rows as each is done:
+    ``{family}_serve`` (:func:`phase_arch_serve`: served, the stream
+    through both routes bit for bit, the products counted from the
+    config; with the draw's time, the params' bytes and the card's memory
+    at the start), ``{family}_batcher`` (where ``batcher``),
+    ``{family}_int8kv`` (:func:`phase_batcher_parity` on this model, and
+    the decode kernel at its shape against its plain version, timed),
+    ``{family}_prefill`` (:func:`phase_dense_prefill`),
+    ``{family}_roofline`` (where ``roofline``: the cell on the drawn
+    params, :func:`_roofline_cell`) and ``{family}_shapes``
+    (:func:`phase_layer_shapes`)."""
+    import torch
+    spec = DENSE_FULL[family]
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = _card_memory(device)
+    check(start["allocated_bytes"] <= DENSE_IDLE_BYTES,
+          f"{family}: {start['allocated_bytes']} bytes still allocated on "
+          f"the card before the draw")
+    t0 = time.perf_counter()
+    model, params = _arch_model(spec["arch"], device, impl="kernel")
+    torch.cuda.synchronize(device)
+    draw_s = time.perf_counter() - t0
+    cfg = model.cfg
+    row = phase_arch_serve(device, spec["arch"], f"{family}_serve",
+                           built=(model, params))
+    row.pop("stream")
+    yield {**row, "products_per_layer": _dense_products(cfg),
+           "draw_s": draw_s, "param_bytes": _stored_bytes(params),
+           "card_at_start": start}
+    if spec["batcher"]:
+        yield phase_batcher(device, model, params, name=f"{family}_batcher")
+    torch.cuda.reset_peak_memory_stats(device)
+    row = phase_batcher_parity(device, params, cfg=cfg,
+                               name=f"{family}_int8kv")
+    row["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+    shape = (SERVE["batch"], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+             cfg.head_dim)
+    row["decode_timing"] = {str(DECODE_S[0]): _decode_timing(
+        device, shape, DECODE_S[0])}
+    yield row
+    yield phase_dense_prefill(device, f"{family}_prefill", model, params)
+    if spec.get("roofline"):
+        shape, kw = spec["roofline"]
+        _reset_matmul_counts()
+        _reset_attention_counts()
+        torch.cuda.empty_cache()
+        yield {"phase": f"{family}_roofline", "arch": cfg.name,
+               **_roofline_cell(device, cfg.name, shape, kw, params, set()),
+               "launches": {**_attention_counts(), **_matmul_counts()}}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    yield phase_layer_shapes(device, f"{family}_shapes", cfg)
+
+
 # ------------------------------------------------ the MoE family (moonshot)
 
 def phase_moe_int8kv(device, name: str, model, params, stream) -> dict:
@@ -3796,7 +4084,7 @@ def phase_moe_int8kv(device, name: str, model, params, stream) -> dict:
           and launches["flash_attention"] == 0,
           f"{name}: decode launches {launches}, expected "
           f"{steps * cfg.n_layers}")
-    check(launches["w8a8_matmul_dp4a"] == steps * 4 * cfg.n_layers,
+    check(launches["w8a8_matmul_dp4a"] == steps * _matmuls_per_pass(cfg)[0],
           f"{name}: W8A8 launches {launches}")
     check(worst_abs <= LOGIT_TOL,
           f"{name}: int8-KV logits kernel vs plain {worst_abs:.3g} > "
@@ -3855,50 +4143,65 @@ def _flash_timing(device, q, k, v, window=None, causal=True) -> dict:
     return row
 
 
-def _qmm_layer_timing(device, proj: dict, m: int) -> dict:
-    """W8A8 over one layer's projections ``proj`` ({(k, n): count}) at m
-    rows: the kernel (twice), its plain version (twice) and
-    ``torch._int_mm`` (m padded to 32 below it), weights rotated past
-    L2, each
-    shape's kernel equal to its plain version; summed over the layer."""
+def _qmm_layer_timing(device, proj: dict, m: int, packed: bool = False,
+                      iters: tuple = (10, 200)) -> dict:
+    """W8A8 (W4A8 where ``packed``) over one layer's projections ``proj``
+    ({(k, n): count}) at m rows: the kernel (twice), its plain version
+    (twice) and, for W8A8, ``torch._int_mm`` (m padded to 32 below it),
+    ``iters`` (plain, kernel) calls a window, weights rotated past L2,
+    each shape's kernel equal to its plain version; summed over the
+    layer."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import w4a8_matmul as W4
     from repro_torch.kernels import w8a8_matmul as W8
+    mod = W4 if packed else W8
+    kern = W4.w4a8_matmul if packed else W8.w8a8_matmul
+    ref = W4.w4a8_matmul_ref if packed else W8.w8a8_matmul_ref
+    what = "W4A8" if packed else "W8A8"
+    n_plain, n_kern = iters
     rows = {}
     for (k, n), _ in proj.items():
-        copies = -(-2 * L2_BYTES // (k * n)) + 1
-        x, _, xs, ws = _qmm_operands(m, k, n, False, 7, device)
-        wl = [_qmm_operands(m, k, n, False, 100 + c, device)[1]
+        copies = -(-2 * L2_BYTES // (k * n // (2 if packed else 1))) + 1
+        x, _, xs, ws = _qmm_operands(m, k, n, packed, 7, device)
+        wl = [_qmm_operands(m, k, n, packed, 100 + c, device)[1]
               for c in range(copies)]
-        check(bool(torch.equal(W8.w8a8_matmul(x, wl[0], xs, ws),
-                               W8.w8a8_matmul_ref(x, wl[0], xs, ws))),
-              f"W8A8 at {(m, k, n)} differs from its plain version")
-        xp = F.pad(x, (0, 0, 0, max(0, 32 - m)))
-        wcol = [w.t().contiguous().t() for w in wl]
-        row = {"copies": copies, "regime": W8.plan(m, k, n).regime}
-        for name, fn, iters in (
-                ("plain", lambda i: W8.w8a8_matmul_ref(
-                    x, wl[i % copies], xs, ws), 10),
-                ("kernel", lambda i: W8.w8a8_matmul(
-                    x, wl[i % copies], xs, ws), 200),
-                ("kernel_again", lambda i: W8.w8a8_matmul(
-                    x, wl[i % copies], xs, ws), 200),
-                ("plain_again", lambda i: W8.w8a8_matmul_ref(
-                    x, wl[i % copies], xs, ws), 10),
-                ("library", lambda i: torch._int_mm(xp, wcol[i % copies]),
-                 200)):
+        check(bool(torch.equal(kern(x, wl[0], xs, ws),
+                               ref(x, wl[0], xs, ws))),
+              f"{what} at {(m, k, n)} differs from its plain version")
+        runs = [("plain", lambda i: ref(x, wl[i % copies], xs, ws), n_plain),
+                ("kernel", lambda i: kern(x, wl[i % copies], xs, ws),
+                 n_kern),
+                ("kernel_again", lambda i: kern(x, wl[i % copies], xs, ws),
+                 n_kern),
+                ("plain_again", lambda i: ref(x, wl[i % copies], xs, ws),
+                 n_plain)]
+        row = {"copies": copies}
+        if packed:
+            row.update(regime="split-k", splits=W4.plan(m, k, n).splits)
+        else:
+            xp = F.pad(x, (0, 0, 0, max(0, 32 - m)))
+            wcol = [w.t().contiguous().t() for w in wl]
+            row["regime"] = W8.plan(m, k, n).regime
+            runs.append(("library", lambda i: torch._int_mm(
+                xp, wcol[i % copies]), n_kern))
+        for name, fn, count in runs:
             row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
-                                                                    iters)
+                                                                    count)
         _best_times(row)
-        bound = _bound(W8.cost(m, k, n))
+        row.setdefault("best_library_ms", None)
+        bound = _bound(mod.cost(m, k, n))
         row.update(bytes=bound["bytes"], bound_ms=bound["bound_ms"],
                    bound_by=bound["bound_by"])
         rows[f"{k}x{n}"] = row
-        del x, wl, wcol, xp
+        del x, wl, runs
+        if not packed:
+            del wcol, xp
+    keys = ("best_kernel_ms", "best_plain_ms", "bound_ms", "bytes") \
+        + (() if packed else ("best_library_ms",))
     layer = {key: sum(c * rows[f"{k}x{n}"][key]
-                      for (k, n), c in proj.items())
-             for key in ("best_kernel_ms", "best_plain_ms",
-                         "best_library_ms", "bound_ms", "bytes")}
+                      for (k, n), c in proj.items()) for key in keys}
+    layer.setdefault("best_library_ms", None)
     bounds = {r["bound_by"] for r in rows.values()}
     layer.update(bound_by="bytes" if bounds == {"bytes"} else "operations",
                  timer="profiler" if all(r["timer"] == "profiler"
@@ -4127,23 +4430,35 @@ def phase_moe_phi35(device) -> dict:
 
 
 def _cross_counts(cfg) -> dict:
-    """Kernel launches the vlm / audio paths make: W8A8 products and
-    flash calls of a decode step, of ``fill_ctx_caches`` and of a forward
-    (4 attention projections a layer and the MLP's 3 (swiglu) or 2
-    (gelu); a cross layer's wq_x and wo_x at decode, and wk_img and
-    wv_img too in a forward or a fill).  The vlm forward's cross
-    attention takes the float32 flash route: its uncast context makes
-    float32 keys and values under W8A8."""
+    """Kernel launches the vlm / audio paths make: quantized products
+    (W8A8 or W4A8) and flash calls of a decode step, of
+    ``fill_ctx_caches`` and of a forward (a dense block's
+    :func:`_dense_products` a layer; a cross layer's wq_x and wo_x at
+    decode, and wk_img and wv_img too in a forward or a fill).  The vlm
+    forward's cross attention takes the float32 flash route: its uncast
+    context makes float32 keys and values under a quantized mode."""
     L, E = cfg.n_layers, cfg.encoder_layers
     vlm = cfg.family == "vlm"
     n_cross = L // cfg.cross_attn_every if vlm else L
-    per = 4 + (3 if cfg.mlp_kind == "swiglu" else 2)
+    per = _dense_products(cfg)
     return {"n_cross": n_cross,
-            "decode_w8a8": per * L + 2 * n_cross, "decode_flash": n_cross,
-            "fill_w8a8": per * E + 2 * n_cross, "fill_flash": E,
-            "forward_w8a8": per * (L + E) + 4 * n_cross,
+            "decode_products": per * L + 2 * n_cross,
+            "decode_flash": n_cross,
+            "fill_products": per * E + 2 * n_cross, "fill_flash": E,
+            "forward_products": per * (L + E) + 4 * n_cross,
             "forward_flash_tc": L + E + (0 if vlm else n_cross),
             "forward_flash_f32": n_cross if vlm else 0}
+
+
+def _product_counts(launches: dict, cfg, want: int, regime: str) -> bool:
+    """Whether ``launches`` holds ``want`` products on ``cfg``'s kernel
+    and none on the other: W8A8 all on ``regime`` ("dp4a" or "tc"), or
+    W4A8 (one split-k kernel)."""
+    if cfg.quant == "w4a8_pow2":
+        return launches["w4a8_matmul"] == want \
+            and launches["w8a8_matmul"] == 0
+    return launches["w8a8_matmul"] == launches[f"w8a8_matmul_{regime}"] \
+        == want and launches["w4a8_matmul"] == 0
 
 
 def _cross_ctx(cfg, batch: int, device):
@@ -4275,12 +4590,12 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
     torch.cuda.synchronize(device)
     fill_ms = (time.perf_counter() - t0) * 1e3
     fill_launches = {**_matmul_counts(), **_attention_counts()}
-    check(fill_launches["w8a8_matmul_tc"] == counts["fill_w8a8"]
-          and fill_launches["w8a8_matmul_dp4a"] == 0
+    check(_product_counts(fill_launches, cfg, counts["fill_products"], "tc")
           and fill_launches["flash_attention_tc"] == counts["fill_flash"]
           and fill_launches["flash_attention"] == counts["fill_flash"],
           f"{name}: fill_ctx_caches launched {fill_launches}, expected "
-          f"{counts['fill_w8a8']} W8A8 tc and {counts['fill_flash']} flash")
+          f"{counts['fill_products']} {cfg.quant} (W8A8 tc) and "
+          f"{counts['fill_flash']} flash")
     encoder_ms = None
     if family == "audio":
         torch.cuda.synchronize(device)
@@ -4294,17 +4609,15 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
     res = generate(model, params, prompts, gen=gen, caches=caches)
     launches = {**_matmul_counts(), **_attention_counts()}
     peak = torch.cuda.max_memory_allocated(device)
-    want_mm, want_fl = steps * counts["decode_w8a8"], \
+    want_mm, want_fl = steps * counts["decode_products"], \
         steps * counts["decode_flash"]
-    check(launches["w8a8_matmul"] == want_mm
-          and launches["w8a8_matmul_dp4a"] == want_mm
+    check(_product_counts(launches, cfg, want_mm, "dp4a")
           and launches["flash_attention"] == want_fl
           and launches["flash_attention_tc"] == want_fl
           and launches["flash_attention_windowed"] == 0
-          and launches["w4a8_matmul"] == 0
           and launches["w8a8_decode_attention"] == 0,
-          f"{name}: launches {launches}, expected {want_mm} W8A8 split-k "
-          f"and {want_fl} bf16 flash")
+          f"{name}: launches {launches}, expected {want_mm} {cfg.quant} "
+          f"(W8A8 split-k) and {want_fl} bf16 flash")
     toks = res["tokens"]
     check(tuple(toks.shape) == (b, gen) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab,
@@ -4324,7 +4637,8 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
     check(all(torch.equal(cs[k], cp[k]) for k in ("ctx_k", "ctx_v")),
           f"{name}: swapped and plain context caches differ")
     worst_abs, agree, same = 0.0, [], True
-    for i in range(steps):
+    n_parity = spec.get("parity_steps", steps)
+    for i in range(n_parity):
         tok = stream[:, i:i + 1]
         lk, ck = model.decode_step(params, ck, tok, i)
         with swap:
@@ -4340,11 +4654,13 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
                 f"the plain route (logits or caches)")
     flash_apps = swap.summary(name)
     check(flash_apps["cross"]["applications"]
-          == steps * counts["decode_flash"], f"{name}: cross applications")
-    tok = stream[:, -1:]
+          == n_parity * counts["decode_flash"], f"{name}: cross applications")
+    # the next position's token: the stream's last one past its end
+    tok = stream[:, n_parity:n_parity + 1] if n_parity < steps \
+        else stream[:, -1:]
 
     def step(_):
-        model.decode_step(params, ck, tok, steps)
+        model.decode_step(params, ck, tok, n_parity)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     step(0)
@@ -4370,7 +4686,8 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
             attention._broadcast_kv(xv, cfg.n_heads)), 10)
     kvw = cfg.n_kv_heads * cfg.head_dim
     qmm = _qmm_layer_timing(device, {(cfg.d_model, kvw): 2},
-                            b * cfg.n_ctx_tokens)
+                            b * cfg.n_ctx_tokens,
+                            packed=cfg.quant == "w4a8_pow2")
     del plain, ck, cs, cp, swap, q, k, v
     cut = spec["n_layers"]
     return {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
@@ -4379,14 +4696,15 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
             "encoder_layers": cfg.encoder_layers,
             "cross_layers": counts["n_cross"], "n_ctx": cfg.n_ctx_tokens,
             "launches": launches, "fill_launches": fill_launches,
-            "w8a8_per_step": counts["decode_w8a8"],
+            "quant": cfg.quant,
+            "products_per_step": counts["decode_products"],
             "flash_per_step": counts["decode_flash"],
             "fill_ctx_caches_ms": fill_ms, "encoder_ms": encoder_ms,
             "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
             "decode_step_ms": res["decode_s"] / gen * 1e3,
             "tok_per_s": res["tok_per_s"], "peak_mem_bytes": peak,
             "weight_bytes": weight_bytes, "cache_bytes": cache_bytes,
-            "tokens_head": toks[0, :8].tolist(), "parity_steps": steps,
+            "tokens_head": toks[0, :8].tolist(), "parity_steps": n_parity,
             "swapped_route_equals_plain": True,
             "flash_vs_plain": flash_apps,
             "logits_kernel_vs_plain_max_abs": worst_abs,
@@ -4397,7 +4715,7 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
             "step_device_ops": ops, "step_top_kernels_ms": top,
             "step_bytes": step_bytes,
             "step_bound_ms": step_bytes / H100.hbm_bw * 1e3,
-            "flash_timing": flash, "w8a8_context_kv": qmm,
+            "flash_timing": flash, "context_kv_timing": qmm,
             "broadcast_kv_layer_ms": repeat_ms}
 
 
@@ -4411,7 +4729,8 @@ def phase_cross_prefill(device, family: str, model, params) -> dict:
     v, and the kernel route with that attention swapped in equal to the
     plain route bit for bit; the device time split: W8A8 ``tc`` and flash
     by kernel name, each kind of flash application timed alone times its
-    count, the rest."""
+    count, the rest.  A model in W4A8 runs its forward once, on the kernel
+    route alone (:func:`_cross_forward_alone`)."""
     import torch
     from repro_torch.models.model import Model
     spec, cfg = CROSS_ARCHS[family], model.cfg
@@ -4421,6 +4740,9 @@ def phase_cross_prefill(device, family: str, model, params) -> dict:
     tokens = torch.randint(0, cfg.vocab, (b, s), device=device,
                            generator=torch.Generator(device).manual_seed(3))
     ctx = _cross_ctx(cfg, b, device)
+    if cfg.quant == "w4a8_pow2":
+        return _cross_forward_alone(device, name, model, params, tokens,
+                                    ctx)
     plain = Model(cfg, device=device, impl="ref")
     model.forward(params, tokens, ctx=ctx, last_only=True)     # warm-up
     fwd = {}
@@ -4440,12 +4762,11 @@ def phase_cross_prefill(device, family: str, model, params) -> dict:
                       "launches": {**_matmul_counts(),
                                    **_attention_counts()}}
     n = fwd["kernel"]["launches"]
-    check(n["w8a8_matmul_tc"] == counts["forward_w8a8"]
-          and n["w8a8_matmul_dp4a"] == 0
+    check(_product_counts(n, cfg, counts["forward_products"], "tc")
           and n["flash_attention_tc"] == counts["forward_flash_tc"]
           and n["flash_attention_f32"] == counts["forward_flash_f32"]
           and n["flash_attention_windowed"] == 0,
-          f"{name}: launches {n}, expected {counts['forward_w8a8']} W8A8 "
+          f"{name}: launches {n}, expected {counts['forward_products']} W8A8 "
           f"tc, {counts['forward_flash_tc']} bf16 and "
           f"{counts['forward_flash_f32']} float32 flash")
     check(fwd["plain"]["launches"]["w8a8_matmul"] == 0
@@ -4493,6 +4814,45 @@ def phase_cross_prefill(device, family: str, model, params) -> dict:
            "flash_timing": alone}
     del plain, fwd, mixed, swap, lk, lp
     return out
+
+
+def _cross_forward_alone(device, name: str, model, params, tokens,
+                         ctx) -> dict:
+    """One forward of ``tokens`` with the context ``ctx`` on the kernel
+    route, the first at this shape (no warm-up): its wall time, launches
+    (every product on the model's kernel, flash for each self-attention
+    and cross layer, the cross layers on the float32 route), the peak the
+    card allocated and finite logits."""
+    import torch
+    cfg, counts = model.cfg, _cross_counts(model.cfg)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    _reset_matmul_counts()
+    _reset_attention_counts()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, tokens, ctx=ctx, last_only=True)
+    torch.cuda.synchronize(device)
+    wall_s = time.perf_counter() - t0
+    n = {**_matmul_counts(), **_attention_counts()}
+    peak = torch.cuda.max_memory_allocated(device)
+    check(_product_counts(n, cfg, counts["forward_products"], "tc")
+          and n["flash_attention_tc"] == counts["forward_flash_tc"]
+          and n["flash_attention_f32"] == counts["forward_flash_f32"]
+          and n["flash_attention_windowed"] == 0,
+          f"{name}: launches {n}, expected {counts['forward_products']} "
+          f"{cfg.quant}, {counts['forward_flash_tc']} bf16 and "
+          f"{counts['forward_flash_f32']} float32 flash")
+    check(tuple(logits.shape) == (tokens.shape[0], 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{name}: logits {tuple(logits.shape)}")
+    return {"phase": name, "arch": cfg.name, "quant": cfg.quant,
+            "n_layers": cfg.n_layers, "cross_layers": counts["n_cross"],
+            "forward_shape": list(tokens.shape), "n_ctx": cfg.n_ctx_tokens,
+            "forward_wall_s": wall_s, "warm": False, "launches": n,
+            "peak_mem_bytes": peak, "peak_mem_over_params_bytes":
+                peak - base,
+            "logits_max_abs": float(logits.float().abs().max())}
 
 
 def _decode_operands(b, kvh, rep, hd, S, seed, device):
@@ -5903,7 +6263,6 @@ def phase_roofline(device) -> dict:
     the W4A8 cell draws its own."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
     from repro_torch.models.model import Model
     arch = ROOFLINE["arch"]
     _reset_matmul_counts()
@@ -5919,53 +6278,8 @@ def phase_roofline(device) -> dict:
         if kw.get("mode"):      # another mode draws its own params
             shared = None
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        rec = dryrun.run_cell(arch, shape, measure=True, device=device,
-                              out_dir=None, params=shared, **kw)
-        check(rec["status"] == "ok", f"roofline {arch} {shape} {kw}: "
-                                     f"{rec.get('error')}")
-        m, r, mem = rec["measured"], rec["roofline"], rec["memory_analysis"]
-        by_kernel = rec["stats"]["by_kernel"]
-        check(m["card_count_equal"],
-              f"roofline {shape} {kw}: the card's count differs from the "
-              f"dry run's: {m['card_stats']} vs {rec['stats']}")
-        for name, k in by_kernel.items():
-            check(m["kernel_launches"][name] == k["calls"] > 0,
-                  f"roofline {shape} {kw}: {k['calls']} {name} calls "
-                  f"counted, {m['kernel_launches'][name]} launched")
-            kernels_seen.add(name)
-        row = {"shape": shape, **{k: v for k, v in kw.items()},
-               "bottleneck": r["bottleneck"],
-               "roofline_step_s": r["step_time_s"],
-               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
-               "measured_s": m["measured_s"],
-               "measured_fraction": m["measured_fraction"],
-               "device_s": m["device_s"],
-               "device_fraction": m["device_fraction"],
-               "device_busy_share": m["device_busy_share"],
-               "roofline_fraction": r["roofline_fraction"],
-               "useful_flops_ratio": r["useful_flops_ratio"],
-               "flops_by_class": r["flops_by_class"],
-               "bytes_accessed": rec["stats"]["bytes_accessed"],
-               "by_kernel": by_kernel,
-               "argument_bytes": mem["argument_bytes"],
-               "temp_bytes_estimate": mem["temp_bytes"],
-               "argument_plus_temp_bytes":
-                   mem["argument_bytes"] + mem["temp_bytes"],
-               "peak_allocated_bytes": m["peak_allocated_bytes"],
-               "peak_temp_allocated_bytes": m["peak_temp_allocated_bytes"],
-               "kernel_launches": m["kernel_launches"],
-               "dry_run_s": rec["compile_s"],
-               "card_count_s": m["card_count_s"],
-               "timing_s": m["timing_s"],
-               "cell_s": time.perf_counter() - t0}
-        cells.append(row)
-        print(f"roofline {arch} {shape} {kw}: bound {r['step_time_s']:.6g} "
-              f"s ({r['bottleneck']}), measured {m['measured_s']:.6g} s, "
-              f"measured_fraction {m['measured_fraction']:.4g}, device "
-              f"{m['device_s']} s; argument + temp bytes "
-              f"{row['argument_plus_temp_bytes']} vs peak allocated "
-              f"{m['peak_allocated_bytes']}", flush=True)
+        cells.append(_roofline_cell(device, arch, shape, kw, shared,
+                                    kernels_seen))
     torch.cuda.empty_cache()
     want = {"w8a8_matmul", "w4a8_matmul", "w8a8_decode_attention",
             "flash_attention"}
@@ -5976,6 +6290,63 @@ def phase_roofline(device) -> dict:
             "launches": {**_attention_counts(), **_matmul_counts()}}
 
 
+def _roofline_cell(device, arch: str, shape: str, kw: dict, params,
+                   kernels_seen: set) -> dict:
+    """One cell of :func:`phase_roofline` (``params``: drawn by the
+    caller, or None to draw them): dry-run, counted on the card (the
+    counts equal field by field, every counted kernel call a launch;
+    the kernels' names added to ``kernels_seen``) and timed."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, measure=True, device=device,
+                          out_dir=None, params=params, **kw)
+    check(rec["status"] == "ok", f"roofline {arch} {shape} {kw}: "
+                                 f"{rec.get('error')}")
+    m, r, mem = rec["measured"], rec["roofline"], rec["memory_analysis"]
+    by_kernel = rec["stats"]["by_kernel"]
+    check(m["card_count_equal"],
+          f"roofline {arch} {shape} {kw}: the card's count differs from "
+          f"the dry run's: {m['card_stats']} vs {rec['stats']}")
+    for name, k in by_kernel.items():
+        check(m["kernel_launches"][name] == k["calls"] > 0,
+              f"roofline {arch} {shape} {kw}: {k['calls']} {name} calls "
+              f"counted, {m['kernel_launches'][name]} launched")
+        kernels_seen.add(name)
+    row = {"shape": shape, **{k: v for k, v in kw.items()},
+           "bottleneck": r["bottleneck"],
+           "roofline_step_s": r["step_time_s"],
+           "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+           "measured_s": m["measured_s"],
+           "measured_fraction": m["measured_fraction"],
+           "device_s": m["device_s"],
+           "device_fraction": m["device_fraction"],
+           "device_busy_share": m["device_busy_share"],
+           "roofline_fraction": r["roofline_fraction"],
+           "useful_flops_ratio": r["useful_flops_ratio"],
+           "flops_by_class": r["flops_by_class"],
+           "bytes_accessed": rec["stats"]["bytes_accessed"],
+           "by_kernel": by_kernel,
+           "argument_bytes": mem["argument_bytes"],
+           "temp_bytes_estimate": mem["temp_bytes"],
+           "argument_plus_temp_bytes":
+               mem["argument_bytes"] + mem["temp_bytes"],
+           "peak_allocated_bytes": m["peak_allocated_bytes"],
+           "peak_temp_allocated_bytes": m["peak_temp_allocated_bytes"],
+           "kernel_launches": m["kernel_launches"],
+           "card_count_equal": m["card_count_equal"],
+           "dry_run_s": rec["compile_s"],
+           "card_count_s": m["card_count_s"],
+           "timing_s": m["timing_s"],
+           "cell_s": time.perf_counter() - t0}
+    print(f"roofline {arch} {shape} {kw}: bound {r['step_time_s']:.6g} "
+          f"s ({r['bottleneck']}), measured {m['measured_s']:.6g} s, "
+          f"measured_fraction {m['measured_fraction']:.4g}, device "
+          f"{m['device_s']} s; argument + temp bytes "
+          f"{row['argument_plus_temp_bytes']} vs peak allocated "
+          f"{m['peak_allocated_bytes']}", flush=True)
+    return row
+
+
 def _pod_options(kw: dict) -> dict:
     return {**dict(serve_quant=False, kv_quant=False, bf16_params=False,
                    weight_only_qat=False, mode=None, microbatch=1), **kw}
@@ -5984,7 +6355,9 @@ def _pod_options(kw: dict) -> dict:
 def pod_child(tmp: str) -> int:
     """The pod_count phase's child: each ``POD_COUNT["pods"]`` cell's
     sharded step counted on one card of a fake-group pod mesh (host work
-    on fake tensors, nothing on the card); writes ``tmp/pod.json``."""
+    on fake tensors, nothing on the card); writes ``tmp/pod.json``; then
+    each ``ONE_CARD_CELLS`` cell dry-run for one card
+    (``tmp/one_card.json``)."""
     import torch
     from repro_torch.launch import dryrun
     torch.set_num_threads(1)
@@ -6022,7 +6395,28 @@ def pod_child(tmp: str) -> int:
         print(json.dumps({"pod_child": row}), flush=True)
     with open(f"{tmp}/pod.json", "w") as f:
         json.dump(rows, f)
-    return 0 if all(r["status"] == "ok" for r in rows) else 1
+    cells = []
+    for arch, shape, kw in ONE_CARD_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, out_dir=None,
+                              **_pod_options(kw))
+        row = {"arch": arch, "shape": shape, **kw, "status": rec["status"],
+               "seconds": time.perf_counter() - t0}
+        if rec["status"] == "ok":
+            r, mem = rec["roofline"], rec["memory_analysis"]
+            row.update(bottleneck=r["bottleneck"],
+                       step_time_s=r["step_time_s"],
+                       roofline_fraction=r["roofline_fraction"],
+                       argument_bytes=mem["argument_bytes"],
+                       temp_bytes=mem["temp_bytes"],
+                       fits_hbm=mem["fits_hbm"])
+        else:
+            row["error"] = rec.get("error")
+        cells.append(row)
+        print(json.dumps({"one_card": row}), flush=True)
+    with open(f"{tmp}/one_card.json", "w") as f:
+        json.dump(cells, f)
+    return 0 if all(r["status"] == "ok" for r in rows + cells) else 1
 
 
 def start_pod_child():
@@ -6169,6 +6563,8 @@ def phase_pod_count(device, child) -> dict:
               f"pod_count child exit {proc.returncode}: {log[-3000:]}")
         with open(f"{tmp}/pod.json") as f:
             pods = json.load(f)
+        with open(f"{tmp}/one_card.json") as f:
+            one_card = json.load(f)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row in pods:
@@ -6193,10 +6589,60 @@ def phase_pod_count(device, child) -> dict:
               f"fits_hbm {row['fits_hbm']}", flush=True)
     return {"phase": "pod_count", "arch": arch, "cells": cells,
             "pods": pods, "fake_count_s": fake_s, "w8a8_draw_s": draw_s,
-            "child_wait_s": wait_s,
+            "child_wait_s": wait_s, "one_card": one_card,
             "launches": {k: sum(row["launches"][k] for row in cells)
                          for k in cells[0]["launches"]},
             "seconds": time.perf_counter() - t0}
+
+
+def phase_one_card_fit(one_card: list, dense: dict, cross: dict) -> dict:
+    """Each full-size run's peak on the card beside the dry run of its
+    cell (argument + temp bytes under fake tensors, ``ONE_CARD_CELLS``
+    and deepseek's roofline cell) and the card's total memory: the int8-KV
+    batcher (starcoder2, 4 slots of 4096 positions) and the roofline's
+    measured decode_4k cell (deepseek) against decode_4k on an int8
+    cache; each 1 x 4096 forward against prefill_4k; llama's served run
+    (caches of 16 positions, not 4096) against decode_4k."""
+    by_cell = {(r["arch"], r["shape"]): r for r in one_card}
+    for r in one_card:
+        check(r["status"] == "ok", f"one-card dry run {r['arch']} "
+                                   f"{r['shape']}: {r.get('error')}")
+    roof = dense["deepseek_roofline"]
+    sc, ds = DENSE_FULL["starcoder2"]["arch"], DENSE_FULL["deepseek"]["arch"]
+    vlm = CROSS_ARCHS["vlm_w4a8"]["arch"]
+    runs = [
+        ("starcoder2_batcher", sc, "decode_4k",
+         dense["starcoder2_batcher"]["peak_mem_bytes"]),
+        ("starcoder2_prefill", sc, None,
+         dense["starcoder2_prefill"]["peak_mem_bytes"]),
+        ("deepseek_roofline", ds, "decode_4k", roof["peak_allocated_bytes"]),
+        ("deepseek_int8kv", ds, None,
+         dense["deepseek_int8kv"]["peak_mem_bytes"]),
+        ("deepseek_prefill", ds, "prefill_4k",
+         dense["deepseek_prefill"]["peak_mem_bytes"]),
+        ("vlm_w4a8_serve", vlm, "decode_4k",
+         cross["vlm_w4a8_serve"]["peak_mem_bytes"]),
+        ("vlm_w4a8_prefill", vlm, "prefill_4k",
+         cross["vlm_w4a8_prefill"]["peak_mem_bytes"])]
+    total = dense["deepseek_serve"]["card_at_start"]["total_bytes"]
+    rows = []
+    for run, arch, shape, peak in runs:
+        if run == "deepseek_roofline":
+            dry = roof["argument_plus_temp_bytes"]
+        elif shape is not None:
+            cell = by_cell[(arch, shape)]
+            dry = cell["argument_bytes"] + cell["temp_bytes"]
+        else:
+            dry = None
+        rows.append({"run": run, "arch": arch, "dry_run_cell": shape,
+                     "peak_allocated_bytes": peak,
+                     "dry_run_argument_plus_temp_bytes": dry,
+                     "card_total_bytes": total,
+                     "peak_share_of_card": peak / total})
+        dry_gb = "-" if dry is None else f"{dry / 1e9:.4g} GB"
+        print(f"one card: {run} ({arch}) peak {peak / 1e9:.4g} GB, dry run "
+              f"{shape} {dry_gb}, card {total / 1e9:.4g} GB", flush=True)
+    return {"phase": "one_card_fit", "runs": rows, "dry_runs": one_card}
 
 
 def main() -> int:
@@ -6305,16 +6751,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_phi35 = phase_moe_phi35(device)
     emit(moe_phi35)
-    cross = {}
+    dense = {}
+    for family in DENSE_FULL:
+        for row in phase_dense_full(device, family):
+            dense[row["phase"]] = row
+            emit(row)
+    cross, shapes = {}, {}
     for family, spec in CROSS_ARCHS.items():
+        gc.collect()
         torch.cuda.empty_cache()
+        start = _card_memory(device)
+        t0 = time.perf_counter()
         model, params = _arch_model(spec["arch"], device, impl="kernel",
+                                    quant=spec.get("quant"),
                                     n_layers=spec["n_layers"])
+        torch.cuda.synchronize(device)
+        drawn = {"draw_s": time.perf_counter() - t0,
+                 "param_bytes": _stored_bytes(params),
+                 "card_at_start": start}
         for phase in (phase_cross_serve, phase_cross_prefill):
             row = phase(device, family, model, params)
+            if phase is phase_cross_serve:
+                row.update(drawn)
             cross[row["phase"]] = row
             emit(row)
+        cfg = model.cfg
         del model, params
+        if spec.get("quant"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            shapes[family] = phase_layer_shapes(device, f"{family}_shapes",
+                                                cfg)
+            emit(shapes[family])
     torch.cuda.empty_cache()
     aparity = phase_attention_parity(device)
     emit(aparity)
@@ -6345,6 +6813,7 @@ def main() -> int:
     emit(mesh)
     pod = phase_pod_count(device, pod_child_proc)
     emit(pod)
+    emit(phase_one_card_fit(pod.pop("one_card"), dense, cross))
     emit({"phase_seconds": PHASE_SECONDS})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     qat = {f"train ({TRAIN['arch']}, W8A8 QAT, {TRAIN['steps']} steps)":
@@ -6359,6 +6828,10 @@ def main() -> int:
     per = (f"one {SERVE_ARCH} layer's 7 projections at m = "
            f"{SERVE['batch']}, weights cold in L2")
     sweep = timing["vgg16"]
+    w8_cross = [f for f in CROSS_ARCHS if not CROSS_ARCHS[f].get("quant")]
+    w4_cross = [f for f in CROSS_ARCHS if f not in w8_cross]
+    whole = {f: f"{f}_serve ({DENSE_FULL[f]['arch']}, whole)"
+             for f in DENSE_FULL}
     kernels = [{
         "name": "sweep_aggregates",
         "route": "cuda",
@@ -6432,10 +6905,19 @@ def main() -> int:
             **{f"{f}_serve ({cross[f + '_serve']['arch']}, "
                f"{cross[f + '_serve']['n_layers']} layers)":
                cross[f + "_serve"]["launches"]["w8a8_matmul_dp4a"]
-               for f in CROSS_ARCHS}, **qat,
+               for f in w8_cross}, **qat,
+            **{whole[f]: dense[f + "_serve"]["launches"]["w8a8_matmul_dp4a"]
+               for f in DENSE_FULL},
+            **{f"{f}_int8kv ({DENSE_FULL[f]['arch']})":
+               dense[f + "_int8kv"]["launches"]["w8a8_matmul_dp4a"]
+               for f in DENSE_FULL},
+            f"deepseek_roofline ({DENSE_FULL['deepseek']['arch']})":
+                dense["deepseek_roofline"]["launches"]["w8a8_matmul_dp4a"],
             roof: roofline["launches"]["w8a8_matmul_dp4a"],
             podk: pod["launches"]["w8a8_matmul_dp4a"]},
         "moonshot_layer": moe_prefill["w8a8_decode_layer"]["layer"],
+        "dense_layers": {DENSE_FULL[f]["arch"]: dense[f + "_shapes"][
+            f"m{SERVE['batch']}"]["layer"] for f in DENSE_FULL},
     })
     lay = qprefill["layer"]
     kernels.append({
@@ -6467,15 +6949,20 @@ def main() -> int:
             **{f"{f}_prefill ({cross[f + '_prefill']['arch']}, "
                f"{cross[f + '_prefill']['n_layers']} layers)":
                cross[f + "_prefill"]["launches"]["w8a8_matmul_tc"]
-               for f in CROSS_ARCHS},
+               for f in w8_cross},
             **{f"{f}_serve fill_ctx_caches ({cross[f + '_serve']['arch']})":
                cross[f + "_serve"]["fill_launches"]["w8a8_matmul_tc"]
-               for f in CROSS_ARCHS}, **qat,
+               for f in w8_cross}, **qat,
+            **{f"{f}_prefill ({DENSE_FULL[f]['arch']}, whole)":
+               dense[f + "_prefill"]["launches"]["w8a8_matmul_tc"]
+               for f in DENSE_FULL},
             roof: roofline["launches"]["w8a8_matmul_tc"],
             podk: pod["launches"]["w8a8_matmul_tc"]},
+        "dense_layers": {DENSE_FULL[f]["arch"]: dense[f + "_shapes"][
+            f"m{PREFILL_M}"]["layer"] for f in DENSE_FULL},
         "context_kv_shapes": {
             f"{cross[f + '_serve']['arch']}": cross[f + "_serve"][
-                "w8a8_context_kv"]["layer"] for f in CROSS_ARCHS},
+                "context_kv_timing"]["layer"] for f in w8_cross},
         "ssm_shapes": {key: {k: ssm_tc[key][k] for k in (
             "aligned", "kernel_ms", "kernel_again_ms", "plain_ms",
             "library_ms", "bound_ms")}
@@ -6501,15 +6988,30 @@ def main() -> int:
         "launches_by_path": {
             f"serve_w4a8_pow2 ({SERVE_ARCH})":
                 serve["w4a8_pow2"]["launches"]["w4a8_matmul"], **qat,
-            roof: roofline["launches"]["w4a8_matmul"]},
+            roof: roofline["launches"]["w4a8_matmul"],
+            **{f"{ph} ({cross[ph]['arch']}, {cross[ph]['n_layers']} "
+               "layers)": cross[ph]["launches"]["w4a8_matmul"]
+               for f in w4_cross for ph in (f + "_serve", f + "_prefill")},
+            **{f"{f}_serve fill_ctx_caches ({cross[f + '_serve']['arch']})":
+               cross[f + "_serve"]["fill_launches"]["w4a8_matmul"]
+               for f in w4_cross}},
+        "vlm_layers": {f"{shapes[f]['arch']} m = {m}":
+                       shapes[f][f"m{m}"]["layer"] for f in w4_cross
+                       for m in (SERVE["batch"], PREFILL_M)},
+        "context_kv_shapes": {
+            f"{cross[f + '_serve']['arch']}": cross[f + "_serve"][
+                "context_kv_timing"]["layer"] for f in w4_cross},
         "per": per + " (split-k; splits and blocks as the C entry "
                      "reported its launch; launches: W4A8 serve run)",
     })
     dec = atiming["decode"][str(DECODE_S[0])]
     moe_dec_rows = list(moe_int8kv["decode_timing"].values()) \
         + list(moe_phi35["int8kv"]["decode_timing"].values())
+    dense_dec_rows = [r for f in DENSE_FULL
+                      for r in dense[f + "_int8kv"]["decode_timing"].values()]
     dec_rows = list(atiming["decode"].values()) \
-        + list(window_ring["decode_timing"].values()) + moe_dec_rows
+        + list(window_ring["decode_timing"].values()) + moe_dec_rows \
+        + dense_dec_rows
     b, kvh, rep, hd = DECODE_SHAPE
     kernels.append({
         "name": "w8a8_decode_attention",
@@ -6551,8 +7053,23 @@ def main() -> int:
             f"moe_phi35_int8kv ({MOE_PHI['arch']}, "
             f"{MOE_PHI['n_layers']} layers, rep 4)":
                 moe_phi35["int8kv"]["launches"]["w8a8_decode_attention"],
+            f"starcoder2_batcher ({DENSE_FULL['starcoder2']['arch']}, "
+            "rep 9)": dense["starcoder2_batcher"]["launches"][
+                "w8a8_decode_attention"],
+            **{f"{f}_int8kv ({DENSE_FULL[f]['arch']})":
+               dense[f + "_int8kv"]["launches"]["w8a8_decode_attention"]
+               for f in DENSE_FULL},
+            f"deepseek_roofline ({DENSE_FULL['deepseek']['arch']}, rep 8)":
+                dense["deepseek_roofline"]["launches"][
+                    "w8a8_decode_attention"],
             roof: roofline["launches"]["w8a8_decode_attention"],
             podk: pod["launches"]["w8a8_decode_attention"]},
+        "dense_shapes": {f"rep {r['shape'][2]}": {
+            k: r[k] for k in (
+                "shape", "splits", "positions", "max_abs_err", "rel_to_max",
+                "best_kernel_ms", "best_plain_ms", "timer", "bound_ms",
+                "bound_by")}
+            for r in dense_dec_rows},
         "moe_shapes": {f"rep {r['shape'][2]}": {
             k: r[k] for k in (
                 "shape", "splits", "positions", "max_abs_err", "rel_to_max",
@@ -6597,6 +7114,9 @@ def main() -> int:
             **{f"{ph} ({cross[ph]['arch']}, {cross[ph]['n_layers']} "
                f"layers)": cross[ph]["launches"]["flash_attention_tc"]
                for ph in cross},
+            **{f"{f}_prefill ({DENSE_FULL[f]['arch']}, whole)":
+               dense[f + "_prefill"]["launches"]["flash_attention_tc"]
+               for f in DENSE_FULL},
             **{f"validate_elites ({a}, {validate[a]['layers']} layers at "
                f"reduced width, {validate[a]['distinct_plans']} plans + "
                "the baseline)": validate[a]["launches"]["flash_attention_tc"]
@@ -6614,7 +7134,8 @@ def main() -> int:
                 "shape", "keys", "causal", "dtype", "best_kernel_ms",
                 "best_plain_ms", "best_library_ms", "timer", "bound_ms",
                 "bound_by", "kernel_max_abs_vs_plain")}
-            for ph in cross for kind, r in (
+            for ph in cross if "flash_timing" in cross[ph]
+            for kind, r in (
                 cross[ph]["flash_timing"].items()
                 if ph.endswith("_prefill")
                 else [("cross", cross[ph]["flash_timing"])])},
@@ -6623,6 +7144,11 @@ def main() -> int:
             "timer", "bound_ms", "bound_by", "kernel_max_abs_vs_plain")}
             for r in (moe_prefill["flash_timing"],
                       moe_phi35["flash_timing"])},
+        "dense_layers": {DENSE_FULL[f]["arch"]: {k: dense[
+            f + "_prefill"]["flash_timing"][k] for k in (
+            "shape", "best_kernel_ms", "best_plain_ms", "best_library_ms",
+            "timer", "bound_ms", "bound_by", "kernel_max_abs_vs_plain")}
+            for f in DENSE_FULL},
         "gemma3_layers": {key: {k: r[k] for k in (
             "shape", "window", "best_kernel_ms", "best_plain_ms",
             "best_library_ms", "timer", "bound_ms", "bound_by",
@@ -6649,10 +7175,11 @@ def main() -> int:
         "launches_by_path": {
             f"prefill_fp32 ({SERVE_ARCH}, {FP32_LAYERS} layers)":
                 fp32["launches"]["flash_attention_f32"],
-            f"vlm_prefill ({cross['vlm_prefill']['arch']}, "
-            f"{cross['vlm_prefill']['n_layers']} layers), cross layers on "
-            "a float32 context":
-                cross["vlm_prefill"]["launches"]["flash_attention_f32"]},
+            **{f"{f}_prefill ({cross[f + '_prefill']['arch']}, "
+               f"{cross[f + '_prefill']['n_layers']} layers), cross layers "
+               "on a float32 context":
+               cross[f + "_prefill"]["launches"]["flash_attention_f32"]
+               for f in ("vlm", "vlm_w4a8")}},
         "per": "one layer's causal attention at (b 1, h 24, s 4096, d 128) "
                f"float32 ({fl['timer']} time), 3xTF32 on the tensor cores, "
                "bound at 3 x its FLOP at the 494.7 TFLOP/s TF32 rate "

@@ -8,8 +8,13 @@ Usage:
 An MoE model at full width needs ``--quant``: unquantized, its stacked
 experts stay float32 (moonshot-v1-16b-a3b: 106.3 GB, past an 80 GB card);
 quantized, they are stored in bf16 (53.2 GB).  llama-3.2-vision-90b needs
-it too, and even in int8 its 100 layers (92.8 GB) pass an 80 GB card:
-on one card it is served at a cut depth through :func:`generate`.
+it too: in int8 (W8A8, its config's mode) its 100 layers are 92.8 GB,
+past an 80 GB card, while in W4A8-pow2 they are 48.5 GB and serve whole
+on one H100 80GB (51.4 GB at peak): build :class:`Model` with the
+config's ``quant`` set to ``"w4a8_pow2"`` and call :func:`fill_ctx_caches`
+and :func:`generate`.  Any model whose float32 params pass the device's
+memory needs ``--quant`` as well (deepseek-67b: 266.4 GB by the
+reference's count; 69.1 GB in W8A8).
 
 The vlm and audio families take a context: ``serve`` draws image
 embeddings or audio frames ``(batch, n_ctx_tokens, d) * 0.02`` from
@@ -21,6 +26,7 @@ is replayed.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -112,6 +118,14 @@ def expert_bytes(cfg, quantize: bool) -> int:
     return n * (2 if quantize else 4)
 
 
+def device_memory_bytes(dev: torch.device) -> int:
+    """Memory of ``dev``: the card's total, or the host's physical
+    memory."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
           gen: int = 16, quantize: bool = False, smoke: bool = True,
           seed: int = 0, greedy: bool = True, device="cuda") -> dict:
@@ -122,7 +136,9 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
     ``prefill_s``, ``decode_s`` and ``tok_per_s``.  An MoE model at full
     width without ``quantize`` is refused: its float32 experts would be
     drawn whole (see :func:`expert_bytes`); so is the vlm, whose
-    projections would stay float32."""
+    projections would stay float32, and any model whose float32 params
+    (``4 * cfg.n_params()`` bytes) pass the device's memory
+    (:func:`device_memory_bytes`), before anything is drawn."""
     if not greedy:
         raise NotImplementedError(
             "sampling is not implemented: decoding is greedy, as in the "
@@ -141,6 +157,12 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 16,
         raise ValueError(
             f"{arch} at full width without quantize keeps every projection "
             f"float32, four times the bytes of its int8 ones; pass "
+            f"quantize=True (--quant)")
+    elif not quantize and 4 * cfg.n_params() > device_memory_bytes(dev):
+        raise ValueError(
+            f"{arch} at full width without quantize draws "
+            f"{4 * cfg.n_params() / 1e9:.1f} GB of float32 params, past the "
+            f"{device_memory_bytes(dev) / 1e9:.1f} GB of {dev}; pass "
             f"quantize=True (--quant)")
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(dev).manual_seed(seed),
@@ -168,11 +190,12 @@ def main():
     ap.add_argument("--full", action="store_true",
                     help="the config's full width (default: reduced); the "
                          "MoE models need --quant there (moonshot-v1-16b-a3b"
-                         "'s float32 experts are 106.3 GB), and so does "
-                         "llama-3.2-vision-90b (all 100 of its layers are "
-                         "92.8 GB even in int8, past an 80 GB card: serve it "
-                         "at a cut depth through generate()); whisper-medium "
-                         "fits either way")
+                         "'s float32 experts are 106.3 GB), and so do "
+                         "llama-3.2-vision-90b (92.8 GB in W8A8, past an 80 "
+                         "GB card; whole in W4A8-pow2, 48.5 GB, through "
+                         "generate()) and any model whose float32 params "
+                         "pass the device's memory (deepseek-67b); "
+                         "whisper-medium fits either way")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,

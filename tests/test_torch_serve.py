@@ -9,12 +9,16 @@ logits and k/v caches are compared after every step.
 Tolerance ``rtol = atol = 2e-2``: both sides compute in bf16
 (``tests/test_kernels.py`` holds bf16 paths to the same bound), and the
 W4A8 plain version sums exactly where the reference sums in float32.
-Measured maximum absolute differences over the 8 steps (CPU, torch
-2.13, jax 0.9.0): logits 7.8e-3 in every case (one bf16 ulp at
-|logit| in [1, 2): the two frameworks round bf16 elementwise ops at other
-places); k/v caches 4.2e-3 / 3.9e-3 (phi4 W8A8), 3.9e-3 / 4.9e-3 (phi4
-W4A8-pow2), 5.9e-3 / 6.3e-3 (starcoder2 W8A8, gelu), 2.0e-3 / 2.0e-3
-(phi4 unquantized bf16).  ``pytest -s`` prints each run's maxima.
+starcoder2-7b and deepseek-67b keep their published head ratios (36 over
+4, 64 over 8 KV heads) at reduced width.  Measured maximum absolute
+differences over the 8 steps (CPU, torch 2.13, jax 0.9.0): logits
+5.9e-3 to 7.8e-3 (one bf16 ulp at |logit| in [1, 2): the two frameworks
+round bf16 elementwise ops at other places); k/v caches 4.2e-3 / 3.9e-3
+(phi4 W8A8), 3.9e-3 / 4.9e-3 (phi4 W4A8-pow2), 6.1e-3 / 5.9e-3
+(starcoder2 W8A8, gelu), 6.8e-3 / 5.9e-3 (starcoder2 W4A8-pow2), 3.9e-3
+/ 3.9e-3 (deepseek W8A8), 4.8e-3 / 3.9e-3 (deepseek W4A8-pow2), 2.0e-3 /
+2.0e-3 (phi4 unquantized bf16); on int8 KV caches, dequantized, logits
+<= 8.8e-3 and k/v <= 1.04e-2.  ``pytest -s`` prints each run's maxima.
 """
 
 import dataclasses
@@ -61,9 +65,17 @@ def _f32(a) -> np.ndarray:
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 
+# each model's published head ratio, kept at reduced width: deepseek-67b's
+# 64 heads over 8 KV heads (rep 8), starcoder2-7b's 36 over 4 (rep 9)
+HEADS = {"deepseek-67b": (64, 8), "starcoder2-7b": (36, 4)}
+
+
 def _models(arch, mode, quantize):
-    rcfg = dataclasses.replace(r_reduced(r_get_config(arch)), quant=mode)
-    tcfg = dataclasses.replace(reduced(get_config(arch)), quant=mode)
+    heads = dict(zip(("n_heads", "n_kv_heads"), HEADS.get(arch, ())))
+    rcfg = dataclasses.replace(r_reduced(r_get_config(arch), **heads),
+                               quant=mode)
+    tcfg = dataclasses.replace(reduced(get_config(arch), **heads),
+                               quant=mode)
     rmodel = RModel(rcfg)
     rparams = rmodel.init(jax.random.key(0))
     if quantize:
@@ -77,17 +89,28 @@ def _models(arch, mode, quantize):
 CASES = [("phi4-mini-3.8b", "w8a8", True),
          ("phi4-mini-3.8b", "w4a8_pow2", True),
          ("starcoder2-7b", "w8a8", True),
-         ("phi4-mini-3.8b", "w8a8", False)]
+         ("phi4-mini-3.8b", "w8a8", False),
+         ("deepseek-67b", "w8a8", True),
+         ("deepseek-67b", "w4a8_pow2", True),
+         ("starcoder2-7b", "w4a8_pow2", True)]
 
 
-@pytest.mark.parametrize("arch,mode,quantize", CASES)
-def test_decode_matches_reference(arch, mode, quantize):
+def _kv(cache, name, kv_quant) -> np.ndarray:
+    """A k or v cache as float32, an int8 one times its per-(position,
+    head) scales."""
+    if kv_quant:
+        return _f32(cache[name]) * _f32(cache[f"{name}_scale"])[..., None]
+    return _f32(cache[name])
+
+
+def _teacher_forced(arch, mode, quantize, kv_quant):
     rmodel, rparams, tmodel, tparams = _models(arch, mode, quantize)
     cfg = tmodel.cfg
     tokens = np.random.default_rng(1).integers(0, cfg.vocab,
                                                (BATCH, STEPS))
-    rcache = rmodel.init_cache(BATCH, STEPS)
-    tcache = tmodel.init_cache(BATCH, STEPS)
+    rcache = rmodel.init_cache(BATCH, STEPS, kv_quant=kv_quant)
+    tcache = tmodel.init_cache(BATCH, STEPS, kv_quant=kv_quant)
+    assert set(rcache) == set(tcache)
     decode = jax.jit(rmodel.decode_step)
     worst = {"logits": 0.0, "k": 0.0, "v": 0.0}
     for i in range(STEPS):
@@ -98,14 +121,29 @@ def test_decode_matches_reference(arch, mode, quantize):
             tparams, tcache, torch.from_numpy(tokens[:, i:i + 1]), i)
         assert tlog.dtype == torch.bfloat16
         assert tuple(tlog.shape) == (BATCH, 1, cfg.vocab)
-        for name, r, t in (("logits", rlog, tlog), ("k", rcache["k"],
-                                                    tcache["k"]),
-                           ("v", rcache["v"], tcache["v"])):
-            r, t = _f32(r), _f32(t)
+        for name, r, t in (
+                ("logits", _f32(rlog), _f32(tlog)),
+                ("k", _kv(rcache, "k", kv_quant), _kv(tcache, "k", kv_quant)),
+                ("v", _kv(rcache, "v", kv_quant),
+                 _kv(tcache, "v", kv_quant))):
             worst[name] = max(worst[name], float(np.max(np.abs(r - t))))
             np.testing.assert_allclose(t, r, rtol=TOL, atol=TOL,
                                        err_msg=f"{name} at step {i}")
-    print(arch, mode, quantize, worst)
+    print(arch, mode, quantize, "int8 KV" if kv_quant else "bf16 KV", worst)
+
+
+@pytest.mark.parametrize("arch,mode,quantize", CASES)
+def test_decode_matches_reference(arch, mode, quantize):
+    _teacher_forced(arch, mode, quantize, kv_quant=False)
+
+
+@pytest.mark.parametrize("arch,mode", [(a, m) for a, m, _ in CASES
+                                       if a in HEADS])
+def test_decode_on_int8_kv_matches_reference(arch, mode):
+    """starcoder2-7b and deepseek-67b at their published head ratios
+    (rep 9, rep 8) on int8 KV caches: the decode kernel's shapes on the
+    card, its plain version here."""
+    _teacher_forced(arch, mode, True, kv_quant=True)
 
 
 @pytest.mark.parametrize("mode", ["w8a8", "w4a8_pow2"])
@@ -233,3 +271,55 @@ def test_init_draws_on_the_model_device_layer_by_layer():
     q = model.quantize_params(again)
     assert torch.equal(q["layers"][2]["wo"].data,
                        params["layers"][2]["wo"].data)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,per_layer", [("starcoder2-7b", 6),
+                                            ("phi4-mini-3.8b", 7)])
+def test_dense_products_match_a_decode_step(arch, per_layer, monkeypatch):
+    """``chip_smoke._dense_products`` (the launch count its checks expect
+    of a dense layer) equals the ``serve_dot`` calls one decode step
+    makes a layer: 6 for starcoder2's gelu MLP, 7 for SwiGLU."""
+    from repro_torch.quant import qlinear
+    cfg = reduced(get_config(arch), n_layers=3)
+    assert _chip_smoke()._dense_products(cfg) == per_layer
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator("cpu").manual_seed(0),
+                        quantize=True)
+    calls, real = [], qlinear.serve_dot
+
+    def counting(*args, **kwargs):
+        calls.append(args[1].orig_shape)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(qlinear, "serve_dot", counting)
+    model.decode_step(params, model.init_cache(2, 4),
+                      torch.zeros((2, 1), dtype=torch.int64), 0)
+    assert len(calls) == per_layer * cfg.n_layers
+
+
+def test_serve_refuses_float32_past_device_memory(monkeypatch):
+    """deepseek-67b at full width without ``quantize`` is refused before
+    anything is drawn: its float32 params (266.4 GB by the reference's
+    count) pass the host's memory as they pass an 80 GB card."""
+    from repro_torch.launch import serve as serve_mod
+
+    def no_draw(*args, **kwargs):
+        raise AssertionError("serve drew params before refusing")
+    monkeypatch.setattr(Model, "init", no_draw)
+    monkeypatch.setattr(serve_mod.torch, "randint", no_draw)
+    with pytest.raises(ValueError, match=r"266\.4 GB of float32 params.*"
+                                         r"--quant"):
+        serve("deepseek-67b", smoke=False, device="cpu")
+    monkeypatch.setattr(serve_mod, "device_memory_bytes",
+                        lambda dev: 80 * 2 ** 30)
+    with pytest.raises(ValueError, match="--quant"):
+        serve("deepseek-67b", smoke=False, device="cpu")

@@ -30,6 +30,9 @@ CPU (torch 2.13, jax 0.9.0; ``pytest -s`` prints them):
   filled by each side or carried from the reference's: logits and every
   cache after each step at 2e-2 (measured: logits <= 7.8e-3; ``k`` /
   ``v`` <= 3.9e-3 (vlm), <= 5.9e-3 (audio); carried context caches 0).
+* the vlm in W4A8-pow2 too (its 100 layers fit one card only in that
+  mode): forward logits 7.8e-3, fill 0, decode logits 7.8e-3, ``k`` /
+  ``v`` 4.9e-3 / 4.2e-3, ``ctx_v`` 3.8e-6 filled by each side.
 """
 
 import jax
@@ -353,18 +356,25 @@ def check_port_refusals(arch):
 
 # ---------------------------------------------------------- the vlm
 
-@pytest.mark.parametrize("mode,quantize", MODES)
+# the vlm also in W4A8-pow2, the mode its 100 layers are served in on one
+# card
+W4A8 = ("w4a8_pow2", True)
+
+
+@pytest.mark.parametrize("mode,quantize", MODES + [W4A8])
 def test_forward_and_loss_match_reference(mode, quantize):
     check_forward_and_loss(VLM, mode, quantize)
 
 
-@pytest.mark.parametrize("mode,quantize", [("w8a8", True), ("bf16", False)])
+@pytest.mark.parametrize("mode,quantize", [("w8a8", True), ("bf16", False),
+                                           W4A8])
 def test_fill_ctx_caches_matches_reference(mode, quantize):
     check_fill_ctx_caches(VLM, mode, quantize)
 
 
 @pytest.mark.parametrize("carried", [False, True])
-@pytest.mark.parametrize("mode,quantize", [("w8a8", True), ("bf16", False)])
+@pytest.mark.parametrize("mode,quantize", [("w8a8", True), ("bf16", False),
+                                           W4A8])
 def test_teacher_forced_decode_matches_reference(mode, quantize, carried):
     check_teacher_forced_decode(VLM, mode, quantize, carried)
 
