@@ -106,17 +106,22 @@ Phases (any failure exits non-zero):
    (``launch.serve.generate``) in W4A8-pow2, 8 prompt + 8 generated
    tokens at batch 4; each matmul kernel must launch exactly
    16 steps x 32 layers x 7 projections = 3584 times in its own run and
-   never in the other's, W8A8 all on its split-k ``dp4a`` regime;
+   never in the other's, all on its split-k regime (W8A8 ``dp4a``, W4A8
+   ``splitk``);
 6. serving parity: the same full-width params and prompts teacher-forced
    for 4 steps through the kernels and through their plain versions —
    logits within 1e-6 x max|logit| (0 expected), identical greedy tokens;
    one decode step profiled for its device-busy share;
-7. matmul parity at the decode shapes and ragged shapes, and for W8A8 at
+7. matmul parity at the decode shapes and ragged shapes, for W8A8 at
    the tensor-core regime's shapes (m = 4096 and 64 at the four
-   projection shapes, ragged m 41 and 700), kernel vs plain version
-   bit for bit (both sum exactly in int32; W4A8 on the grid its planner
-   gives, as its C entry reports the launch), with ``torch._int_mm`` as a
-   third witness of the W8A8 integer product;
+   projection shapes, ragged m 41 and 700) and for W4A8's tc regime at
+   ragged m, k = 2 mod 4 and n % 16 != 0 and at m = 4096, kernel vs
+   plain version bit for bit (both sum exactly in int32; W4A8 on the
+   grid its planner gives, as its C entry reports the launch), with
+   ``torch._int_mm`` as a third witness of the W8A8 integer product and
+   the split-k kernel forced as one of W4A8's tc regime; W4A8's extremes
+   (every code +128 or -128, x rows of -128 and 127, k 8192) in both
+   regimes;
 8. matmul timing at the four m = 4 projection shapes: device time from
    ``torch.profiler`` and CUDA-event time over back-to-back calls of the
    kernels, their plain versions and ``torch._int_mm``, weights rotated
@@ -125,9 +130,14 @@ Phases (any failure exits non-zero):
    as its C entry reports the launch; the kernels line takes the
    profiler's device time; and
    W8A8 at m = 4096 (kernel, plain version, ``torch._int_mm``) beside the
-   bound of its int8 operations (``qmatmul_prefill_timing``); both W8A8
-   regimes on a layer at m = 16-64 (``qmatmul_regimes``, where the
-   threshold between them sits);
+   bound of its int8 operations (``qmatmul_prefill_timing``); W4A8 at
+   m = 4096 (``w4a8_prefill``: the tc kernel, the split-k kernel forced
+   and the plain version in turns, each held bit for bit to the others,
+   ``torch._int_mm`` on int8 weights of the same shapes as context, the
+   bound; then phi4-mini's 1 x 4096 forward in W4A8-pow2, every product
+   on tc); both regimes of each on a layer, weights rotated past L2
+   (``qmatmul_regimes``: W8A8 on phi4 at m = 16-64, W4A8 on phi4 and on
+   llama-3.2-vision-90b at m = 16-256, where the thresholds sit);
 9. ``serve_batcher_int8kv``: ``ContinuousBatcher`` over phi4-mini-3.8b at
    full width in W8A8 with an int8 KV cache (4 slots, max_seq 4096), 8
    requests with prompts of 8-32 and 8-16 new tokens from
@@ -275,9 +285,11 @@ Phases (any failure exits non-zero):
     its count, the rest); then llama-3.2-vision-90b whole, all 100
     layers and 20 cross layers in W4A8-pow2 (48.5 GB): ``vlm_w4a8_serve``
     as ``vlm_serve`` (W4A8 in place of W8A8, the routes over the stream's
-    first 4 positions), ``vlm_w4a8_prefill`` (the 1 x 4096 forward once,
-    on the kernel route: launches, wall time, peak, finite logits),
-    ``vlm_w4a8_shapes`` (W4A8 over a layer at m = 4 and 4096);
+    first 4 positions; the fill and ``context_kv`` on W4A8's tc regime),
+    ``vlm_w4a8_prefill`` (the 1 x 4096 forward once, on the kernel
+    route: launches by regime, all on tc, wall time, peak, finite
+    logits), ``vlm_w4a8_shapes`` (W4A8 over a layer at m = 4 and 4096,
+    at 4096 the split-k kernel forced and ``torch._int_mm`` beside tc);
 12. ``attention_parity``: both attention kernels against their plain
     versions (decode: bit for bit, at positions on the boundaries of its
     splits of S, within the 1e-5 x max|out| bound; flash: 1e-5 f32,
@@ -363,8 +375,12 @@ their work from each kernel's ``cost()`` (``kernels/*.py``); every bound
 takes the card's peaks from ``repro_torch.core.gpu_roofline.H100``.
 
 The sweep kernel's entry of the kernels line also gives its launches in
-the three full-budget searches (``launches_coexplore``); the seventh
-entry, ``fleet_sim``, is the kernel that replaces the reference's jitted
+the three full-budget searches (``launches_coexplore``).  W4A8 has an
+entry a regime, as W8A8 has: ``w4a8_matmul`` (split-k, the decode's)
+and ``w4a8_matmul_tc`` (the prefill's, launches those of the 100-layer
+llama forward); the first gives both regimes' times, bounds and
+launches under ``regimes``.  The last entry, ``fleet_sim``, is the kernel that
+replaces the reference's jitted
 ``fori_loop`` (not a Pallas kernel), its launches those of the
 serving-default search.  The last lines
 are a ``{"phase_seconds": [...]}`` line (each phase's wall seconds), the
@@ -505,6 +521,12 @@ FLASH_SHAPE = (1, 24, 4096, 128)      # (b, h, s, d), causal, bf16
 PREFILL_M = 4096
 # m at which both W8A8 regimes are timed, around the threshold
 REGIME_M = (16, 24, 32, 40, 48, 64)
+# m at which both W4A8 regimes are timed, on a phi4 layer and a
+# llama-3.2-vision-90b layer: its tc grid has only n / 128 blocks below
+# 129 rows, so its threshold may sit higher than W8A8's
+W4A8_REGIME_M = (16, 24, 32, 48, 64, 96, 128, 192, 256)
+W4A8_LLAMA_PROJ = {(8192, 8192): 2, (8192, 1024): 2, (8192, 28672): 2,
+                   (28672, 8192): 1}
 # the FP32 PE mode's forward: phi4-mini at full width, depth cut to this
 FP32_LAYERS = 2
 # the SSM and hybrid families at full width and depth, served as phi4 is
@@ -695,15 +717,25 @@ POD_COUNT = dict(
     timeout_s=900)
 # tensor-core instructions each redesigned library must hold: bf16 wgmma
 # (HGMMA) for bf16 flash, TF32 wgmma (HGMMA) or mma.sync (HMMA) for
-# float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8
+# float32 flash, int8 wgmma (IGMMA) or mma.sync (IMMA) for W8A8, int8
+# wgmma for W4A8's tc regime
 SASS_OPS = ("HGMMA", "IGMMA", "IMMA", "HMMA")
 TENSOR_CORE_SASS = {"flash_attention_tc": ("HGMMA",),
                     "flash_attention": ("HGMMA", "HMMA"),
-                    "w8a8_matmul": ("IGMMA", "IMMA")}
+                    "w8a8_matmul": ("IGMMA", "IMMA"),
+                    "w4a8_matmul": ("IGMMA",)}
 # W8A8 only: the tensor-core regime at the prefill shapes (m = 4096 and the
 # 4 x 16 prefill's m = 64) and ragged above its threshold
 W8A8_TC = tuple((m, k, n) for m in (PREFILL_M, 64) for k, n in LAYER_PROJ) \
     + ((41, 258, 301), (700, 1030, 777))
+# W4A8 only: its tc regime on ragged m, k = 2 mod 4 and n % 16 != 0 (the
+# template without cp.async), and at a phi4 prefill shape; each held to
+# the plain version and to the split-k kernel forced on it
+W4A8_TC = ((65, 1026, 1000), (300, 4098, 130), (129, 8192, 3080),
+           (PREFILL_M, 3072, 8192))
+# W4A8's extremes in both regimes: every code +128 (0x77) or -128 (0xff),
+# x rows of -128 and of 127, at phi4's longest k
+W4A8_EXTREME = (256, 8192, 3072)
 
 
 #: (phase, wall seconds since the previous phase's row) in emit order
@@ -2276,7 +2308,8 @@ def _proj_bytes(quant: str) -> int:
 
 def _reset_matmul_counts() -> None:
     from repro_torch.kernels import w4a8_matmul, w8a8_matmul
-    w4a8_matmul.launches = 0
+    w4a8_matmul.launches = w4a8_matmul.launches_splitk = 0
+    w4a8_matmul.launches_tc = 0
     w8a8_matmul.launches = w8a8_matmul.launches_dp4a = 0
     w8a8_matmul.launches_tc = 0
 
@@ -2286,7 +2319,9 @@ def _matmul_counts() -> dict:
     return {"w8a8_matmul": w8a8_matmul.launches,
             "w8a8_matmul_dp4a": w8a8_matmul.launches_dp4a,
             "w8a8_matmul_tc": w8a8_matmul.launches_tc,
-            "w4a8_matmul": w4a8_matmul.launches}
+            "w4a8_matmul": w4a8_matmul.launches,
+            "w4a8_matmul_splitk": w4a8_matmul.launches_splitk,
+            "w4a8_matmul_tc": w4a8_matmul.launches_tc}
 
 
 def phase_serve(device, quant: str) -> dict:
@@ -2318,10 +2353,11 @@ def phase_serve(device, quant: str) -> dict:
     check(launches[mine] == want,
           f"{mine} launched {launches[mine]} times, expected {want}")
     check(launches[other] == 0, f"{other} launched in the {quant} run")
-    if quant == "w8a8":     # decode is m = batch: the split-k regime only
-        check(launches["w8a8_matmul_dp4a"] == want
-              and launches["w8a8_matmul_tc"] == 0,
-              f"W8A8 regimes at decode: {launches}")
+    # decode is m = batch: the split-k regime only
+    split, tc = (("w8a8_matmul_dp4a", "w8a8_matmul_tc") if quant == "w8a8"
+                 else ("w4a8_matmul_splitk", "w4a8_matmul_tc"))
+    check(launches[split] == want and launches[tc] == 0,
+          f"{mine} regimes at decode: {launches}")
     toks = res["tokens"]
     check(tuple(toks.shape) == (SERVE["batch"], SERVE["gen"]),
           f"token shape {tuple(toks.shape)}")
@@ -2492,7 +2528,9 @@ def _int_mm_witness(x, w, xs, ws):
 
 def phase_qmatmul_parity(device) -> dict:
     """Kernel vs plain version, bit for bit, at the decode, ragged and
-    (W8A8) prefill shapes; the worst errors by W8A8 regime."""
+    prefill shapes (W8A8 also vs ``torch._int_mm``, W4A8's tc regime also
+    vs its split-k kernel forced on the same input), and W4A8's extremes
+    in both regimes; the worst errors by kernel and regime."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import w4a8_matmul as W4
@@ -2500,10 +2538,21 @@ def phase_qmatmul_parity(device) -> dict:
     both = (("w8a8", ops.w8a8_matmul), ("w4a8", ops.w4a8_matmul))
     shapes = [((SERVE["batch"], k, n), both) for k, n in LAYER_PROJ] \
         + [(shape, both) for shape in RAGGED] \
-        + [(shape, both[:1]) for shape in W8A8_TC]
+        + [(shape, both[:1]) for shape in W8A8_TC] \
+        + [(shape, both[1:]) for shape in W4A8_TC]
     rows = []
-    worst = {"w8a8": [0.0, 0.0], "w4a8": [0.0, 0.0],
-             "w8a8_dp4a": [0.0, 0.0], "w8a8_tc": [0.0, 0.0]}
+    worst = {key: [0.0, 0.0] for key in (
+        "w8a8", "w4a8", "w8a8_dp4a", "w8a8_tc", "w4a8_splitk", "w4a8_tc")}
+
+    def record(row, keys, got, want):
+        d = (got.double() - want.double()).abs()
+        row.update(max_abs=float(d.max()), max_rel=float(
+            (d / want.double().abs().clamp_min(1e-30)).max()))
+        for key in keys:
+            worst[key] = [max(worst[key][0], row["max_abs"]),
+                          max(worst[key][1], row["max_rel"])]
+        rows.append(row)
+
     for i, ((m, k, n), modes) in enumerate(shapes):
         for mode, fn in modes:
             x, w, xs, ws = _qmm_operands(m, k, n, mode == "w4a8", i, device)
@@ -2511,33 +2560,46 @@ def phase_qmatmul_parity(device) -> dict:
             want = fn(x, w, xs, ws, impl="ref")
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), f"{mode} non-finite")
-            d = (got.double() - want.double()).abs()
-            err = float(d.max())
-            rel = float((d / want.double().abs().clamp_min(1e-30)).max())
-            row = {"mode": mode, "m": m, "k": k, "n": n, "max_abs": err,
-                   "max_rel": rel}
-            keys = [mode]
+            row = {"mode": mode, "m": m, "k": k, "n": n}
             if mode == "w8a8":
                 row["regime"] = plan(m, k, n).regime
-                keys.append(f"w8a8_{row['regime']}")
                 lib = _int_mm_witness(x, w, xs, ws)
                 row["int_mm_max_abs"] = float((got - lib).abs().max())
                 check(row["int_mm_max_abs"] == 0.0,
                       f"w8a8 kernel vs torch._int_mm at {(m, k, n)}")
             else:       # the grid the C entry launched
                 p = W4.plan(m, k, n)
-                row["grid"] = list(W4.last_grid)
-                check(W4.last_grid[2] == p.splits,
+                row.update(regime=p.regime, grid=list(W4.last_grid))
+                check(W4.last_grid == (-(-n // 128), -(-m // p.row_tile),
+                                       p.splits),
                       f"w4a8 at {(m, k, n)} launched {W4.last_grid}, "
                       f"planned {p}")
+                if p.regime == "tc":
+                    split = W4.w4a8_matmul(x, w, xs, ws, regime="splitk")
+                    row["equal_splitk"] = bool(torch.equal(got, split))
+                    check(row["equal_splitk"], f"w4a8 tc differs from "
+                                               f"split-k at {(m, k, n)}")
+            record(row, [mode, f"{mode}_{row['regime']}"], got, want)
             check(bool(torch.equal(got, want)),
                   f"{mode} kernel not bit-identical to plain at {(m, k, n)}"
-                  f" (max rel {rel:.3g})")
-            for key in keys:
-                worst[key] = [max(worst[key][0], err),
-                              max(worst[key][1], rel)]
-            rows.append(row)
+                  f" (max rel {row['max_rel']:.3g})")
             del x, w, got, want
+    m, k, n = W4A8_EXTREME
+    x, _, xs, ws = _qmm_operands(m, k, n, True, 99, device)
+    x[0], x[1] = -128, 127
+    for byte in (0x77, -1):
+        w = torch.full((k // 2, n), byte, dtype=torch.int8, device=device)
+        want = W4.w4a8_matmul_ref(x, w, xs, ws)
+        outs = {r: W4.w4a8_matmul(x, w, xs, ws, regime=r)
+                for r in W4.REGIMES}
+        torch.cuda.synchronize()
+        for regime, got in outs.items():
+            record({"mode": "w4a8", "m": m, "k": k, "n": n,
+                    "regime": regime, "codes": "all +128" if byte > 0
+                    else "all -128"}, ["w4a8", f"w4a8_{regime}"], got, want)
+            check(bool(torch.equal(got, want)),
+                  f"w4a8 {regime} at the extremes ({byte:#x}) not "
+                  f"bit-identical to plain")
     return {"phase": "qmatmul_parity", "rows": rows, "worst": worst}
 
 
@@ -2707,32 +2769,81 @@ def phase_qmatmul_prefill_timing(device) -> dict:
 
 
 def phase_qmatmul_regimes(device) -> dict:
-    """Both W8A8 regimes on one phi4 layer's 7 projections at m around
-    the threshold (``TC_MIN_M``, which the planner reads at each call, is
-    moved for the run): device time per layer of each, the evidence for
-    where the threshold sits."""
+    """Both regimes of each quantized matmul at m around the threshold,
+    each forced through its wrapper's ``regime``, device time per layer
+    with the weights rotated past L2 (as a forward reads each layer's
+    weights cold): W8A8 on one phi4 layer's 7 projections, W4A8 on a
+    phi4 and a llama-3.2-vision-90b layer.  The evidence for where each
+    threshold sits."""
+    from repro_torch.kernels import w4a8_matmul as W4
     from repro_torch.kernels import w8a8_matmul as W8
-    saved = W8.TC_MIN_M
-    out = {"tc_min_m": saved}
-    try:
-        for m in REGIME_M:
-            ops_ = {kn: _qmm_operands(m, kn[0], kn[1], False, 11, device)
-                    for kn in LAYER_PROJ}
-            row = {}
-            for regime, threshold in (("dp4a", 10 ** 9), ("tc", 1)):
-                W8.TC_MIN_M = threshold
-                total = 0.0
-                for kn, c in LAYER_PROJ.items():
-                    prof, event = _device_ms(
-                        lambda i, o=ops_[kn]: W8.w8a8_matmul(*o), 50)
-                    total += c * (event if prof is None else prof)
-                row[regime] = total
-            out[str(m)] = row
-    finally:
-        W8.TC_MIN_M = saved
-    faster = [m for m in REGIME_M if out[str(m)]["tc"] < out[str(m)]["dp4a"]]
-    out["tc_faster_at"] = faster
-    return {"phase": "qmatmul_regimes", **out}
+
+    def layer_ms(proj, m, mod) -> dict:
+        packed = mod is W4
+        kern = W4.w4a8_matmul if packed else W8.w8a8_matmul
+        total = dict.fromkeys(mod.REGIMES, 0.0)
+        for (k, n), c in proj.items():
+            copies = -(-2 * L2_BYTES // (k * n // (2 if packed else 1))) + 1
+            x, _, xs, ws = _qmm_operands(m, k, n, packed, 11, device)
+            wl = [_qmm_operands(m, k, n, packed, 100 + j, device)[1]
+                  for j in range(copies)]
+            for r in mod.REGIMES:
+                prof, event = _device_ms(lambda i, r=r: kern(
+                    x, wl[i % copies], xs, ws, regime=r), 50)
+                total[r] += c * (event if prof is None else prof)
+            del x, wl
+        return total
+
+    def rows(proj, ms, mod, below):
+        out = {"tc_min_m": mod.TC_MIN_M}
+        out.update({str(m): layer_ms(proj, m, mod) for m in ms})
+        out["tc_faster_at"] = [m for m in ms
+                               if out[str(m)]["tc"] < out[str(m)][below]]
+        return out
+    return {"phase": "qmatmul_regimes", "copies": "past L2",
+            "w8a8": rows(LAYER_PROJ, REGIME_M, W8, "dp4a"),
+            "w4a8": {name: rows(proj, W4A8_REGIME_M, W4, "splitk")
+                     for name, proj in (("phi4", LAYER_PROJ),
+                                        ("llama", W4A8_LLAMA_PROJ))}}
+
+
+def phase_w4a8_prefill(device) -> dict:
+    """W4A8 at the prefill's m = PREFILL_M on a phi4-mini layer's 7
+    projections: the tc kernel, the split-k kernel forced and the plain
+    version in turns, each held bit for bit to the others, the bound, and
+    ``torch._int_mm`` on int8 weights of the same shapes as context
+    (:func:`_qmm_layer_timing`); then phi4-mini's 1 x PREFILL_M forward at
+    full width and depth in W4A8-pow2 (after a warm-up): wall time,
+    launches by regime (every product on tc), finite logits."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    layer = _qmm_layer_timing(device, LAYER_PROJ, PREFILL_M, packed=True,
+                              iters=(1, 10))
+    model, params, _ = _full_model("w4a8_pow2", device)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL["long_len"]),
+                           device=device,
+                           generator=torch.Generator(device).manual_seed(3))
+    model.forward(params, tokens, last_only=True)           # warm-up
+    _reset_matmul_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, tokens, last_only=True)
+    torch.cuda.synchronize(device)
+    wall_s = time.perf_counter() - t0
+    launches = _matmul_counts()
+    want = cfg.n_layers * _dense_products(cfg)
+    check(launches["w4a8_matmul_tc"] == launches["w4a8_matmul"] == want
+          and launches["w8a8_matmul"] == 0,
+          f"w4a8_prefill: launches {launches}, expected {want} W4A8 tc")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"w4a8_prefill: logits {tuple(logits.shape)}")
+    del model, params, logits
+    return {"phase": "w4a8_prefill", "arch": cfg.name, "m": PREFILL_M,
+            "layer": layer["layer"], "shapes": layer["shapes"],
+            "forward_shape": [1, PREFILL["long_len"]],
+            "forward_wall_s": wall_s, "launches": launches}
 
 
 # ---------------------------------------------- int8 KV, batching, prefill
@@ -4146,11 +4257,15 @@ def _flash_timing(device, q, k, v, window=None, causal=True) -> dict:
 def _qmm_layer_timing(device, proj: dict, m: int, packed: bool = False,
                       iters: tuple = (10, 200)) -> dict:
     """W8A8 (W4A8 where ``packed``) over one layer's projections ``proj``
-    ({(k, n): count}) at m rows: the kernel (twice), its plain version
-    (twice) and, for W8A8, ``torch._int_mm`` (m padded to 32 below it),
-    ``iters`` (plain, kernel) calls a window, weights rotated past L2,
-    each shape's kernel equal to its plain version; summed over the
-    layer."""
+    ({(k, n): count}) at m rows, on the regime its plan picks: the kernel
+    (twice), its plain version (twice) and, for W8A8, ``torch._int_mm`` (m
+    padded to 32 below it), ``iters`` (plain, kernel) calls a window,
+    weights rotated past L2, each shape's kernel equal to its plain
+    version; summed over the layer.  W4A8 on the tensor cores also times
+    its split-k kernel forced (twice, held bit for bit to the tc output)
+    and, as context only, ``torch._int_mm`` on an int8 (k, n) weight of
+    the same shape (two such calls are what W4A8's two int8 products a
+    k step cost at the library's rate)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import w4a8_matmul as W4
@@ -4166,39 +4281,65 @@ def _qmm_layer_timing(device, proj: dict, m: int, packed: bool = False,
         x, _, xs, ws = _qmm_operands(m, k, n, packed, 7, device)
         wl = [_qmm_operands(m, k, n, packed, 100 + c, device)[1]
               for c in range(copies)]
-        check(bool(torch.equal(kern(x, wl[0], xs, ws),
-                               ref(x, wl[0], xs, ws))),
+        p = mod.plan(m, k, n)
+        got = kern(x, wl[0], xs, ws)
+        check(bool(torch.equal(got, ref(x, wl[0], xs, ws))),
               f"{what} at {(m, k, n)} differs from its plain version")
+        split_tc = packed and p.regime == "tc"
+        if split_tc:
+            check(bool(torch.equal(got, kern(x, wl[0], xs, ws,
+                                             regime="splitk"))),
+                  f"W4A8 tc at {(m, k, n)} differs from split-k forced")
+        del got
         runs = [("plain", lambda i: ref(x, wl[i % copies], xs, ws), n_plain),
                 ("kernel", lambda i: kern(x, wl[i % copies], xs, ws),
-                 n_kern),
-                ("kernel_again", lambda i: kern(x, wl[i % copies], xs, ws),
-                 n_kern),
-                ("plain_again", lambda i: ref(x, wl[i % copies], xs, ws),
-                 n_plain)]
-        row = {"copies": copies}
+                 n_kern)]
+        if split_tc:
+            runs += [("splitk", lambda i: kern(
+                x, wl[i % copies], xs, ws, regime="splitk"), n_kern)]
+        runs += [("kernel_again", lambda i: kern(x, wl[i % copies], xs, ws),
+                  n_kern)]
+        if split_tc:
+            runs += [("splitk_again", lambda i: kern(
+                x, wl[i % copies], xs, ws, regime="splitk"), n_kern)]
+        runs += [("plain_again", lambda i: ref(x, wl[i % copies], xs, ws),
+                  n_plain)]
+        row = {"copies": copies, "regime": p.regime}
         if packed:
-            row.update(regime="split-k", splits=W4.plan(m, k, n).splits)
-        else:
+            row["splits"] = p.splits
+        if not packed or split_tc:
             xp = F.pad(x, (0, 0, 0, max(0, 32 - m)))
-            wcol = [w.t().contiguous().t() for w in wl]
-            row["regime"] = W8.plan(m, k, n).regime
-            runs.append(("library", lambda i: torch._int_mm(
-                xp, wcol[i % copies]), n_kern))
+            wcol = [(w if not packed else _qmm_operands(
+                m, k, n, False, 100 + c, device)[1]).t().contiguous().t()
+                for c, w in enumerate(wl)]
+            runs.append(("int_mm_context" if packed else "library",
+                         lambda i: torch._int_mm(xp, wcol[i % copies]),
+                         n_kern))
         for name, fn, count in runs:
             row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(fn,
                                                                     count)
         _best_times(row)
         row.setdefault("best_library_ms", None)
+        if split_tc:
+            sfx = "_ms" if row["timer"] == "profiler" and all(
+                row[f"{key}_ms"] is not None for key in (
+                    "splitk", "splitk_again", "int_mm_context")) \
+                else "_event_ms"
+            row["best_splitk_ms"] = min(row["splitk" + sfx],
+                                        row["splitk_again" + sfx])
+            row["int_mm_context_ms"] = row["int_mm_context" + sfx]
         bound = _bound(mod.cost(m, k, n))
         row.update(bytes=bound["bytes"], bound_ms=bound["bound_ms"],
                    bound_by=bound["bound_by"])
         rows[f"{k}x{n}"] = row
         del x, wl, runs
-        if not packed:
+        if not packed or split_tc:
             del wcol, xp
+    regimes = {r["regime"] for r in rows.values()}
     keys = ("best_kernel_ms", "best_plain_ms", "bound_ms", "bytes") \
-        + (() if packed else ("best_library_ms",))
+        + (() if packed else ("best_library_ms",)) \
+        + (("best_splitk_ms", "int_mm_context_ms")
+           if packed and regimes == {"tc"} else ())
     layer = {key: sum(c * rows[f"{k}x{n}"][key]
                       for (k, n), c in proj.items()) for key in keys}
     layer.setdefault("best_library_ms", None)
@@ -4206,7 +4347,7 @@ def _qmm_layer_timing(device, proj: dict, m: int, packed: bool = False,
     layer.update(bound_by="bytes" if bounds == {"bytes"} else "operations",
                  timer="profiler" if all(r["timer"] == "profiler"
                                          for r in rows.values())
-                 else "mixed", m=m,
+                 else "mixed", m=m, regime="/".join(sorted(regimes)),
                  projections={f"{k}x{n}": c for (k, n), c in proj.items()})
     return {"layer": layer, "shapes": rows}
 
@@ -4452,11 +4593,12 @@ def _cross_counts(cfg) -> dict:
 
 def _product_counts(launches: dict, cfg, want: int, regime: str) -> bool:
     """Whether ``launches`` holds ``want`` products on ``cfg``'s kernel
-    and none on the other: W8A8 all on ``regime`` ("dp4a" or "tc"), or
-    W4A8 (one split-k kernel)."""
+    and none on the other, all on ``regime``: "dp4a" (W8A8's split-k;
+    W4A8's "splitk") or "tc"."""
     if cfg.quant == "w4a8_pow2":
-        return launches["w4a8_matmul"] == want \
-            and launches["w8a8_matmul"] == 0
+        w4 = "splitk" if regime == "dp4a" else regime
+        return launches["w4a8_matmul"] == launches[f"w4a8_matmul_{w4}"] \
+            == want and launches["w8a8_matmul"] == 0
     return launches["w8a8_matmul"] == launches[f"w8a8_matmul_{regime}"] \
         == want and launches["w4a8_matmul"] == 0
 
@@ -6702,6 +6844,8 @@ def main() -> int:
     emit(qtiming)
     qprefill = phase_qmatmul_prefill_timing(device)
     emit(qprefill)
+    w4prefill = phase_w4a8_prefill(device)
+    emit(w4prefill)
     emit(phase_qmatmul_regimes(device))
     model, params, _ = _full_model("w8a8", device)
     batcher = phase_batcher(device, model, params)
@@ -6968,41 +7112,91 @@ def main() -> int:
             "library_ms", "bound_ms")}
             for key in (f"{k}x{n}" for k, n in SSM_TC_SHAPES)},
     })
-    lay = qtiming["w4a8"]["layer"]
+    w4 = "src/repro_torch/kernels/csrc/w4a8_matmul.cu"
+    lay, tc_lay = qtiming["w4a8"]["layer"], w4prefill["layer"]
+    vlm_fwd = cross["vlm_w4a8_prefill"]["launches"]
+    regimes = {
+        "splitk": {"ms": lay["kernel_ms"], "bound_ms": lay["bound_ms"],
+                   "launches": serve["w4a8_pow2"]["launches"][
+                       "w4a8_matmul_splitk"],
+                   "per": f"{per}, the serve run's launches"},
+        "tc": {"ms": tc_lay["best_kernel_ms"],
+               "bound_ms": tc_lay["bound_ms"],
+               "launches": vlm_fwd["w4a8_matmul_tc"],
+               "per": f"one {SERVE_ARCH} layer's 7 projections at m = "
+                      f"{PREFILL_M}, the 100-layer llama-3.2-vision-90b "
+                      "forward's launches"}}
     kernels.append({
         "name": "w4a8_matmul",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/w4a8_matmul.cu",
+        "source": w4,
         "replaces": "src/repro/kernels/w4a8_matmul.py:96",
-        "launches": serve["w4a8_pow2"]["launches"]["w4a8_matmul"],
-        "max_abs_err": qparity["worst"]["w4a8"][0],
-        "max_rel_err": qparity["worst"]["w4a8"][1],
+        "launches": serve["w4a8_pow2"]["launches"]["w4a8_matmul_splitk"],
+        "max_abs_err": qparity["worst"]["w4a8_splitk"][0],
+        "max_rel_err": qparity["worst"]["w4a8_splitk"][1],
         "ms": lay["kernel_ms"],
         "plain_ms": lay["plain_ms"],
         "bound_ms": lay["bound_ms"],
         "bound_by": lay["bound_by"],
         "library_ms": lay["library_ms"],
+        "regime": "splitk",
+        "regimes": regimes,
         "grid": {f"{k}x{n}": {key: qtiming["w4a8"][f"{k}x{n}"][key]
                               for key in ("splits", "blocks")}
                  for k, n in LAYER_PROJ},
         "launches_by_path": {
             f"serve_w4a8_pow2 ({SERVE_ARCH})":
-                serve["w4a8_pow2"]["launches"]["w4a8_matmul"], **qat,
-            roof: roofline["launches"]["w4a8_matmul"],
+                serve["w4a8_pow2"]["launches"]["w4a8_matmul_splitk"], **qat,
+            roof: roofline["launches"]["w4a8_matmul_splitk"],
             **{f"{ph} ({cross[ph]['arch']}, {cross[ph]['n_layers']} "
-               "layers)": cross[ph]["launches"]["w4a8_matmul"]
-               for f in w4_cross for ph in (f + "_serve", f + "_prefill")},
+               "layers)": cross[ph]["launches"]["w4a8_matmul_splitk"]
+               for f in w4_cross for ph in (f + "_serve", f + "_prefill")}},
+        "vlm_layers": {f"{shapes[f]['arch']} m = {SERVE['batch']}":
+                       shapes[f][f"m{SERVE['batch']}"]["layer"]
+                       for f in w4_cross},
+        "per": per + " (split-k regime, m < TC_MIN_M; splits and blocks as "
+                     "the C entry reported its launch; launches: W4A8 "
+                     "serve run; regimes: both, with their launches)",
+    })
+    kernels.append({
+        "name": "w4a8_matmul_tc",
+        "route": "cuda",
+        "source": w4,
+        "replaces": "src/repro/kernels/w4a8_matmul.py:96",
+        "launches": vlm_fwd["w4a8_matmul_tc"],
+        "max_abs_err": qparity["worst"]["w4a8_tc"][0],
+        "max_rel_err": qparity["worst"]["w4a8_tc"][1],
+        "ms": tc_lay["best_kernel_ms"],
+        "plain_ms": tc_lay["best_plain_ms"],
+        "bound_ms": tc_lay["bound_ms"],
+        "bound_by": tc_lay["bound_by"],
+        "library_ms": None,
+        "regime": "tc",
+        "splitk_forced_ms": tc_lay["best_splitk_ms"],
+        "int_mm_context_ms": tc_lay["int_mm_context_ms"],
+        "per": f"one {SERVE_ARCH} layer's 7 projections at m = {PREFILL_M} "
+               f"(int8 wgmma s32.s8.u8, two products a k step; "
+               f"{tc_lay['timer']} time); splitk_forced_ms: the split-k "
+               "kernel on the same inputs; int_mm_context_ms: "
+               "torch._int_mm on int8 weights of the same shapes, context "
+               "only (no PyTorch call computes W4A8); launches: the "
+               "100-layer llama-3.2-vision-90b forward",
+        "launches_by_path": {
+            **{f"{f}_prefill ({cross[f + '_prefill']['arch']}, "
+               f"{cross[f + '_prefill']['n_layers']} layers)":
+               cross[f + "_prefill"]["launches"]["w4a8_matmul_tc"]
+               for f in w4_cross},
             **{f"{f}_serve fill_ctx_caches ({cross[f + '_serve']['arch']})":
-               cross[f + "_serve"]["fill_launches"]["w4a8_matmul"]
-               for f in w4_cross}},
-        "vlm_layers": {f"{shapes[f]['arch']} m = {m}":
-                       shapes[f][f"m{m}"]["layer"] for f in w4_cross
-                       for m in (SERVE["batch"], PREFILL_M)},
+               cross[f + "_serve"]["fill_launches"]["w4a8_matmul_tc"]
+               for f in w4_cross},
+            f"w4a8_prefill ({SERVE_ARCH}, 1 x {PREFILL_M} forward)":
+                w4prefill["launches"]["w4a8_matmul_tc"]},
+        "vlm_layers": {f"{shapes[f]['arch']} m = {PREFILL_M}":
+                       shapes[f][f"m{PREFILL_M}"]["layer"]
+                       for f in w4_cross},
         "context_kv_shapes": {
             f"{cross[f + '_serve']['arch']}": cross[f + "_serve"][
                 "context_kv_timing"]["layer"] for f in w4_cross},
-        "per": per + " (split-k; splits and blocks as the C entry "
-                     "reported its launch; launches: W4A8 serve run)",
     })
     dec = atiming["decode"][str(DECODE_S[0])]
     moe_dec_rows = list(moe_int8kv["decode_timing"].values()) \

@@ -43,7 +43,7 @@ SIGNATURES = {
     },
     "w4a8_matmul": {
         "qappa_w4a8_matmul": (_I, [_P] * 5 + [_I] * 3
-                              + [_P, ctypes.c_longlong] + [_I] * 2
+                              + [_P, ctypes.c_longlong] + [_I] * 3
                               + [_P, _P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },

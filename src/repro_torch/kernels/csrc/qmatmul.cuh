@@ -1,11 +1,14 @@
 // Shared pieces of the two quantized matmul kernels (w8a8_matmul.cu,
-// w4a8_matmul.cu): the block size, masked loads of int8 words, and the
+// w4a8_matmul.cu): the block size, masked loads of int8 words, the
 // split-k block's reduction over its k-slices and meeting of the splits
-// (splitk_finish), which W4A8 uses.
+// (splitk_finish), which W4A8 uses, and the tensor-core regimes' copies
+// of operand tiles into shared memory (copy_tile).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace qmm {
 
@@ -98,6 +101,60 @@ inline dim3 splitk_grid(int m, int k, int n, int row_tile, int splits,
   const int z = (nq + *quads_per_split - 1) / *quads_per_split;
   return dim3((n + kSplitCols - 1) / kSplitCols,
               (m + row_tile - 1) / row_tile, z == splits ? splits : 0);
+}
+
+
+// ------------------------------------------- tensor-core operand tiles
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes at p, of which `valid` are inside the matrix (zero above)
+__device__ __forceinline__ int4 load16(const int8_t* __restrict__ p,
+                                       int valid) {
+  return make_int4(load_word(p, valid, false),
+                   load_word(p + 4, valid - 4, false),
+                   load_word(p + 8, valid - 8, false),
+                   load_word(p + 12, valid - 12, false));
+}
+
+// Rows [row0, +kRows) x bytes [c0, +128) of a (rows, cols) int8 matrix
+// as kRows * 8 chunks of 16 bytes, zero outside it; thread t copies
+// chunks t + 256 j (row (t + 256 j) / 8, chunk t % 8 of the row) to byte
+// 16 (t + 256 j) of the tile, swizzled or not.  kAsync: cp.async (cols %
+// 16 == 0, 16-byte aligned base); else loads and stores, bytewise.
+template <bool kAsync, int kRows = 128>
+__device__ __forceinline__ void copy_tile(uint8_t* tile, bool swizzle,
+                                          const int8_t* __restrict__ src,
+                                          int rows, int cols, int row0,
+                                          int c0) {
+#pragma unroll
+  for (int j = 0; j < kRows / 32; ++j) {
+    const int i = threadIdx.x + 256 * j;
+    const int row = row0 + i / 8, c = c0 + 16 * (i % 8);
+    const uint32_t off = swizzle ? tc::swizzle128(i * 16) : i * 16;
+    const bool in = row < rows && c < cols;
+    const int8_t* p = src + static_cast<size_t>(in ? row : 0) * cols
+                      + (in ? c : 0);
+    if constexpr (kAsync) {
+      cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(tile + off)),
+                 p, in ? 16 : 0);
+    } else {
+      *reinterpret_cast<int4*>(tile + off) = load16(p, in ? cols - c : 0);
+    }
+  }
 }
 
 }  // namespace qmm

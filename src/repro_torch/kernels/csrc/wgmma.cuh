@@ -1,5 +1,5 @@
 // Hopper tensor-core building blocks shared by the kernels that use them
-// (flash_attention_tc.cu, w8a8_matmul.cu): shared-memory matrix
+// (flash_attention_tc.cu, w8a8_matmul.cu, w4a8_matmul.cu): shared-memory matrix
 // descriptors for the 128-byte swizzle, the warpgroup fences, and the
 // asynchronous warpgroup products (wgmma.mma_async) at the shapes those
 // kernels issue.  sm_90a only.
@@ -137,6 +137,32 @@ __device__ __forceinline__ void wgmma_rs_bf16_n64(
         "r"(scale_d));
 }
 
+// The 64 s32 accumulators of an m64n128 integer product as asm operands
+// %0 .. %63, and the register list that names them.
+#define QAPPA_WGMMA_D64_LIST                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                              \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                              \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                              \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                              \
+  " %56, %57, %58, %59, %60, %61, %62, %63}"
+#define QAPPA_WGMMA_D64_OUT(d)                                            \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),             \
+  "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),             \
+  "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),        \
+  "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),        \
+  "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),        \
+  "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),        \
+  "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),        \
+  "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),        \
+  "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),        \
+  "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),        \
+  "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),        \
+  "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),        \
+  "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+
 // D(64x128 s32) (+)= A(64x32 s8, K-major smem) B(32x128 s8, K-major smem)
 __device__ __forceinline__ void wgmma_ss_s8_n128(
     int (&d)[64], uint64_t desc_a, uint64_t desc_b,
@@ -145,29 +171,42 @@ __device__ __forceinline__ void wgmma_ss_s8_n128(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      QAPPA_WGMMA_D64_LIST ", %64, %65, p;\n}\n"
+      : QAPPA_WGMMA_D64_OUT(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
+
+// D(64x128 s32) (+)= A(64x32 s8, K-major smem) B(32x128 u8, K-major smem)
+__device__ __forceinline__ void wgmma_ss_s8u8_n128(
+    int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.u8 "
+      QAPPA_WGMMA_D64_LIST ", %64, %65, p;\n}\n"
+      : QAPPA_WGMMA_D64_OUT(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64x128 s32) (+)= A(64x32 s8, registers) B(32x128 u8, K-major smem).
+// The A fragment is the k16 bf16 one above in bytes: a[0] holds bytes
+// 4 (l % 4) .. + 3 of row l / 4 of the warp's 16, a[1] eight rows below,
+// a[2] and a[3] the same 16 bytes further along k.
+__device__ __forceinline__ void wgmma_rs_s8u8_n128(
+    int (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.u8 "
+      QAPPA_WGMMA_D64_LIST ", {%64, %65, %66, %67}, %68, p;\n}\n"
+      : QAPPA_WGMMA_D64_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+#undef QAPPA_WGMMA_D64_LIST
+#undef QAPPA_WGMMA_D64_OUT
 
 }  // namespace tc

@@ -9,15 +9,21 @@ it is laid out.  Packed row ``p`` holds ``k = 2p`` in the low nibble and
 ``k = 2p + 1`` in the high one; a code is ``sign << 3 | e`` with value
 ``+-2^(e - 7)``.
 
-The C entry runs one split-k kernel for every m, on the grid that
-:func:`plan` gives (W8A8's, ``w8a8_matmul.split_k``): the codes decoded in
-registers into magnitude bytes, ``dp4a`` on the CUDA cores, and k split
-so the card gets at least ``SPLIT_TARGET_BLOCKS`` blocks where k allows;
-the splits add their int32 sums into the persistent zeroed workspace of
-the stream (``kernels/_workspace.py``) and the last block of each output
-tile runs the epilogue and leaves the workspace zeroed.  One launch a
-call; the entry reports its grid, which the wrapper keeps as
-:data:`last_grid`.
+The one C entry runs one of two regimes, which :func:`plan` picks from
+the shape (one launch a call either way; the entry reports its grid,
+which the wrapper keeps as :data:`last_grid`):
+
+* ``"splitk"`` for ``m < TC_MIN_M`` (decode): on W8A8's split grid
+  (``w8a8_matmul.split_k``), the codes decoded in registers into
+  magnitude bytes, ``dp4a`` on the CUDA cores, and k split so the card
+  gets at least ``SPLIT_TARGET_BLOCKS`` blocks where k allows; the splits
+  add their int32 sums into the persistent zeroed workspace of the
+  stream (``kernels/_workspace.py``) and the last block of each output
+  tile runs the epilogue and leaves the workspace zeroed;
+* ``"tc"`` for ``m >= TC_MIN_M`` (prefill): the int8 tensor cores
+  (``wgmma`` s32.s8.u8, two products a k step), 128 x 128 output tiles,
+  each packed tile decoded in shared memory into the magnitude tiles the
+  products read.
 
 It sums the integers ``+-(x_q << e)`` exactly in int32 and computes
 ``out = ((float(acc) * 2^-7) * x_scale) * w_scale``.  The plain version
@@ -35,25 +41,51 @@ import functools
 
 import torch
 
-from repro_torch.kernels.w8a8_matmul import (Plan, check_operands,
+from repro_torch.kernels.w8a8_matmul import (TC_TILE, Plan, check_operands,
                                              launch_planned, split_k)
 from repro_torch.kernels.w8a8_matmul import cost as w8a8_cost
 from repro_torch.quant.quantizers import POW2_EXP_BIAS, unpack_int4
 
-#: kernel launches since the counter was last set to 0
+#: m from which the tensor-core regime runs; below it split-k.  Measured
+#: on a phi4-mini and a llama-3.2-vision-90b layer on an H100, weights
+#: read cold (chip_smoke.py phase qmatmul_regimes): below 129 rows the tc
+#: grid has only n / 128 blocks, so split-k stays faster on phi4 up to
+#: m = 48 and tc is faster from 64; on llama tc is faster from m = 24
+TC_MIN_M = 64
+REGIMES = ("splitk", "tc")
+
+#: kernel launches since the counters were last set to 0: all of them,
+#: and each regime's
 launches = 0
+launches_splitk = 0
+launches_tc = 0
 #: the grid of the last launch as the C entry reported it: (columns /
 #: 128, row tiles, splits)
 last_grid = None
 _Info = ctypes.c_int * 3
 
 
+def plan(m: int, k: int, n: int, regime: str | None = None) -> Plan:
+    """The regime, row tile and split count for an ``(m, k) x (k, n)``
+    product (``k / 2`` packed rows).
+
+    ``m >= TC_MIN_M``: the tensor cores, one block a 128 x 128 tile.
+    Else split-k on the grid of
+    :func:`~repro_torch.kernels.w8a8_matmul.split_k`.  ``regime``
+    ("splitk" or "tc") forces one whatever m is.
+    """
+    if regime is None:
+        regime = "tc" if m >= TC_MIN_M else "splitk"
+    elif regime not in REGIMES:
+        raise ValueError(f"w4a8_matmul: regime {regime!r} not in {REGIMES}")
+    return _plan(regime, m, k, n)
+
+
 @functools.lru_cache(maxsize=1024)
-def plan(m: int, k: int, n: int) -> Plan:
-    """The row tile and split count for an ``(m, k) x (k, n)`` product
-    (``k / 2`` packed rows), on the grid of
-    :func:`~repro_torch.kernels.w8a8_matmul.split_k` (cached: a decode
-    step asks for the same few shapes every layer)."""
+def _plan(regime: str, m: int, k: int, n: int) -> Plan:
+    # cached: a decode step asks for the same few shapes every layer
+    if regime == "tc":
+        return Plan("tc", 1, TC_TILE, 0)
     return Plan("splitk", *split_k(m, k, n))
 
 
@@ -86,17 +118,23 @@ def w4a8_matmul_ref(x_q: torch.Tensor, w_packed: torch.Tensor,
 
 def w4a8_matmul(x_q: torch.Tensor, w_packed: torch.Tensor,
                 x_scale: torch.Tensor, w_scale: torch.Tensor, *,
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32,
+                regime: str | None = None) -> torch.Tensor:
     """The CUDA kernel: x_q (m, k) int8 with k even, w_packed (k/2, n)
     int8, x_scale one float32, w_scale n float32, on one CUDA device; the
-    regime and split-k workspace as :func:`plan` says."""
-    global launches, last_grid
+    regime and split-k workspace as :func:`plan` says (``regime`` forces
+    one, for timing and tests)."""
+    global launches, launches_splitk, launches_tc, last_grid
     m, k, n = check_operands("w4a8_matmul", x_q, w_packed, x_scale,
                              w_scale, packed=True)
+    p = plan(m, k, n, regime)
     info = _Info()
-    out = launch_planned("w4a8_matmul", "qappa_w4a8_matmul", None,
-                         plan(m, k, n), x_q, w_packed, x_scale, w_scale,
-                         m, k, n, info)
+    out = launch_planned("w4a8_matmul", "qappa_w4a8_matmul", p, x_q,
+                         w_packed, x_scale, w_scale, m, k, n, info)
     last_grid = tuple(info)
     launches += 1
+    if p.regime == "tc":
+        launches_tc += 1
+    else:
+        launches_splitk += 1
     return out if out_dtype == torch.float32 else out.to(out_dtype)

@@ -47,6 +47,7 @@ MAX_K = 2 ** 17 - 1
 #: regime.  Measured on a phi4 layer on an H100 (chip_smoke.py phase
 #: qmatmul_regimes): dp4a faster at m = 16, the tensor cores from m = 24
 TC_MIN_M = 17
+REGIMES = ("dp4a", "tc")
 #: blocks the dp4a regime aims for: two per SM of an H100 (132 SMs)
 SPLIT_TARGET_BLOCKS = 264
 #: least k a split walks (4 k to a quad)
@@ -94,15 +95,24 @@ def split_k(m: int, k: int, n: int) -> tuple[int, int, int]:
     return splits, row_tile, m * n + tiles if splits > 1 else 0
 
 
-@functools.lru_cache(maxsize=1024)
-def plan(m: int, k: int, n: int) -> Plan:
-    """The regime and split count for an ``(m, k) x (k, n)`` product
-    (cached: a decode step asks for the same few shapes every layer).
+def plan(m: int, k: int, n: int, regime: str | None = None) -> Plan:
+    """The regime and split count for an ``(m, k) x (k, n)`` product.
 
     ``m >= TC_MIN_M``: the tensor cores, one block a 128 x 128 tile.
-    Else dp4a on the grid of :func:`split_k`.
+    Else dp4a on the grid of :func:`split_k`.  ``regime`` ("dp4a" or
+    "tc") forces one whatever m is.
     """
-    if m >= TC_MIN_M:
+    if regime is None:
+        regime = "tc" if m >= TC_MIN_M else "dp4a"
+    elif regime not in REGIMES:
+        raise ValueError(f"w8a8_matmul: regime {regime!r} not in {REGIMES}")
+    return _plan(regime, m, k, n)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(regime: str, m: int, k: int, n: int) -> Plan:
+    # cached: a decode step asks for the same few shapes every layer
+    if regime == "tc":
         return Plan("tc", 1, TC_TILE, 0)
     return Plan("dp4a", *split_k(m, k, n))
 
@@ -202,40 +212,40 @@ def launch_qmatmul(lib_name: str, fn_name: str, x_q: torch.Tensor,
     return out
 
 
-def launch_planned(lib_name: str, fn_name: str, regime: int | None,
-                   p: Plan, x_q: torch.Tensor, w: torch.Tensor,
-                   x_scale: torch.Tensor, w_scale: torch.Tensor, m: int,
-                   k: int, n: int, info=None) -> torch.Tensor:
+def launch_planned(lib_name: str, fn_name: str, p: Plan, x_q: torch.Tensor,
+                   w: torch.Tensor, x_scale: torch.Tensor,
+                   w_scale: torch.Tensor, m: int, k: int, n: int,
+                   info=None) -> torch.Tensor:
     """:func:`launch_qmatmul` with a plan's C arguments: the stream's
     split-k workspace (when ``p.splits > 1``) and its length, the regime's
-    number in the C entry (None: the entry takes none), the row tile and
-    the split count, then ``info`` (a ctypes int array the entry reports
-    its launch in) where given."""
+    number in the C entry (1 for "tc", 0 for the split-k regime), the row
+    tile and the split count, then ``info`` (a ctypes int array the entry
+    reports its launch in) where given."""
     stream = buf = None
     if x_q.is_cuda:
         stream = current_stream(x_q.device)
         if p.splits > 1:
             buf = workspace(x_q.device, p.workspace, stream)
-    extra = ((buf, 0 if buf is None else buf.numel())
-             + (() if regime is None else (regime,))
-             + (p.row_tile, p.splits) + (() if info is None else (info,)))
+    extra = ((buf, 0 if buf is None else buf.numel(),
+              int(p.regime == "tc"), p.row_tile, p.splits)
+             + (() if info is None else (info,)))
     return launch_qmatmul(lib_name, fn_name, x_q, w, x_scale, w_scale, m, k,
                           n, extra, stream)
 
 
 def w8a8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
-                w_scale: torch.Tensor, *,
-                out_dtype=torch.float32) -> torch.Tensor:
+                w_scale: torch.Tensor, *, out_dtype=torch.float32,
+                regime: str | None = None) -> torch.Tensor:
     """The CUDA kernel: x_q (m, k) int8, w_q (k, n) int8, x_scale one
     float32, w_scale n float32 (any shape), all on one CUDA device; the
-    regime and split-k workspace as :func:`plan` says."""
+    regime and split-k workspace as :func:`plan` says (``regime`` forces
+    one, for timing and tests)."""
     global launches, launches_dp4a, launches_tc
     m, k, n = check_operands("w8a8_matmul", x_q, w_q, x_scale, w_scale,
                              packed=False)
-    p = plan(m, k, n)
-    out = launch_planned("w8a8_matmul", "qappa_w8a8_matmul",
-                         int(p.regime == "tc"), p, x_q, w_q, x_scale,
-                         w_scale, m, k, n)
+    p = plan(m, k, n, regime)
+    out = launch_planned("w8a8_matmul", "qappa_w8a8_matmul", p, x_q, w_q,
+                         x_scale, w_scale, m, k, n)
     launches += 1
     if p.regime == "tc":
         launches_tc += 1

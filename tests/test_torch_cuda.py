@@ -873,16 +873,17 @@ def test_w8a8_entry_refuses_a_plan_it_cannot_hold(cuda_device):
     assert not short.any()
 
 
-# --------------------------------------- W4A8 split-k (redesign)
+# --------------------------------------- W4A8 split-k and tc
 
-def _w4a8_launch(ops, m, k, n, buf, row_tile, splits):
-    """The W4A8 C entry with an explicit row tile and split count; checks
-    that the entry reports that launch's grid (columns / 128, row tiles,
-    splits)."""
+def _w4a8_launch(ops, m, k, n, buf, row_tile, splits, regime=0):
+    """The W4A8 C entry with an explicit regime (0 split-k, 1 tc), row
+    tile and split count; checks that the entry reports that launch's
+    grid (columns / 128, row tiles, splits)."""
     info = (ctypes.c_int * 3)(-1, -1, -1)
     out = W8.launch_qmatmul(
         "w4a8_matmul", "qappa_w4a8_matmul", *ops, m, k, n,
-        (buf, 0 if buf is None else buf.numel(), row_tile, splits, info))
+        (buf, 0 if buf is None else buf.numel(), regime, row_tile, splits,
+         info))
     assert list(info) == [-(-n // 128), -(-m // row_tile), splits]
     return out
 
@@ -944,20 +945,73 @@ def test_w4a8_split_k_on_ragged_shapes(cuda_device, seed):
                                    (64, 3072, 1024), (700, 1026, 333),
                                    (4096, 8192, 3072)])
 def test_w4a8_split_k_above_16_rows(cuda_device, m, k, n):
-    """Ragged and prefill m on 16-row tiles, split or not as the plan
-    says: bit for bit the plain version, with the grid the plan gives."""
+    """Ragged and prefill m forced onto the split-k regime, 16-row tiles,
+    split or not as its plan says: bit for bit the plain version, with
+    the grid that plan gives."""
     ops = _qmm_operands(m, k, n, 2, m + k, cuda_device)
-    p = W4.plan(m, k, n)
-    got = OPS.w4a8_matmul(*ops, impl="kernel")
+    p = W4.plan(m, k, n, "splitk")
+    before = (W4.launches_splitk, W4.launches_tc)
+    got = W4.w4a8_matmul(*ops, regime="splitk")
+    assert (W4.launches_splitk, W4.launches_tc) == (before[0] + 1, before[1])
     assert W4.last_grid == (-(-n // 128), -(-m // 16), p.splits)
     assert torch.equal(got, OPS.w4a8_matmul(*ops, impl="ref"))
 
 
 @pytest.mark.cuda
-def test_w4a8_all_plus_and_minus_128_at_k_8192(cuda_device):
+@pytest.mark.parametrize("seed", range(6))
+def test_w4a8_tc_equals_plain_on_ragged_and_unaligned_shapes(cuda_device,
+                                                             seed):
+    """The tc regime from TC_MIN_M rows, through the wrapper: ragged m,
+    k = 2 mod 4 or a multiple of 16, n of any residue, and (odd seeds) x
+    and the codes off 16-byte alignment, which take the template without
+    cp.async; bit for bit the plain version, one tc launch, a 128 x 128
+    grid."""
+    rng = np.random.default_rng(1300 + seed)
+    m = int(rng.integers(W4.TC_MIN_M, 701))
+    k = 4 * int(rng.integers(1, 1500)) + 2 if seed % 3 else \
+        16 * int(rng.integers(1, 400))
+    n = int(rng.integers(1, 3000)) if seed % 2 else \
+        16 * int(rng.integers(1, 200))
+    x, w, xs, ws = _qmm_operands(m, k, n, 2, 1300 + seed, cuda_device)
+    if seed % 2:                # one byte past a 16-byte boundary
+        xb = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda_device)
+        wb = torch.empty(w.numel() + 1, dtype=torch.int8, device=cuda_device)
+        x = xb[1:].view(m, k).copy_(x)
+        w = wb[1:].view(k // 2, n).copy_(w)
+    assert W4.plan(m, k, n).regime == "tc"
+    before = (W4.launches_splitk, W4.launches_tc)
+    got = OPS.w4a8_matmul(x, w, xs, ws, impl="kernel")
+    assert (W4.launches_splitk, W4.launches_tc) == (before[0], before[1] + 1)
+    assert W4.last_grid == (-(-n // 128), -(-m // 128), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, OPS.w4a8_matmul(x, w, xs, ws, impl="ref")), \
+        (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 3072, 1024), (16, 1026, 999),
+                                   (17, 8192, 3072), (300, 4098, 130),
+                                   (4096, 3072, 8192)])
+def test_w4a8_both_regimes_through_the_entry_agree(cuda_device, m, k, n):
+    """One input through the C entry twice, the tc regime and split-k on
+    its own plan, at decode and prefill m: equal outputs, equal to the
+    plain version."""
+    ops = _qmm_operands(m, k, n, 2, 1400 + m, cuda_device)
+    p = W4.plan(m, k, n, "splitk")
+    buf = WS.workspace(cuda_device, p.workspace) if p.splits > 1 else None
+    split = _w4a8_launch(ops, m, k, n, buf, p.row_tile, p.splits, 0)
+    tc = _w4a8_launch(ops, m, k, n, None, 128, 1, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(tc, split), (m, k, n)
+    assert torch.equal(tc, OPS.w4a8_matmul(*ops, impl="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["splitk", "tc"])
+def test_w4a8_all_plus_and_minus_128_at_k_8192(cuda_device, regime):
     """Every code +128 (0x77) or every code -128 (0xff): the magnitude that
-    does not fit a signed byte, at the longest phi4 k.  x rows of 127, of
-    -128 and random: |sum| <= 128 * 128 * 8192 = 2^27."""
+    does not fit a signed byte, at the longest phi4 k, in each regime.  x
+    rows of 127, of -128 and random: |sum| <= 128 * 128 * 8192 = 2^27."""
     m, k, n = 4, 8192, 3072
     rng = np.random.default_rng(5)
     x = rng.integers(-128, 128, (m, k), dtype=np.int8)
@@ -969,7 +1023,7 @@ def test_w4a8_all_plus_and_minus_128_at_k_8192(cuda_device):
     for byte, sign in ((0x77, 1), (-1, -1)):           # 0xff as int8
         w = torch.full((k // 2, n), byte, dtype=torch.int8,
                        device=cuda_device)
-        got = OPS.w4a8_matmul(xt, w, xs, ws, impl="kernel")
+        got = W4.w4a8_matmul(xt, w, xs, ws, regime=regime)
         want = OPS.w4a8_matmul(xt, w, xs, ws, impl="ref")
         torch.cuda.synchronize()
         assert torch.equal(got, want), sign
@@ -1008,11 +1062,32 @@ def test_w4a8_split_k_on_two_streams_at_once(cuda_device):
 
 
 @pytest.mark.cuda
+def test_w4a8_tc_on_two_streams_at_once(cuda_device):
+    """tc products queued on two streams together: both equal the plain
+    version, call after call."""
+    m, k, n = 512, 3072, 1024
+    assert W4.plan(m, k, n).regime == "tc"
+    ops = [_qmm_operands(m, k, n, 2, 1160 + i, cuda_device)
+           for i in range(2)]
+    wants = [OPS.w4a8_matmul(*o, impl="ref") for o in ops]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(10):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                gots[i].append(OPS.w4a8_matmul(*ops[i], impl="kernel"))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, wants[i]) for g in gots[i]), i
+
+
+@pytest.mark.cuda
 def test_w4a8_entry_refuses_a_plan_it_cannot_hold(cuda_device):
     """The C entry checks what the planner hands it: a workspace shorter
     than its grid's sums and counters, a row tile it has no kernel for,
-    or a split count that leaves a split empty fails the launch instead of
-    writing past the buffer."""
+    a split count that leaves a split empty, a split tc plan or an
+    unknown regime fails the launch instead of writing past the buffer."""
     m, k, n = 4, 3072, 1024
     p = W4.plan(m, k, n)
     assert p.regime == "splitk" and p.splits > 1
@@ -1022,13 +1097,48 @@ def test_w4a8_entry_refuses_a_plan_it_cannot_hold(cuda_device):
     full = WS.workspace(cuda_device, p.workspace)
     nq = k // 4
     empty = next(s for s in range(2, nq) if s not in _valid_splits(k))
-    for buf, row_tile, splits in (
-            (short, p.row_tile, p.splits), (full, 5, p.splits),
-            (full, 32, 1), (None, p.row_tile, p.splits),
-            (full, p.row_tile, empty)):
+    for buf, row_tile, splits, regime in (
+            (short, p.row_tile, p.splits, 0), (full, 5, p.splits, 0),
+            (full, 32, 1, 0), (None, p.row_tile, p.splits, 0),
+            (full, p.row_tile, empty, 0), (None, 128, 2, 1),
+            (None, 16, 1, 1), (None, 128, 1, 2)):
         with pytest.raises(RuntimeError, match="launch failed"):
-            _w4a8_launch(ops, m, k, n, buf, row_tile, splits)
+            _w4a8_launch(ops, m, k, n, buf, row_tile, splits, regime)
     assert not short.any()
+
+
+@pytest.mark.cuda
+def test_w4a8_wrapper_raises_and_does_not_fall_back(cuda_device,
+                                                    monkeypatch, tmp_path):
+    """An error the entry reports, or a failed build, raises from the
+    wrapper in the tc regime: no output, no launch counted, no other
+    route taken."""
+    from repro_torch.kernels import _build
+    ops = _qmm_operands(64, 256, 128, 2, 8, cuda_device)
+    assert W4.plan(64, 256, 128).regime == "tc"
+
+    class Refusing:
+        @staticmethod
+        def qappa_w4a8_matmul(*args):
+            return 1                              # cudaErrorInvalidValue
+
+        @staticmethod
+        def qappa_error_string(code):
+            return b"invalid argument"
+    before = (W4.launches, W4.launches_tc, W4.launches_splitk)
+    with monkeypatch.context() as mp:
+        mp.setitem(_build._LIBS, "w4a8_matmul", Refusing())
+        with pytest.raises(RuntimeError, match="launch failed"):
+            OPS.w4a8_matmul(*ops, impl="kernel")
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "w4a8_matmul.cu").write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "SOURCE_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        OPS.w4a8_matmul(*ops, impl="kernel")
+    assert (W4.launches, W4.launches_tc, W4.launches_splitk) == before
 
 
 # ------------------------------------------------------------ attention

@@ -163,14 +163,14 @@ def test_matmul_libraries_hash_their_shared_header(name, monkeypatch,
                                                    tmp_path):
     """Each matmul source has a bound C entry point, and its library name
     changes when the shared header changes (no stale build loads).  Both
-    entries also take their split-k workspace and its length, the row tile
-    and the split count, W8A8's also its regime; the W4A8 entry reports
-    the grid it launched."""
+    entries also take their split-k workspace and its length, the regime,
+    the row tile and the split count; the W4A8 entry reports the grid it
+    launched."""
     import shutil
     from repro_torch.kernels import _build
     fn = f"qappa_{name}"
     assert fn in _build.SIGNATURES[name]
-    n_args = {"w8a8_matmul": 14, "w4a8_matmul": 14}[name]
+    n_args = {"w8a8_matmul": 14, "w4a8_matmul": 15}[name]
     assert len(_build.SIGNATURES[name][fn][1]) == n_args
     before = _build.library_path(name)
     assert before.name.startswith(f"{name}-")

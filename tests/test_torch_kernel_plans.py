@@ -5,9 +5,12 @@
   every phi4-mini projection shape; the tensor-core regime from
   ``TC_MIN_M`` on; splits that cover k with none empty; the workspace
   sizes it states; the persistent zeroed workspace.
-* The W4A8 planner (``kernels/w4a8_matmul.plan``): the same split rule
-  (``w8a8_matmul.split_k``) at every m, splits in whole quads of 4 k
-  (so a packed pair of codes is never cut), 16-row tiles above m = 8.
+* The W4A8 planner (``kernels/w4a8_matmul.plan``): below its
+  ``TC_MIN_M`` the same split rule as W8A8 (``w8a8_matmul.split_k``),
+  splits in whole quads of 4 k (so a packed pair of codes is never cut),
+  the decode shapes' grids pinned; from ``TC_MIN_M`` on the tensor cores,
+  one 128 x 128 tile a block; split-k forced above 16 rows on 16-row
+  tiles.
 * The W4A8 split-k kernel's arithmetic (``csrc/w4a8_matmul.cu``): a
   plain-torch emulation of its decode (PTX ``prmt`` with its sign
   replication, the magnitude bytes and the sign mask) over every pair of
@@ -15,6 +18,16 @@
   ``_decode_pow2_block`` x 2^7, +128 and -128 included; its split-k sum
   (``x.pos + (~x).neg + sum(neg)`` per split) equals the plain version bit
   for bit, and the JAX reference and Pallas kernel within their bound.
+* The W4A8 tc kernel's arithmetic (``csrc/w4a8_matmul.cu``,
+  ``w4a8_tc_kernel``): a plain-torch emulation of its ``decode_tile``
+  (which thread writes which swizzled chunk of the K-major ``pos`` and
+  ``neg`` tiles) over tiles holding every code byte equals
+  ``pow2_integers`` and the JAX ``_decode_pow2_block`` x 2^7; the
+  register fragment of ``~x`` that each thread loads from the swizzled x
+  tile is ``~x`` in the wgmma A layout; the k32-step sum ``x.pos +
+  (~x).neg`` over 128-k tiles plus each column's ``sum(neg)`` equals the
+  plain version bit for bit over ragged k, and the JAX reference and
+  Pallas kernel within their bound.
 * The bf16 flash kernel's rounding (``csrc/flash_attention_tc.cu``): the
   tensor cores take P in bf16 per 64-key tile, ``l`` sums the rounded
   values, the softmax runs in base 2.  A plain-torch emulation of that
@@ -46,6 +59,8 @@ from repro_torch.kernels import w8a8_matmul as W8
 
 # phi4-mini-3.8b's projections: (k, n) of q/o, k/v, gate/up, down
 PHI4_PROJ = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
+# llama-3.2-vision-90b's: q/o, k/v (and context_kv), gate/up, down
+LLAMA_PROJ = ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))
 H100_SMS = 132
 BF16_TOL = 2e-2
 
@@ -77,6 +92,17 @@ def test_plan_takes_the_tensor_cores_from_the_threshold(m):
         assert p.workspace == 0
         assert p.row_tile == 128
     assert W8.plan(W8.TC_MIN_M - 1, 3072, 3072).regime == "dp4a"
+
+
+@pytest.mark.parametrize("m", [1, 4, W8.TC_MIN_M, 4096])
+def test_plan_forces_either_regime_whatever_m(m):
+    """``regime`` forces W8A8's regime, on the grid that regime plans
+    from its own threshold; an unknown one is refused."""
+    for k, n in PHI4_PROJ:
+        assert W8.plan(m, k, n, "tc") == ("tc", 1, W8.TC_TILE, 0)
+        assert W8.plan(m, k, n, "dp4a") == ("dp4a", *W8.split_k(m, k, n))
+    with pytest.raises(ValueError, match="regime"):
+        W8.plan(m, 64, 64, "splitk")
 
 
 @pytest.mark.parametrize("seed", range(8))
@@ -150,6 +176,21 @@ def test_w4a8_plan_splits_k_on_the_phi4_decode_shapes(m, k, n):
     assert _w4_grid(p, m, n)[1] >= 2 * H100_SMS
 
 
+@pytest.mark.parametrize("k,n,splits,blocks", [
+    (3072, 3072, 12, 288), (3072, 1024, 34, 272), (3072, 8192, 6, 384),
+    (8192, 3072, 12, 288)])
+def test_w4a8_decode_grids_are_unchanged(k, n, splits, blocks):
+    """The m = 4 plans of the phi4 shapes: the split-k grids that the
+    decode step has launched since the split-k kernel came (PERF.md's
+    splits and blocks), W8A8's split rule, whatever regime the wrapper
+    is forced to elsewhere."""
+    p = W4.plan(4, k, n)
+    assert p == W4.plan(4, k, n, "splitk") == ("splitk", *W8.split_k(4, k, n))
+    assert (p.splits, p.row_tile) == (splits, 4)
+    assert _w4_grid(p, 4, n)[1] == blocks
+    assert p.workspace == 4 * n + math.ceil(n / 128)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_w4a8_plan_splits_cover_k_in_whole_quads(seed):
     """Every split but the last walks ceil(quads / splits) quads of 4 k,
@@ -159,7 +200,7 @@ def test_w4a8_plan_splits_cover_k_in_whole_quads(seed):
     grid is W8A8's."""
     rng = np.random.default_rng(40 + seed)
     for i in range(60):
-        m = int(rng.integers(1, W8.TC_MIN_M))
+        m = int(rng.integers(1, min(W4.TC_MIN_M, W8.TC_MIN_M)))
         k = 4 * int(rng.integers(1, 5000)) + (2 if i % 2 else 0)
         n = int(rng.integers(1, 9000))
         p = W4.plan(m, k, n)
@@ -176,24 +217,49 @@ def test_w4a8_plan_splits_cover_k_in_whole_quads(seed):
 
 @pytest.mark.parametrize("m", [W8.TC_MIN_M, 64, 700, 4096])
 def test_w4a8_plan_above_16_rows_is_split_k_on_16_row_tiles(m):
-    """Prefill and ragged m take the same split-k grid, 16 rows a block:
-    at least two blocks an SM on every phi4 shape, and no split where the
-    tiles alone fill the card (m = 4096)."""
+    """Split-k forced on prefill and ragged m takes the same split-k grid,
+    16 rows a block: at least two blocks an SM on every phi4 shape, and
+    no split where the tiles alone fill the card (m = 4096)."""
     for k, n in PHI4_PROJ:
-        p = W4.plan(m, k, n)
+        p = W4.plan(m, k, n, "splitk")
         assert p == ("splitk", *W8.split_k(m, k, n)) and p.row_tile == 16
         assert _w4_grid(p, m, n)[1] >= 2 * H100_SMS
         assert p.splits > 1 or _w4_grid(p, m, n)[0] >= 2 * H100_SMS
-    assert m < 4096 or W4.plan(m, 3072, 3072).splits == 1
+    assert m < 4096 or W4.plan(m, 3072, 3072, "splitk").splits == 1
+
+
+@pytest.mark.parametrize("m", [W4.TC_MIN_M, W4.TC_MIN_M + 1, 64, 128, 700,
+                               4 * 1601, 4096])
+def test_w4a8_plan_takes_the_tensor_cores_from_its_threshold(m):
+    """From W4A8's own TC_MIN_M on (prefill, the context fill's 4 x 1601
+    rows), every phi4 and llama-3.2-vision shape runs on the tensor
+    cores: one block a 128 x 128 tile, k unsplit, no workspace; below it
+    (W8A8's tensor-core m included) split-k on W8A8's split grid."""
+    for k, n in PHI4_PROJ + LLAMA_PROJ:
+        p = W4.plan(m, k, n)
+        assert p == ("tc", 1, 128, 0)
+        assert p.row_tile == W8.TC_TILE
+        for below in (W8.TC_MIN_M, W4.TC_MIN_M // 2, W4.TC_MIN_M - 1):
+            assert W4.plan(below, k, n) == ("splitk",
+                                            *W8.split_k(below, k, n))
+
+
+def test_w4a8_plan_refuses_an_unknown_regime():
+    assert W4.plan(4, 64, 64, "tc").regime == "tc"
+    with pytest.raises(ValueError, match="regime"):
+        W4.plan(4, 64, 64, "dp4a")
 
 
 def test_the_w4a8_wrapper_refuses_cpu_tensors_with_its_counters_unmoved():
     x = torch.zeros((4, 64), dtype=torch.int8)
     w = torch.zeros((32, 32), dtype=torch.int8)
-    before = (W4.launches, W4.last_grid)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        W4.w4a8_matmul(x, w, torch.ones(()), torch.ones(32))
-    assert (W4.launches, W4.last_grid) == before
+    before = (W4.launches, W4.launches_splitk, W4.launches_tc, W4.last_grid)
+    for regime in (None, "splitk", "tc"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            W4.w4a8_matmul(x, w, torch.ones(()), torch.ones(32),
+                           regime=regime)
+    assert (W4.launches, W4.launches_splitk, W4.launches_tc,
+            W4.last_grid) == before
 
 
 # ------------------------------- W4A8 split-k: the kernel's arithmetic
@@ -349,6 +415,193 @@ def test_splitk_emulation_close_to_the_jax_reference_and_pallas(m, k, n):
     got = splitk_emulation(*t, splits).numpy()
     for want in (R_ref.w4a8_matmul_ref(xq, wq, xs, ws),
                  R_w4a8(xq, wq, xs, ws, bm=8, bn=16, bk=32,
+                        interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    assert np.array_equal(got, W4.w4a8_matmul_ref(*t).numpy())
+
+
+# ---------------------------------- W4A8 tc: the kernel's arithmetic
+
+TK, TKP, TN = 128, 64, 128      # the tc tile: k, packed rows, columns
+
+
+def swizzle128(off):
+    """``tc::swizzle128``: chunk bits 4-6 of a byte offset XOR its row's
+    low three bits (bits 7-9)."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def decode_tile_emulation(raw):
+    """The kernel's ``decode_tile``: a packed tile ``(64, 128)`` of bytes
+    -> the pos and neg tiles as shared memory holds them, 16384 bytes
+    each, and how many times each byte was written.  Thread (warp, lane)
+    reads packed rows 8 warp .. + 7 of columns 4 lane .. + 3 a word a row;
+    store s decodes column 4 lane + (s + lane / 2) % 4 and writes its 16
+    k bytes (quads 4 warp .. + 3) at the swizzled chunk of column row
+    ``col``, chunk ``warp``."""
+    b = torch.as_tensor(raw, dtype=torch.int64) & 0xFF
+    words = (b.reshape(TKP, 32, 4) << torch.tensor([0, 8, 16, 24])).sum(-1)
+    # axes: store s, quad g, warp, lane, byte j
+    st = torch.arange(4)[:, None, None, None]
+    g = torch.arange(4)[None, :, None, None]
+    warp = torch.arange(8)[None, None, :, None]
+    lane = torch.arange(32)[None, None, None, :]
+    c = (st + ((lane >> 1) & 3)) & 3
+    w0 = words[8 * warp + 2 * g, lane]
+    w1 = words[8 * warp + 2 * g + 1, lane]
+    at = (swizzle128((4 * lane + c) * TK + 16 * warp) + 4 * g)[..., None] \
+        + torch.arange(4)
+    tiles = []
+    for word in decode_pow2(w0, w1, c):
+        tile = torch.zeros(TN * TK, dtype=torch.int64)
+        tile[at.reshape(-1)] = ((word[..., None] >> (8 * torch.arange(4)))
+                                & 0xFF).reshape(-1)
+        tiles.append(tile)
+    writes = torch.bincount(at.reshape(-1), minlength=TN * TK) * 2
+    return tiles[0], tiles[1], writes
+
+
+def k_major(tile):
+    """A swizzled 128 x 128 shared-memory tile -> (rows, k bytes)."""
+    off = torch.arange(TN)[:, None] * TK + torch.arange(TK)[None, :]
+    return tile[swizzle128(off)]
+
+
+def not_x_fragments(x_smem):
+    """``~x`` as each thread of the tc block loads it: the swizzled x tile
+    (128 rows of 128 k bytes) read at the kernel's offsets, word nx[kk][i]
+    of thread t, reassembled at the place the wgmma A fragment gives it
+    (warp w of warpgroup wg: rows 64 wg + 16 w + l / 4 (+ 8 for odd i),
+    bytes 32 kk + 4 (l % 4) (+ 16 for i >= 2))."""
+    got = torch.full((128, TK), -1, dtype=torch.int64)
+    for t in range(256):
+        wg, warp, lane = t // 128, (t % 128) // 32, t % 32
+        frag = (wg * 64 + warp * 16 + lane // 4) * TK + 4 * (lane % 4)
+        for kk in range(4):
+            for i in range(4):
+                at = swizzle128(frag + 8 * TK * (i & 1) + 32 * kk
+                                + 16 * (i >> 1))
+                word = ~x_smem[at:at + 4] & 0xFF
+                row = 64 * wg + 16 * warp + lane // 4 + 8 * (i & 1)
+                k0 = 32 * kk + 4 * (lane % 4) + 16 * (i >> 1)
+                got[row, k0:k0 + 4] = word
+    return got
+
+
+def tc_emulation(x_q, w_packed, x_scale, w_scale):
+    """The tc kernel in plain torch: x and the codes cut into 128 x 128
+    output tiles and 128-k tiles, zero past m, k and n (the masked
+    copies); each packed tile decoded as ``decode_tile`` does, each k32
+    step adding ``x.pos + (~x).neg`` into one int32 accumulator, each
+    column's ``sum(neg)`` gathered over the tiles and added once; then
+    ``((float(acc) * 2^-7) * x_scale) * w_scale``."""
+    m, k = x_q.shape
+    n = w_packed.shape[1]
+    nk, nt = -(-k // TK), -(-n // TN)
+    xp = torch.nn.functional.pad(x_q.to(torch.int64), (0, nk * TK - k))
+    wp = torch.nn.functional.pad(w_packed.to(torch.int64),
+                                 (0, nt * TN - n, 0, nk * TKP - k // 2))
+    acc = torch.zeros((m, nt * TN), dtype=torch.int64)
+    for ct in range(nt):
+        cols = slice(ct * TN, (ct + 1) * TN)
+        col_neg = torch.zeros(TN, dtype=torch.int64)
+        for t in range(nk):
+            pos, neg, _ = decode_tile_emulation(
+                wp[t * TKP:(t + 1) * TKP, cols])
+            pos, neg = k_major(pos), k_major(neg)
+            col_neg += neg.sum(1)
+            for kk in range(TK // 32):
+                ks = slice(t * TK + 32 * kk, t * TK + 32 * kk + 32)
+                xs = xp[:, ks]
+                acc[:, cols] += (xs @ pos[:, 32 * kk:32 * kk + 32].T
+                                 + ~xs @ neg[:, 32 * kk:32 * kk + 32].T)
+        acc[:, cols] += col_neg
+    acc = acc[:, :n]
+    assert int(acc.abs().max()) < 2 ** 31
+    out = acc.to(torch.int32).to(torch.float32) * 2.0 ** -7
+    return out * x_scale * w_scale
+
+
+def test_tc_decode_tile_equals_the_reference_decode_on_every_code():
+    """Tiles whose bytes run through all 256 values in every column (so
+    every pair of codes, +128 = 0x7 and -128 = 0xf among them): each byte
+    of the pos and neg tiles written once, pos - neg at (column, k) is
+    ``pow2_integers`` and the JAX ``_decode_pow2_block`` x 2^7 there, pos
+    and neg disjoint powers of two."""
+    rng = np.random.default_rng(11)
+    for t in range(4):
+        raw = torch.from_numpy(rng.permutation(
+            np.tile(np.arange(256, dtype=np.uint8), TKP * TN // 256))
+            .reshape(TKP, TN)).view(torch.int8)
+        if t == 0:                 # each column walks the byte values
+            raw = (torch.arange(TKP)[:, None] * 4 + torch.arange(TN)[None, :]
+                   ).remainder(256).to(torch.uint8).view(torch.int8)
+        pos, neg, writes = decode_tile_emulation(raw)
+        assert torch.equal(writes, torch.full_like(writes, 2))
+        want = W4.pow2_integers(raw).to(torch.int64).T        # (n, k)
+        jax_want = np.asarray(R_decode_pow2(jnp.asarray(raw.numpy()))).T
+        np.testing.assert_array_equal(jax_want * 2 ** 7, want.numpy())
+        pk, nk_ = k_major(pos), k_major(neg)
+        assert torch.equal(pk - nk_, want)
+        assert not (pk * nk_).any()
+        mags = pk + nk_
+        assert torch.equal(mags & (mags - 1), torch.zeros_like(mags))
+    assert {int(want.max()), int(want.min())} == {128, -128}
+
+
+def test_tc_not_x_fragments_are_the_wgmma_a_layout():
+    """The words each thread loads from the swizzled x tile and inverts
+    are ~x at the places the wgmma register A fragment gives them: every
+    (row, k) of the 128 x 128 tile once, x = -128 and 127 among them."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(-128, 128, (128, TK))).to(torch.int64)
+    x[0, 0], x[5, 77] = -128, 127
+    smem = torch.zeros(128 * TK, dtype=torch.int64)
+    off = torch.arange(128)[:, None] * TK + torch.arange(TK)[None, :]
+    smem[swizzle128(off)] = x & 0xFF
+    got = not_x_fragments(smem)
+    assert torch.equal(got, ~x & 0xFF)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 130, 257), (17, 66, 200),
+                                   (130, 258, 131), (20, 512, 256),
+                                   (1, 8190, 130)])
+def test_tc_emulation_equals_the_plain_version_bit_for_bit(m, k, n):
+    """Ragged m, k = 2 mod 4 (a packed tile's last rows and x's last k
+    masked to zero) and n, one and several 128-k tiles and column tiles;
+    the extremes (every code +128 or -128, x = -128 and 127) at k 512."""
+    ops = _w4_operands(m, k, n, 7 * m + k + n)
+    assert torch.equal(tc_emulation(*ops), W4.w4a8_matmul_ref(*ops))
+    x, _, xs, ws = ops
+    x = x.clone()
+    x[0] = -128
+    x[-1, ::2] = 127
+    for byte in (0x77, -1):             # all +128, all -128
+        w = torch.full((k // 2, n), byte, dtype=torch.int8)
+        assert torch.equal(tc_emulation(x, w, xs, ws),
+                           W4.w4a8_matmul_ref(x, w, xs, ws)), byte
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 64, 96), (32, 256, 48),
+                                   (8, 258, 32)])
+def test_tc_emulation_close_to_the_jax_reference_and_pallas(m, k, n):
+    """Operands quantized by the reference, as for the split-k emulation:
+    the emulated tc kernel within the reference's W4A8 bound of
+    ``ref.w4a8_matmul_ref`` and of the Pallas kernel in interpret mode,
+    and equal to the port's plain version."""
+    rng = np.random.default_rng(m + k + n + 1)
+    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32))
+    w = jnp.asarray(rng.standard_normal((k, n)).astype(np.float32))
+    xs = R_qz.int_scale(x, 8)
+    xq = R_qz.quantize_int(x, xs, 8)
+    ws = R_qz.pow2_scale(w, axis=0)
+    wq = R_qz.pack_int4(R_qz.pow2_encode(w, ws).T).T
+    t = [torch.from_numpy(np.array(a)) for a in (xq, wq, xs, ws)]
+    t[2], t[3] = t[2].reshape(()), t[3].reshape(-1)
+    got = tc_emulation(*t).numpy()
+    for want in (R_ref.w4a8_matmul_ref(xq, wq, xs, ws),
+                 R_w4a8(xq, wq, xs, ws, bm=8, bn=16, bk=2 if k % 4 else 32,
                         interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
                                    atol=1e-5)

@@ -2,28 +2,37 @@
 """Time the W4A8-pow2 matmul kernel of one checkout on the GPU.
 
     python3 tools/time_w4a8_matmul.py [--src DIR] [--tag NAME] [--m M]
-        [--shape KxN ...] [--iters N]
+        [--layer phi4|llama] [--shape KxN ...] [--iters N]
+        [--regime plan|tc|splitk]
     python3 tools/time_w4a8_matmul.py --generate [--src DIR] [--tag NAME]
     python3 tools/time_w4a8_matmul.py --host [--src DIR] [--tag NAME]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 so two checkouts can be timed one after the other on the same card, in
-turns A B B A.  At phi4-mini's four projection shapes (k, n) with m rows
+turns A B B A.  At a layer's projection shapes (k, n) with m rows
 (default 4, the decode batch), weights rotated past the 50 MB L2 as a
 decode step streams them cold, it prints one JSON line per shape and one
-for a layer's 7 projections (2 x 3072x3072, 2 x 3072x1024,
-2 x 3072x8192, 1 x 8192x3072):
+for the layer: phi4-mini-3.8b's 7 projections (2 x 3072x3072,
+2 x 3072x1024, 2 x 3072x8192, 1 x 8192x3072; the default) or, with
+``--layer llama``, llama-3.2-vision-90b's (2 x 8192x8192, 2 x 8192x1024,
+2 x 8192x28672, 1 x 28672x8192):
 
 * ``profiler_ms``: the kernel's device time per call from
   ``torch.profiler`` (the smallest of three windows; a window that kept
   no record reads None);
 * ``event_ms``: CUDA-event time per call over back-to-back calls;
 * ``grid``: the grid the C entry reported for the call (columns / 128,
-  row tiles, splits), where the checkout's entry reports it.
+  row tiles, splits), where the checkout's entry reports it;
+* ``regime``: the regime the call ran ("splitk" or "tc"; "splitk" for a
+  checkout without the tc regime), and ``equal_plain`` /
+  ``equal_splitk``: the output equal bit for bit to the plain version and,
+  where the call ran "tc", to the split-k kernel forced on it.
 
 ``--shape KxN`` (repeatable) times those shapes instead, once each in
 the layer's sum.  A checkout whose wrapper has no ``last_grid`` (before
-the split-k kernel) runs the tiled kernel at every m.
+the split-k kernel) runs the tiled kernel at every m.  ``--regime tc`` or
+``splitk`` forces that regime through the wrapper's ``regime`` argument
+(checkouts that have one), so both can be timed at ``--m 4096``.
 
 With ``--generate`` it times the W4A8 serving loop instead: phi4-mini-3.8b
 at full width in W4A8-pow2, random weights from seed 0, batch 4,
@@ -43,8 +52,10 @@ import sys
 
 from time_decode_attention import _event_ms, _profiled
 
-LAYER_PROJ = {(3072, 3072): 2, (3072, 1024): 2, (3072, 8192): 2,
-              (8192, 3072): 1}
+LAYERS = {"phi4": {(3072, 3072): 2, (3072, 1024): 2, (3072, 8192): 2,
+                   (8192, 3072): 1},
+          "llama": {(8192, 8192): 2, (8192, 1024): 2, (8192, 28672): 2,
+                    (28672, 8192): 1}}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -122,7 +133,10 @@ def main() -> int:
                                          .parent.parent / "src"))
     ap.add_argument("--tag", default="")
     ap.add_argument("--m", type=int, default=4)
+    ap.add_argument("--layer", choices=sorted(LAYERS), default="phi4")
     ap.add_argument("--shape", action="append", default=[])
+    ap.add_argument("--regime", choices=("plan", "tc", "splitk"),
+                    default="plan")
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--generate", action="store_true")
     ap.add_argument("--host", action="store_true")
@@ -142,7 +156,13 @@ def main() -> int:
     device = torch.device("cuda", 0)
     m = args.m
     shapes = ({tuple(int(v) for v in s.split("x")): 1 for s in args.shape}
-              or LAYER_PROJ)
+              or LAYERS[args.layer])
+    has_regimes = hasattr(W4, "launches_tc")
+    if args.regime != "plan" and not has_regimes:
+        print("time_w4a8_matmul: this checkout has one regime",
+              file=sys.stderr)
+        return 1
+    kw = {} if args.regime == "plan" else {"regime": args.regime}
     layer = {"profiler_ms": 0.0, "event_ms": 0.0}
     for (k, n), count in shapes.items():
         copies = -(-2 * L2_BYTES // (k * n // 2)) + 1
@@ -156,17 +176,27 @@ def main() -> int:
         wsc = torch.rand((n,), generator=g, device=device) * 0.1 + 1e-3
 
         def call(i):
-            return W4.w4a8_matmul(x, ws[i % copies], xs, wsc)
-        ok = torch.equal(call(0), W4.w4a8_matmul_ref(x, ws[0], xs, wsc))
+            return W4.w4a8_matmul(x, ws[i % copies], xs, wsc, **kw)
+        before = getattr(W4, "launches_tc", 0)
+        got = call(0)
+        regime = "tc" if getattr(W4, "launches_tc", 0) > before \
+            else "splitk"
+        grid = getattr(W4, "last_grid", None)
+        ok = torch.equal(got, W4.w4a8_matmul_ref(x, ws[0], xs, wsc))
+        same_splitk = None
+        if regime == "tc":
+            same_splitk = torch.equal(got, W4.w4a8_matmul(
+                x, ws[0], xs, wsc, regime="splitk"))
         event_ms = _event_ms(call, args.iters)
         windows = [_profiled(call, max(1, args.iters // 2))[0]
                    for _ in range(3)]
         got = [w for w in windows if w is not None]
         prof_ms = min(got) if got else None
         row = {"tag": args.tag, "src": args.src, "m": m, "k": k, "n": n,
-               "equal_plain": ok, "event_ms": event_ms,
-               "profiler_ms": prof_ms, "profiler_windows": windows}
-        row["grid"] = getattr(W4, "last_grid", None)
+               "regime": regime,
+               "equal_plain": ok, "equal_splitk": same_splitk,
+               "event_ms": event_ms, "profiler_ms": prof_ms,
+               "profiler_windows": windows, "grid": grid}
         print(json.dumps(row), flush=True)
         layer["event_ms"] += count * event_ms
         layer["profiler_ms"] = (None if prof_ms is None
@@ -174,7 +204,9 @@ def main() -> int:
                                 else layer["profiler_ms"] + count * prof_ms)
         del ws
     print(json.dumps({"tag": args.tag, "src": args.src, "m": m,
-                      "layer": layer}), flush=True)
+                      "regime": args.regime,
+                      "shapes": args.shape or args.layer, "layer": layer}),
+          flush=True)
     return 0
 
 
