@@ -263,7 +263,9 @@ Phases (any failure exits non-zero):
     ``fill_ctx_caches`` timed with its launches (W8A8 ``tc`` at m = 4 x
     n_ctx, whisper's encoder with its flash), then ``generate`` on the
     filled caches: every W8A8 product of a step on the split-k regime and
-    one bf16 flash launch a cross layer at sq = 1, nothing else; the
+    one flash launch a cross layer at sq = 1 on the decode regime
+    (``csrc/flash_decode.cuh``, the context caches read in place), no tile
+    flash, nothing else; the
     served 16 tokens teacher-forced through the kernel route, the kernel
     route with the plain attention swapped in and the plain route:
     swapped = plain bit for bit (context caches, logits, every cache),
@@ -272,9 +274,12 @@ Phases (any failure exits non-zero):
     attention outputs pass 4, where a bf16 ulp is 2^-5) and 2^-6 a row,
     the unswapped
     logits' distance reported (C.3); ms a step, tok/s, busy share, device
-    ops, weight and cache bytes; flash at the decode's cross shape and
-    W8A8 at ``context_kv``'s shape timed beside their bounds, SDPA and
-    ``torch._int_mm``); ``vlm_prefill`` / ``audio_prefill`` (the 1 x 4096
+    ops, no op of the profiled step copying or repeating a context cache,
+    weight and cache bytes; flash's decode regime at the decode's cross
+    shape (the tile regime forced, SDPA with ``enable_gqa`` and on the
+    repeated operands beside it) and W8A8 at ``context_kv``'s shape
+    timed beside their bounds and ``torch._int_mm``); ``vlm_prefill`` /
+    ``audio_prefill`` (the 1 x 4096
     and 4 x 448 forwards with a context: every projection on the tensor
     cores, flash for each self, encoder and cross application, the vlm's
     cross layers on the float32 route (its forward's context goes to
@@ -302,7 +307,12 @@ Phases (any failure exits non-zero):
     float32, beside their plain versions, SDPA (for float32 also SDPA's
     kernel name and its error against the plain version) and their
     bounds (float32: 3xTF32 on the tensor cores, and the CUDA-core
-    rate);
+    rate); ``flash_decode``: flash's decode regime against its plain
+    version in float32 and bf16 on both decode cross-attention shapes, kv
+    ratios 1, 2 and 8, ragged key counts, every mask and rows with no live
+    key (the bf16 outputs more than an ulp off counted), both shapes at
+    sq = 1 timed against the tile regime forced, SDPA and the bound with
+    k, v read once, and both regimes at sq 1-64 (``DECODE_MAX_SQ``);
 14. the accuracy tiers and training: ``calibrate`` (the tier-1 tables
     of mamba2-130m and phi4-mini-3.8b at full depth and reduced width on
     the card into an empty cache, a hit on the second call, the card's
@@ -314,12 +324,14 @@ Phases (any failure exits non-zero):
     ``grad_guard`` (ROADMAP C.13: reduced phi4-mini under W8A8 QAT and
     fp32, no kernel launch under grad, every leaf's gradient card vs
     CPU, flash once a layer under ``no_grad``); ``train``
-    (``launch.train.train`` of mamba2-130m at full width and depth, W8A8
-    QAT, 8 x 64, 20 steps: the loss falls, no kernel launches; step time
+    (``launch.train.train`` of mamba2-130m at full width, depth cut to 6
+    layers, W8A8 QAT, 8 x 64, 10 steps: the loss falls, no kernel
+    launches; step time
     and device share, tok/s, peak memory; the first two losses against
     the CPU's; one QAT step of phi4-mini-3.8b at full width cut to 2
     layers, loss and global gradient norm card vs CPU); ``train_restart``
-    (the same model and step with int8 gradient compression and a
+    (the same model, cut to 6 layers, and step with int8 gradient
+    compression and a
     checkpoint every 3 steps, 6 steps clean and with failures injected at
     steps 3 and 4: every loss and the final checkpoint byte for byte,
     compression card vs CPU, the step-2 checkpoint stepped on both
@@ -391,6 +403,7 @@ power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import gc
 import json
 import math
@@ -517,6 +530,21 @@ DECODE_S = (4096, 32768)
 DECODE_LAUNCHES_PER_CALL = 3
 H100_SMS = 132
 FLASH_SHAPE = (1, 24, 4096, 128)      # (b, h, s, d), causal, bf16
+# flash attention's decode regime (csrc/flash_decode.cuh): the decode
+# cross-attention of llama-3.2-vision-90b and whisper-medium, (b, h, kvh,
+# keys, d) in bf16, q laid out (b, 1, h, d) and k, v (b, keys, kvh, d) as
+# the model keeps them; the parity cases' kv-head ratios and ragged key
+# counts; the q rows (sq) at which both regimes are timed, around
+# flash_attention.DECODE_MAX_SQ
+FLASH_DECODE = dict(
+    shapes={"llama": (4, 64, 8, 1601, 128), "whisper": (4, 16, 16, 1500, 64)},
+    reps=(1, 2, 8), keys=(1, 7, 1500, 1601, 4099),
+    sq=(1, 2, 4, 8, 16, 32, 64))
+# aten ops that copy or repeat a tensor: a decode step must run none on a
+# tensor of a context cache's size (or its repeat to the q heads)
+COPY_OPS = ("aten::repeat_interleave", "aten::repeat", "aten::index_select",
+            "aten::copy_", "aten::clone", "aten::_to_copy",
+            "aten::contiguous", "aten::cat", "aten::stack")
 # the prefill shape of the W8A8 tensor-core regime: m = 1 x 4096 tokens
 PREFILL_M = 4096
 # m at which both W8A8 regimes are timed, around the threshold
@@ -632,18 +660,22 @@ GRAD_GUARD = dict(arch="phi4-mini-3.8b", batch=2, seq_len=16,
 # scales part the first step's losses by 4.0e-4, past the reduced
 # models' 2.5e-4); the global gradient norm at 2e-3, set from the card's
 # reading on the same H100 (4.4e-4 for phi4-mini at 2 layers)
-TRAIN = dict(arch="mamba2-130m", steps=20, batch=8, seq_len=64, timed=3,
-             attention_arch="phi4-mini-3.8b", attention_layers=2,
+# mamba2-130m at full width, depth cut from 24 layers to 6 and the run
+# from 20 steps to 10 (the phase took 67 s of the run whole, most of it
+# the ~1 s numpy draw of a batch and the CPU's steps)
+TRAIN = dict(arch="mamba2-130m", n_layers=6, steps=10, batch=8, seq_len=64,
+             timed=3, attention_arch="phi4-mini-3.8b", attention_layers=2,
              attention_batch=2, loss_rtol=1e-3, norm_rtol=2e-3)
 # the restarting train loop at full width: mamba2-130m under W8A8 QAT with
 # int8 gradient compression, a checkpoint every 3 steps, the clean run
 # against one with two injected failures (bit for bit); compression card
 # vs CPU bit for bit; the clean run's step-2 checkpoint continued one step
 # on the card and on the CPU (the train phase's loss bar); step time with
-# and without compression in turns
-TRAIN_RESTART = dict(arch="mamba2-130m", steps=6, batch=8, seq_len=64,
-                     ckpt_every=3, fail_at={3: 1, 4: 1}, elastic_step=2,
-                     timed=2, loss_rtol=1e-3)
+# and without compression in turns.  Depth cut from 24 layers to 6 (the
+# phase took 128.5 s of the run whole)
+TRAIN_RESTART = dict(arch="mamba2-130m", n_layers=6, steps=6, batch=8,
+                     seq_len=64, ckpt_every=3, fail_at={3: 1, 4: 1},
+                     elastic_step=2, timed=2, loss_rtol=1e-3)
 # training on a mesh: mamba2-130m at full width and depth under W8A8 QAT
 # with int8 gradient compression, the seed-0 state placed on a one-rank
 # NCCL mesh (DTensor leaves, every placement whole) against the same steps
@@ -832,7 +864,12 @@ def phase_build() -> dict:
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
              for name in sorted(paths)}
-    sass = {name: _sass_counts(path) for name, path in sorted(paths.items())}
+    # one cuobjdump a library, in parallel
+    from concurrent.futures import ThreadPoolExecutor
+    names = sorted(paths)
+    with ThreadPoolExecutor(len(names)) as pool:
+        sass = dict(zip(names, pool.map(_sass_counts,
+                                        [paths[n] for n in names])))
     for name, ops in TENSOR_CORE_SASS.items():
         check(any(sass[name][op] > 0 for op in ops),
               f"{name}: no {' or '.join(ops)} in its SASS")
@@ -2852,6 +2889,7 @@ def _reset_attention_counts() -> None:
     from repro_torch.kernels import flash_attention, w8a8_decode
     flash_attention.launches = w8a8_decode.launches = 0
     flash_attention.launches_tc = flash_attention.launches_f32 = 0
+    flash_attention.launches_decode = 0
     flash_attention.launches_windowed = 0
     w8a8_decode.kernel_launches = 0
 
@@ -2863,6 +2901,7 @@ def _attention_counts() -> dict:
             "flash_attention": flash_attention.launches,
             "flash_attention_tc": flash_attention.launches_tc,
             "flash_attention_f32": flash_attention.launches_f32,
+            "flash_attention_decode": flash_attention.launches_decode,
             "flash_attention_windowed": flash_attention.launches_windowed}
 
 
@@ -4225,6 +4264,9 @@ def _flash_timing(device, q, k, v, window=None, causal=True) -> dict:
     from repro_torch.kernels import flash_attention as FA
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    # the tile regime's operands: contiguous, the kv heads repeated
+    q = q.contiguous()
+    k, v = (FA.broadcast_kv(t, h).contiguous() for t in (k, v))
     qi = torch.arange(sq, device=device)[:, None]
     ki = torch.arange(sk, device=device)[None, :]
     mask = (ki <= qi) & (ki > qi - window) if window else None
@@ -4617,8 +4659,10 @@ class _swapped_attention:
     routes' attention, records the kernel's distance to the plain one
     (``flash_row_err``) with the application's kind (``cross``,
     ``encoder``: causal over the context's length, or ``self``) and
-    returns the plain one; the first application of each kind keeps its
-    q, k, v as (b, h, s, d), in the dtype the kernel takes them in."""
+    returns the plain one; the first application of each kind keeps a
+    copy of its q, k, v as the decode regime takes them: (b, heads, s, d)
+    views of the model's (b, s, heads, d) layout, k and v at their kv
+    heads, in the dtype the kernel takes them in."""
 
     def __init__(self, n_ctx: int):
         self.n_ctx, self.apps, self.kept = n_ctx, [], {}
@@ -4628,15 +4672,17 @@ class _swapped_attention:
         from repro_torch.models import attention
         self.real = real = attention.attend
 
-        def swapped(q, k, v, *, causal=True, window=None, impl="auto"):
-            got = real(q, k, v, causal=causal, window=window, impl=impl)
+        def swapped(q, k, v, *, causal=True, window=None, impl="auto",
+                    regime=None):
+            got = real(q, k, v, causal=causal, window=window, impl=impl,
+                       regime=regime)
             want = real(q, k, v, causal=causal, window=window, impl="ref")
             kind = "cross" if not causal else (
                 "encoder" if q.shape[1] == self.n_ctx else "self")
             self.apps.append(dict(flash_row_err(got, want), kind=kind))
             if kind not in self.kept:
                 dt = q.dtype if q.dtype == k.dtype else torch.float32
-                self.kept[kind] = [t.transpose(1, 2).to(dt).contiguous()
+                self.kept[kind] = [t.transpose(1, 2).to(dt).clone()
                                    for t in (q, k, v)]
             return want
         attention.attend = swapped
@@ -4694,21 +4740,47 @@ def _stored_bytes(params: dict, names=None) -> int:
     return total
 
 
+def _copy_ops(fn, numels) -> list:
+    """The aten ops of one call of ``fn(0)`` among ``COPY_OPS`` with an
+    input of ``numels`` elements (``torch.profiler``, the inputs'
+    shapes recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn(0)
+        torch.cuda.synchronize()
+    found = []
+    for ev in prof.events():
+        if ev.name not in COPY_OPS:
+            continue
+        sizes = [math.prod(s) for s in ev.input_shapes or []
+                 if isinstance(s, (list, tuple)) and s
+                 and all(isinstance(x, int) for x in s)]
+        if any(n in numels for n in sizes):
+            found.append([ev.name, ev.input_shapes])
+    return found
+
+
 def phase_cross_serve(device, family: str, model, params) -> dict:
     """The vlm or audio model served through ``fill_ctx_caches`` and
     ``launch.serve.generate`` (SERVE: batch 4, 8 + 8 tokens) on a
     context drawn as ``serve`` draws it: the fill's time (whisper's
     encoder alone too) and launches (W8A8 ``tc`` at m = 4 x n_ctx, the
     encoder's flash), a step's W8A8 products all on the split-k regime
-    and one bf16 flash launch a cross layer, nothing else; the served
+    and one flash launch a cross layer on the decode regime (no tile
+    flash), nothing else; the served
     stream teacher-forced through the kernel route, the kernel route with
     the plain attention swapped in and the plain route: the swapped and
     plain routes' context caches, logits and every cache bit for bit
     after each step, flash within 2e-2 x (1 + |out|) (and 2^-6 a row) of
     the plain attention on every application, the unswapped routes' logits
-    distance reported (C.3); one profiled step; flash at the decode's
-    cross shape, the GQA repeat of a cross layer's context caches and
-    W8A8 at ``context_kv``'s shape, timed."""
+    distance reported (C.3); one profiled step, none of whose ops copies
+    or repeats a context cache; flash's decode regime at the decode's
+    cross shape on a cross application's own q and caches
+    (:func:`_decode_flash_row`), the GQA repeat of a cross layer's
+    context caches the route no longer pays and W8A8 at ``context_kv``'s
+    shape, timed."""
     import torch
     from repro_torch.launch.serve import fill_ctx_caches, generate
     from repro_torch.models import attention
@@ -4755,11 +4827,14 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
         steps * counts["decode_flash"]
     check(_product_counts(launches, cfg, want_mm, "dp4a")
           and launches["flash_attention"] == want_fl
-          and launches["flash_attention_tc"] == want_fl
+          and launches["flash_attention_decode"] == want_fl
+          and launches["flash_attention_tc"] == 0
+          and launches["flash_attention_f32"] == 0
           and launches["flash_attention_windowed"] == 0
           and launches["w8a8_decode_attention"] == 0,
           f"{name}: launches {launches}, expected {want_mm} {cfg.quant} "
-          f"(W8A8 split-k) and {want_fl} bf16 flash")
+          f"(W8A8 split-k) and {want_fl} flash on the decode regime, no "
+          f"tile flash")
     toks = res["tokens"]
     check(tuple(toks.shape) == (b, gen) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab,
@@ -4809,6 +4884,21 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
     torch.cuda.synchronize(device)
     step_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top, ops, _ = _profile_device_ms(step, BUSY_STEPS)
+    # the same step with its attention forced to the tile regime (the
+    # route before the decode regime: the kv heads repeated and copied
+    # before the tile kernel)
+    from repro_torch.models import attention
+    real_attend = attention.attend
+    attention.attend = functools.partial(real_attend, regime="tile")
+    try:
+        tile_route_ms = _profile_device_ms(step, BUSY_STEPS)[0]
+    finally:
+        attention.attend = real_attend
+    # no op of the step copies or repeats a context cache
+    ctx_numel = ck["ctx_k"][0].numel()
+    copies = _copy_ops(step, (ctx_numel, ctx_numel * cfg.n_heads
+                              // cfg.n_kv_heads))
+    check(not copies, f"{name}: the step copies a context cache: {copies}")
     weight_bytes = _stored_bytes(params)
     # a step reads the decoder's layers, the cross layers' wq_x and wo_x,
     # the float32 embedding (the logits product) and the context caches
@@ -4817,9 +4907,10 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
          "cross_layers": params["cross_layers"]},
         names=PROJ_NAMES_DECODE) + 2 * _nbytes(ck["ctx_k"])
     q, k, v = swap.kept["cross"]
-    flash = _flash_timing(device, q, k, v, causal=False)
+    flash = _decode_flash_row(device, q, k, v)
     # what a cross layer's GQA repeat of its context caches to n_heads
-    # costs a step (none at rep 1)
+    # cost a step before the decode regime read them in place (none at
+    # rep 1): the route no longer pays it
     repeat_ms = None
     if cfg.n_heads != cfg.n_kv_heads:
         xk, xv = ck["ctx_k"][0], ck["ctx_v"][0]
@@ -4855,6 +4946,8 @@ def phase_cross_serve(device, family: str, model, params) -> dict:
             "device_busy_share": (busy_ms / step_wall_ms
                                   if busy_ms else None),
             "step_device_ops": ops, "step_top_kernels_ms": top,
+            "step_context_copies": copies,
+            "step_device_ms_tile_route": tile_route_ms,
             "step_bytes": step_bytes,
             "step_bound_ms": step_bytes / H100.hbm_bw * 1e3,
             "flash_timing": flash, "context_kv_timing": qmm,
@@ -5093,6 +5186,202 @@ def phase_attention_parity(device) -> dict:
                          "sdpa_max_abs": float((lib.float()
                                                 - got.float()).abs().max())})
     return {"phase": "attention_parity", "rows": rows, "worst": worst}
+
+
+def _decode_flash_operands(b, h, kvh, sq, sk, d, dtype, seed, device):
+    """q (b, h, sq, d) and k, v (b, kvh, sk, d) as the model hands them
+    to the decode regime: views of (b, s, heads, d) tensors."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn((b, s, n, d), generator=g, device=device)
+            .to(dtype).transpose(1, 2)
+            for s, n in ((sq, h), (sk, kvh), (sk, kvh))]
+
+
+def _bf16_over_one_ulp(got, want) -> int:
+    """bf16 outputs more than one bf16 ulp (at the plain output's
+    magnitude) from the plain version."""
+    import torch
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return int(((g - w).abs() > ulp).sum())
+
+
+def _decode_flash_row(device, q, k, v, *, causal=False, window=None) -> dict:
+    """Flash's decode regime on ``q`` (b, h, sq, d) and ``k``, ``v`` (b,
+    kvh, sk, d) laid out as the model keeps them, operand sets rotated
+    past L2 (as a step's cross layers find their caches): the kernel
+    (twice) and its plain version (twice) in turns, the tile regime
+    forced on the same inputs (the kernel on the kv heads repeated and
+    transposed beforehand, ``tile_ms``, and on the model's views, which it
+    repeats and copies itself, ``tile_route_ms``), SDPA with
+    ``enable_gqa`` on the same inputs (the library call) and on the
+    repeated operands (context only); profiler device time and CUDA
+    events; the bound: q, k, v read once (k, v at kvh heads) and out
+    written once, or the FLOPs at the CUDA cores' float32 rate; the
+    planned and launched grid; the distance to the plain version and the
+    bf16 outputs more than one ulp from it."""
+    import torch
+    import torch.nn.functional as NF
+    from repro_torch.kernels import flash_attention as FA
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, window=window)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    copies = -(-2 * L2_BYTES // nbytes) + 1
+    sets = [(q, k, v)] + [[t.clone() for t in (q, k, v)]
+                          for _ in range(copies - 1)]
+    tiles = [[q_.contiguous()] + [FA.broadcast_kv(t, h).contiguous()
+                                  for t in (k_, v_)]
+             for q_, k_, v_ in sets]
+    is_causal = causal and window is None and sq == sk
+
+    row = {"shape": [b, h, sq, d], "kv_heads": kvh, "keys": sk,
+           "causal": causal, "window": window, "dtype": str(q.dtype),
+           "copies": copies}
+    calls = FA.launches_decode
+    for name, fn, iters in (
+            ("plain", lambda i: FA.flash_attention_ref(
+                *sets[i % copies], **kw), 3),
+            ("kernel", lambda i: FA.flash_attention(
+                *sets[i % copies], regime="decode", **kw), 30),
+            ("kernel_again", lambda i: FA.flash_attention(
+                *sets[i % copies], regime="decode", **kw), 30),
+            ("plain_again", lambda i: FA.flash_attention_ref(
+                *sets[i % copies], **kw), 3),
+            ("tile", lambda i: FA.flash_attention(
+                *tiles[i % copies], regime="tile", **kw), 30),
+            ("tile_route", lambda i: FA.flash_attention(
+                *sets[i % copies], regime="tile", **kw), 30),
+            ("library", lambda i: NF.scaled_dot_product_attention(
+                *sets[i % copies], is_causal=is_causal, enable_gqa=True),
+             30),
+            ("library_repeated", lambda i: NF.scaled_dot_product_attention(
+                *tiles[i % copies], is_causal=is_causal), 30)):
+        row[f"{name}_ms"], row[f"{name}_event_ms"] = _device_ms(
+            fn, iters, windows=3)
+    row["timing_launches"] = FA.launches_decode - calls
+    _best_times(row)
+    suffix = "_ms" if row["timer"] == "profiler" else "_event_ms"
+    for name in ("tile", "tile_route", "library_repeated"):
+        row[f"best_{name}_ms"] = row[name + suffix]
+    flops, nbytes, _ = FA.cost(b, h, sq, sk, d, dtype=q.dtype, kvh=kvh,
+                               **kw)
+    bound = _bound((flops, nbytes, "fp32"))
+    row.update(flops=bound.pop("ops"), **bound)
+    plan = FA.decode_plan(b, h, kvh, sq, sk, d, q.dtype, **kw)
+    got = FA.flash_attention(q, k, v, regime="decode", **kw)
+    want = FA.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize(device)
+    row.update(plan=plan._asdict(), grid=list(FA.last_grid),
+               kernel_max_abs_vs_plain=float(
+                   (got.float() - want.float()).abs().max()),
+               **({"bf16_over_one_ulp": _bf16_over_one_ulp(got, want)}
+                  if q.dtype == torch.bfloat16 else {}))
+    check(tuple(FA.last_grid) == (b * kvh, plan.splits),
+          f"flash decode grid {FA.last_grid}, planned ({b * kvh}, "
+          f"{plan.splits})")
+    return row
+
+
+def phase_flash_decode(device) -> dict:
+    """Flash attention's decode regime (``csrc/flash_decode.cuh``) against
+    its plain version on the card, in bf16 and float32, every operand a
+    view of the model's layout: both decode cross-attention shapes
+    (``FLASH_DECODE``) at sq 1 to ``DECODE_MAX_SQ``, unmasked, causal and
+    windowed, and on to sq 16 (the regime forced); kv-head ratios 1, 2
+    and 8 over ragged key counts (1, 7, 1500, 1601, 4099) across the head
+    dims; rows with no live key
+    (causal, sq > sk: the mean of v).  Bars: float32 within 1e-5 x
+    max|out|; bf16 each element within 2e-2 x (1 + |out|) and each row
+    within 2^-6 of its max; the bf16 outputs more than one ulp off
+    counted.  Then each shape at sq = 1 timed (:func:`_decode_flash_row`),
+    and both regimes at every sq of ``FLASH_DECODE`` (the timings behind
+    ``DECODE_MAX_SQ``)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    cases = []
+    for name, (b, h, kvh, sk, d) in FLASH_DECODE["shapes"].items():
+        for sq in sorted({1, 2, 4, 8, 16, FA.DECODE_MAX_SQ}):
+            for causal, window in ((False, None), (True, None),
+                                   (True, 37)):
+                cases.append((name, b, h, kvh, sq, sk, d, causal, window))
+    for i, rep in enumerate(FLASH_DECODE["reps"]):
+        for j, sk in enumerate(FLASH_DECODE["keys"]):
+            d = FA.HEAD_DIMS[(i + j) % len(FA.HEAD_DIMS)]
+            for sq in sorted({1, 3, 16, FA.DECODE_MAX_SQ}):
+                for causal, window in ((False, None), (True, None),
+                                       (False, 300)):
+                    cases.append((f"rep {rep}", 2, 2 * rep, 2, sq, sk, d,
+                                  causal, window))
+    cases += [("no live key", 2, 8, 2, 9, 3, 64, True, None),
+              ("no live key", 2, 16, 2, 16, 7, 128, True, 4)]
+    rows, worst, over_ulp, calls = [], {}, 0, FA.launches_decode
+    for n, (what, b, h, kvh, sq, sk, d, causal, window) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _decode_flash_operands(b, h, kvh, sq, sk, d, dtype,
+                                             500 + n, device)
+            got = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                     regime="decode")
+            want = FA.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+            torch.cuda.synchronize(device)
+            key = str(dtype).split(".")[1]
+            case = [what, b, h, kvh, sq, sk, d, causal, window, key]
+            check(bool(torch.isfinite(got).all()) and tuple(got.shape)
+                  == tuple(q.shape) and got.dtype == dtype,
+                  f"flash decode: output at {case}")
+            err = float((got.float() - want.float()).abs().max())
+            big = float(want.float().abs().max())
+            if dtype == torch.float32:
+                check(err <= FLASH_TOL["float32"] * max(big, 1e-30),
+                      f"flash decode vs plain {err:.3g} > 1e-5 x {big:.3g} "
+                      f"at {case}")
+                rel = err / max(big, 1e-30)
+            else:
+                row_err = flash_row_err(got, want)
+                check(row_err["scaled"] <= FLASH_TOL["bfloat16"]
+                      and row_err["row_rel"] <= FLASH_ROW_RTOL,
+                      f"flash decode vs plain {row_err} at {case}")
+                rel = row_err["scaled"]
+                over_ulp += _bf16_over_one_ulp(got, want)
+            w = worst.setdefault(key, [0.0, 0.0])
+            worst[key] = [max(w[0], err), max(w[1], rel)]
+            rows.append({"case": case, "max_abs": err, "rel": rel,
+                         "grid": list(FA.last_grid)})
+    check(FA.launches_decode - calls == len(rows),
+          f"flash decode: {FA.launches_decode - calls} decode launches for "
+          f"{len(rows)} calls")
+    timing, sweep = {}, []
+    for name, (b, h, kvh, sk, d) in FLASH_DECODE["shapes"].items():
+        q, k, v = _decode_flash_operands(b, h, kvh, 1, sk, d,
+                                         torch.bfloat16, 7, device)
+        timing[name] = _decode_flash_row(device, q, k, v)
+        for sq in FLASH_DECODE["sq"]:
+            q, k, v = _decode_flash_operands(b, h, kvh, sq, sk, d,
+                                             torch.bfloat16, 8, device)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            copies = -(-2 * L2_BYTES // nbytes) + 1
+            sets = [(q, k, v)] + [[t.clone() for t in (q, k, v)]
+                                  for _ in range(copies - 1)]
+            tiles = [[q_.contiguous()] + [FA.broadcast_kv(t, h).contiguous()
+                                          for t in (k_, v_)]
+                     for q_, k_, v_ in sets]
+            entry = {"shape": name, "sq": sq}
+            for regime, ops_ in (("decode", sets), ("tile", tiles)):
+                entry[f"{regime}_ms"], entry[f"{regime}_event_ms"] = \
+                    _device_ms(lambda i, ops_=ops_, regime=regime:
+                               FA.flash_attention(*ops_[i % copies],
+                                                  causal=False,
+                                                  regime=regime), 20)
+            sweep.append(entry)
+            del sets, tiles
+        torch.cuda.empty_cache()
+    return {"phase": "flash_decode", "decode_max_sq": FA.DECODE_MAX_SQ,
+            "cases": len(rows), "worst": worst,
+            "bf16_over_one_ulp": over_ulp, "rows": rows, "timing": timing,
+            "sq_sweep": sweep}
 
 
 def _decode_timing(device, shape, S: int) -> dict:
@@ -5512,9 +5801,10 @@ def phase_train(device) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.models.tree import tree_map
     from repro_torch.optim import adamw
+    import dataclasses
     T = TRAIN
-    out = {"phase": "train", "arch": T["arch"], "batch": T["batch"],
-           "seq_len": T["seq_len"], "steps": T["steps"]}
+    out = {"phase": "train", "arch": T["arch"], "n_layers": T["n_layers"],
+           "batch": T["batch"], "seq_len": T["seq_len"], "steps": T["steps"]}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     _reset_attention_counts()
@@ -5522,7 +5812,8 @@ def phase_train(device) -> dict:
     t0 = time.perf_counter()
     losses = train(T["arch"], steps=T["steps"], smoke=False,
                    seq_len=T["seq_len"], batch=T["batch"],
-                   log_every=T["steps"], device=device)
+                   log_every=T["steps"], n_layers=T["n_layers"],
+                   device=device)
     torch.cuda.synchronize(device)
     out["train_s"] = time.perf_counter() - t0
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -5534,7 +5825,7 @@ def phase_train(device) -> dict:
           and out["losses"][-1] < out["losses"][0],
           f"train: loss did not fall {out['losses']}")
 
-    cfg = get_config(T["arch"])
+    cfg = dataclasses.replace(get_config(T["arch"]), n_layers=T["n_layers"])
     model = Model(cfg, device=device)
     ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=T["steps"],
                              warmup_steps=max(1, T["steps"] // 10))
@@ -5589,7 +5880,6 @@ def phase_train(device) -> dict:
     del cpu_state
 
     # attention under grad at full width: phi4-mini cut to 2 layers
-    import dataclasses
     pcfg = dataclasses.replace(get_config(T["attention_arch"]),
                                n_layers=T["attention_layers"])
     params = Model(pcfg, device="cpu").init(
@@ -5688,6 +5978,7 @@ def phase_train_restart(device) -> dict:
     ``float(loss)`` waits, which with the batch's draw is what the
     straggler detector reads)."""
     import contextlib
+    import dataclasses
     import io
     import os
     import shutil
@@ -5704,15 +5995,17 @@ def phase_train_restart(device) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.parallel import compression
     T = TRAIN_RESTART
-    out = {"phase": "train_restart", "arch": T["arch"], "batch": T["batch"],
+    out = {"phase": "train_restart", "arch": T["arch"],
+           "n_layers": T["n_layers"], "batch": T["batch"],
            "seq_len": T["seq_len"], "steps": T["steps"],
            "ckpt_every": T["ckpt_every"],
            "fail_at": {str(k): v for k, v in T["fail_at"].items()}}
-    cfg = get_config(T["arch"])
+    cfg = dataclasses.replace(get_config(T["arch"]), n_layers=T["n_layers"])
     last = T["steps"] - 1
     kw = dict(steps=T["steps"], smoke=False, seq_len=T["seq_len"],
               batch=T["batch"], ckpt_every=T["ckpt_every"],
-              grad_compression=True, log_every=T["steps"], device=device)
+              grad_compression=True, log_every=T["steps"],
+              n_layers=T["n_layers"], device=device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     _reset_attention_counts()
@@ -6932,6 +7225,8 @@ def main() -> int:
     emit(aparity)
     atiming = phase_attention_timing(device)
     emit(atiming)
+    flash_decode = phase_flash_decode(device)
+    emit(flash_decode)
     torch.cuda.empty_cache()
     import tempfile
     with tempfile.TemporaryDirectory() as cache:
@@ -7328,11 +7623,9 @@ def main() -> int:
                 "shape", "keys", "causal", "dtype", "best_kernel_ms",
                 "best_plain_ms", "best_library_ms", "timer", "bound_ms",
                 "bound_by", "kernel_max_abs_vs_plain")}
-            for ph in cross if "flash_timing" in cross[ph]
-            for kind, r in (
-                cross[ph]["flash_timing"].items()
-                if ph.endswith("_prefill")
-                else [("cross", cross[ph]["flash_timing"])])},
+            for ph in cross if ph.endswith("_prefill")
+            and "flash_timing" in cross[ph]
+            for kind, r in cross[ph]["flash_timing"].items()},
         "moe_shapes": {f"h {r['shape'][1]}": {k: r[k] for k in (
             "shape", "best_kernel_ms", "best_plain_ms", "best_library_ms",
             "timer", "bound_ms", "bound_by", "kernel_max_abs_vs_plain")}
@@ -7348,6 +7641,63 @@ def main() -> int:
             "best_library_ms", "timer", "bound_ms", "bound_by",
             "kernel_max_abs_vs_plain")}
             for key, r in window_prefill["flash_timing"].items()},
+    })
+    fd = flash_decode["timing"]["llama"]
+    serves = [f + "_serve" for f in CROSS_ARCHS]
+    kernels.append({
+        "name": "flash_attention_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cuh",
+        "replaces": "src/repro/kernels/flash_attention.py:109",
+        "launches": cross["vlm_w4a8_serve"]["launches"][
+            "flash_attention_decode"],
+        "max_abs_err": max([w[0] for w in flash_decode["worst"].values()]
+                           + [cross[ph]["flash_timing"][
+                               "kernel_max_abs_vs_plain"] for ph in serves]),
+        "max_rel_err": max(w[1] for w in flash_decode["worst"].values()),
+        "ms": fd["best_kernel_ms"],
+        "plain_ms": fd["best_plain_ms"],
+        "bound_ms": fd["bound_ms"],
+        "bound_by": fd["bound_by"],
+        "library_ms": fd["best_library_ms"],
+        "event_ms": min(fd["kernel_event_ms"], fd["kernel_again_event_ms"]),
+        "tile_ms": fd["best_tile_ms"],
+        "tile_route_ms": fd["best_tile_route_ms"],
+        "library_repeated_ms": fd["best_library_repeated_ms"],
+        "grid": fd["grid"],
+        "slices": fd["plan"]["slices"],
+        "bf16_over_one_ulp": flash_decode["bf16_over_one_ulp"],
+        "parity_cases": flash_decode["cases"],
+        "decode_max_sq": flash_decode["decode_max_sq"],
+        "per": "llama-3.2-vision-90b's decode cross-attention, q (4, 64, "
+               "1, 128) over k, v (4, 1601, 8, 128) bf16 in the model's "
+               f"layout, operand sets past L2 ({fd['timer']} time; "
+               "event_ms: CUDA events over back-to-back calls; tile_ms: "
+               "the tile regime forced on the kv heads repeated and "
+               "transposed beforehand; tile_route_ms: the tile regime on "
+               "the model's layout, paying for those copies; "
+               "library_ms: SDPA with enable_gqa on the same inputs; "
+               "library_repeated_ms: SDPA on the repeated operands); "
+               "launches: the 100-layer W4A8 llama's serve, one a cross "
+               "layer and step",
+        "launches_by_path": {
+            f"{ph} ({cross[ph]['arch']}, {cross[ph]['n_layers']} layers)":
+                cross[ph]["launches"]["flash_attention_decode"]
+            for ph in serves},
+        "other_shapes": {
+            "whisper-medium decode cross (4, 16, 1, 64) x 1500": {
+                k: flash_decode["timing"]["whisper"][k] for k in (
+                    "best_kernel_ms", "best_plain_ms", "best_library_ms",
+                    "best_tile_ms", "best_tile_route_ms", "timer",
+                    "bound_ms", "bound_by", "grid", "plan",
+                    "kernel_max_abs_vs_plain")},
+            **{f"{ph} cross, the model's own q and caches": {
+                k: cross[ph]["flash_timing"][k] for k in (
+                    "shape", "kv_heads", "keys", "best_kernel_ms",
+                    "best_plain_ms", "best_library_ms", "best_tile_ms",
+                    "best_tile_route_ms", "timer", "bound_ms", "bound_by",
+                    "kernel_max_abs_vs_plain")} for ph in serves}},
+        "sq_sweep": flash_decode["sq_sweep"],
     })
     fl = atiming["flash_f32"]
     kernels.append({

@@ -63,6 +63,12 @@ SIGNATURES = {
                                      + [ctypes.c_float, _P]),
         "qappa_error_string": (ctypes.c_char_p, [_I]),
     },
+    **{name: {
+        "qappa_flash_decode": (_I, [_P] * 5 + [_P, ctypes.c_longlong] * 2
+                               + [_I] * 8 + [ctypes.c_float] + [_I] * 4
+                               + [_P, _P]),
+        "qappa_error_string": (ctypes.c_char_p, [_I]),
+    } for name in ("flash_decode", "flash_decode_f32")},
     "fleet_sim": {
         "qappa_fleet_sim": (_I, [_P] * 7 + [_I] * 3
                             + [ctypes.c_longlong, _P, _P]),

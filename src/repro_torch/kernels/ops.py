@@ -255,16 +255,22 @@ def w4a8_matmul(x_q, w_packed, x_scale, w_scale, *,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    scale=None, impl: str = "auto") -> torch.Tensor:
-    """Attention forward over q, k, v ``(b, h, s, d)`` with the kv heads
-    broadcast (see ``flash_attention.flash_attention_ref``)."""
+                    scale=None, impl: str = "auto",
+                    regime: str | None = None) -> torch.Tensor:
+    """Attention forward over q ``(b, h, s, d)`` and k, v ``(b, kvh, s,
+    d)``, ``kvh`` dividing ``h`` (see ``flash_attention.flash_attention_ref``);
+    ``regime`` (None, "tile" or "decode") forces the kernel's regime."""
+    b, h, sq, d = q.shape
+    _flash.regime_for(sq, regime)
     fn = _flash.flash_attention if use_kernel(q, impl, grad=(q, k, v)) \
         else _flash.flash_attention_ref
-    b, h, sq, d = q.shape
+    kw = {} if regime is None or fn is _flash.flash_attention_ref \
+        else {"regime": regime}
     return counted("flash_attention", lambda: _flash.cost(
         b, h, sq, k.shape[2], d, causal=causal, window=window,
-        dtype=q.dtype), lambda: fn(q, k, v, causal=causal, window=window,
-                                   scale=scale), grad=(q, k, v))
+        dtype=q.dtype, kvh=k.shape[1]), lambda: fn(
+            q, k, v, causal=causal, window=window, scale=scale, **kw),
+        grad=(q, k, v))
 
 
 def w8a8_decode_attention(q, k_q, v_q, k_scale, v_scale, pos, *,

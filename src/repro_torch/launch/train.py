@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import time
 
@@ -150,9 +151,11 @@ def train(arch: str, *, steps: int = 20, smoke: bool = True,
           seq_len: int = 64, batch: int = 8, ckpt_dir: str | None = None,
           ckpt_every: int = 10, grad_compression: bool = False,
           fail_at: dict | None = None, log_every: int = 5, seed: int = 0,
+          n_layers: int | None = None,
           device="cuda") -> list[tuple[int, float]]:
     """``steps`` AdamW steps of ``arch`` (reduced width with ``smoke``,
-    else full) on ``SyntheticLM`` batches; returns ``[(step, loss)]``.
+    else full; cut to ``n_layers`` layers where given) on ``SyntheticLM``
+    batches; returns ``[(step, loss)]``.
     The params are drawn on the CPU from ``torch.Generator("cpu")
     .manual_seed(seed)`` and moved to ``device`` (the card unless the
     caller asks for the CPU), so both devices start from one draw.
@@ -167,6 +170,8 @@ def train(arch: str, *, steps: int = 20, smoke: bool = True,
     cfg = get_config(arch)
     if smoke:
         cfg = reduced(cfg)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = Model(cfg, device=dev)
     # smoke-scale LR: tiny models on tiny data learn fastest around 3e-3
     ocfg = adamw.AdamWConfig(lr=3e-3, total_steps=steps,

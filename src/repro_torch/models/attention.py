@@ -30,7 +30,11 @@ cache) and cross-attention over a precomputed context: the reference's
 * :func:`context_kv` projects a context (image patches, encoder frames)
   to keys and values once; :func:`cross_attention` attends to them
   through :func:`attend` without a mask or RoPE, at every length (one
-  token at decode), so on the card through the flash kernel too.
+  token at decode), so on the card through the flash kernel too.  It
+  hands ``attend`` the context's ``kvh`` heads: at decode (few q rows)
+  the kernel's decode regime reads the caches where they lie, with no
+  repeat of the kv heads and no copy; the plain route and the tile
+  regime repeat them first, as the reference does.
 """
 
 from __future__ import annotations
@@ -149,35 +153,51 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
     return out.to(q.dtype)
 
 
-def attend(q, k, v, *, causal=True, window=None, impl: str = "auto"):
-    """q: (b, sq, H, hd); k, v: (b, sk, H, hd) -> (b, sq, H, hd): the
-    flash-attention kernel where ``impl`` routes to kernels, else the
-    reference's route: :func:`dense_attention` up to
-    :data:`DENSE_SEQ_LIMIT` tokens, :func:`chunked_attention` above.
+def attend(q, k, v, *, causal=True, window=None, impl: str = "auto",
+           regime: str | None = None):
+    """q: (b, sq, H, hd); k, v: (b, sk, kvh, hd) with ``kvh`` dividing H
+    -> (b, sq, H, hd): the flash-attention kernel where ``impl`` routes to
+    kernels, handed (b, heads, s, hd) views of q, k and v at their heads
+    (the wrapper picks its regime, or takes ``regime``: the decode regime
+    reads them in place, the tile regime repeats and copies them itself),
+    else the reference's route on the kv heads repeated to H:
+    :func:`dense_attention` up to :data:`DENSE_SEQ_LIMIT` tokens,
+    :func:`chunked_attention` above.
     Under grad (grad enabled and q, k or v requiring it) ``"auto"`` takes
     the reference's route on every device, the one its training step
     differentiates: the kernel has no backward (``kernels/ops.py``).
     Operands of mixed dtypes (a bf16 q against the float32 context k, v
     of the vlm forward) meet in float32, as the plain route computes
     them: the float32 kernel, out cast to q's dtype.  An op counter counts
-    either route as one flash call (``ops.counted``).  On ``DTensor``
-    operands each card attends over its own batch rows and heads
+    either route as one flash call (``ops.counted``), k and v at their
+    ``kvh`` heads.  On ``DTensor`` operands the kv heads are repeated to H
+    first and each card attends over its own batch rows and heads
     (``ops.on_local_shards``); a split sequence is gathered first."""
+    flash_attention.regime_for(q.shape[1], regime)
     if ops.sharded(q, k, v):
+        h = q.shape[2]
         return ops.on_local_shards(
-            lambda *t: attend(*t, causal=causal, window=window, impl=impl),
-            (q, k, v), (("b", "s", "h", "d"),) * 3, ("b", "s", "h", "d"),
+            lambda *t: attend(*t, causal=causal, window=window, impl=impl,
+                              regime=regime),
+            (q, _broadcast_kv(k, h), _broadcast_kv(v, h)),
+            (("b", "s", "h", "d"),) * 3, ("b", "s", "h", "d"),
             split=("b", "h"))
     dt = q.dtype if q.dtype == k.dtype == v.dtype else torch.float32
     b, sq, h, hd = q.shape
     return ops.counted("flash_attention", lambda: flash_attention.cost(
-        b, h, sq, k.shape[1], hd, causal=causal, window=window, dtype=dt),
-        lambda: _attend(q, k, v, causal, window, impl, dt), grad=(q, k, v))
+        b, h, sq, k.shape[1], hd, causal=causal, window=window, dtype=dt,
+        kvh=k.shape[2]),
+        lambda: _attend(q, k, v, causal, window, impl, dt, regime),
+        grad=(q, k, v))
 
 
-def _attend(q, k, v, causal, window, impl, dt):
-    """:func:`attend`'s two routes."""
+def _attend(q, k, v, causal, window, impl, dt, regime):
+    """:func:`attend`'s routes: the plain one on the kv heads repeated to
+    H; the kernel on (b, heads, s, hd) views of q, k, v (no copy where the
+    dtypes agree)."""
     if not ops.use_kernel(q, impl, grad=(q, k, v)):
+        h = q.shape[2]
+        k, v = _broadcast_kv(k, h), _broadcast_kv(v, h)
         # a fake q outside grad is inside the flash scope, where only the
         # output's shape counts: the dense route gives it for nothing
         if max(q.shape[1], k.shape[1]) <= DENSE_SEQ_LIMIT or (
@@ -185,8 +205,8 @@ def _attend(q, k, v, causal, window, impl, dt):
             return dense_attention(q, k, v, causal=causal, window=window)
         return chunked_attention(q, k, v, causal=causal, window=window)
     out = ops.flash_attention(
-        *(t.transpose(1, 2).to(dt).contiguous() for t in (q, k, v)),
-        causal=causal, window=window, impl="kernel")
+        *(t.transpose(1, 2).to(dt) for t in (q, k, v)), causal=causal,
+        window=window, impl="kernel", regime=regime)
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -397,13 +417,12 @@ def cross_attention(x, ctx_k, ctx_v, p, cfg, *, policy, train=False,
     """Attention of x (b, s, d) over a context's keys and values ctx_k,
     ctx_v (b, sc, kvh, hd), precomputed by :func:`context_kv` (the
     whisper decoder's and llama-3.2-vision's image layers): no RoPE, the
-    kv heads repeated to ``n_heads``, no mask."""
+    kv heads broadcast to ``n_heads`` (by :func:`attend`), no mask."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     q = reshape(qdot(x, p["wq_x"], policy, train=train, impl=impl),
                 b, s, h, hd)
-    out = attend(q, _broadcast_kv(ctx_k, h), _broadcast_kv(ctx_v, h),
-                 causal=False, impl=impl)
+    out = attend(q, ctx_k, ctx_v, causal=False, impl=impl)
     return qdot(reshape(out, b, s, h * hd), p["wo_x"], policy, train=train,
                 impl=impl)
 

@@ -21,13 +21,22 @@ import torch
 from repro.configs import get_config as r_get_config
 from repro_torch.configs import get_config
 from test_torch_serve import _models
-from test_torch_vlm import (MODES, _close, _ctx, _tol, check_fill_ctx_caches,
-                            check_forward_and_loss, check_init_layout,
-                            check_n_params, check_port_refusals,
-                            check_serve_cpu, check_teacher_forced_decode,
-                            pin_reference_c10)
+from test_torch_vlm import (MODES, _close, _ctx, _tol, check_cross_attention,
+                            check_fill_ctx_caches, check_forward_and_loss,
+                            check_init_layout, check_n_params,
+                            check_port_refusals, check_serve_cpu,
+                            check_teacher_forced_decode, pin_reference_c10)
 
 AUDIO = "whisper-medium"
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "w8a8"])
+@pytest.mark.parametrize("sq", [1, 8])
+def test_cross_attention_at_rep_8_matches_reference(mode, sq):
+    """The decoder's cross-attention over the encoder's keys and values
+    with 8 q heads a kv head, at one token and at eight, against the
+    reference's ``cross_attention`` (whisper-medium itself has rep 1)."""
+    check_cross_attention(AUDIO, mode, sq, n_heads=8, n_kv_heads=1)
 
 
 @pytest.mark.parametrize("mode,quantize", MODES)

@@ -27,7 +27,10 @@ The decode-attention kernel is held to its plain version at 1e-5 x
 max|out| (the reference's kernel-vs-oracle bound; its float operations
 follow the plain version's order, also across the splits of S, so 0 is
 expected and the split tests ask for equality), flash attention at 1e-5
-(float32, 3xTF32 on the tensor cores) and 2e-2 (bf16).
+(float32, 3xTF32 on the tensor cores) and 2e-2 (bf16); flash's decode
+regime (float32 on the CUDA cores, k and v read through their strides at
+kv heads dividing the q heads) at 1e-5 x max|out| (float32) and 2e-2 x
+(1 + |out|) (bf16).
 """
 
 import ctypes
@@ -1347,7 +1350,7 @@ def test_flash_bf16_tensor_core_route_on_random_shapes(cuda_device, d):
         q, k, v = _qkv(b, h, sq, sk, d, torch.bfloat16, int(sk), cuda_device)
         before = (F.launches, F.launches_tc, F.launches_f32)
         got = OPS.flash_attention(q, k, v, causal=causal, window=window,
-                                  impl="kernel")
+                                  impl="kernel", regime="tile")
         assert (F.launches, F.launches_tc, F.launches_f32) == (
             before[0] + 1, before[1] + 1, before[2])
         want = OPS.flash_attention(q, k, v, causal=causal, window=window,
@@ -1376,7 +1379,7 @@ def test_flash_float32_3xtf32_route_on_random_shapes(cuda_device, d):
                        cuda_device)
         before = (F.launches, F.launches_tc, F.launches_f32)
         got = OPS.flash_attention(q, k, v, causal=causal, window=window,
-                                  impl="kernel")
+                                  impl="kernel", regime="tile")
         assert (F.launches, F.launches_tc, F.launches_f32) == (
             before[0] + 1, before[1], before[2] + 1)
         want = OPS.flash_attention(q, k, v, causal=causal, window=window,
@@ -1392,10 +1395,20 @@ def test_flash_kernel_refuses_what_it_is_not_built_for(cuda_device):
     q, k, v = _qkv(1, 2, 8, 8, 24, torch.float32, 0, cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         OPS.flash_attention(q, k, v, impl="kernel")
+    # the tile regime copies strided operands to contiguous ones itself,
+    # and refuses a contiguous one off a 16-byte boundary
     q, k, v = _qkv(1, 2, 8, 8, 32, torch.float32, 0, cuda_device)
-    with pytest.raises(ValueError, match="contiguous"):
-        OPS.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), impl="kernel")
+    got = OPS.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                              impl="kernel", regime="tile")
+    want = OPS.flash_attention(*(t.transpose(1, 2).contiguous()
+                                 for t in (q, k, v)),
+                               impl="kernel", regime="tile")
+    assert torch.equal(got, want)
+    off = torch.empty(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+    off.copy_(q)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        OPS.flash_attention(off, k, v, impl="kernel", regime="tile")
 
 
 def _reduced_model(quant, device, impl):
@@ -1710,9 +1723,10 @@ def test_reduced_cross_family_swapped_attention_equals_plain(
         assert torch.equal(cs[name], cp[name]), name
     for i in range(10):
         tok = tokens[:, i:i + 1]
-        before = F.launches_tc
+        before = (F.launches_decode, F.launches_tc)
         lk, ck = kern.decode_step(params, ck, tok, i)
-        assert F.launches_tc - before == n_cross
+        assert (F.launches_decode - before[0],
+                F.launches_tc - before[1]) == (n_cross, 0)
         assert bool(torch.isfinite(lk).all())
         monkeypatch.setattr(A, "attend", swapped)
         ls, cs = kern.decode_step(params, cs, tok, i)
@@ -1777,6 +1791,127 @@ def test_attend_meets_mixed_dtypes_in_float32(cuda_device):
     assert (F.launches_f32 - before[0], F.launches_tc - before[1]) == (1, 0)
     want = A.attend(q, k, v, causal=False, impl="ref")
     assert got.dtype == want.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+# ------------------------------------------ flash's decode regime
+
+def _decode_qkv(b, h, kvh, sq, sk, d, dtype, seed, device):
+    """q (b, h, sq, d) and k, v (b, kvh, sk, d) as views of (b, s, heads,
+    d) tensors, the layout the model hands the decode regime."""
+    g = torch.Generator("cpu").manual_seed(seed)
+    return [torch.randn((b, s, n, d), generator=g).to(dtype).to(device)
+            .transpose(1, 2) for s, n in ((sq, h), (sk, kvh), (sk, kvh))]
+
+
+def _decode_close(got, want, dtype):
+    """float32 within 1e-5 x max|out|; bf16 within 2e-2 x (1 + |out|) an
+    element and 2^-6 of its row's max|out| a row (chip_smoke.py's
+    ``flash_row_err`` bars)."""
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        return float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    err = (g - w).abs()
+    return bool((err <= 2e-2 * (1 + w.abs())).all()) and bool(
+        (err.amax(-1) <= 2.0 ** -6 * w.abs().amax(-1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_decode_regime_on_random_shapes(cuda_device, dtype, d):
+    """kv-head ratios 1-8, sq 1-16, ragged key counts and every mask
+    through the entry with the regime forced: within the bounds of the
+    plain version, one decode launch a call, the grid as planned."""
+    from repro_torch.kernels import flash_attention as F
+    rng = np.random.default_rng(900 + d)
+    for i in range(4):
+        kvh, rep = int(rng.integers(1, 4)), int(rng.choice([1, 2, 3, 8]))
+        b, sq = int(rng.integers(1, 4)), int(rng.integers(1, 17))
+        sk = int(rng.integers(1, 3000))
+        causal = bool(rng.integers(0, 2))
+        window = None if rng.integers(0, 2) else int(rng.integers(1, 400))
+        q, k, v = _decode_qkv(b, kvh * rep, kvh, sq, sk, d, dtype, i,
+                              cuda_device)
+        before = (F.launches, F.launches_decode, F.launches_tc,
+                  F.launches_f32)
+        got = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="kernel", regime="decode")
+        assert (F.launches, F.launches_decode, F.launches_tc,
+                F.launches_f32) == (before[0] + 1, before[1] + 1,
+                                    before[2], before[3])
+        plan = F.decode_plan(b, kvh * rep, kvh, sq, sk, d, dtype,
+                             causal=causal, window=window)
+        assert F.last_grid == (b * kvh, plan.splits)
+        want = OPS.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _decode_close(got, want, dtype), (
+            b, kvh, rep, sq, sk, d, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_regime_at_the_cross_shapes(cuda_device, dtype):
+    """llama-3.2-vision's and whisper's decode cross-attention, and rows
+    with no live key (causal, sq > sk: the mean of v), by the regime the
+    entry picks for one q row."""
+    from repro_torch.kernels import flash_attention as F
+    for b, h, kvh, sq, sk, d, causal in ((4, 64, 8, 1, 1601, 128, False),
+                                         (4, 16, 16, 1, 1500, 64, False),
+                                         (2, 8, 2, 9, 3, 64, True)):
+        q, k, v = _decode_qkv(b, h, kvh, sq, sk, d, dtype, sk, cuda_device)
+        before = F.launches_decode
+        got = OPS.flash_attention(q, k, v, causal=causal, impl="kernel",
+                                  regime="decode" if sq > 1 else None)
+        assert F.launches_decode == before + 1
+        want = OPS.flash_attention(q, k, v, causal=causal, impl="ref")
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert _decode_close(got, want, dtype), (h, sq, sk)
+
+
+@pytest.mark.cuda
+def test_flash_decode_regime_on_two_streams(cuda_device):
+    """Two streams at once, each with its own workspace: each call equals
+    the same call alone, and both workspaces are left zero."""
+    from repro_torch.kernels import flash_attention as F
+    sets = [_decode_qkv(4, 64, 8, 1, 1601, 128, torch.bfloat16, s,
+                        cuda_device) for s in range(2)]
+    wants = [F.flash_attention(*s, causal=False) for s in sets]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in sets]
+    gots = [[], []]
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                gots[i].append(F.flash_attention(*sets[i], causal=False))
+    torch.cuda.synchronize()
+    for i, st in enumerate(streams):
+        assert all(torch.equal(g, wants[i]) for g in gots[i]), i
+        with torch.cuda.stream(st):
+            assert not WS.workspace(cuda_device, 1).any()
+
+
+@pytest.mark.cuda
+def test_flash_decode_regime_refuses_what_it_cannot_read(cuda_device):
+    from repro_torch.kernels import flash_attention as F
+    q, k, v = _decode_qkv(1, 8, 2, 1, 64, 64, torch.bfloat16, 0,
+                          cuda_device)
+    with pytest.raises(ValueError, match="kvh dividing"):
+        F.flash_attention(q, k[:, :1].expand(1, 3, 64, 64), v)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        F.flash_attention(q[..., :32], k[..., 1:33], v[..., 1:33],
+                          regime="decode")
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        F.flash_attention(q, k.transpose(2, 3)[:, :, :64, :64],
+                          v, regime="decode")
+    with pytest.raises(ValueError, match="regime must be one of"):
+        F.flash_attention(q, k, v, regime="split")
+    # the tile regime takes the same views, repeating and copying them
+    got = F.flash_attention(q, k, v, regime="tile")
+    want = F.flash_attention_ref(q, k, v)
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
 
 

@@ -12,7 +12,8 @@ reference's ``Model.init`` (+ ``quantize_params``), carried across by
 ``repro_torch.models.convert``.  Bounds, with the maxima measured on the
 CPU (torch 2.13, jax 0.9.0; ``pytest -s`` prints them):
 
-* ``context_kv`` / ``cross_attention`` at sq 1 and 5, rep 1 and 2: 1e-5
+* ``context_kv`` / ``cross_attention`` at sq 1 and 5, rep 1 and 2, and
+  at sq 1 and 8, rep 8 (whisper's too, ``tests/test_torch_audio.py``): 1e-5
   under ``fp32`` (measured 4.8e-7 at |out| ~ 2); 2e-2 under bf16 and W8A8,
   the dense family's bf16 bound (``tests/test_torch_serve.py``; measured
   1.2e-4 under bf16, 0 under W8A8).  Under W8A8 the context's keys and
@@ -107,9 +108,26 @@ def test_cross_attention_and_context_kv_match_reference(mode, sq, rep):
     attention of x over them (the kv heads repeated ``rep`` times, no
     mask) against the reference's, on numpy inputs; under W8A8 on the
     reference's quantized weights carried across."""
-    cfg = reduced(get_config(VLM), n_kv_heads=4 // rep,
-                  quant="w8a8" if mode == "w8a8" else mode)
-    assert cfg.n_heads // cfg.n_kv_heads == rep
+    check_cross_attention(VLM, mode, sq, n_kv_heads=4 // rep)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "w8a8"])
+@pytest.mark.parametrize("sq", [1, 8])
+def test_cross_attention_at_rep_8_matches_reference(mode, sq):
+    """llama-3.2-vision's kv-head ratio (64 q heads over 8 kv heads: rep
+    8) at one token and at eight: the port's ``cross_attention`` hands
+    ``attend`` the context's kv heads unrepeated, and matches the
+    reference's, which repeats them first."""
+    check_cross_attention(VLM, mode, sq, n_heads=8, n_kv_heads=1)
+
+
+def check_cross_attention(arch, mode, sq, **over):
+    """``context_kv`` and ``cross_attention`` of ``arch`` reduced with
+    ``over`` against the reference's (see
+    ``test_cross_attention_and_context_kv_match_reference``)."""
+    cfg = reduced(get_config(arch), quant="w8a8" if mode == "w8a8"
+                  else mode, **over)
+    rep = cfg.n_heads // cfg.n_kv_heads
     rng = np.random.default_rng(10 * sq + rep)
     x = rng.standard_normal((3, sq, cfg.d_model)).astype(np.float32)
     ctx = rng.standard_normal((3, cfg.n_ctx_tokens, cfg.d_model)) \
@@ -137,7 +155,7 @@ def test_cross_attention_and_context_kv_match_reference(mode, sq, rep):
                                  cfg, policy=tpol)
     assert got.dtype == tdt and tuple(got.shape) == x.shape
     errs.append(_close(got, want, _tol(mode), "out"))
-    print(mode, sq, rep, "k, v, out", errs, "max|out|",
+    print(arch, mode, sq, rep, "k, v, out", errs, "max|out|",
           float(np.abs(_f32(want)).max()))
 
 
