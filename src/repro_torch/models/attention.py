@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels import flash_attention, ops, w8a8_decode
 from repro_torch.models.common import rope
+from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.sharding import einsum, reshape, shard
 from repro_torch.quant.quantizers import const_like
 from repro_torch.quant.qlinear import qdot
@@ -214,23 +215,24 @@ def self_attention(x, p, cfg, *, policy, train=False, window=None,
                    impl: str = "auto"):
     """Full-sequence self-attention.  x: (b, s, d); ``window``: the local
     layers' sliding window (None: full causal).  Returns
-    ``(out, (k, v))``."""
-    b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = reshape(qdot(x, p["wq"], policy, train=train, impl=impl),
-                b, s, h, hd)
-    k = reshape(qdot(x, p["wk"], policy, train=train, impl=impl),
-                b, s, kvh, hd)
-    v = reshape(qdot(x, p["wv"], policy, train=train, impl=impl),
-                b, s, kvh, hd)
-    q = shard(q, "attn_qkv")
-    positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = attend(q, _broadcast_kv(k, h), _broadcast_kv(v, h), window=window,
-                 impl=impl)
-    out = reshape(out, b, s, h * hd)
-    return qdot(out, p["wo"], policy, train=train, impl=impl), (k, v)
+    ``(out, (k, v))``.  Span ``attn.self``."""
+    with obs_trace.span("attn.self"):
+        b, s, _ = x.shape
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = reshape(qdot(x, p["wq"], policy, train=train, impl=impl),
+                    b, s, h, hd)
+        k = reshape(qdot(x, p["wk"], policy, train=train, impl=impl),
+                    b, s, kvh, hd)
+        v = reshape(qdot(x, p["wv"], policy, train=train, impl=impl),
+                    b, s, kvh, hd)
+        q = shard(q, "attn_qkv")
+        positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        out = attend(q, _broadcast_kv(k, h), _broadcast_kv(v, h),
+                     window=window, impl=impl)
+        out = reshape(out, b, s, h * hd)
+        return qdot(out, p["wo"], policy, train=train, impl=impl), (k, v)
 
 
 def _quantize_kv(t: torch.Tensor):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.sharding import shard
 from repro_torch.quant.qlinear import qdot
 
@@ -59,28 +60,31 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in float32 (precision-sensitive in every quantization
-    mode), returned in ``x``'s dtype."""
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
-    return out.to(x.dtype)
+    mode), returned in ``x``'s dtype.  Span ``common.rms_norm``."""
+    with obs_trace.span("common.rms_norm"):
+        xf = x.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * gamma.to(torch.float32)
+        return out.to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding in float32.  x: (..., s, h, hd); positions:
-    broadcastable (s,) or (b, s)."""
-    hd = x.shape[-1]
-    half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    ang = positions.to(torch.float32)[..., None] * freqs   # (..., s, half)
-    cos = torch.cos(ang)[..., None, :]                     # (..., s, 1, half)
-    sin = torch.sin(ang)[..., None, :]
-    xf1 = x[..., :half].to(torch.float32)
-    xf2 = x[..., half:].to(torch.float32)
-    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
-    return out.to(x.dtype)
+    broadcastable (s,) or (b, s).  Span ``common.rope``."""
+    with obs_trace.span("common.rope"):
+        hd = x.shape[-1]
+        half = hd // 2
+        freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                        device=x.device) / half)
+        ang = positions.to(torch.float32)[..., None] * freqs  # (..., s, half)
+        cos = torch.cos(ang)[..., None, :]                  # (..., s, 1, half)
+        sin = torch.sin(ang)[..., None, :]
+        xf1 = x[..., :half].to(torch.float32)
+        xf2 = x[..., half:].to(torch.float32)
+        out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                        dim=-1)
+        return out.to(x.dtype)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -98,18 +102,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def gelu_mlp(x, w_in, w_out, policy, train, *, impl: str = "auto"):
-    # jax.nn.gelu, the reference's activation, is the tanh approximation
-    h = F.gelu(qdot(x, w_in, policy, train=train, impl=impl),
-               approximate="tanh")
-    return qdot(h, w_out, policy, train=train, impl=impl)
+    """The GELU MLP; span ``common.mlp``."""
+    with obs_trace.span("common.mlp"):
+        # jax.nn.gelu, the reference's activation, is the tanh
+        # approximation
+        h = F.gelu(qdot(x, w_in, policy, train=train, impl=impl),
+                   approximate="tanh")
+        return qdot(h, w_out, policy, train=train, impl=impl)
 
 
 def swiglu_mlp(x, w_gate, w_up, w_down, policy, train, *,
                impl: str = "auto"):
-    g = qdot(x, w_gate, policy, train=train, impl=impl)
-    u = qdot(x, w_up, policy, train=train, impl=impl)
-    h = shard(F.silu(g) * u, "ffn_hidden")
-    return qdot(h, w_down, policy, train=train, impl=impl)
+    """The SwiGLU MLP; span ``common.mlp``."""
+    with obs_trace.span("common.mlp"):
+        g = qdot(x, w_gate, policy, train=train, impl=impl)
+        u = qdot(x, w_up, policy, train=train, impl=impl)
+        h = shard(F.silu(g) * u, "ffn_hidden")
+        return qdot(h, w_down, policy, train=train, impl=impl)
 
 
 def normal_init(generator: torch.Generator, shape,

@@ -71,6 +71,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (cross_entropy, embed, gelu_mlp,
                                        normal_init, rms_norm, swiglu_mlp)
+from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.sharding import placed_like, shard
 from repro_torch.quant.calibrate import PROJ_NAMES
 from repro_torch.quant.policy import QuantPolicy, policy_for
@@ -78,6 +79,14 @@ from repro_torch.quant.qlinear import qdot, quantize_weight
 
 EXPERT_NAMES = ("w_experts_gate", "w_experts_in", "w_experts_out")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+def _layer_span(index: int):
+    """The ``model.layer`` span of layer ``index``; its attributes are
+    built only while tracing is on."""
+    if not obs_trace.is_enabled():
+        return obs_trace.NOOP
+    return obs_trace.span("model.layer", index=index)
 
 
 def _mlp(xn, lp, cfg, policy, train, impl):
@@ -316,10 +325,24 @@ class Model(nn.Module):
         prefill).  ``train`` goes to every ``qdot`` (QAT under a quantized
         policy on float weights).  ``aux``: the MoE
         layers' load-balance losses summed in float32 in layer order (the
-        reference's scan carry), 0 for the other families."""
+        reference's scan carry), 0 for the other families.
+
+        Spans, while tracing is on: ``model.forward`` (``batch``,
+        ``tokens``: all the batch's positions), the root of the call's
+        spans, and in it ``model.embed``, ``model.layer`` (``index``) for
+        each layer of every stack and ``model.logits`` (the final norm and
+        the logits' product)."""
+        if not obs_trace.is_enabled():
+            return self._forward(params, tokens, ctx, train, last_only)
+        with obs_trace.span("model.forward", batch=int(tokens.shape[0]),
+                            tokens=int(tokens.numel())):
+            return self._forward(params, tokens, ctx, train, last_only)
+
+    def _forward(self, params, tokens, ctx, train, last_only):
         cfg, policy, impl = self.cfg, self.policy, self.impl
-        x = shard(embed(params["embed"], tokens).to(policy.compute_dtype),
-                  "residual")
+        with obs_trace.span("model.embed"):
+            x = shard(embed(params["embed"], tokens).to(
+                policy.compute_dtype), "residual")
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family in ("vlm", "audio"):
             if ctx is None:
@@ -329,10 +352,11 @@ class Model(nn.Module):
                  else self._audio_forward)(params, x, ctx, train)
         else:
             x, aux = self._stack_forward(params, x, aux, train)
-        if last_only:
-            x = x[:, -1:]
-        x = rms_norm(x, params["final_norm"])
-        logits = qdot(x, params["embed"].T, policy, train=train)
+        with obs_trace.span("model.logits"):
+            if last_only:
+                x = x[:, -1:]
+            x = rms_norm(x, params["final_norm"])
+            logits = qdot(x, params["embed"].T, policy, train=train)
         return (shard(logits, "logits") if not last_only else logits), aux
 
     def _stack_forward(self, params, x, aux, train):
@@ -340,18 +364,19 @@ class Model(nn.Module):
         cfg, policy, impl = self.cfg, self.policy, self.impl
         windows = layer_windows(cfg)
         for l, lp in enumerate(params["layers"]):
-            if cfg.family == "dense":
-                x = _dense_block(x, lp, cfg, policy, train, impl,
-                                 window=windows[l])
-                continue
-            if cfg.family == "moe":
-                x, a = _moe_block(x, lp, cfg, policy, train, impl)
-                aux = aux + a
-                continue
-            x = _mamba_layer(x, lp, cfg, policy, train, impl)
-            if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
-                x = _dense_block(x, params["shared"], cfg, policy, train,
-                                 impl)
+            with _layer_span(l):
+                if cfg.family == "dense":
+                    x = _dense_block(x, lp, cfg, policy, train, impl,
+                                     window=windows[l])
+                    continue
+                if cfg.family == "moe":
+                    x, a = _moe_block(x, lp, cfg, policy, train, impl)
+                    aux = aux + a
+                    continue
+                x = _mamba_layer(x, lp, cfg, policy, train, impl)
+                if cfg.family == "hybrid" and _is_shared_layer(cfg, l):
+                    x = _dense_block(x, params["shared"], cfg, policy,
+                                     train, impl)
         return x, aux
 
     def _cross_block(self, x, cp, ck, cv, train):
@@ -367,8 +392,10 @@ class Model(nn.Module):
         cfg, policy, impl = self.cfg, self.policy, self.impl
         k = cfg.cross_attn_every
         for g, cp in enumerate(params["cross_layers"]):
-            for lp in params["layers"][g * k:(g + 1) * k]:
-                x = _dense_block(x, lp, cfg, policy, train, impl)
+            for l, lp in enumerate(params["layers"][g * k:(g + 1) * k],
+                                   start=g * k):
+                with _layer_span(l):
+                    x = _dense_block(x, lp, cfg, policy, train, impl)
             ck, cv = attn.context_kv(ctx, cp, cfg, policy=policy,
                                      train=train, impl=impl)
             x = self._cross_block(x, cp, ck, cv, train)
@@ -380,15 +407,18 @@ class Model(nn.Module):
         MLP."""
         cfg, policy, impl = self.cfg, self.policy, self.impl
         enc = self._encode(params, frames, train)
-        for lp, cp in zip(params["layers"], params["cross_layers"]):
-            h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
-                                       policy=policy, train=train, impl=impl)
-            x = _residual(x, h)
-            ck, cv = attn.context_kv(enc, cp, cfg, policy=policy,
-                                     train=train, impl=impl)
-            x = self._cross_block(x, cp, ck, cv, train)
-            x = _residual(x, _mlp(rms_norm(x, lp["ln2"]), lp, cfg, policy,
-                                  train, impl))
+        for l, (lp, cp) in enumerate(zip(params["layers"],
+                                         params["cross_layers"])):
+            with _layer_span(l):
+                h, _ = attn.self_attention(rms_norm(x, lp["ln1"]), lp, cfg,
+                                           policy=policy, train=train,
+                                           impl=impl)
+                x = _residual(x, h)
+                ck, cv = attn.context_kv(enc, cp, cfg, policy=policy,
+                                         train=train, impl=impl)
+                x = self._cross_block(x, cp, ck, cv, train)
+                x = _residual(x, _mlp(rms_norm(x, lp["ln2"]), lp, cfg,
+                                      policy, train, impl))
         return x
 
     def _encode(self, params: dict, frames: torch.Tensor,
@@ -399,8 +429,10 @@ class Model(nn.Module):
         is, though its comments call the encoder bidirectional (ROADMAP
         C.11)."""
         x = shard(frames.to(self.policy.compute_dtype), "residual")
-        for lp in params["encoder_layers"]:
-            x = _dense_block(x, lp, self.cfg, self.policy, train, self.impl)
+        for l, lp in enumerate(params["encoder_layers"]):
+            with _layer_span(l):
+                x = _dense_block(x, lp, self.cfg, self.policy, train,
+                                 self.impl)
         return x
 
     def loss(self, params: dict, batch: dict, *,

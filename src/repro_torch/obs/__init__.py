@@ -28,6 +28,7 @@ from .metrics import (
 )
 from .report import render_text, summarize
 from .trace import (
+    NOOP,
     Span,
     Tracer,
     configure,
@@ -40,7 +41,6 @@ from .trace import (
     span,
     span_end,
     span_start,
-    timed_span,
     validate_chrome_trace,
 )
 
@@ -49,6 +49,7 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "NOOP",
     "Span",
     "Tracer",
     "configure",
@@ -66,6 +67,5 @@ __all__ = [
     "span_end",
     "span_start",
     "summarize",
-    "timed_span",
     "validate_chrome_trace",
 ]

@@ -1,10 +1,15 @@
 """Nestable span tracing with a bounded ring, Chrome-trace and JSONL export.
 
-Copy of :mod:`repro.obs.trace` with one change: spans mirror into
+Copy of :mod:`repro.obs.trace` with these changes: spans mirror into
 ``torch.profiler.record_function`` ranges (``torch_annotations``) where
 the reference mirrors its context-manager spans into jax profiler
 annotations; here the async spans get a range too, so ``sweep.kernel``
-encloses its chunk's kernel launch in a torch profile.
+encloses its chunk's kernel launch in a torch profile.  Spans are
+stamped in integer nanoseconds from an epoch that is a pair of clocks
+(``perf_counter_ns``, ``time_ns``), so :meth:`Tracer.unix_ns` puts them
+on the clock of ``torch.profiler``'s events, and each carries its
+root's id.  The reference's ``timed_span`` is not ported: nothing here
+calls it.
 
 The exploration runtime's stage-level clock: a *span* is a named interval
 with wall and CPU duration, structured attributes, and a parent — the
@@ -52,18 +57,23 @@ import time
 
 
 class Span:
-    """One closed (or still-open) traced interval."""
+    """One closed (or still-open) traced interval.  ``start_ns`` and
+    ``end_ns`` are integer nanoseconds since the tracer's epoch
+    (:meth:`Tracer.unix_ns` puts them on the wall clock); ``root_id`` is
+    the outermost open span's id, shared by every span under one root."""
 
-    __slots__ = ("span_id", "parent_id", "name", "t0_s", "dur_s",
-                 "cpu_dur_s", "tid", "depth", "attrs", "status",
-                 "_cpu0_s", "_prof")
+    __slots__ = ("span_id", "parent_id", "root_id", "name", "start_ns",
+                 "end_ns", "dur_s", "cpu_dur_s", "tid", "depth", "attrs",
+                 "status", "_cpu0_s", "_prof")
 
-    def __init__(self, span_id: int, parent_id: int | None, name: str,
-                 t0_s: float, tid: int, depth: int, attrs: dict):
+    def __init__(self, span_id: int, parent: "Span | None", name: str,
+                 start_ns: int, tid: int, depth: int, attrs: dict):
         self.span_id = span_id
-        self.parent_id = parent_id
+        self.parent_id = parent.span_id if parent is not None else None
+        self.root_id = parent.root_id if parent is not None else span_id
         self.name = name
-        self.t0_s = t0_s            # seconds since the tracer epoch
+        self.start_ns = start_ns
+        self.end_ns: int | None = None
         self.dur_s: float | None = None
         self.cpu_dur_s: float | None = None
         self.tid = tid
@@ -73,6 +83,11 @@ class Span:
         self._cpu0_s = time.process_time()
         self._prof = None           # the profiler range of an async span
 
+    @property
+    def t0_s(self) -> float:
+        """Seconds from the tracer's epoch to the span's start."""
+        return self.start_ns / 1e9
+
     def set(self, **attrs) -> None:
         """Attach/overwrite structured attributes while the span is open."""
         self.attrs.update(attrs)
@@ -81,6 +96,7 @@ class Span:
         return {
             "span_id": self.span_id,
             "parent_id": self.parent_id,
+            "root_id": self.root_id,
             "name": self.name,
             "t0_s": self.t0_s,
             "dur_s": self.dur_s,
@@ -111,6 +127,9 @@ class _NoopSpan:
 
 
 _NOOP = _NoopSpan()
+#: the disabled path's span, for call sites that build attributes only
+#: while tracing is on: ``span(name, k=v) if is_enabled() else NOOP``
+NOOP = _NOOP
 
 
 class _SpanCtx:
@@ -155,6 +174,11 @@ class Tracer:
     ``ring_size`` bounds memory for marathon runs: the ring keeps the
     newest N *closed* spans (eviction counted in ``n_evicted``), while
     the JSONL log — when configured — keeps everything.
+
+    The epoch is a pair of integer nanosecond clocks read back to back:
+    ``perf_counter_ns`` (which stamps the spans) and ``time_ns``, the
+    wall clock that ``torch.profiler`` stamps its host and device events
+    with; :meth:`unix_ns` converts a span's time to the second.
     """
 
     def __init__(self, ring_size: int = 65536):
@@ -164,10 +188,16 @@ class Tracer:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._ids = itertools.count(1)
-        self.epoch_s = time.perf_counter()
-        self.epoch_unix_s = time.time()
+        self._set_epoch()
         self.n_recorded = 0
         self.n_evicted = 0
+
+    def _set_epoch(self) -> None:
+        # the two clocks drift apart (the wall clock is slewed) by a few
+        # microseconds a minute: an epoch read again at each reset of the
+        # ring keeps a traced window's conversion within that
+        self.epoch_ns = time.perf_counter_ns()
+        self.epoch_unix_ns = time.time_ns()
 
     # -- per-thread nesting ------------------------------------------------
     def _stack(self) -> list:
@@ -180,15 +210,20 @@ class Tracer:
         st = self._stack()
         return st[-1] if st else None
 
+    def unix_ns(self, ns: int) -> int:
+        """Nanoseconds since the epoch (a span's ``start_ns`` or
+        ``end_ns``) on the wall clock, ``time.time_ns()``'s."""
+        return self.epoch_unix_ns + ns
+
     # -- record ------------------------------------------------------------
     def start(self, name: str, attrs: dict, *,
               on_stack: bool = False) -> Span:
         st = self._stack()
         parent = st[-1] if st else None
         sp = Span(span_id=next(self._ids),
-                  parent_id=parent.span_id if parent is not None else None,
+                  parent=parent,
                   name=name,
-                  t0_s=time.perf_counter() - self.epoch_s,
+                  start_ns=time.perf_counter_ns() - self.epoch_ns,
                   tid=threading.get_ident(),
                   depth=len(st),
                   attrs=attrs)
@@ -198,7 +233,8 @@ class Tracer:
 
     def end(self, sp: Span, *, status: str = "ok",
             pop_stack: bool = False) -> None:
-        sp.dur_s = time.perf_counter() - self.epoch_s - sp.t0_s
+        sp.end_ns = time.perf_counter_ns() - self.epoch_ns
+        sp.dur_s = (sp.end_ns - sp.start_ns) / 1e9
         sp.cpu_dur_s = time.process_time() - sp._cpu0_s
         sp.status = status
         if pop_stack:
@@ -232,6 +268,7 @@ class Tracer:
             self._ring_pos = 0
             self.n_recorded = 0
             self.n_evicted = 0
+            self._set_epoch()
 
 
 # ---------------------------------------------------------------------------
@@ -405,40 +442,6 @@ def span_end(handle: Span | None, *, status: str = "ok", **attrs) -> None:
     _TRACER.end(handle, status=status)
 
 
-class timed_span:
-    """Span that *also* accumulates its wall duration into a plain dict —
-    the bridge that lets legacy ``timings``-style accounting be populated
-    by the same clock reads as the trace (``sink[key] += dur``).  Always
-    times (the sink needs the number either way); records a span only
-    while tracing is enabled.
-    """
-
-    __slots__ = ("_name", "_attrs", "_sink", "_key", "_t0", "_ctx")
-
-    def __init__(self, name: str, sink: dict | None = None,
-                 key: str | None = None, **attrs):
-        self._name = name
-        self._attrs = attrs
-        self._sink = sink
-        self._key = key
-        self._ctx = None
-
-    def __enter__(self):
-        if _STATE["enabled"]:
-            self._ctx = _SpanCtx(_TRACER, self._name, self._attrs)
-            self._ctx.__enter__()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, exc_type, exc, tb):
-        dur = time.perf_counter() - self._t0
-        if self._sink is not None:
-            self._sink[self._key] = self._sink.get(self._key, 0.0) + dur
-        if self._ctx is not None:
-            self._ctx.__exit__(exc_type, exc, tb)
-        return False
-
-
 # ---------------------------------------------------------------------------
 # Exporters
 # ---------------------------------------------------------------------------
@@ -473,7 +476,7 @@ def export_chrome_trace(path=None, *, tracer: Tracer | None = None) -> dict:
         "traceEvents": events,
         "displayTimeUnit": "ms",
         "otherData": {
-            "epoch_unix_s": tr.epoch_unix_s,
+            "epoch_unix_s": tr.epoch_unix_ns / 1e9,
             "n_recorded": tr.n_recorded,
             "n_evicted": tr.n_evicted,
         },

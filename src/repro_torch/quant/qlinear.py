@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.quant import quantizers as qz
 from repro_torch.quant.policy import ExecMode, QuantPolicy
 
@@ -108,21 +109,26 @@ def int8_dot(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
 def serve_dot(x: torch.Tensor, qw: QuantizedTensor, out_dtype=None, *,
               impl: str = "auto") -> torch.Tensor:
     """Quantized serving matmul on the last dim of ``x``; ``impl`` as in
-    :mod:`repro_torch.kernels.ops`."""
-    out_dtype = out_dtype or x.dtype
-    d_in, d_out = qw.orig_shape
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, d_in).to(torch.float32)
-    x_scale = qz.int_scale(x2, 8, axis=None)
-    x_q = qz.quantize_int(x2, x_scale, 8)
-    w_scale = qw.scale.reshape(-1)
-    if qw.mode == ExecMode.W8A8.value:
-        out = ops.w8a8_matmul(x_q, qw.data, x_scale, w_scale, impl=impl)
-    elif qw.mode == ExecMode.W4A8_POW2.value:
-        out = ops.w4a8_matmul(x_q, qw.data, x_scale, w_scale, impl=impl)
-    else:
-        raise ValueError(qw.mode)
-    return out.reshape(*lead, d_out).to(out_dtype)
+    :mod:`repro_torch.kernels.ops`.  Spans: ``qlinear.serve_dot``, in it
+    ``qlinear.act_quant`` (the activation's float32 copy, scale and int8
+    codes) and ``qlinear.out_cast`` (the product in ``out_dtype``)."""
+    with obs_trace.span("qlinear.serve_dot"):
+        out_dtype = out_dtype or x.dtype
+        d_in, d_out = qw.orig_shape
+        lead = x.shape[:-1]
+        with obs_trace.span("qlinear.act_quant"):
+            x2 = x.reshape(-1, d_in).to(torch.float32)
+            x_scale = qz.int_scale(x2, 8, axis=None)
+            x_q = qz.quantize_int(x2, x_scale, 8)
+        w_scale = qw.scale.reshape(-1)
+        if qw.mode == ExecMode.W8A8.value:
+            out = ops.w8a8_matmul(x_q, qw.data, x_scale, w_scale, impl=impl)
+        elif qw.mode == ExecMode.W4A8_POW2.value:
+            out = ops.w4a8_matmul(x_q, qw.data, x_scale, w_scale, impl=impl)
+        else:
+            raise ValueError(qw.mode)
+        with obs_trace.span("qlinear.out_cast"):
+            return out.reshape(*lead, d_out).to(out_dtype)
 
 
 def _one_split_lead(x):

@@ -9,6 +9,12 @@ reference's from the same spans and metrics.  The one change to the
 reference is the profiler mirror: ``torch_annotations`` puts every span
 into ``torch.profiler`` ranges, and a telemetry dict naming the
 reference's ``jax_annotations`` is refused.
+
+The port's own additions: the serving forward's spans (their tree, and
+logits bit for bit the same with tracing on and off), the tracer's epoch
+on the wall clock that ``torch.profiler`` stamps its events with, and the
+attribution of a trace's kernels to the spans that launched them
+(``repro_torch.obs.attribution``).
 """
 
 import json
@@ -24,6 +30,7 @@ from repro_torch.core.dse import ExploreSpec, run
 from repro_torch.core.dse_batch import _sweep_chunked
 from repro_torch.core.synthesis import PersistentSynthesisCache
 from repro_torch.core.workloads import get_workload
+from repro_torch.obs import attribution
 from repro_torch.obs import trace as T_TRACE
 
 CHUNK = 16
@@ -119,18 +126,6 @@ def test_ring_bound_evicts_oldest():
     assert [s.attrs["i"] for s in tr.spans()] == [6, 7, 8, 9]
     assert tr.n_recorded == 10 and tr.n_evicted == 6
     obs.configure(enabled=False, ring_size=65536)
-
-
-def test_timed_span_populates_sink_always():
-    sink = {}
-    with obs.timed_span("stage", sink=sink, key="synth_s"):
-        pass
-    assert sink["synth_s"] >= 0.0
-    assert obs.get_tracer().spans() == []
-    obs.configure(enabled=True)
-    with obs.timed_span("stage", sink=sink, key="synth_s"):
-        pass
-    assert len(obs.get_tracer().spans("stage")) == 1
 
 
 def test_configured_scoping_restores_prior_state(tmp_path):
@@ -461,3 +456,229 @@ def test_explore_spec_telemetry_on_a_chunked_sweep(tmp_path):
     _same_front(on, off)
     assert not obs.is_enabled()
     assert len(obs.get_tracer().spans("sweep.kernel")) == on.n_chunks
+
+
+# ---------------------------------------------------------------------------
+# the serving forward's spans, their clock, and the kernels they launched
+# ---------------------------------------------------------------------------
+
+def _tiny_w4a8(n_layers=2):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(
+        reduced(get_config("phi4-mini-3.8b"), n_layers=n_layers),
+        quant="w4a8_pow2")
+    model = Model(cfg, device=CPU)
+    params = model.init(torch.Generator(CPU).manual_seed(0), quantize=True)
+    tokens = torch.randint(0, cfg.vocab, (1, 12),
+                           generator=torch.Generator(CPU).manual_seed(1))
+    return model, params, tokens
+
+
+def test_forward_span_tree():
+    """One root a call; a layer's 7 projections each with one activation
+    quantization and one output cast, 2 norms, 2 RoPEs."""
+    model, params, tokens = _tiny_w4a8()
+    obs.configure(enabled=True, reset=True)
+    model.forward(params, tokens, last_only=True)
+    obs.disable()
+    spans = obs.get_tracer().spans()
+    by_id = {s.span_id: s for s in spans}
+    (root,) = [s for s in spans if s.parent_id is None]
+    assert root.name == "model.forward"
+    assert root.attrs == {"batch": 1, "tokens": 12}
+    assert {s.root_id for s in spans} == {root.span_id}
+
+    def children(sp, name=None):
+        return [s for s in spans if s.parent_id == sp.span_id
+                and (name is None or s.name == name)]
+
+    assert [s.name for s in sorted(children(root), key=lambda s: s.t0_s)] \
+        == ["model.embed", "model.layer", "model.layer", "model.logits"]
+    layers = children(root, "model.layer")
+    assert sorted(sp.attrs["index"] for sp in layers) == [0, 1]
+    for layer in layers:
+        (att,) = children(layer, "attn.self")
+        (mlp,) = children(layer, "common.mlp")
+        assert len(children(layer, "common.rms_norm")) == 2
+        assert len(children(att, "common.rope")) == 2
+        dots = children(att, "qlinear.serve_dot") + children(
+            mlp, "qlinear.serve_dot")
+        assert len(dots) == 7
+        for dot in dots:
+            assert sorted(s.name for s in children(dot)) == [
+                "qlinear.act_quant", "qlinear.out_cast"]
+    for s in spans:
+        parent = by_id.get(s.parent_id)
+        assert s.end_ns >= s.start_ns
+        if parent is not None:
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+            assert s.depth == parent.depth + 1
+    (logits,) = children(root, "model.logits")
+    assert [s.name for s in children(logits)] == ["common.rms_norm"]
+
+
+def test_forward_bit_identical_and_silent_with_tracing_off():
+    model, params, tokens = _tiny_w4a8()
+    off, _ = model.forward(params, tokens)
+    assert obs.get_tracer().spans() == []
+    assert obs.get_tracer().n_recorded == 0
+    obs.configure(enabled=True, reset=True)
+    on, _ = model.forward(params, tokens)
+    obs.disable()
+    assert torch.equal(on, off)
+    assert obs.get_tracer().n_recorded > 0
+    again, _ = model.forward(params, tokens)
+    assert torch.equal(again, off)
+
+
+def test_span_on_the_profilers_clock():
+    """A span's start and end on the wall clock bracket the profiler's own
+    stamp of the range it mirrors into, and ``time.time_ns`` stamps taken
+    around it."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    obs.configure(enabled=True, reset=True, torch_annotations=True)
+    tr = obs.get_tracer()
+    assert isinstance(tr.epoch_ns, int) and isinstance(tr.epoch_unix_ns, int)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        before = time.time_ns()
+        with obs.span("clock.probe"):
+            torch.ones(64).sum()
+        after = time.time_ns()
+    obs.disable()
+    (sp,) = tr.spans("clock.probe")
+    start, end = tr.unix_ns(sp.start_ns), tr.unix_ns(sp.end_ns)
+    slack = 200_000         # the clocks' reads and drift, well above both
+    assert before - slack <= start <= end <= after + slack
+    (ev,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "clock.probe"]
+    assert start - slack <= ev.start_ns() <= end + slack
+    assert sp.t0_s == pytest.approx(sp.start_ns / 1e9)
+    assert sp.dur_s == pytest.approx((sp.end_ns - sp.start_ns) / 1e9)
+
+
+def test_reset_reads_the_epoch_again():
+    tr = obs.get_tracer()
+    first = (tr.epoch_ns, tr.epoch_unix_ns)
+    obs.configure(enabled=False, reset=True)
+    assert tr.epoch_ns > first[0] and tr.epoch_unix_ns >= first[1]
+
+
+def _wall(name, a, b, sid, root):
+    return attribution.WallSpan(name, a, b, sid, root)
+
+
+def _synthetic():
+    """A forward from 0 to 100: a layer 10-90 holding a serve_dot 20-50
+    (its act_quant 22-30) and a norm 60-70; a second root 200-220."""
+    spans = [_wall("model.forward", 0, 100, 1, 1),
+             _wall("model.layer", 10, 90, 2, 1),
+             _wall("qlinear.serve_dot", 20, 50, 3, 1),
+             _wall("qlinear.act_quant", 22, 30, 4, 1),
+             _wall("common.rms_norm", 60, 70, 5, 1),
+             _wall("model.forward", 200, 220, 6, 6)]
+    kernels = [attribution.Kernel(name, 1000 + i * 10, 1000 + i * 10 + d,
+                                  launch)
+               for i, (name, d, launch) in enumerate([
+                   ("a", 4, 25),      # act_quant, inside serve_dot
+                   ("b", 2, 40),      # serve_dot itself
+                   ("c", 3, 65),      # rms_norm
+                   ("d", 1, 80),      # the layer
+                   ("e", 5, 5),       # the forward
+                   ("f", 7, 150),     # between the roots: unattributed
+                   ("g", 6, None),    # no launch in the trace
+                   ("h", 8, 210)])]   # the second root
+    return spans, kernels
+
+
+def test_attribution_innermost_span_wins():
+    spans, kernels = _synthetic()
+    names = [None if s is None else s.name
+             for s in attribution.owners(kernels, spans)]
+    assert names == ["qlinear.act_quant", "qlinear.serve_dot",
+                     "common.rms_norm", "model.layer", "model.forward",
+                     None, None, "model.forward"]
+    st = attribution.Stretches(spans)
+    assert [(a, b, s.name) for a, b, s in st.stretches][:4] == [
+        (0, 10, "model.forward"), (10, 20, "model.layer"),
+        (20, 22, "qlinear.serve_dot"), (22, 30, "qlinear.act_quant")]
+    assert st.at(30).name == "qlinear.serve_dot"     # an end is open
+    assert st.at(100) is None and st.at(-1) is None
+    assert st.split(45, 205) == {"qlinear.serve_dot": 5, "model.layer": 30,
+                                 "common.rms_norm": 10, "model.forward": 15,
+                                 None: 100}
+
+
+def test_attribution_counts_unattributed_and_refuses_evicted():
+    spans, kernels = _synthetic()
+    got = attribution.seconds_by_span(kernels, spans)
+    assert got == pytest.approx({
+        "qlinear.act_quant": 4e-9, "qlinear.serve_dot": 2e-9,
+        "common.rms_norm": 3e-9, "model.layer": 1e-9,
+        "model.forward": 13e-9, None: 13e-9})
+    assert attribution.seconds_by_span(kernels, spans, n_evicted=1) is None
+    assert attribution.seconds_by_span(kernels, []) is None
+
+
+class _Event:
+    """A ``torch.profiler`` kineto event's surface, for a canned trace."""
+
+    def __init__(self, name, device, start, dur, corr, annotation=False):
+        self._v = (name, device, start, dur, corr, annotation)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        import types
+        return types.SimpleNamespace(name=self._v[1])
+
+    def start_ns(self):
+        return self._v[2]
+
+    def duration_ns(self):
+        return self._v[3]
+
+    def correlation_id(self):
+        return self._v[4]
+
+    def is_user_annotation(self):
+        return self._v[5]
+
+
+def test_attribution_reads_kernels_and_their_launches():
+    import types
+    events = [
+        _Event("cudaLaunchKernel", "CPU", 100, 5, 7),
+        _Event("cuLaunchKernelEx", "CPU", 120, 5, 8),
+        _Event("cudaMemcpyAsync", "CPU", 140, 5, 9),
+        _Event("void k2<float>(float*)", "CUDA", 900, 30, 8),
+        _Event("void k1(int)", "CUDA", 500, 20, 7),
+        _Event("Memcpy DtoH (Device -> Pinned)", "CUDA", 950, 10, 9),
+        _Event("model.layer", "CUDA", 400, 700, 0, annotation=True),
+        _Event("orphan", "CUDA", 1000, 4, 0),
+    ]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    assert attribution.kernels(prof) == [
+        attribution.Kernel("void k1(int)", 500, 520, 100),
+        attribution.Kernel("void k2<float>(float*)", 900, 930, 120),
+        attribution.Kernel("orphan", 1000, 1004, None)]
+
+
+def test_wall_spans_from_the_tracer():
+    obs.configure(enabled=True, reset=True)
+    with obs.span("outer"):
+        with obs.span("inner"):
+            pass
+    obs.disable()
+    tr = obs.get_tracer()
+    inner, outer = attribution.wall_spans()
+    assert (inner.name, outer.name) == ("inner", "outer")
+    assert inner.root_id == outer.root_id == outer.span_id
+    assert outer.start_ns == tr.unix_ns(tr.spans("outer")[0].start_ns)
+    assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
+
